@@ -1,0 +1,43 @@
+"""Bit-splitting of integer weights across multi-bit memory cells
+(counterpart of ``repro.core.bitsplit``).
+
+Differential sign-magnitude: w_int = sign(w) * sum_s d_s * 2^(c*s) with
+d_s the s-th base-2^c digit of |w_int|; the digit seen by the MAC is
+sign(w) * d_s. Forward only in this slice (the straight-through gradient
+comes with the training slice).
+"""
+from __future__ import annotations
+
+import torch
+
+from .granularity import n_splits
+
+
+def split_digits(w_int: torch.Tensor, weight_bits: int,
+                 cell_bits: int) -> torch.Tensor:
+    """Signed-magnitude digits of integer-valued ``w_int`` (float dtype
+    ok), shape (n_split,) + w_int.shape, digit s with place value
+    2**(cell_bits*s)."""
+    if weight_bits == 1:
+        return w_int[None]
+    s_count = n_splits(weight_bits, cell_bits)
+    base = 2 ** cell_bits
+    sign = torch.sign(w_int)
+    # truncation toward zero, as the reference's astype(int32)
+    mag = torch.abs(w_int).to(torch.int32)
+    digits = [((mag // (base ** s)) % base).to(w_int.dtype) * sign
+              for s in range(s_count)]
+    return torch.stack(digits, dim=0)
+
+
+def place_values(weight_bits: int, cell_bits: int, device=None) -> torch.Tensor:
+    s_count = n_splits(weight_bits, cell_bits)
+    return torch.tensor([2.0 ** (cell_bits * s) for s in range(s_count)],
+                        dtype=torch.float32, device=device)
+
+
+def recombine(digits: torch.Tensor, weight_bits: int,
+              cell_bits: int) -> torch.Tensor:
+    places = place_values(weight_bits, cell_bits,
+                          device=digits.device).to(digits.dtype)
+    return torch.tensordot(places, digits, dims=([0], [0]))

@@ -1,0 +1,118 @@
+"""Plain PyTorch versions of the CIM kernels (counterpart of
+``repro.kernels.ref``).
+
+They define the arithmetic the CUDA kernel in ``csrc/cim_matmul.cu`` must
+reproduce, run on the CPU and on the card, and are what the wrappers use
+for CPU tensors. The shift-and-add accumulates in the kernel's order
+(array tile outer, split inner, one rounded multiply and one rounded add
+per term), so the kernel and this version agree bit for bit.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def adc_quantize_ref(p: torch.Tensor, s_p: torch.Tensor,
+                     psum_bits: int) -> torch.Tensor:
+    """ADC model: uniform quantization of an (integer-valued) partial sum
+    at scale s_p, clipped to the signed psum_bits range; psum_bits == 1
+    is the sign ADC (psum 0 -> +s_p)."""
+    p = torch.round(p)
+    s_p = torch.clamp_min(s_p, 1e-9)
+    if psum_bits == 1:
+        return torch.where(p >= 0, 1.0, -1.0).to(p.dtype) * s_p
+    qn = -(2 ** (psum_bits - 1))
+    qp = 2 ** (psum_bits - 1) - 1
+    return torch.clamp(torch.round(p / s_p), qn, qp) * s_p
+
+
+def shift_add(psum: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
+    """Fused dequant and shift-and-add: (..., S, kt, N) quantized partial
+    sums times (S, kt, N) scales, summed in the kernel's order (tile t
+    outer, split s inner) into a float32 (..., N) output."""
+    n_split, k_tiles, n = deq.shape
+    out = torch.zeros(tuple(psum.shape[:-3]) + (n,), dtype=torch.float32,
+                      device=psum.device)
+    for t in range(k_tiles):
+        for s in range(n_split):
+            out = out + psum[..., s, t, :] * deq[s, t]
+    return out
+
+
+def cim_matmul_ref(a_t: torch.Tensor, digits: torch.Tensor,
+                   s_p: torch.Tensor, deq: torch.Tensor, *, psum_bits: int,
+                   psum_quant: bool = True) -> torch.Tensor:
+    """CIM matmul: per-(split, array) integer MACs, ADC quantization of each
+    column partial sum, fused dequant, shift-and-add.
+
+    a_t (M, k_tiles, rows) integer codes; digits (S, k_tiles, rows, N)
+    logical (un-nibbled) digits; s_p, deq (S, k_tiles, N). Returns (M, N)
+    float32. The MACs run in float64, exact for any integer partial sum
+    below 2^53 whatever TF32 setting is active."""
+    psum = torch.einsum("mtr,strn->mstn", a_t.to(torch.float64),
+                        digits.to(torch.float64)).to(torch.float32)
+    if psum_quant:
+        psum = adc_quantize_ref(psum, s_p.to(torch.float32)[None], psum_bits)
+    return shift_add(psum, deq.to(torch.float32))
+
+
+def conv_pads(h: int, w: int, kh: int, kw: int, stride: int, padding):
+    """Resolve a padding spec to explicit ((lo, hi), (lo, hi)) pairs, by
+    XLA's rule for "SAME"/"VALID": out = ceil(in / stride), total =
+    max((out - 1) * stride + k - in, 0), lo = total // 2."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "VALID":
+            return ((0, 0), (0, 0))
+        if mode != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = []
+        for size, k in ((h, kh), (w, kw)):
+            out = math.ceil(size / stride)
+            total = max((out - 1) * stride + k - size, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    return tuple((int(lo), int(hi)) for lo, hi in padding)
+
+
+def extract_conv_patches(a: torch.Tensor, kh: int, kw: int, stride: int,
+                         padding, k_tiles: int,
+                         c_per_array: int) -> torch.Tensor:
+    """Stretched-kernel patches (paper §III-C): (B, H, W, C) ->
+    (B, H', W', k_tiles, kh*kw*c_per_array), each tile's rows flattened
+    tap-major (dh, dw, c), channels zero-padded to k_tiles*c_per_array.
+    Keeps the input dtype."""
+    b, h, w, c = a.shape
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = conv_pads(h, w, kh, kw, stride, padding)
+    c_pad = k_tiles * c_per_array - c
+    a = F.pad(a, (0, c_pad, pw_lo, pw_hi, ph_lo, ph_hi))
+    hp, wp = h + ph_lo + ph_hi, w + pw_lo + pw_hi
+    ho = (hp - kh) // stride + 1
+    wo = (wp - kw) // stride + 1
+    taps = [a[:, dh: dh + (ho - 1) * stride + 1: stride,
+              dw: dw + (wo - 1) * stride + 1: stride, :]
+            for dh in range(kh) for dw in range(kw)]
+    p = torch.stack(taps, dim=3)                    # (B,H',W',taps,kt*cpa)
+    p = p.reshape(b, ho, wo, kh * kw, k_tiles, c_per_array)
+    p = p.permute(0, 1, 2, 4, 3, 5)                 # (B,H',W',kt,taps,cpa)
+    return p.reshape(b, ho, wo, k_tiles, kh * kw * c_per_array)
+
+
+def cim_conv_ref(a_int: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
+                 deq: torch.Tensor, *, kh: int, kw: int, stride: int, padding,
+                 c_per_array: int, psum_bits: int,
+                 psum_quant: bool = True) -> torch.Tensor:
+    """CIM conv: stretched-kernel patches, then ``cim_matmul_ref`` per output
+    position. digits (S, k_tiles, kh*kw*cpa, C_out) logical. Returns
+    (B, H', W', C_out) float32."""
+    k_tiles = digits.shape[1]
+    a_t = extract_conv_patches(a_int, kh, kw, stride, padding, k_tiles,
+                               c_per_array)
+    b, ho, wo = a_t.shape[:3]
+    out = cim_matmul_ref(a_t.reshape(b * ho * wo, k_tiles, a_t.shape[-1]),
+                         digits, s_p, deq, psum_bits=psum_bits,
+                         psum_quant=psum_quant)
+    return out.reshape(b, ho, wo, digits.shape[-1])
