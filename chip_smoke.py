@@ -9,11 +9,15 @@ toolkit:
 Phases (each prints one line or a few; any failed check exits non-zero):
 
 1. the device, and ``nvidia-smi``'s name and power limit;
-2. builds the hand-written kernel ``src/repro_torch/csrc/cim_matmul.cu``;
-3. holds the kernel against its plain PyTorch version on random inputs
-   (dense, occupancy skip with dead columns and dead blocks, nibble
-   planes, psum_bits 1/4/8, psum_quant off, int8 and uint8 activations,
-   ragged M and N, conv 3x3/1x1 at stride 1/2, SAME/VALID);
+2. builds the hand-written kernels of ``src/repro_torch/csrc/`` (one
+   ``nvcc`` per source, all at once);
+3. holds the CIM matmul/conv kernel against its plain PyTorch version on
+   random inputs (dense, occupancy skip with dead columns and dead
+   blocks, nibble planes, psum_bits 1/4/8, psum_quant off, int8 and uint8
+   activations, ragged M and N, conv 3x3/1x1 at stride 1/2, SAME/VALID);
+   3b. the same case grid through the ADC-free matmul/conv kernels, and
+   float32 digit planes carrying cell variation (sigma 0.3) through both
+   kernel families;
 4. the main path: ResNet-20 at full width (16, 32, 64; 32x32; 10
    classes) with the paper's CIFAR-10 settings, initialised from a seed,
    calibrated on one batch, packed at int8 and int4, answering batches of
@@ -23,14 +27,32 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    version and its bound;
 5. ResNet-18 (widths 64..512, 32x32) one deploy forward per pack dtype
    against emulate at batch 64;
-6. a JSON line per kernel, the card's name and power limit, and the
+6. the ``adc_free`` backend on the same packed ResNet-20, int8 and int4:
+   logits against emulate with ``psum_quant=False``, the ADC-free
+   kernels' counters against 20 per forward (the ADC kernel's at 0), and
+   per-layer times beside the plain version, the bound and one PyTorch
+   call of the same function (``library_ms``: on clean integer planes
+   the ADC-free conv is one float32 ``F.conv2d`` with the split-folded
+   weight, the matmul one ``torch.matmul``; timed as a yardstick only);
+7. the ``binary`` backend: ResNet-20 packed with ``mode="binary"``, its
+   kernel forward against its plain version, counters at 20 per forward;
+8. cell variation: one deploy forward with a ``Sampler`` at sigma 0.3
+   against emulate under the same fields, with the float-digit counters;
+   the Monte-Carlo sweep over sigma in {0, .1, .2, .3, .4} x 4 samples on
+   deploy and one sigma = 0.2 point on adc_free and on binary; the
+   per-layer attribution at sigma 0.3; the float-digit conv timed at the
+   path's shapes;
+9. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
-Tolerances: the kernel and its plain version add the same float32 terms
-in the same order with the same roundings, so they are expected to agree
-bit for bit; the gate is rtol 1e-5 / atol 1e-4, the reference's own
+Tolerances: each kernel and its plain version add the same float32 terms
+in the same order with the same roundings (float-digit partial sums are
+exact in float64 on both sides), so they are expected to agree bit for
+bit; the gate is rtol 1e-5 / atol 1e-4, the reference's own
 kernel-vs-oracle tolerance. Deploy against emulate is gated at 1e-4 as in
-``tests/test_cim_conv_deploy.py``.
+``tests/test_cim_conv_deploy.py``. The weights are random, so the
+accuracies printed in phase 8 mean nothing; the logit error is what the
+sweep checks.
 """
 from __future__ import annotations
 
@@ -41,14 +63,21 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
-# NVIDIA H100 SXM data sheet: HBM3 rate and dense int8 tensor-core rate
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense int8 tensor-core rate, and
+# the FP64 tensor-core rate (the float-digit kernels' MACs run in float64)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FP64_OPS_PER_S = 67e12
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 BATCH = 256
 REQUESTS = 3                      # deploy forwards per pack dtype
+SIGMA = 0.3                       # cell variation of the float-plane checks
+SWEEP_SIGMAS = (0.0, 0.1, 0.2, 0.3, 0.4)
+SWEEP_SAMPLES = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -80,45 +109,89 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build()
-    ptxas = [ln.strip() for ln in _build.build_log.get("cim_matmul", "")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    print(f"phase 2 build: cim_matmul.cu in {time.perf_counter() - t0:.1f} s; "
-          f"ptxas: {' | '.join(ptxas[:6]) or 'already built'}", flush=True)
+    ptxas = [ln.strip() for name in _build.SOURCES
+             for ln in _build.build_log.get(name, "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"phase 2 build: {', '.join(n + '.cu' for n in _build.SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f} s; ptxas: "
+          f"{' | '.join(ptxas[:8]) or 'already built'}", flush=True)
 
-    errs = {"cim_matmul": 0.0, "cim_conv": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
 
     # 3. kernel against its plain version
     n_cases = phase3_kernel_cases(torch, dev, errs)
     print(f"phase 3 kernel vs plain: {n_cases} cases pass; max |kernel - "
           f"plain| cim_matmul {errs['cim_matmul']!r}, cim_conv "
           f"{errs['cim_conv']!r}", flush=True)
+    n_cases = phase3b_new_kernel_cases(torch, dev, errs)
+    print(f"phase 3b ADC-free and float-digit kernels vs plain: {n_cases} "
+          f"cases pass; max |kernel - plain| "
+          + ", ".join(f"{k} {errs[k]!r}" for k in KERNELS), flush=True)
 
     # 4. the main path: packed ResNet-20 inference
-    timings = phase4_resnet20(torch, dev, errs)
+    timings, model = phase4_resnet20(torch, dev, errs)
 
     # 5. ResNet-18
     phase5_resnet18(torch, dev)
 
-    # 6. results
+    # 6.-8. the adc_free and binary backends and cell variation
+    timings.update(phase6_adc_free(torch, model, errs))
+    phase7_binary(torch, model)
+    timings.update(phase8_variation(torch, model, errs))
+
+    # 9. results
     kernels = []
-    for name, src, replaces in (
-            ("cim_matmul", "src/repro_torch/csrc/cim_matmul.cu",
-             "src/repro/kernels/cim_matmul.py:160"),
-            ("cim_conv", "src/repro_torch/csrc/cim_matmul.cu",
-             "src/repro/kernels/cim_conv.py:60")):
+    for name, (src, replaces) in KERNELS.items():
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": timings["launches"][name],
-            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "launches": t["launches"], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+CUDA_SOURCE = "src/repro_torch/csrc/cim_matmul.cu"
+#: kernel entries of the results line: (source, TPU kernel it replaces)
+KERNELS = {
+    "cim_matmul": (CUDA_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
+    "cim_conv": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
+    "cim_matmul_adc_free": (CUDA_SOURCE,
+                            "src/repro/kernels/cim_adc_free.py:98"),
+    "cim_conv_adc_free": (CUDA_SOURCE, "src/repro/kernels/cim_adc_free.py:180"),
+    # the conv kernel on float32 planes that carry cell variation
+    "cim_conv_variation": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
+}
+
+
+def _counted():
+    """The kernel wrappers whose launch counters the main paths read."""
+    from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
+                                                  cim_matmul_adc_free_cuda)
+    from repro_torch.kernels.cim_conv import cim_conv_cuda
+    from repro_torch.kernels.cim_matmul import cim_matmul_cuda
+    return {"cim_matmul": cim_matmul_cuda, "cim_conv": cim_conv_cuda,
+            "cim_matmul_adc_free": cim_matmul_adc_free_cuda,
+            "cim_conv_adc_free": cim_conv_adc_free_cuda}
+
+
+def _reset_counters() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+        fn.float_launches = 0
+
+
+def _read_counters():
+    """({wrapper: launches}, {wrapper: launches on float32 planes})."""
+    fns = _counted()
+    return ({k: fn.launches for k, fn in fns.items()},
+            {k: fn.float_launches for k, fn in fns.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -135,47 +208,81 @@ def _compare(torch, got, want, name, what, errs):
           f"{name} {what}: max |kernel - plain| = {err!r}")
 
 
+# (M, kt, rows, N, unsigned codes, nibble groups or 0, occ, psum_bits, quant)
+MATMUL_CASES = (
+    (4096, 2, 126, 16, False, 0, False, 4, True),
+    (4097, 2, 126, 20, False, 0, True, 1, True),
+    (1000, 3, 126, 32, True, 9, True, 4, True),
+    (777, 1, 128, 64, False, 1, False, 8, True),
+    (513, 5, 126, 130, True, 0, True, 4, False),
+    (300, 2, 126, 32, False, 0, False, 1, True),
+    (257, 37, 126, 512, False, 9, True, 4, True),
+    (64, 4, 128, 17, True, 2, True, 8, True))
+# (kh, stride, padding, nibble, occ, psum_bits)
+CONV_CASES = (
+    (3, 1, "SAME", False, True, 4), (3, 2, "SAME", True, True, 4),
+    (1, 2, "SAME", True, False, 8), (3, 1, "VALID", False, False, 1),
+    (1, 1, "VALID", True, True, 1), (3, 2, "VALID", True, True, 4))
+
+
+def _matmul_operands(torch, g, m, kt, rows, n, uns, groups):
+    """Random codes, and S = 3 digit planes with dead columns and a fully
+    dead (split, tile): (a, logical d, stored digits, occ, s_p, deq)."""
+    from repro_torch.core.nibble import occupancy_map, pack_nibbles
+    if uns:
+        a = torch.randint(0, 256, (m, kt, rows), generator=g,
+                          dtype=torch.uint8)
+    else:
+        a = torch.randint(-8, 8, (m, kt, rows), generator=g, dtype=torch.int8)
+    d = torch.randint(-3, 4, (3, kt, rows, n), generator=g, dtype=torch.int8)
+    d[:, :, :, 3:9] = 0                    # dead columns
+    d[1, 0] = 0                            # a fully dead (split, tile)
+    digits = d
+    if groups:
+        digits = pack_nibbles(d.reshape(3, kt, groups, rows // groups, n)
+                              ).reshape(3, kt, rows // 2, n)
+    amax = 255 if uns else 8
+    s_p = 0.5 + torch.rand((3, kt, n), generator=g) * amax * rows ** 0.5
+    deq = torch.randn((3, kt, n), generator=g) * 0.1
+    return a, d, digits, occupancy_map(d), s_p, deq
+
+
+def _conv_operands(torch, g, kh, nibble):
+    """Random codes (8, 17, 15, C_in) and 6-D conv planes with padded
+    channel slots and dead output channels: (a, d6, logical (S, kt, rows,
+    C_out), stored digits, occ, s_p, deq, c_per_array)."""
+    from repro_torch.core.nibble import occupancy_map, pack_nibbles
+    cpa = 128 // (kh * kh)
+    c_in, c_out, kt = 2 * cpa + 3, 48, 3
+    a = torch.randint(0, 8, (8, 17, 15, c_in), generator=g, dtype=torch.int8)
+    d6 = torch.randint(-1, 2, (3, kt, kh, kh, cpa, c_out), generator=g,
+                       dtype=torch.int8)
+    d6[:, -1, :, :, 3:] = 0                # padded channel slots
+    d6[..., 5:9] = 0                       # dead output channels
+    rows = kh * kh * cpa
+    logical = d6.reshape(3, kt, rows, c_out)
+    digits = (pack_nibbles(d6).reshape(3, kt, rows // 2, c_out) if nibble
+              else logical)
+    s_p = 0.5 + torch.rand((3, kt, c_out), generator=g) * 20
+    deq = torch.randn((3, kt, c_out), generator=g) * 0.1
+    return (a, d6, logical, digits, occupancy_map(d6, conv=True), s_p, deq,
+            cpa)
+
+
 def phase3_kernel_cases(torch, dev, errs) -> int:
-    from repro_torch.core.nibble import (occupancy_map, pack_nibbles,
-                                         unpack_nibbles)
+    from repro_torch.core.nibble import unpack_nibbles
     from repro_torch.kernels import ref
     from repro_torch.kernels.cim_conv import cim_conv_cuda
     from repro_torch.kernels.cim_matmul import cim_matmul_cuda
 
     g = torch.Generator().manual_seed(0)
     n_cases = 0
-    # (M, kt, rows, N, unsigned, nibble groups or 0, occ, psum_bits, quant)
-    for m, kt, rows, n, uns, groups, sparse, pb, quant in (
-            (4096, 2, 126, 16, False, 0, False, 4, True),
-            (4097, 2, 126, 20, False, 0, True, 1, True),
-            (1000, 3, 126, 32, True, 9, True, 4, True),
-            (777, 1, 128, 64, False, 1, False, 8, True),
-            (513, 5, 126, 130, True, 0, True, 4, False),
-            (300, 2, 126, 32, False, 0, False, 1, True),
-            (257, 37, 126, 512, False, 9, True, 4, True),
-            (64, 4, 128, 17, True, 2, True, 8, True)):
-        if uns:
-            a = torch.randint(0, 256, (m, kt, rows), generator=g,
-                              dtype=torch.uint8)
-        else:
-            a = torch.randint(-8, 8, (m, kt, rows), generator=g,
-                              dtype=torch.int8)
-        d = torch.randint(-3, 4, (3, kt, rows, n), generator=g,
-                          dtype=torch.int8)
-        d[:, :, :, 3:9] = 0                    # dead columns
-        d[1, 0] = 0                            # a fully dead (split, tile)
-        occ = occupancy_map(d)
-        digits = d
+    for m, kt, rows, n, uns, groups, sparse, pb, quant in MATMUL_CASES:
+        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, groups)
         if groups:
-            digits = pack_nibbles(d.reshape(3, kt, groups, rows // groups, n)
-                                  ).reshape(3, kt, rows // 2, n)
-            check(torch.equal(unpack_nibbles(digits, groups=groups), d),
+            check(torch.equal(unpack_nibbles(ops[2], groups=groups), ops[1]),
                   "nibble round trip")
-        amax = 255 if uns else 8
-        s_p = 0.5 + torch.rand((3, kt, n), generator=g) * amax * rows ** 0.5
-        deq = torch.randn((3, kt, n), generator=g) * 0.1
-        a, d, digits, occ, s_p, deq = (x.to(dev) for x in (
-            a, d, digits, occ, s_p, deq))
+        a, d, digits, occ, s_p, deq = (x.to(dev) for x in ops)
         got = cim_matmul_cuda(a, digits, s_p, deq, occ if sparse else None,
                               psum_bits=pb, psum_quant=quant,
                               nibble_groups=max(groups, 1))
@@ -188,27 +295,10 @@ def phase3_kernel_cases(torch, dev, errs) -> int:
                  errs)
         n_cases += 1
 
-    for kh, stride, padding, nibble, sparse, pb in (
-            (3, 1, "SAME", False, True, 4), (3, 2, "SAME", True, True, 4),
-            (1, 2, "SAME", True, False, 8), (3, 1, "VALID", False, False, 1),
-            (1, 1, "VALID", True, True, 1), (3, 2, "VALID", True, True, 4)):
-        cpa = 128 // (kh * kh)
-        c_in, c_out, kt = 2 * cpa + 3, 48, 3
-        a = torch.randint(0, 8, (8, 17, 15, c_in), generator=g,
-                          dtype=torch.int8)
-        d6 = torch.randint(-1, 2, (3, kt, kh, kh, cpa, c_out), generator=g,
-                           dtype=torch.int8)
-        d6[:, -1, :, :, 3:] = 0                # padded channel slots
-        d6[..., 5:9] = 0                       # dead output channels
-        occ = occupancy_map(d6, conv=True)
-        rows = kh * kh * cpa
-        logical = d6.reshape(3, kt, rows, c_out)
-        digits = (pack_nibbles(d6).reshape(3, kt, rows // 2, c_out) if nibble
-                  else logical)
-        s_p = 0.5 + torch.rand((3, kt, c_out), generator=g) * 20
-        deq = torch.randn((3, kt, c_out), generator=g) * 0.1
-        a, logical, digits, occ, s_p, deq = (x.to(dev) for x in (
-            a, logical, digits, occ, s_p, deq))
+    for kh, stride, padding, nibble, sparse, pb in CONV_CASES:
+        a, _, logical, digits, occ, s_p, deq, cpa = (
+            x.to(dev) if torch.is_tensor(x) else x
+            for x in _conv_operands(torch, g, kh, nibble))
         geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
                    c_per_array=cpa, psum_bits=pb)
         got = cim_conv_cuda(a, digits, s_p, deq, occ if sparse else None,
@@ -219,6 +309,72 @@ def phase3_kernel_cases(torch, dev, errs) -> int:
                  f"{kh}x{kh} stride {stride} {padding} nibble={nibble} "
                  f"occ={sparse} psum_bits={pb}", errs)
         n_cases += 1
+    return n_cases
+
+
+def phase3b_new_kernel_cases(torch, dev, errs) -> int:
+    """Phase 3's case grid through the ADC-free kernels, and float32 digit
+    planes carrying one cell-variation realization (sigma 0.3) through
+    both kernel families."""
+    from repro_torch.core.variation import perturb_digits
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
+                                                  cim_matmul_adc_free_cuda)
+    from repro_torch.kernels.cim_conv import cim_conv_cuda
+    from repro_torch.kernels.cim_matmul import cim_matmul_cuda
+
+    g = torch.Generator().manual_seed(1)
+    n_cases = 0
+    for m, kt, rows, n, uns, groups, sparse, pb, quant in MATMUL_CASES:
+        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, groups)
+        noisy = perturb_digits(ops[1], torch.randn(ops[1].shape, generator=g),
+                               SIGMA)
+        a, d, digits, occ, s_p, deq, noisy = (x.to(dev)
+                                              for x in ops + (noisy,))
+        o = occ if sparse else None
+        what = (f"M={m} kt={kt} rows={rows} N={n} uint8={uns} "
+                f"nibble={groups} occ={sparse}")
+        mq = dict(psum_bits=pb, psum_quant=quant)
+        for name, planes, got, want in (
+                ("cim_matmul_adc_free", "integer",
+                 cim_matmul_adc_free_cuda(a, digits, deq, o,
+                                          nibble_groups=max(groups, 1)),
+                 ref.cim_matmul_adc_free_ref(a, d, deq)),
+                ("cim_matmul_adc_free", "float",
+                 cim_matmul_adc_free_cuda(a, noisy, deq, o),
+                 ref.cim_matmul_adc_free_ref(a, noisy, deq)),
+                ("cim_matmul", "float",
+                 cim_matmul_cuda(a, noisy, s_p, deq, o, **mq),
+                 ref.cim_matmul_ref(a, noisy, s_p, deq, **mq))):
+            torch.cuda.synchronize()
+            _compare(torch, got, want, name, f"{what} {planes} planes", errs)
+            n_cases += 1
+
+    for kh, stride, padding, nibble, sparse, pb in CONV_CASES:
+        a, d6, logical, digits, occ, s_p, deq, cpa = _conv_operands(
+            torch, g, kh, nibble)
+        noisy = perturb_digits(logical, torch.randn(d6.shape, generator=g),
+                               SIGMA, shape=d6.shape)
+        a, logical, digits, occ, s_p, deq, noisy = (x.to(dev) for x in (
+            a, logical, digits, occ, s_p, deq, noisy))
+        o = occ if sparse else None
+        geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
+                   c_per_array=cpa)
+        what = (f"{kh}x{kh} stride {stride} {padding} nibble={nibble} "
+                f"occ={sparse}")
+        for name, planes, got, want in (
+                ("cim_conv_adc_free", "integer",
+                 cim_conv_adc_free_cuda(a, digits, deq, o, **geo),
+                 ref.cim_conv_adc_free_ref(a, logical, deq, **geo)),
+                ("cim_conv_adc_free", "float",
+                 cim_conv_adc_free_cuda(a, noisy, deq, o, **geo),
+                 ref.cim_conv_adc_free_ref(a, noisy, deq, **geo)),
+                ("cim_conv_variation", "float",
+                 cim_conv_cuda(a, noisy, s_p, deq, o, psum_bits=pb, **geo),
+                 ref.cim_conv_ref(a, noisy, s_p, deq, psum_bits=pb, **geo))):
+            torch.cuda.synchronize()
+            _compare(torch, got, want, name, f"{what} {planes} planes", errs)
+            n_cases += 1
     return n_cases
 
 
@@ -250,18 +406,74 @@ def _events_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(op, m: int, out_elems: int, a_bytes: int):
-    """(bytes time, ops time) in ms: each input read once, the output
-    written once; int8 MACs (2 ops) of the occupied planes only."""
-    rows = op["c_per_array"] * op["kh"] * op["kw"]
-    s, kt, n = op["s_p"].shape
-    occ = op["occ"]
-    live = int(occ.sum()) if occ is not None else s * kt * n
-    nbytes = (a_bytes + op["digits"].numel() + (occ.numel() if occ is not None
-                                                 else 0)
-              + 4 * (op["s_p"].numel() + op["deq"].numel()) + 4 * out_elems)
-    ops = 2 * m * rows * live
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+def _bytes_ops_ms(nbytes: int, macs: int, ops_per_s: float):
+    """(bytes time, ops time) in ms: bytes over the HBM rate, 2 ops per MAC
+    over ``ops_per_s``."""
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * 2 * macs / ops_per_s
+
+
+def _needed_macs(op, m: int) -> int:
+    """MACs a CIM conv needs at ``m`` output pixels: for each (split, tile,
+    column) the occupancy map marks live, the tile's real input rows,
+    kh * kw * min(c_per_array, C_in - t * c_per_array). Padded channel
+    slots hold zero codes and zero digits, so they are not counted."""
+    occ, cpa = op["occ"], op["c_per_array"]
+    s, kt, n = op["deq"].shape
+    c_in = op["a_int"].shape[-1]
+    live = ([int(v) for v in occ.sum(dim=(0, 2)).tolist()]
+            if occ is not None else [s * n] * kt)
+    return m * sum(op["kh"] * op["kw"] * min(cpa, c_in - t * cpa) * live[t]
+                   for t in range(kt))
+
+
+def _folded_weight(torch, logical, deq):
+    """(kt*rows, N) float32 W = sum_s digits[s] * deq[s]: on clean integer
+    planes round() is the identity, so the ADC-free matmul is one float
+    product with W (the split-folded weight)."""
+    w = (logical.to(torch.float32) * deq[:, :, None, :]).sum(dim=0)
+    return w.reshape(-1, w.shape[-1])
+
+
+def _time_calls(torch, calls, name, errs, reps):
+    """calls: {kernel: (kernel fn, plain fn, library fn or None, bound_ms
+    pair)}; checks kernel against plain and times all three."""
+    out = {}
+    for kname, (kern, plain, lib, (bytes_ms, ops_ms)) in calls.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        _compare(torch, got, want, kname, f"{name} at the path's shapes",
+                 errs)
+        t = {"ms": _events_ms(torch, kern, reps),
+             "plain_ms": _events_ms(torch, plain, max(2, reps // 4), warmup=1),
+             "library_ms": None if lib is None else _events_ms(torch, lib,
+                                                               reps),
+             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+             "bound_ms": max(bytes_ms, ops_ms)}
+        out[kname] = t
+    return out
+
+
+def _sum_layers(per_layer):
+    """Per-kernel sums over the layers of one forward."""
+    tot = {}
+    for layer in per_layer:
+        for k, t in layer.items():
+            acc = tot.setdefault(k, {"ms": 0.0, "plain_ms": 0.0,
+                                     "library_ms": 0.0, "bound_ms": 0.0,
+                                     "bytes_ms": 0.0, "ops_ms": 0.0})
+            for f in acc:
+                acc[f] = None if (acc[f] is None or t[f] is None) else \
+                    acc[f] + t[f]
+    for t in tot.values():
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
+            "operations"
+    return tot
+
+
+def _fmt(k, t):
+    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+    return (f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
+            f"{t['bound_ms']:.5f}, library {lib})")
 
 
 def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
@@ -276,8 +488,7 @@ def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
     from repro_torch.models.resnet import conv_layer_names
 
     cim = model_cfg.cim
-    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-               "ops_ms": 0.0} for k in ("cim_matmul", "cim_conv")}
+    per_layer = []
     for name, stride in conv_layer_names(model_cfg):
         blk, layer = name.split(".")
         op = conv_deploy_operands(taps[name], packed[blk][layer], cim)
@@ -293,9 +504,16 @@ def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
         patches = ref.extract_conv_patches(op["a_int"], kh, kw, stride, "SAME",
                                            kt, cpa)
         b, ho, wo = patches.shape[:3]
-        a_t = patches.reshape(b * ho * wo, kt, -1)
+        m = b * ho * wo
+        a_t = patches.reshape(m, kt, -1)
         n = op["digits"].shape[-1]
         mq = dict(psum_bits=cim.psum_bits, psum_quant=cim.psum_quant)
+        # bytes: each input read once, the output written once; ops: the
+        # int8 MACs of the occupied planes over the real input rows
+        rest = (op["digits"].numel()
+                + (op["occ"].numel() if op["occ"] is not None else 0)
+                + 4 * (op["s_p"].numel() + op["deq"].numel()) + 4 * m * n)
+        macs = _needed_macs(op, m)
         calls = {
             "cim_matmul": (
                 lambda: cim_matmul_cuda(a_t, op["digits"], op["s_p"],
@@ -303,38 +521,23 @@ def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
                                         nibble_groups=groups, **mq),
                 lambda: ref.cim_matmul_ref(a_t, logical, op["s_p"], op["deq"],
                                            **mq),
-                a_t.numel()),
+                None, _bytes_ops_ms(a_t.numel() + rest, macs,
+                                    INT8_OPS_PER_S)),
             "cim_conv": (
                 lambda: cim_conv_cuda(op["a_int"], op["digits"], op["s_p"],
                                       op["deq"], op["occ"], **geo),
                 lambda: ref.cim_conv_ref(op["a_int"], logical, op["s_p"],
                                          op["deq"], **geo),
-                op["a_int"].numel()),
+                None, _bytes_ops_ms(op["a_int"].numel() + rest, macs,
+                                    INT8_OPS_PER_S)),
         }
-        line = []
-        for kname, (kern, plain, a_bytes) in calls.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            _compare(torch, got, want, kname, f"{name} at the main path's "
-                     "shapes", errs)
-            ms = _events_ms(torch, kern, reps)
-            plain_ms = _events_ms(torch, plain, max(2, reps // 4), warmup=1)
-            bytes_ms, ops_ms = _bound(op, b * ho * wo, b * ho * wo * n,
-                                      a_bytes)
-            t = tot[kname]
-            t["ms"] += ms
-            t["plain_ms"] += plain_ms
-            t["bound_ms"] += max(bytes_ms, ops_ms)
-            t["bytes_ms"] += bytes_ms
-            t["ops_ms"] += ops_ms
-            line.append(f"{kname} {ms:.4f} ms (plain {plain_ms:.4f}, bound "
-                        f"{max(bytes_ms, ops_ms):.5f})")
-        print(f"  {name}: M={b * ho * wo} kt={kt} rows={kh * kw * cpa} "
-              f"N={n} nibble={nibble}: " + "; ".join(line), flush=True)
-    for t in tot.values():
-        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
-            "operations"
-    return tot
+        t = _time_calls(torch, calls, name, errs, reps)
+        per_layer.append(t)
+        print(f"  {name}: M={m} kt={kt} rows={kh * kw * cpa} N={n} "
+              f"nibble={nibble}: " + "; ".join(_fmt(k, v)
+                                                for k, v in t.items()),
+              flush=True)
+    return _sum_layers(per_layer)
 
 
 def phase4_resnet20(torch, dev, errs):
@@ -403,7 +606,7 @@ def phase4_resnet20(torch, dev, errs):
           f"{worst!r}; launches {launches} = 20 x {forwards}", flush=True)
 
     # per-kernel times at the main path's shapes, outside the counted run
-    timings = {"launches": launches}
+    timings = {}
     for dt in ("int8", "int4"):
         _, _, taps = resnet.forward(packed[dt], state, requests[0], dcfg,
                                     train=False, return_taps=True)
@@ -417,7 +620,11 @@ def phase4_resnet20(torch, dev, errs):
                   f"{t['bytes_ms']:.5f}, ops {t['ops_ms']:.5f})", flush=True)
         if dt == "int8":
             timings.update(tot)
-    return timings
+    for k, t in timings.items():
+        t.update(launches=launches[k], library_ms=None)
+    model = dict(cfg=cfg, cim=cim, params=params, state=state, packed=packed,
+                 requests=requests)
+    return timings, model
 
 
 def phase5_resnet18(torch, dev) -> None:
@@ -445,6 +652,333 @@ def phase5_resnet18(torch, dev) -> None:
               f"ResNet-18 {dt} deploy vs emulate: max diff {diffs[dt]!r}")
     print(f"phase 5 ResNet-18 (widths 64..512, 32x32, batch 64, k_tiles up "
           f"to 37): max |deploy - emulate| {diffs}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8
+# ---------------------------------------------------------------------------
+
+def _time_adc_free_layers(torch, model_cfg, packed, taps, errs, reps: int):
+    """The ADC-free matmul and conv kernels at the operands the adc_free
+    forward gave each CIM conv, beside their plain versions, their bounds
+    and the one PyTorch call that computes the same function."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.cim_conv import conv_deploy_operands
+    from repro_torch.core.nibble import unpack_nibbles
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
+                                                  cim_matmul_adc_free_cuda)
+    from repro_torch.models.resnet import conv_layer_names
+
+    per_layer = []
+    for name, stride in conv_layer_names(model_cfg):
+        blk, layer = name.split(".")
+        op = conv_deploy_operands(taps[name], packed[blk][layer],
+                                  model_cfg.cim)
+        kh, kw, cpa = op["kh"], op["kw"], op["c_per_array"]
+        nibble = op["digits"].dtype == torch.uint8
+        logical = (unpack_nibbles(op["digits"], groups=kh * kw) if nibble
+                   else op["digits"])
+        s, kt, rows, n = logical.shape
+        geo = dict(kh=kh, kw=kw, stride=stride, padding="SAME",
+                   c_per_array=cpa)
+        a_int = op["a_int"]
+        patches = ref.extract_conv_patches(a_int, kh, kw, stride, "SAME", kt,
+                                           cpa)
+        b, ho, wo = patches.shape[:3]
+        m = b * ho * wo
+        a_t = patches.reshape(m, kt, rows)
+        # the yardsticks: one float32 matmul / conv with the folded weight
+        w = _folded_weight(torch, logical, op["deq"])
+        a_f = a_t.reshape(m, kt * rows).to(torch.float32)
+        c_in = a_int.shape[-1]
+        w_conv = (w.reshape(kt, kh, kw, cpa, n).permute(4, 0, 3, 1, 2)
+                  .reshape(n, kt * cpa, kh, kw)[:, :c_in].contiguous())
+        (ph_lo, ph_hi), (pw_lo, pw_hi) = ref.conv_pads(
+            a_int.shape[1], a_int.shape[2], kh, kw, stride, "SAME")
+        x_nchw = F.pad(a_int.to(torch.float32).permute(0, 3, 1, 2),
+                       (pw_lo, pw_hi, ph_lo, ph_hi)).contiguous()
+        lib_mm = lambda: torch.matmul(a_f, w)                      # noqa: E731
+        lib_conv = lambda: F.conv2d(x_nchw, w_conv, stride=stride)  # noqa: E731
+        kern_conv = lambda: cim_conv_adc_free_cuda(               # noqa: E731
+            a_int, op["digits"], op["deq"], op["occ"], **geo)
+        got = kern_conv()
+        yard = lib_conv().permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        scale = float(got.abs().max()) + 1.0
+        check(float((yard - got).abs().max()) <= 1e-4 * scale,
+              f"{name}: the folded-weight conv yardstick does not compute the "
+              "ADC-free conv")
+        rest = (op["digits"].numel()
+                + (op["occ"].numel() if op["occ"] is not None else 0)
+                + 4 * op["deq"].numel() + 4 * m * n)
+        macs = _needed_macs(op, m)
+        calls = {
+            "cim_matmul_adc_free": (
+                lambda: cim_matmul_adc_free_cuda(a_t, op["digits"], op["deq"],
+                                                 op["occ"],
+                                                 nibble_groups=kh * kw),
+                lambda: ref.cim_matmul_adc_free_ref(a_t, logical, op["deq"]),
+                lib_mm, _bytes_ops_ms(a_t.numel() + rest, macs,
+                                      INT8_OPS_PER_S)),
+            "cim_conv_adc_free": (
+                kern_conv,
+                lambda: ref.cim_conv_adc_free_ref(a_int, logical, op["deq"],
+                                                  **geo),
+                lib_conv, _bytes_ops_ms(a_int.numel() + rest, macs,
+                                        INT8_OPS_PER_S)),
+        }
+        t = _time_calls(torch, calls, name, errs, reps)
+        per_layer.append(t)
+        print(f"  {name}: M={m} kt={kt} rows={rows} N={n} nibble={nibble}: "
+              + "; ".join(_fmt(k, v) for k, v in t.items()), flush=True)
+    return _sum_layers(per_layer)
+
+
+def phase6_adc_free(torch, model, errs):
+    """The adc_free backend on the main path's packed ResNet-20."""
+    from repro_torch.models import resnet
+
+    cfg, cim, requests = model["cfg"], model["cim"], model["requests"]
+    params, state, packed = model["params"], model["state"], model["packed"]
+    acfg = dataclasses.replace(cfg, cim=cim.replace(mode="adc_free"))
+    ecfg = dataclasses.replace(cfg, cim=cim.replace(psum_quant=False))
+    want = [resnet.forward(params, state, xb, ecfg, train=False)[0]
+            for xb in requests]
+    torch.cuda.synchronize()
+
+    _reset_counters()
+    got, ms = {}, {}
+    for dt in ("int8", "int4"):
+        got[dt], ms[dt] = [], []
+        for xb in requests:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got[dt].append(resnet.forward(packed[dt], state, xb, acfg,
+                                          train=False)[0])
+            end.record()
+            ms[dt].append((start, end))
+    torch.cuda.synchronize()
+    launches, _ = _read_counters()
+    forwards = 2 * len(requests)
+    for k in ("cim_matmul_adc_free", "cim_conv_adc_free"):
+        check(launches[k] == 20 * forwards, f"{k} launched {launches[k]} "
+              f"times in {forwards} adc_free forwards, expected "
+              f"{20 * forwards}")
+    for k in ("cim_matmul", "cim_conv"):
+        check(launches[k] == 0, f"{k} launched {launches[k]} times in the "
+              "adc_free forwards, expected 0")
+    worst = 0.0
+    for dt in ("int8", "int4"):
+        for y, w in zip(got[dt], want):
+            check(y.shape == (BATCH, 10) and bool(torch.isfinite(y).all()),
+                  f"adc_free {dt} logits: shape {tuple(y.shape)} or "
+                  "non-finite")
+            worst = max(worst, float((y - w).abs().max()))
+            check(bool(torch.allclose(y, w, **LOGIT_TOL)),
+                  f"adc_free {dt} logits vs emulate(psum_quant=False): max "
+                  f"diff {float((y - w).abs().max())!r}")
+        ms[dt] = [s.elapsed_time(e) for s, e in ms[dt]]
+    print(f"phase 6 adc_free ResNet-20 (batch {BATCH}): {forwards} forwards; "
+          f"ms per batch int8 {[round(v, 3) for v in ms['int8']]}, int4 "
+          f"{[round(v, 3) for v in ms['int4']]}; max |adc_free - "
+          f"emulate(psum_quant=False)| {worst!r}; launches {launches}",
+          flush=True)
+
+    timings = {}
+    for dt in ("int8", "int4"):
+        _, _, taps = resnet.forward(packed[dt], state, requests[0], acfg,
+                                    train=False, return_taps=True)
+        print(f"phase 6 per-layer times, {dt} planes (CUDA events):",
+              flush=True)
+        tot = _time_adc_free_layers(torch, acfg, packed[dt], taps, errs,
+                                    reps=20)
+        for k, t in tot.items():
+            print(f"phase 6 {k} {dt}: {t['ms']:.4f} ms per forward (20 "
+                  f"launches), plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.5f} ms by {t['bound_by']} (bytes "
+                  f"{t['bytes_ms']:.5f}, ops {t['ops_ms']:.5f}), library "
+                  f"{t['library_ms']:.4f} ms", flush=True)
+        if dt == "int8":
+            timings.update(tot)
+    for k, t in timings.items():
+        t["launches"] = launches[k]
+    return timings
+
+
+def phase7_binary(torch, model) -> None:
+    """The binary backend: ResNet-20 packed into S = 1 sign planes, its
+    kernel forward against the same backend on the plain version."""
+    from repro_torch.api import pack_model
+    from repro_torch.models import resnet
+
+    cfg, cim, requests = model["cfg"], model["cim"], model["requests"]
+    state = model["state"]
+    bcim = cim.replace(mode="binary")
+    t0 = time.perf_counter()
+    bpacked = pack_model(model["params"], bcim)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    check(all(bpacked[n.split(".")[0]][n.split(".")[1]]["w_digits"].shape[0]
+              == 1 for n, _ in resnet.conv_layer_names(cfg)),
+          "binary planes are not S = 1")
+    bcfg = dataclasses.replace(cfg, cim=bcim)
+    pcfg = dataclasses.replace(cfg, cim=bcim.replace(use_kernel=False))
+    want = [resnet.forward(bpacked, state, xb, pcfg, train=False)[0]
+            for xb in requests]
+    torch.cuda.synchronize()
+
+    _reset_counters()
+    got = [resnet.forward(bpacked, state, xb, bcfg, train=False)[0]
+           for xb in requests]
+    torch.cuda.synchronize()
+    launches, _ = _read_counters()
+    for k in ("cim_matmul", "cim_conv"):
+        check(launches[k] == 20 * len(requests), f"binary: {k} launched "
+              f"{launches[k]} times in {len(requests)} forwards")
+    worst = 0.0
+    for y, w in zip(got, want):
+        check(y.shape == (BATCH, 10) and bool(torch.isfinite(y).all()),
+              "binary logits: shape or non-finite")
+        worst = max(worst, float((y - w).abs().max()))
+        check(bool(torch.allclose(y, w, **LOGIT_TOL)),
+              f"binary kernel logits vs plain: max diff {worst!r}")
+    model["binary"] = (bpacked, bcfg)
+    print(f"phase 7 binary ResNet-20 (batch {BATCH}): pack {pack_s:.2f} s; "
+          f"{len(requests)} forwards; max |kernel - plain| {worst!r}; "
+          f"launches {launches}", flush=True)
+
+
+def phase8_variation(torch, model, errs):
+    """Cell variation on the card: one realization against emulate, the
+    Monte-Carlo sweep and the per-layer attribution, and the float-digit
+    conv timed at the path's shapes."""
+    from repro_torch.core.cim_conv import conv_deploy_operands
+    from repro_torch.core.nibble import unpack_nibbles
+    from repro_torch.core.variation import Sampler, perturb_digits
+    from repro_torch.data.pipeline import make_image_dataset
+    from repro_torch.eval.robustness import (monte_carlo_resnet,
+                                             per_layer_attribution)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_conv import cim_conv_cuda
+    from repro_torch.models import resnet
+
+    cfg, cim, requests = model["cfg"], model["cim"], model["requests"]
+    params, state = model["params"], model["state"]
+    packed = model["packed"]["int8"]
+    dcfg = dataclasses.replace(cfg, cim=cim.replace(mode="deploy"))
+    acfg = dataclasses.replace(cfg, cim=cim.replace(mode="adc_free"))
+    bpacked, bcfg = model["binary"]
+    xb = requests[0]
+    sampler = Sampler(0)
+
+    # one realization: deploy on float planes against emulate, same fields
+    want, _ = resnet.forward(params, state, xb, cfg, train=False,
+                             variation=sampler, variation_std=SIGMA)
+    clean, _ = resnet.forward(packed, state, xb, dcfg, train=False)
+    torch.cuda.synchronize()
+    _reset_counters()
+    got, _ = resnet.forward(packed, state, xb, dcfg, train=False,
+                            variation=sampler, variation_std=SIGMA)
+    torch.cuda.synchronize()
+    launches, floats = _read_counters()
+    check(launches["cim_conv"] == 20 and floats["cim_conv"] == 20
+          and floats["cim_matmul"] == 20,
+          f"varied deploy forward: launches {launches}, on float planes "
+          f"{floats}; expected 20 float-plane conv launches")
+    diff = float((got - want).abs().max())
+    check(got.shape == (BATCH, 10) and bool(torch.isfinite(got).all()),
+          "varied deploy logits: shape or non-finite")
+    check(bool(torch.allclose(got, want, **LOGIT_TOL)),
+          f"varied deploy vs emulate under the same fields: max diff {diff!r}")
+    check(not torch.equal(got, clean), "sigma 0.3 left the logits clean")
+    print(f"phase 8 variation, one realization at sigma {SIGMA} (batch "
+          f"{BATCH}): max |deploy - emulate| {diff!r}; max |varied - clean| "
+          f"{float((got - clean).abs().max())!r}; launches {launches}, on "
+          f"float planes {floats}", flush=True)
+
+    # the Monte-Carlo sweep and one point on each other packed backend
+    x, y = make_image_dataset(n_classes=10, hw=32, n=BATCH, seed=3)
+    t0 = time.perf_counter()
+    sweep = monte_carlo_resnet(packed, state, dcfg, x, y, seed=0,
+                               sigmas=SWEEP_SIGMAS, n_samples=SWEEP_SAMPLES,
+                               batch=BATCH)
+    sweep_s = time.perf_counter() - t0
+    err = sweep.logit_err_mean
+    check(bool(np.all(np.isfinite(sweep.logit_err))),
+          "sweep: non-finite logit error")
+    check(bool(np.all(np.diff(err) > 0)),
+          f"sweep: mean logit error does not rise with sigma: {err.tolist()}")
+    print(f"phase 8 Monte-Carlo sweep on deploy ({SWEEP_SAMPLES} samples x "
+          f"{BATCH} images, {sweep_s:.2f} s): "
+          + "; ".join(f"sigma {sg}: logit err {e:.6f}, acc {a:.4f}"
+                      for sg, e, a in zip(sweep.sigmas, err, sweep.acc_mean))
+          + " (random weights: the accuracy means nothing)", flush=True)
+    for label, pk, c in (("adc_free", packed, acfg),
+                         ("binary", bpacked, bcfg)):
+        pt = monte_carlo_resnet(pk, state, c, x, y, seed=0, sigmas=(0.2,),
+                                n_samples=1, batch=BATCH)
+        e = float(pt.logit_err[0, 0])
+        check(np.isfinite(e) and e > 0, f"{label} sweep point: error {e!r}")
+        print(f"phase 8 sweep point on {label}: sigma 0.2 logit err {e:.6f}, "
+              f"acc {pt.acc[0, 0]:.4f} (clean {pt.acc_clean:.4f}; random "
+              "weights)", flush=True)
+
+    attr = per_layer_attribution(packed, state, dcfg, xb, seed=0,
+                                 sigma=SIGMA)
+    check(len(attr) == 20 and all(np.isfinite(a.rel_err) and a.rel_err > 0
+                                  for a in attr),
+          f"attribution: {len(attr)} rows or a bad error")
+    print(f"phase 8 per-layer attribution at sigma {SIGMA} (sample 0):",
+          flush=True)
+    for a in attr:
+        print(f"  {a.name}: rel err {a.rel_err:.6f}, worst column "
+              f"{a.worst_col} at {a.worst_col_err:.6f}, median "
+              f"{a.median_col_err:.6f}", flush=True)
+
+    # the float-digit conv at the path's shapes
+    _, _, taps = resnet.forward(packed, state, xb, dcfg, train=False,
+                                return_taps=True)
+    per_layer = []
+    for name, stride in resnet.conv_layer_names(cfg):
+        blk, layer = name.split(".")
+        op = conv_deploy_operands(taps[name], packed[blk][layer], cim)
+        kh, kw, cpa = op["kh"], op["kw"], op["c_per_array"]
+        digits = op["digits"]
+        if digits.dtype == torch.uint8:
+            digits = unpack_nibbles(digits, groups=kh * kw)
+        s, kt, rows, n = digits.shape
+        noisy = perturb_digits(digits, sampler.for_layer(name), SIGMA,
+                               shape=(s, kt, kh, kw, cpa, n))
+        geo = dict(kh=kh, kw=kw, stride=stride, padding="SAME",
+                   c_per_array=cpa, psum_bits=cim.psum_bits)
+        a_int = op["a_int"]
+        m = a_int.shape[0] * (-(-a_int.shape[1] // stride)) * (
+            -(-a_int.shape[2] // stride))
+        nbytes = (a_int.numel() + 4 * noisy.numel()
+                  + (op["occ"].numel() if op["occ"] is not None else 0)
+                  + 4 * (op["s_p"].numel() + op["deq"].numel()) + 4 * m * n)
+        calls = {"cim_conv_variation": (
+            lambda: cim_conv_cuda(a_int, noisy, op["s_p"], op["deq"],
+                                  op["occ"], **geo),
+            lambda: ref.cim_conv_ref(a_int, noisy, op["s_p"], op["deq"],
+                                     **geo),
+            None, _bytes_ops_ms(nbytes, _needed_macs(op, m),
+                                FP64_OPS_PER_S))}
+        t = _time_calls(torch, calls, name, errs, reps=10)
+        per_layer.append(t)
+        print(f"  {name}: M={m} kt={kt} rows={rows} N={n}: "
+              + _fmt("cim_conv_variation", t["cim_conv_variation"]),
+              flush=True)
+    tot = _sum_layers(per_layer)["cim_conv_variation"]
+    tot["launches"] = floats["cim_conv"]
+    print(f"phase 8 cim_conv_variation: {tot['ms']:.4f} ms per forward (20 "
+          f"launches on float planes), plain {tot['plain_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.5f} ms by {tot['bound_by']} (bytes "
+          f"{tot['bytes_ms']:.5f}, FP64 ops {tot['ops_ms']:.5f})", flush=True)
+    return {"cim_conv_variation": tot}
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 Any dict node carrying the CIM-layer quartet {w, s_w, s_p, s_a} is packed
 (linear for a 2-D ``w``, conv for a 4-D HWIO ``w``); every other node --
 full-precision stem and FC, BatchNorm -- passes through. The on-disk
-``DeployArtifact``, stacked (scan-over-layers) nodes and MoE expert banks
-come with later slices (ROADMAP queue 1, items 6 and 9).
+``DeployArtifact`` and stacked (scan-over-layers) nodes come with ROADMAP
+queue 1, item 7; MoE expert banks with item 10.
 """
 from __future__ import annotations
 
@@ -60,14 +60,14 @@ def pack_model(params: Dict, cfg: CIMConfig, *, device=None) -> Dict:
                 raise NotImplementedError(
                     f"CIM layer at {'/'.join(path)}: stacked (scan-over-"
                     "layers) weights are not ported yet (ROADMAP queue 1, "
-                    "item 9)")
+                    "item 7)")
             raise ValueError(f"CIM layer at {'/'.join(path)} has "
                              f"unsupported weight rank {w.ndim}")
         if isinstance(node, dict):
             if _bank_names(node):
                 raise NotImplementedError(
                     f"node {'/'.join(path)}: MoE expert banks are not ported "
-                    "yet (ROADMAP queue 1, item 9)")
+                    "yet (ROADMAP queue 1, item 10)")
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v, path + (str(i),)) for i, v in enumerate(node)]

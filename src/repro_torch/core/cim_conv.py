@@ -12,7 +12,10 @@ Layouts stay NHWC / HWIO at every function boundary, as in the reference,
 so packed planes are byte-identical with the JAX pack; tensors go to NCHW
 only around ``F.conv2d``. As in ``core.cim_linear``, emulate and deploy
 apply the activation scale after the shift-and-add and are bit-identical
-within the port.
+within the port, with cell variation too: the noise is drawn over the 6-D
+packed layout (S, k_tiles, kh, kw, c_per_array, C_out) on both paths, and
+under variation the emulate grouped conv runs in float64, as the deploy
+kernel runs its MACs.
 """
 from __future__ import annotations
 
@@ -26,12 +29,13 @@ from repro_torch import resolve_device
 from repro_torch.kernels.ref import conv_pads, shift_add
 
 from .bitsplit import split_digits
-from .cim_linear import (CIMConfig, _check_no_variation, _deq_w, _group_scale,
-                         _psum_scale, _quantize_act, deploy_act_codes)
+from .cim_linear import (CIMConfig, _deq_w, _group_scale, _psum_scale,
+                         _quantize_act, bake_variation, deploy_act_codes)
 from .granularity import conv_tiling
 from .nibble import (can_pack_nibbles, is_nibble_packed, occupancy_map,
                      pack_nibbles)
 from .quantizer import lsq_fake_quant, qrange
+from .variation import resolve_sigma, variation_noise, variation_wanted
 
 
 def _init_conv(gen: torch.Generator, kh: int, kw: int, c_in: int, c_out: int,
@@ -89,42 +93,53 @@ def _quantize_conv_weight_int(params, cfg: CIMConfig, t, c_per_array, kh, kw,
 
 
 def _grouped_conv_psum(a_int: torch.Tensor, digits: torch.Tensor, k_tiles: int,
-                       c_per_array: int, stride: int,
-                       padding) -> torch.Tensor:
+                       c_per_array: int, stride: int, padding,
+                       noise: torch.Tensor | None = None) -> torch.Tensor:
     """Per-(split, array tile) partial sums of every output position, as one
     grouped conv: (B, H, W, C_in) codes and (S, kh, kw, C_in, C_out) digits
-    -> (B, H', W', S, k_tiles, C_out) float32."""
+    -> (B, H', W', S, k_tiles, C_out) float32. ``noise``, a cell-variation
+    factor over the packed (S, k_tiles, kh, kw, cpa, C_out) layout,
+    multiplies the digits; the conv then runs in float64."""
     n_split, kh, kw, c_in, c_out = digits.shape
     b, h, w, _ = a_int.shape
     c_pad = k_tiles * c_per_array - c_in
-    a_p = F.pad(a_int.to(torch.float32), (0, c_pad))
+    mac = torch.float32 if noise is None else torch.float64
+    a_p = F.pad(a_int.to(torch.float32), (0, c_pad)).to(mac)
     d_p = F.pad(digits.to(torch.float32), (0, 0, 0, c_pad))
+    d_p = d_p.reshape(n_split, kh, kw, k_tiles, c_per_array, c_out)
+    if noise is not None:
+        d_p = d_p * noise.permute(0, 2, 3, 1, 4, 5)
     # group g = s * k_tiles + t; output channel g * C_out + c
-    d_g = (d_p.reshape(n_split, kh, kw, k_tiles, c_per_array, c_out)
-           .permute(0, 3, 5, 4, 1, 2)
+    d_g = (d_p.to(mac).permute(0, 3, 5, 4, 1, 2)
            .reshape(n_split * k_tiles * c_out, c_per_array, kh, kw))
     # activations: the channel slices once per split, NCHW for F.conv2d
     a_g = a_p.repeat(1, 1, 1, n_split).permute(0, 3, 1, 2)
     (ph_lo, ph_hi), (pw_lo, pw_hi) = conv_pads(h, w, kh, kw, stride, padding)
     a_g = F.pad(a_g, (pw_lo, pw_hi, ph_lo, ph_hi))
-    psum = F.conv2d(a_g, d_g, stride=stride, groups=n_split * k_tiles)
+    psum = F.conv2d(a_g, d_g, stride=stride,
+                    groups=n_split * k_tiles).to(torch.float32)
     ho, wo = psum.shape[2:]
     return psum.permute(0, 2, 3, 1).reshape(b, ho, wo, n_split, k_tiles, c_out)
 
 
 def _conv_forward(x, params, cfg: CIMConfig, *, stride: int = 1,
-                  padding="SAME", compute_dtype=torch.bfloat16) -> torch.Tensor:
+                  padding="SAME", variation=None, variation_std=None,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Conv2d through the CIM framework: (B, H, W, C_in) NHWC ->
-    (B, H', W', C_out), through ``cfg.mode``'s backend."""
+    (B, H', W', C_out), through ``cfg.mode``'s backend. ``variation``
+    (theta tensor over the 6-D packed layout, or a ``Sampler``) evaluates
+    one cell-noise realization, as in ``core.cim_linear``."""
     if not cfg.enabled:
-        return _forward_conv_off(x, params, cfg, stride, padding,
+        return _forward_conv_off(x, params, cfg, stride, padding, None, None,
                                  compute_dtype)
     from repro_torch.api.backends import get_backend  # api builds on core
+    sigma = resolve_sigma(variation_std, cfg.variation_std)
     return get_backend(cfg.mode).conv(x, params, cfg, stride, padding,
-                                      compute_dtype)
+                                      variation, sigma, compute_dtype)
 
 
-def _forward_conv_off(x, params, cfg, stride, padding, compute_dtype):
+def _forward_conv_off(x, params, cfg, stride, padding, variation, sigma,
+                      compute_dtype):
     kh, kw = params["w"].shape[:2]
     h, w = x.shape[1:3]
     (ph_lo, ph_hi), (pw_lo, pw_hi) = conv_pads(h, w, kh, kw, stride, padding)
@@ -135,18 +150,28 @@ def _forward_conv_off(x, params, cfg, stride, padding, compute_dtype):
     return y.permute(0, 2, 3, 1)
 
 
-def _forward_conv_emulate(x, params, cfg, stride, padding, compute_dtype):
-    _check_no_variation(cfg)
+def _forward_conv_emulate(x, params, cfg, stride, padding, variation, sigma,
+                          compute_dtype):
     kh, kw, c_in, c_out = params["w"].shape
     t, cpa = conv_tiling(kh, kw, c_in, c_out, cfg.array_rows, cfg.array_cols,
                          cfg.weight_bits, cfg.cell_bits)
     a_int, s_a = _quantize_act(x, params, cfg)
     w_int = _quantize_conv_weight_int(params, cfg, t, cpa, kh, kw, c_in, c_out)
     digits = split_digits(w_int, cfg.weight_bits, cfg.cell_bits)
-    psum = _grouped_conv_psum(a_int, digits, t.k_tiles, cpa, stride, padding)
-    if cfg.psum_quant:
-        # integer-valued MACs: snap float roundoff to the grid
+    noise = None
+    if variation_wanted(variation, sigma):
+        noise = variation_noise(
+            variation, (t.n_split, t.k_tiles, kh, kw, cpa, c_out), sigma,
+            device=digits.device)
+    psum = _grouped_conv_psum(a_int, digits, t.k_tiles, cpa, stride, padding,
+                              noise)
+    if cfg.psum_quant or noise is None:
+        # the integer snap, the ADC's first step. On clean planes the MACs
+        # are integer-valued and it only removes the conv algorithm's
+        # float roundoff (cuDNN may pick Winograd or FFT), so emulate
+        # stays bit-exact with the ADC-free kernel when the ADC is off
         psum = torch.round(psum)
+    if cfg.psum_quant:
         s_p = t.broadcast_psum_scale(params["s_p"])
         psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True)
     y = shift_add(psum, _deq_w(params, cfg, t))
@@ -160,8 +185,9 @@ def conv_deploy_operands(x, params, cfg: CIMConfig) -> Dict:
     codes ``a_int`` (B, H, W, C_in), flattened ``digits`` (S, kt,
     kh*kw*cpa_stored, C_out), ``s_p`` and ``deq`` (S, kt, C_out), ``occ``,
     and ``kh``, ``kw``, ``c_per_array``. ``deq`` leaves out the activation
-    scale, which the forward applies after the shift-and-add."""
-    _check_no_variation(cfg)
+    scale, which the forward applies after the shift-and-add. The planes
+    come clean: cell variation is applied at dispatch
+    (``kernels/ops.cim_conv``)."""
     d6 = params["w_digits"]              # (S, kt, kh, kw, cpa, C_out)
     n_split, k_tiles, kh, kw, cpa_stored, c_out = d6.shape
     c_per_array = 2 * cpa_stored if is_nibble_packed(d6) else cpa_stored
@@ -181,28 +207,33 @@ def conv_deploy_operands(x, params, cfg: CIMConfig) -> Dict:
 
 
 def _forward_conv_deploy(x, params, cfg: CIMConfig, stride, padding,
-                         compute_dtype):
+                         variation, sigma, compute_dtype,
+                         adc_free: bool = False):
     """Inference from packed 6-D conv planes through the fused conv kernel
-    (``kernels/ops.cim_conv``)."""
+    (``kernels/ops.cim_conv``), which perturbs the planes under variation.
+    ``adc_free=True`` runs the same planes on the ADC-free conv kernel."""
     from repro_torch.kernels import ops as kops
     op = conv_deploy_operands(x, params, cfg)
     y = kops.cim_conv(op["a_int"], op["digits"], op["s_p"], op["deq"],
                       kh=op["kh"], kw=op["kw"], stride=stride,
                       padding=padding, c_per_array=op["c_per_array"],
                       psum_bits=cfg.psum_bits, psum_quant=cfg.psum_quant,
-                      use_kernel=cfg.use_kernel, occ=op["occ"])
+                      use_kernel=cfg.use_kernel, occ=op["occ"],
+                      variation=variation, variation_std=sigma,
+                      adc_free=adc_free)
     y = y * torch.clamp_min(params["s_a"], 1e-9)
     return y.to(compute_dtype)
 
 
-def _pack_conv(params: Dict[str, torch.Tensor],
-               cfg: CIMConfig) -> Dict[str, torch.Tensor]:
+def _pack_conv(params: Dict[str, torch.Tensor], cfg: CIMConfig, *,
+               variation=None,
+               variation_std=None) -> Dict[str, torch.Tensor]:
     """Trained emulate conv params -> packed deploy form: 6-D (S, k_tiles,
     kh, kw, c_per_array, C_out) int8 planes (row order (dh, dw, c) as
     ``extract_conv_patches``), nibble-packed on the cpa axis for int4 with
     even c_per_array, plus the ``w_occ`` map. Byte-identical with the
-    reference's ``_pack_conv``."""
-    _check_no_variation(cfg)
+    reference's ``_pack_conv``. ``variation`` bakes one device
+    realization into float32 6-D planes, as ``_pack_linear`` does."""
     kh, kw, c_in, c_out = params["w"].shape
     t, cpa = conv_tiling(kh, kw, c_in, c_out, cfg.array_rows, cfg.array_cols,
                          cfg.weight_bits, cfg.cell_bits)
@@ -215,8 +246,9 @@ def _pack_conv(params: Dict[str, torch.Tensor],
     occ = occupancy_map(d, conv=True)
     if can_pack_nibbles(cpa, cfg.store_dtype()):
         d = pack_nibbles(d)
-    return {"w_digits": d, "w_occ": occ, "s_w": params["s_w"],
-            "s_p": params["s_p"], "s_a": params["s_a"]}
+    return bake_variation({"w_digits": d, "w_occ": occ, "s_w": params["s_w"],
+                           "s_p": params["s_p"], "s_a": params["s_a"]},
+                          variation, variation_std)
 
 
 def _calibrate_conv(x, params, cfg: CIMConfig, *, stride: int = 1,

@@ -11,12 +11,21 @@ Backends (``CIMConfig.mode``, resolved through ``repro_torch.api.backends``):
            CIM matmul kernel (``kernels/ops.cim_matmul``).
   ref      deploy forced onto the plain PyTorch version of the kernel.
 
+The hardware-style backends ``adc_free`` and ``binary`` live in
+``repro_torch.backends``.
+
 Emulate and deploy are bit-identical within the port: both accumulate
 ``ADC(psum) * deq_w`` in (array tile outer, split inner) order with
 ``deq_w = 2^(c*s) * s_w``, and apply the activation scale ``s_a`` after
 the shift-and-add (``kernels.ref.shift_add``). The reference folds
 ``s_a`` into ``deq`` instead; the two differ by one float rounding, well
 inside the 1e-4 parity gate.
+
+Cell variation (``core.variation``): a forward takes ``variation`` (a
+theta tensor or a ``Sampler``) and ``variation_std``; the noise lands on
+the logical packed layout (S, k_tiles, rows, N) on both paths. Under
+variation the emulate MACs run in float64, as the deploy kernel and its
+plain version run them, so the two stay bit-identical.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ from .granularity import ArrayTiling, Granularity
 from .nibble import (INT4, can_pack_nibbles, is_nibble_packed, occupancy_map,
                      pack_nibbles)
 from .quantizer import lsq_fake_quant, qrange
+from .variation import (perturb_digits, perturb_packed, resolve_sigma,
+                        variation_wanted)
 
 _BUILTIN_MODES = ("off", "emulate", "deploy", "ref")
 _KNOWN_MODES = set(_BUILTIN_MODES)
@@ -111,12 +122,6 @@ class CIMConfig:
                         and self.cell_bits <= 3) else torch.int8
 
 
-def _check_no_variation(cfg: CIMConfig) -> None:
-    if cfg.variation_std:
-        raise NotImplementedError(
-            "cell variation is not ported yet (ROADMAP queue 1, item 7)")
-
-
 # ---------------------------------------------------------------------------
 # parameter initialization
 # ---------------------------------------------------------------------------
@@ -190,11 +195,20 @@ def _quantize_weight_int(params, cfg: CIMConfig, t: ArrayTiling) -> torch.Tensor
 
 
 def _quantize_act(x, params, cfg: CIMConfig):
-    """(a_int, s_a): integer activation codes (float32) and their scale."""
+    """(a_int, s_a): integer activation codes (float32) and their scale.
+
+    The reference divides the fake-quantized activation by s_a, which can
+    land an ulp off the integer; with ``psum_quant`` off that ulp would
+    reach the output, and the port's emulate would no longer equal its
+    ADC-free deploy bit for bit. So the quotient is snapped to the
+    integer it stands for with a straight-through step: the value is
+    exactly the code ``deploy_act_codes`` gives, and the gradient is
+    ``lsq_fake_quant``'s own."""
     s_a = params["s_a"]
     a_hat = lsq_fake_quant(x.to(torch.float32), s_a, cfg.act_bits,
                            signed=cfg.act_signed)
-    return a_hat / torch.clamp_min(s_a, 1e-9), s_a
+    a = a_hat / torch.clamp_min(s_a, 1e-9)
+    return a + (torch.round(a) - a).detach(), s_a
 
 
 def deploy_act_codes(x, s_a, cfg: CIMConfig) -> torch.Tensor:
@@ -242,21 +256,26 @@ def _deq_w(params, cfg: CIMConfig, t: ArrayTiling) -> torch.Tensor:
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _linear_forward(x, params, cfg: CIMConfig, *,
+def _linear_forward(x, params, cfg: CIMConfig, *, variation=None,
+                    variation_std=None,
                     compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x (..., K) @ w (K, N) -> (..., N) through ``cfg.mode``'s backend."""
+    """x (..., K) @ w (K, N) -> (..., N) through ``cfg.mode``'s backend.
+
+    ``variation`` (theta tensor or ``Sampler``) evaluates one cell-noise
+    realization at sigma ``variation_std``, else ``cfg.variation_std``."""
     if not cfg.enabled:
-        return _forward_off(x, params, cfg, compute_dtype)
+        return _forward_off(x, params, cfg, None, None, compute_dtype)
     from repro_torch.api.backends import get_backend  # api builds on core
-    return get_backend(cfg.mode).linear(x, params, cfg, compute_dtype)
+    sigma = resolve_sigma(variation_std, cfg.variation_std)
+    return get_backend(cfg.mode).linear(x, params, cfg, variation, sigma,
+                                        compute_dtype)
 
 
-def _forward_off(x, params, cfg, compute_dtype):
+def _forward_off(x, params, cfg, variation, sigma, compute_dtype):
     return x.to(compute_dtype) @ params["w"].to(compute_dtype)
 
 
-def _forward_emulate(x, params, cfg, compute_dtype):
-    _check_no_variation(cfg)
+def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype):
     k, n = params["w"].shape
     t = cfg.tiling(k, n)
     a_int, s_a = _quantize_act(x, params, cfg)
@@ -264,8 +283,14 @@ def _forward_emulate(x, params, cfg, compute_dtype):
     digits = split_digits(w_int, cfg.weight_bits, cfg.cell_bits)
     a_t = _tile_inputs(a_int, t)
     d_t = _tile_digits(digits, t)
-    # integer column MACs, exact in float32 for these code widths
-    psum = torch.einsum("...tr,strn->...stn", a_t, d_t)
+    if variation_wanted(variation, sigma):
+        # noisy planes: float64 MACs, as the deploy kernel runs them
+        d_t = perturb_digits(d_t, variation, sigma)
+        psum = torch.einsum("...tr,strn->...stn", a_t.to(torch.float64),
+                            d_t.to(torch.float64)).to(torch.float32)
+    else:
+        # integer column MACs, exact in float32 for these code widths
+        psum = torch.einsum("...tr,strn->...stn", a_t, d_t)
     if cfg.psum_quant:
         psum = torch.round(psum)
         s_p = t.broadcast_psum_scale(params["s_p"])
@@ -275,11 +300,13 @@ def _forward_emulate(x, params, cfg, compute_dtype):
     return y.to(compute_dtype)
 
 
-def _forward_deploy(x, params, cfg, compute_dtype):
+def _forward_deploy(x, params, cfg, variation, sigma, compute_dtype,
+                    adc_free: bool = False):
     """Inference from packed digit planes (``_pack_linear``) through the
-    single-device ``kernels.ops.cim_matmul``."""
+    single-device ``kernels.ops.cim_matmul``, which perturbs the planes
+    under variation. ``adc_free=True`` runs the same planes on the ADC-free
+    kernel (the ``adc_free`` backend)."""
     from repro_torch.kernels import ops as kops
-    _check_no_variation(cfg)
     digits = params["w_digits"]
     s_a = params["s_a"]
     a_int = deploy_act_codes(x, s_a, cfg)
@@ -294,7 +321,9 @@ def _forward_deploy(x, params, cfg, compute_dtype):
     s_p = t.broadcast_psum_scale(params["s_p"])
     y = kops.cim_matmul(a_t, digits, s_p, _deq_w(params, cfg, t),
                         psum_bits=cfg.psum_bits, psum_quant=cfg.psum_quant,
-                        use_kernel=cfg.use_kernel, occ=params.get("w_occ"))
+                        use_kernel=cfg.use_kernel, occ=params.get("w_occ"),
+                        variation=variation, variation_std=sigma,
+                        adc_free=adc_free)
     y = y * torch.clamp_min(s_a, 1e-9)
     return y.to(compute_dtype)
 
@@ -303,13 +332,18 @@ def _forward_deploy(x, params, cfg, compute_dtype):
 # packing + calibration
 # ---------------------------------------------------------------------------
 
-def _pack_linear(params: Dict[str, torch.Tensor],
-                 cfg: CIMConfig) -> Dict[str, torch.Tensor]:
+def _pack_linear(params: Dict[str, torch.Tensor], cfg: CIMConfig, *,
+                 variation=None,
+                 variation_std=None) -> Dict[str, torch.Tensor]:
     """Trained emulate params -> packed deploy form: (S, kt, rows, N) digit
     planes (int8, or nibble uint8 for int4 with even rows), the ``w_occ``
     occupancy map, the scales and ``k_logical``. Byte-identical with the
-    reference's ``_pack_linear``."""
-    _check_no_variation(cfg)
+    reference's ``_pack_linear``.
+
+    ``variation`` with a sigma (``variation_std``) bakes
+    ONE device realization into float32 planes (``perturb_packed``); for
+    Monte-Carlo sweeps keep the planes clean and pass ``variation`` to the
+    forward instead."""
     k, n = params["w"].shape
     t = cfg.tiling(k, n)
     w_int = _quantize_weight_int(params, cfg, t)
@@ -318,7 +352,7 @@ def _pack_linear(params: Dict[str, torch.Tensor],
     occ = occupancy_map(d_t)
     if can_pack_nibbles(t.array_rows, cfg.store_dtype()):
         d_t = pack_nibbles(d_t)
-    return {
+    out = {
         "w_digits": d_t,
         "w_occ": occ,
         "s_w": params["s_w"],
@@ -327,6 +361,14 @@ def _pack_linear(params: Dict[str, torch.Tensor],
         "k_logical": torch.tensor(k, dtype=torch.int32,
                                   device=params["w"].device),
     }
+    return bake_variation(out, variation, variation_std)
+
+
+def bake_variation(packed, variation, variation_std):
+    """``perturb_packed`` when a realization is asked for at pack time."""
+    if variation_wanted(variation, variation_std):
+        return perturb_packed(packed, variation, variation_std)
+    return packed
 
 
 def _calibrate_linear(x, params, cfg: CIMConfig) -> Dict[str, torch.Tensor]:

@@ -1,52 +1,74 @@
-// Fused CIM matmul with per-column partial-sum (ADC) quantization, for
-// Hopper (sm_90a). Plain C interface, loaded with ctypes by
+// Fused CIM matmul for Hopper (sm_90a), with per-column partial-sum (ADC)
+// quantization or ADC-free. Plain C interface, loaded with ctypes by
 // repro_torch/kernels/_build.py.
 //
-// Replaces repro/kernels/cim_matmul.py::cim_matmul_pallas: its dense body
-// `_kernel`, the occupancy-skip body `_kernel_sparse` and the nibble decode
-// `decode_digit_block`. The conv deploy path (repro/kernels/cim_conv.py::
-// cim_conv_pallas) lowers onto this same kernel with M = B*H'*W' and
-// nibble groups = kh*kw.
+// Replaces, as one kernel family:
+//   repro/kernels/cim_matmul.py::cim_matmul_pallas (:160): its dense body
+//     `_kernel`, the occupancy-skip body `_kernel_sparse` and the nibble
+//     decode `decode_digit_block`; entry point cim_matmul_launch;
+//   repro/kernels/cim_adc_free.py::cim_matmul_adc_free_pallas (:98): the
+//     ADC-free bodies `_kernel` and `_kernel_sparse`, the same tile loop
+//     with the ADC-free epilogue and no s_p operand; entry point
+//     cim_matmul_adc_free_launch.
+// The conv deploy paths (repro/kernels/cim_conv.py::cim_conv_pallas and
+// repro/kernels/cim_adc_free.py::cim_conv_adc_free_pallas, :180) lower onto
+// these with M = B*H'*W' and nibble groups = kh*kw.
 //
-//   out[m, n] = sum_t sum_s deq[s,t,n] * ADC(sum_r a[m,t,r] * d[s,t,r,n])
-//   ADC(p) = sign(p) * s_p                             psum_bits == 1
-//          = clip(rint(p / s_p), -2^(b-1), 2^(b-1)-1) * s_p   otherwise
-//   s_p clamped to >= 1e-9; psum_quant == 0 skips the ADC.
+//   p[m,s,t,n] = sum_r a[m,t,r] * d[s,t,r,n]
+//   ADC:       out[m,n] = sum_t sum_s deq[s,t,n] * ADC(round(p))
+//              ADC(p) = sign(p) * s_p                     psum_bits == 1
+//                     = clip(rint(p / s_p), -2^(b-1), 2^(b-1)-1) * s_p
+//              s_p clamped to >= 1e-9; psum_quant == 0 skips round and ADC.
+//   ADC-free:  out[m,n] = sum_t sum_s deq[s,t,n] * round(p)
 //
-// Numerics. Each (t, s) partial sum is an exact int32 sum of int8 x int8
-// (or uint8 x int8) products (dp4a). It is converted to float, quantized
-// with an IEEE divide (__fdiv_rn) and rintf (half to even, like
-// torch.round / jnp.round), and accumulated with one rounded multiply and
+// Numerics. Integer digit planes (int8, or int4 nibbles): each (t, s)
+// partial sum is an exact int32 sum of int8 x int8 (or uint8 x int8)
+// products (dp4a), so round() is the identity. Float32 digit planes (cell
+// variation): each product code x digit is exact in float64 and, for the
+// code and digit ranges of a CIM array, so is their float64 sum; it is
+// rounded once to float32 (__double2float_rn) -- what the plain version's
+// float64 einsum does -- then rounded to the integer grid with rintf. The
+// ADC uses an IEEE divide (__fdiv_rn) and rintf (half to even, like
+// torch.round / jnp.round); the accumulate uses one rounded multiply and
 // one rounded add (__fmul_rn, __fadd_rn: no FMA contraction) in the order
-// t outer, s inner -- the order of the TPU grid and of
-// repro_torch.kernels.ref.shift_add, so the kernel and its plain version
-// agree bit for bit. Build without --use_fast_math.
+// t outer, s inner -- the order of repro_torch.kernels.ref.shift_add, so
+// the kernel and its plain version agree bit for bit. (The TPU's ADC-free
+// grid runs s outer, t inner; within the port one order keeps adc_free
+// equal to emulate with psum_quant off, and keeps the patch tile in shared
+// memory across all S splits.) Build without --use_fast_math.
 //
 // Sparse planes. With an occupancy map, a block skips the load and the MACs
 // of a (t, s) plane whose columns in the block are all unoccupied; the
 // partial sum is then exactly 0 and goes through the same epilogue, so a
-// dead plane adds ADC(0) * deq (+s_p * deq under the sign ADC, +0 else) and
-// the sparse path is bit-exact with the dense one at every psum_bits.
+// dead plane adds ADC(0) * deq (+s_p * deq under the sign ADC, +0 else;
+// +0 ADC-free) and the sparse path is bit-exact with the dense one. Cell
+// variation multiplies, so dead cells stay dead and the clean map holds.
 //
 // Nibble planes (uint8, half-split per group): packed row g*gh + w holds
 // logical row g*2gh + w in its low nibble and g*2gh + gh + w in its high
 // nibble; each nibble decodes as ((x ^ 8) - 8). Decoding happens while the
-// tile is copied into shared memory.
+// tile is copied into shared memory. Float planes are never nibbles: the
+// variation path unpacks them before it perturbs.
 //
 // Bound at the main path's shapes (ResNet-20, batch 256, 3-bit weights on
 // 1-bit cells -> S = 3, 128-row arrays -> rows = 126 for 3x3 convs): the
 // first stage's convs have M = 262,144, kt = 2, N = 16, so one layer moves
 // ~66 MB of patches + 17 MB of output (25 us at 3.35 TB/s) against
-// ~6.3 G int8 ops (3 us at 1,979 TOPS): the kernel is bound by bytes.
+// ~6.3 G int8 ops (3 us at 1,979 TOPS): with integer digits the kernel is
+// bound by bytes, with and without the ADC. With float digits the MACs run
+// in float64 (~3.2 G FMAs a layer), which makes it bound by operations.
 // This first version keeps one patch tile per array tile in shared memory
 // and reuses it across all S splits (the patches are read once per t, not
 // once per (t, s)), picks the N tile from {16, 32, 64} so a 16-wide layer
 // does not idle 7/8 of a 128-wide tile, and writes the output once. It
-// runs its MACs on dp4a rather than on the tensor cores (wgmma) and does
-// not gather the patches itself (implicit GEMM); both are later work.
+// runs its MACs on dp4a (float64 FMAs for float digits) rather than on the
+// tensor cores (wgmma) and does not gather the patches itself (implicit
+// GEMM); both are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -55,10 +77,21 @@ constexpr int kTM = 4;  // outputs per thread along m
 constexpr int kTN = 4;  // outputs per thread along n
 constexpr size_t kMaxSmem = 232448;  // 227 KB per block on H100
 
-// 32-bit words per shared-memory row of a tile; odd, so that threads
+// digit-plane storage, as the wrappers pass it
+constexpr int kInt8 = 0;     // (S, kt, rows, N) int8
+constexpr int kNibble = 1;   // (S, kt, rows / 2, N) uint8, half-split
+constexpr int kFloat32 = 2;  // (S, kt, rows, N) float32
+
+// 32-bit words per shared-memory row of a byte tile; odd, so that threads
 // reading different rows hit different banks.
 __host__ __device__ inline int stride_words(int rows) {
   return ((rows + 3) / 4) | 1;
+}
+
+// floats per shared-memory row of a float plane: whole float4s, an odd
+// count of them, so the float4 reads of different rows spread over banks.
+__host__ __device__ inline int stride_floats(int rows) {
+  return 4 * (((rows + 3) / 4) | 1);
 }
 
 template <bool kUnsignedA>
@@ -72,9 +105,17 @@ __device__ __forceinline__ int dot4(int a, int d, int c) {
   return r;
 }
 
+// byte k of a word of four activation codes, as an integer
+template <bool kUnsignedA>
+__device__ __forceinline__ int code(int word, int k) {
+  return kUnsignedA ? (int)(((unsigned)word >> (8 * k)) & 0xFFu)
+                    : (int)(signed char)(word >> (8 * k));
+}
+
 __device__ __forceinline__ float adc(float p, float sp, int psum_bits,
                                      int psum_quant) {
   if (!psum_quant) return p;
+  p = rintf(p);  // the integer snap; the identity on integer digits
   sp = fmaxf(sp, 1e-9f);
   if (psum_bits == 1) return __fmul_rn(p >= 0.f ? 1.f : -1.f, sp);
   const float qn = -(float)(1 << (psum_bits - 1));
@@ -85,13 +126,14 @@ __device__ __forceinline__ float adc(float p, float sp, int psum_bits,
 
 // One block computes a BM x BN output tile; 256 threads, 4 x 4 outputs
 // each. Shared memory: the block's patch rows of array tile t (BM x rows
-// bytes) and the decoded digit plane (t, s) transposed (BN x rows bytes).
-template <int BN, bool kUnsignedA, bool kNibble>
+// bytes) and the digit plane (t, s) transposed (BN x rows bytes, decoded
+// from nibbles, or BN x rows floats).
+template <int BN, bool kUnsignedA, int kKind, bool kAdcFree>
 __global__ void __launch_bounds__(kThreads) cim_matmul_kernel(
     const int8_t* __restrict__ a,        // (M, kt, rows) int8 or uint8 bytes
-    const uint8_t* __restrict__ digits,  // (S, kt, rows or rows/2, N)
+    const void* __restrict__ digits,     // (S, kt, rows or rows/2, N)
     const uint8_t* __restrict__ occ,     // (S, kt, N) or nullptr
-    const float* __restrict__ s_p,       // (S, kt, N)
+    const float* __restrict__ s_p,       // (S, kt, N); unused ADC-free
     const float* __restrict__ deq,       // (S, kt, N)
     float* __restrict__ out,             // (M, N)
     long long M, int kt, int rows, int S, int N, int groups, int psum_bits,
@@ -99,21 +141,25 @@ __global__ void __launch_bounds__(kThreads) cim_matmul_kernel(
   constexpr int TX = BN / kTN;        // threads along n
   constexpr int TY = kThreads / TX;   // threads along m
   constexpr int BM = TY * kTM;
+  constexpr bool kFloat = kKind == kFloat32;
+  using Acc = typename std::conditional<kFloat, double, int>::type;
   extern __shared__ int smem[];
   const int sw = stride_words(rows);
+  const int sf = stride_floats(rows);
   const int rb = sw * 4;              // bytes per shared row
   const int rw = (rows + 3) / 4;      // words holding data
   int* a_s = smem;                    // BM rows
   int* d_s = smem + BM * sw;          // BN rows (transposed plane)
   int8_t* a_b = reinterpret_cast<int8_t*>(a_s);
   int8_t* d_b = reinterpret_cast<int8_t*>(d_s);
+  float* d_f = reinterpret_cast<float*>(d_s);
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
   const int warp = tid / 32, lane = tid % 32;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int rows_st = kNibble ? rows / 2 : rows;
+  const int rows_st = kKind == kNibble ? rows / 2 : rows;
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -137,16 +183,22 @@ __global__ void __launch_bounds__(kThreads) cim_matmul_kernel(
           ? (__syncthreads(), 1)
           : __syncthreads_or(tid < BN && n0 + tid < N &&
                              occ[col + n0 + tid] != 0);
-      int p[kTM][kTN];
+      Acc p[kTM][kTN];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
         for (int j = 0; j < kTN; ++j) p[i][j] = 0;
       if (live) {
-        const uint8_t* dsrc = digits + col * rows_st;
         const int nn = tid % BN;
         const int n = n0 + nn;
-        if (kNibble) {
+        if constexpr (kKind == kFloat32) {
+          const float* dsrc = static_cast<const float*>(digits) + col * rows;
+          for (int r = tid / BN; r < sf; r += kThreads / BN)
+            d_f[nn * sf + r] = (n < N && r < rows)
+                ? dsrc[(long long)r * N + n] : 0.f;
+        } else if constexpr (kKind == kNibble) {
+          const uint8_t* dsrc = static_cast<const uint8_t*>(digits)
+              + col * rows_st;
           const int gh = rows_st / groups;
           for (int rp = tid / BN; rp < rows_st; rp += kThreads / BN) {
             const int b = n < N ? (int)dsrc[(long long)rp * N + n] : 0;
@@ -158,34 +210,65 @@ __global__ void __launch_bounds__(kThreads) cim_matmul_kernel(
           for (int r = rows + tid / BN; r < rb; r += kThreads / BN)
             d_b[nn * rb + r] = 0;
         } else {
+          const int8_t* dsrc = static_cast<const int8_t*>(digits)
+              + col * rows_st;
           for (int r = tid / BN; r < rb; r += kThreads / BN)
             d_b[nn * rb + r] = (n < N && r < rows)
-                ? (int8_t)dsrc[(long long)r * N + n] : (int8_t)0;
+                ? dsrc[(long long)r * N + n] : (int8_t)0;
         }
         __syncthreads();
         for (int w = 0; w < rw; ++w) {
-          int av[kTM], dv[kTN];
+          int av[kTM];
 #pragma unroll
           for (int i = 0; i < kTM; ++i) av[i] = a_s[(ty + i * TY) * sw + w];
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) dv[j] = d_s[(tx + j * TX) * sw + w];
-#pragma unroll
-          for (int i = 0; i < kTM; ++i)
+          if constexpr (kFloat) {
+            float4 dv[kTN];
 #pragma unroll
             for (int j = 0; j < kTN; ++j)
-              p[i][j] = dot4<kUnsignedA>(av[i], dv[j], p[i][j]);
+              dv[j] = *reinterpret_cast<const float4*>(
+                  d_f + (tx + j * TX) * sf + 4 * w);
+#pragma unroll
+            for (int i = 0; i < kTM; ++i) {
+              const double c0 = code<kUnsignedA>(av[i], 0);
+              const double c1 = code<kUnsignedA>(av[i], 1);
+              const double c2 = code<kUnsignedA>(av[i], 2);
+              const double c3 = code<kUnsignedA>(av[i], 3);
+#pragma unroll
+              for (int j = 0; j < kTN; ++j) {
+                // exact products; the float64 sum of a tile is exact too
+                double q = p[i][j];
+                q = fma(c0, (double)dv[j].x, q);
+                q = fma(c1, (double)dv[j].y, q);
+                q = fma(c2, (double)dv[j].z, q);
+                q = fma(c3, (double)dv[j].w, q);
+                p[i][j] = q;
+              }
+            }
+          } else {
+            int dv[kTN];
+#pragma unroll
+            for (int j = 0; j < kTN; ++j) dv[j] = d_s[(tx + j * TX) * sw + w];
+#pragma unroll
+            for (int i = 0; i < kTM; ++i)
+#pragma unroll
+              for (int j = 0; j < kTN; ++j)
+                p[i][j] = dot4<kUnsignedA>(av[i], dv[j], p[i][j]);
+          }
         }
       }
-      // epilogue: ADC, dequant, shift-and-add into the f32 accumulator
+      // epilogue: (ADC or round), dequant, shift-and-add into the f32 sum
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
         const int n = n0 + tx + j * TX;
         if (n >= N) continue;
-        const float sp = s_p[col + n];
+        const float sp = kAdcFree ? 0.f : s_p[col + n];
         const float dq = deq[col + n];
 #pragma unroll
         for (int i = 0; i < kTM; ++i) {
-          const float v = adc((float)p[i][j], sp, psum_bits, psum_quant);
+          const float pf = kFloat ? __double2float_rn((double)p[i][j])
+                                  : (float)p[i][j];
+          const float v = kAdcFree ? rintf(pf)
+                                   : adc(pf, sp, psum_bits, psum_quant);
           acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(v, dq));
         }
       }
@@ -203,76 +286,98 @@ __global__ void __launch_bounds__(kThreads) cim_matmul_kernel(
   }
 }
 
-template <int BN, bool kUnsignedA, bool kNibble>
-cudaError_t launch(const void* a, const void* digits, const void* occ,
-                   const void* s_p, const void* deq, void* out, long long m,
-                   int kt, int rows, int S, int n, int groups, int psum_bits,
-                   int psum_quant, cudaStream_t stream) {
+struct Args {
+  const void* a;
+  const void* digits;
+  const void* occ;
+  const void* s_p;  // nullptr ADC-free
+  const void* deq;
+  void* out;
+  long long m;
+  int kt, rows, S, n, groups, a_unsigned, kind, psum_bits, psum_quant;
+  cudaStream_t stream;
+};
+
+template <int BN, bool kUnsignedA, int kKind, bool kAdcFree>
+cudaError_t launch(const Args& x) {
   constexpr int BM = (kThreads / (BN / kTN)) * kTM;
-  const size_t smem = (size_t)(BM + BN) * stride_words(rows) * 4;
+  const int d_words = kKind == kFloat32 ? stride_floats(x.rows)
+                                        : stride_words(x.rows);
+  const size_t smem =
+      ((size_t)BM * stride_words(x.rows) + (size_t)BN * d_words) * 4;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = cim_matmul_kernel<BN, kUnsignedA, kNibble>;
+  auto kern = cim_matmul_kernel<BN, kUnsignedA, kKind, kAdcFree>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((n + BN - 1) / BN));
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(a), static_cast<const uint8_t*>(digits),
-      static_cast<const uint8_t*>(occ), static_cast<const float*>(s_p),
-      static_cast<const float*>(deq), static_cast<float*>(out), m, kt, rows,
-      S, n, groups, psum_bits, psum_quant);
+  const dim3 grid((unsigned)((x.m + BM - 1) / BM),
+                  (unsigned)((x.n + BN - 1) / BN));
+  kern<<<grid, kThreads, smem, x.stream>>>(
+      static_cast<const int8_t*>(x.a), x.digits,
+      static_cast<const uint8_t*>(x.occ), static_cast<const float*>(x.s_p),
+      static_cast<const float*>(x.deq), static_cast<float*>(x.out), x.m, x.kt,
+      x.rows, x.S, x.n, x.groups, x.psum_bits, x.psum_quant);
   return cudaGetLastError();
 }
 
-template <int BN>
-cudaError_t dispatch(int a_unsigned, int nibble, const void* a,
-                     const void* digits, const void* occ, const void* s_p,
-                     const void* deq, void* out, long long m, int kt, int rows,
-                     int S, int n, int groups, int psum_bits, int psum_quant,
-                     cudaStream_t st) {
-  if (a_unsigned && nibble)
-    return launch<BN, true, true>(a, digits, occ, s_p, deq, out, m, kt, rows,
-                                  S, n, groups, psum_bits, psum_quant, st);
-  if (a_unsigned)
-    return launch<BN, true, false>(a, digits, occ, s_p, deq, out, m, kt, rows,
-                                   S, n, groups, psum_bits, psum_quant, st);
-  if (nibble)
-    return launch<BN, false, true>(a, digits, occ, s_p, deq, out, m, kt, rows,
-                                   S, n, groups, psum_bits, psum_quant, st);
-  return launch<BN, false, false>(a, digits, occ, s_p, deq, out, m, kt, rows,
-                                  S, n, groups, psum_bits, psum_quant, st);
+template <int BN, bool kAdcFree, bool kUnsignedA>
+cudaError_t dispatch_kind(const Args& x) {
+  if (x.kind == kNibble) return launch<BN, kUnsignedA, kNibble, kAdcFree>(x);
+  if (x.kind == kFloat32) return launch<BN, kUnsignedA, kFloat32, kAdcFree>(x);
+  return launch<BN, kUnsignedA, kInt8, kAdcFree>(x);
+}
+
+template <bool kAdcFree>
+int dispatch(const Args& x) {
+  if (x.m <= 0 || x.kt <= 0 || x.rows <= 0 || x.S <= 0 || x.n <= 0 ||
+      x.groups <= 0 || x.kind < kInt8 || x.kind > kFloat32 ||
+      (!kAdcFree && (x.psum_bits < 1 || x.psum_bits > 24)) ||
+      (x.kind == kNibble && ((x.rows % 2) || ((x.rows / 2) % x.groups))))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (x.n <= 16)
+    e = x.a_unsigned ? dispatch_kind<16, kAdcFree, true>(x)
+                     : dispatch_kind<16, kAdcFree, false>(x);
+  else if (x.n <= 32)
+    e = x.a_unsigned ? dispatch_kind<32, kAdcFree, true>(x)
+                     : dispatch_kind<32, kAdcFree, false>(x);
+  else
+    e = x.a_unsigned ? dispatch_kind<64, kAdcFree, true>(x)
+                     : dispatch_kind<64, kAdcFree, false>(x);
+  return (int)e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t code: 0 on a successful launch. `occ` may be null.
-// `rows` is the logical row count; nibble planes store rows / 2 rows in
-// `groups` half-split blocks.
+// Both return a cudaError_t code: 0 on a successful launch. `occ` may be
+// null. `rows` is the logical row count; nibble planes store rows / 2 rows
+// in `groups` half-split blocks. `digit_kind`: 0 int8, 1 nibble uint8,
+// 2 float32.
 int cim_matmul_launch(const void* a, const void* digits, const void* occ,
                       const void* s_p, const void* deq, void* out,
                       long long m, int kt, int rows, int S, int n, int groups,
-                      int a_unsigned, int nibble, int psum_bits,
+                      int a_unsigned, int digit_kind, int psum_bits,
                       int psum_quant, void* stream) {
-  if (m <= 0 || kt <= 0 || rows <= 0 || S <= 0 || n <= 0 || groups <= 0 ||
-      psum_bits < 1 || psum_bits > 24 ||
-      (nibble && ((rows % 2) || ((rows / 2) % groups))))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 16)
-    return (int)dispatch<16>(a_unsigned, nibble, a, digits, occ, s_p, deq,
-                             out, m, kt, rows, S, n, groups, psum_bits,
-                             psum_quant, st);
-  if (n <= 32)
-    return (int)dispatch<32>(a_unsigned, nibble, a, digits, occ, s_p, deq,
-                             out, m, kt, rows, S, n, groups, psum_bits,
-                             psum_quant, st);
-  return (int)dispatch<64>(a_unsigned, nibble, a, digits, occ, s_p, deq, out,
-                           m, kt, rows, S, n, groups, psum_bits, psum_quant,
-                           st);
+  const Args x{a, digits, occ, s_p, deq, out, m, kt, rows, S, n, groups,
+               a_unsigned, digit_kind, psum_bits, psum_quant,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(x);
+}
+
+// The ADC-free kernel: no s_p operand, no psum_bits.
+int cim_matmul_adc_free_launch(const void* a, const void* digits,
+                               const void* occ, const void* deq, void* out,
+                               long long m, int kt, int rows, int S, int n,
+                               int groups, int a_unsigned, int digit_kind,
+                               void* stream) {
+  const Args x{a, digits, occ, nullptr, deq, out, m, kt, rows, S, n, groups,
+               a_unsigned, digit_kind, 0, 0,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(x);
 }
 
 const char* cim_matmul_error_string(int code) {

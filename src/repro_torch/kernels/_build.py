@@ -31,6 +31,8 @@ _SIGNATURES = {
     "cim_matmul": {
         "cim_matmul_launch": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P], _I),
+        "cim_matmul_adc_free_launch": ([_P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                        _I, _I, _I, _I, _P], _I),
         "cim_matmul_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -10,16 +10,15 @@ flattened row layout. No n_split replication of the activations and no
 partial-sum tensor in device memory.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version, ``ref.cim_conv_ref``. ``cim_conv_cuda.launches`` counts launches.
+version, ``ref.cim_conv_ref``. ``cim_conv_cuda.launches`` counts launches,
+``cim_conv_cuda.float_launches`` those on float32 (cell-variation) planes.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.nibble import unpack_nibbles
-
 from . import ref
-from .cim_matmul import cim_matmul_cuda
+from .cim_matmul import cim_matmul_cuda, logical_digits
 
 
 def cim_conv_cuda(a_int: torch.Tensor, digits: torch.Tensor,
@@ -28,30 +27,31 @@ def cim_conv_cuda(a_int: torch.Tensor, digits: torch.Tensor,
                   stride: int, padding, c_per_array: int, psum_bits: int,
                   psum_quant: bool = True) -> torch.Tensor:
     """a_int (B, H, W, C_in) int8/uint8 codes; digits (S, k_tiles,
-    kh*kw*cpa, C_out) int8 or nibble uint8 (S, k_tiles, kh*kw*cpa/2,
-    C_out). Returns (B, H', W', C_out) float32."""
-    n_split, k_tiles, rows_d, n = digits.shape
-    rows = kh * kw * c_per_array
-    nibble = digits.dtype == torch.uint8
-    if rows_d != (rows // 2 if nibble else rows):
+    kh*kw*cpa, C_out) int8 or float32 (cell variation), or nibble uint8
+    (S, k_tiles, kh*kw*cpa/2, C_out). Returns (B, H', W', C_out)
+    float32."""
+    rows_d, rows = digits.shape[2], kh * kw * c_per_array
+    if rows_d != (rows // 2 if digits.dtype == torch.uint8 else rows):
         raise ValueError(f"cim_conv_cuda: planes {tuple(digits.shape)} do not "
                          f"match kh={kh}, kw={kw}, c_per_array={c_per_array}")
     if a_int.device.type == "cpu":
-        d = unpack_nibbles(digits, groups=kh * kw) if nibble else digits
-        return ref.cim_conv_ref(a_int, d, s_p, deq, kh=kh, kw=kw,
+        return ref.cim_conv_ref(a_int, logical_digits(digits, kh * kw), s_p,
+                                deq, kh=kh, kw=kw,
                                 stride=stride, padding=padding,
                                 c_per_array=c_per_array, psum_bits=psum_bits,
                                 psum_quant=psum_quant)
     if a_int.device.type != "cuda":
         raise ValueError(f"cim_conv_cuda: unsupported device {a_int.device}")
-    a_t = ref.extract_conv_patches(a_int, kh, kw, stride, padding, k_tiles,
-                                   c_per_array)
-    b, ho, wo = a_t.shape[:3]
-    out = cim_matmul_cuda(a_t.reshape(b * ho * wo, k_tiles, rows), digits,
-                          s_p, deq, occ, psum_bits=psum_bits,
-                          psum_quant=psum_quant, nibble_groups=kh * kw)
+    out = ref.conv_as_matmul(
+        a_int, digits, kh, kw, stride, padding, c_per_array,
+        lambda a_t: cim_matmul_cuda(a_t, digits, s_p, deq, occ,
+                                    psum_bits=psum_bits,
+                                    psum_quant=psum_quant,
+                                    nibble_groups=kh * kw))
     cim_conv_cuda.launches += 1
-    return out.reshape(b, ho, wo, n)
+    cim_conv_cuda.float_launches += int(digits.dtype == torch.float32)
+    return out
 
 
 cim_conv_cuda.launches = 0
+cim_conv_cuda.float_launches = 0

@@ -1,19 +1,103 @@
 """Fused CIM matmul with partial-sum (ADC) quantization: the wrapper of the
 hand-written Hopper kernel ``csrc/cim_matmul.cu``, the port of
 ``repro/kernels/cim_matmul.py::cim_matmul_pallas`` (dense body, occupancy
-skip and nibble decode in one kernel family).
+skip and nibble decode in one kernel family), plus the operand checks the
+ADC-free wrapper (``kernels/cim_adc_free.py``) shares.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version, ``ref.cim_matmul_ref``. ``cim_matmul_cuda.launches`` counts the
-kernel's launches.
+kernel's launches, ``cim_matmul_cuda.float_launches`` those of them on
+float32 (cell-variation) digit planes.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core.nibble import unpack_nibbles
 
 from . import _build, ref
+
+#: digit-plane storage -> the kernel's ``digit_kind``
+DIGIT_KINDS = {torch.int8: 0, torch.uint8: 1, torch.float32: 2}
+
+
+def logical_digits(digits: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """Nibble planes unpacked (``groups`` half-split blocks), others as
+    they are: what the plain versions take."""
+    if digits.dtype == torch.uint8:
+        return unpack_nibbles(digits, groups=groups)
+    return digits
+
+
+@dataclasses.dataclass
+class KernelOperands:
+    """Checked operands of one launch of the CIM matmul kernel family."""
+
+    a_t: torch.Tensor
+    digits: torch.Tensor
+    occ: torch.Tensor | None
+    cols: dict            # name -> (S, k_tiles, N) float32 scales
+    out: torch.Tensor
+    m: int
+    k_tiles: int
+    rows: int
+    n_split: int
+    n: int
+    kind: int
+
+    def common_args(self, nibble_groups: int):
+        """(m, kt, rows, S, n, groups, a_unsigned, digit_kind)"""
+        return (self.m, self.k_tiles, self.rows, self.n_split, self.n,
+                nibble_groups, int(self.a_t.dtype == torch.uint8), self.kind)
+
+
+def kernel_operands(name: str, a_t: torch.Tensor, digits: torch.Tensor,
+                    occ: torch.Tensor | None, **cols) -> KernelOperands:
+    """Check a CUDA launch's operands and raise on what the kernel does not
+    take: device, dtypes, shapes and contiguity. ``cols`` are the (S,
+    k_tiles, N) scale operands; they are made float32 and contiguous."""
+    if a_t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {a_t.device}")
+    if digits.dtype not in DIGIT_KINDS:
+        raise TypeError(f"{name}: digit planes must be int8, nibble uint8 or "
+                        f"float32 (cell variation), got {digits.dtype}")
+    if a_t.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"{name}: activation codes must be int8 or uint8, "
+                        f"got {a_t.dtype}")
+    nibble = digits.dtype == torch.uint8
+    m, k_tiles, rows = a_t.shape
+    n_split, kt_d, rows_d, n = digits.shape
+    if kt_d != k_tiles or rows_d != (rows // 2 if nibble else rows):
+        raise ValueError(f"{name}: planes {tuple(digits.shape)} do not match "
+                         f"activations {tuple(a_t.shape)}")
+    shape = (n_split, k_tiles, n)
+    for nm, v in tuple(cols.items()) + ((("occ", occ),) if occ is not None
+                                        else ()):
+        if tuple(v.shape) != shape:
+            raise ValueError(f"{name}: {nm} has shape {tuple(v.shape)}, "
+                             f"expected {shape}")
+    if not (a_t.is_contiguous() and digits.is_contiguous()):
+        raise ValueError(f"{name}: a_t and digits must be contiguous")
+    dev = a_t.device
+    if digits.device != dev:
+        raise ValueError(f"{name}: operands on different devices")
+    cols = {k: v.to(device=dev, dtype=torch.float32).contiguous()
+            for k, v in cols.items()}
+    if occ is not None:
+        occ = occ.to(device=dev, dtype=torch.uint8).contiguous()
+    return KernelOperands(
+        a_t=a_t, digits=digits, occ=occ, cols=cols,
+        out=torch.empty((m, n), dtype=torch.float32, device=dev), m=m,
+        k_tiles=k_tiles, rows=rows, n_split=n_split, n=n,
+        kind=DIGIT_KINDS[digits.dtype])
+
+
+def raise_on_error(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.cim_matmul_error_string(rc).decode()}")
 
 
 def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
@@ -24,63 +108,34 @@ def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
     """out (M, N) float32 = sum_t sum_s deq * ADC(a_t[:, t] @ digits[s, t]).
 
     a_t     (M, k_tiles, rows) int8 or uint8 activation codes
-    digits  (S, k_tiles, rows, N) int8, or nibble-packed uint8
-            (S, k_tiles, rows // 2, N) in ``nibble_groups`` half-split blocks
+    digits  (S, k_tiles, rows, N) int8 or float32 (planes carrying cell
+            variation), or nibble-packed uint8 (S, k_tiles, rows // 2, N)
+            in ``nibble_groups`` half-split blocks
     s_p     (S, k_tiles, N) ADC scales
     deq     (S, k_tiles, N) fused dequant scales
     occ     optional (S, k_tiles, N) uint8 occupancy map of the planes
     """
-    nibble = digits.dtype == torch.uint8
     if a_t.device.type == "cpu":
-        d = unpack_nibbles(digits, groups=nibble_groups) if nibble else digits
-        return ref.cim_matmul_ref(a_t, d, s_p, deq, psum_bits=psum_bits,
+        return ref.cim_matmul_ref(a_t, logical_digits(digits, nibble_groups),
+                                  s_p, deq, psum_bits=psum_bits,
                                   psum_quant=psum_quant)
-    if a_t.device.type != "cuda":
-        raise ValueError(f"cim_matmul_cuda: unsupported device {a_t.device}")
-    if digits.dtype not in (torch.int8, torch.uint8):
-        raise NotImplementedError(
-            f"cim_matmul_cuda: digit planes of dtype {digits.dtype} (float "
-            "planes carry cell variation, which is not ported yet)")
-    if a_t.dtype not in (torch.int8, torch.uint8):
-        raise TypeError(f"cim_matmul_cuda: activation codes must be int8 or "
-                        f"uint8, got {a_t.dtype}")
-    m, k_tiles, rows = a_t.shape
-    n_split, kt_d, rows_d, n = digits.shape
-    if kt_d != k_tiles or rows_d != (rows // 2 if nibble else rows):
-        raise ValueError(f"cim_matmul_cuda: planes {tuple(digits.shape)} do "
-                         f"not match activations {tuple(a_t.shape)}")
-    cols = (n_split, k_tiles, n)
-    for nm, v in (("s_p", s_p), ("deq", deq)) + ((("occ", occ),) if occ is
-                                                  not None else ()):
-        if tuple(v.shape) != cols:
-            raise ValueError(f"cim_matmul_cuda: {nm} has shape "
-                             f"{tuple(v.shape)}, expected {cols}")
-    if not (a_t.is_contiguous() and digits.is_contiguous()):
-        raise ValueError("cim_matmul_cuda: a_t and digits must be contiguous")
-    dev = a_t.device
-    if digits.device != dev:
-        raise ValueError("cim_matmul_cuda: operands on different devices")
-    s_p = s_p.to(device=dev, dtype=torch.float32).contiguous()
-    deq = deq.to(device=dev, dtype=torch.float32).contiguous()
-    if occ is not None:
-        occ = occ.to(device=dev, dtype=torch.uint8).contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if m == 0:
-        return out
+    op = kernel_operands("cim_matmul_cuda", a_t, digits, occ, s_p=s_p,
+                         deq=deq)
+    if op.m == 0:
+        return op.out
     lib = _build.load("cim_matmul")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(a_t.device):
         rc = lib.cim_matmul_launch(
             a_t.data_ptr(), digits.data_ptr(),
-            occ.data_ptr() if occ is not None else None,
-            s_p.data_ptr(), deq.data_ptr(), out.data_ptr(),
-            m, k_tiles, rows, n_split, n, nibble_groups,
-            int(a_t.dtype == torch.uint8), int(nibble), psum_bits,
-            int(psum_quant), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cim_matmul kernel launch failed: "
-                           f"{lib.cim_matmul_error_string(rc).decode()}")
+            op.occ.data_ptr() if op.occ is not None else None,
+            op.cols["s_p"].data_ptr(), op.cols["deq"].data_ptr(),
+            op.out.data_ptr(), *op.common_args(nibble_groups), psum_bits,
+            int(psum_quant), torch.cuda.current_stream(a_t.device).cuda_stream)
+    raise_on_error(lib, rc, "cim_matmul")
     cim_matmul_cuda.launches += 1
-    return out
+    cim_matmul_cuda.float_launches += int(digits.dtype == torch.float32)
+    return op.out
 
 
 cim_matmul_cuda.launches = 0
+cim_matmul_cuda.float_launches = 0

@@ -4,41 +4,56 @@ single-device branches of ``repro.kernels.ops``).
 ``use_kernel=True`` goes to the kernel wrappers, which launch the CUDA
 kernel for a CUDA tensor (or raise) and run the plain version for a CPU
 tensor. ``use_kernel=False`` runs the plain version (``kernels.ref``) on
-whatever device the tensors are on. The mesh, telemetry, ADC-free and
-variation branches of the reference come with later slices.
+whatever device the tensors are on. ``adc_free=True`` takes the ADC-free
+kernels (no ADC, no s_p).
+
+Cell variation (``variation`` = a theta tensor or a ``Sampler``, with
+``variation_std``) perturbs the planes here, before dispatch: nibble
+planes are unpacked first (``groups = kh*kw`` for conv), the noise is
+drawn over the logical packed layout (6-D for conv), and the kernel gets
+float32 logical planes with the clean occupancy map, which multiplicative
+noise leaves valid.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.nibble import unpack_nibbles
+from repro_torch.core.variation import perturb_digits, variation_wanted
 
 from . import ref
+from .cim_adc_free import cim_conv_adc_free_cuda, cim_matmul_adc_free_cuda
 from .cim_conv import cim_conv_cuda
-from .cim_matmul import cim_matmul_cuda
+from .cim_matmul import cim_matmul_cuda, logical_digits
 
 
 def cim_matmul(a_t: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
                deq: torch.Tensor, *, psum_bits: int, psum_quant: bool = True,
-               use_kernel: bool = True,
-               occ: torch.Tensor | None = None) -> torch.Tensor:
+               use_kernel: bool = True, occ: torch.Tensor | None = None,
+               variation=None, variation_std=None,
+               adc_free: bool = False) -> torch.Tensor:
     """CIM matmul over pre-tiled inputs.
 
     a_t (..., k_tiles, rows) integer codes; digits (S, k_tiles, rows, N)
-    int8 or nibble uint8 (S, k_tiles, rows // 2, N); s_p, deq (S, k_tiles,
-    N); occ optional (S, k_tiles, N) occupancy map (the plain version
-    ignores it: the sparse kernel is bit-exact with the dense arithmetic).
-    Returns (..., N) float32."""
+    int8, float32 or nibble uint8 (S, k_tiles, rows // 2, N); s_p, deq
+    (S, k_tiles, N) (s_p is not read when ``adc_free``); occ optional
+    (S, k_tiles, N) occupancy map (the plain version ignores it: the
+    sparse kernel is bit-exact with the dense arithmetic). Returns (...,
+    N) float32."""
     batch_shape = tuple(a_t.shape[:-2])
     a2 = a_t.reshape((-1,) + tuple(a_t.shape[-2:]))
-    if use_kernel:
+    if variation_wanted(variation, variation_std):
+        digits = perturb_digits(logical_digits(digits), variation,
+                                variation_std)
+    if use_kernel and adc_free:
+        out = cim_matmul_adc_free_cuda(a2, digits, deq, occ)
+    elif use_kernel:
         out = cim_matmul_cuda(a2, digits, s_p, deq, occ, psum_bits=psum_bits,
                               psum_quant=psum_quant)
+    elif adc_free:
+        out = ref.cim_matmul_adc_free_ref(a2, logical_digits(digits), deq)
     else:
-        if digits.dtype == torch.uint8:
-            digits = unpack_nibbles(digits)
-        out = ref.cim_matmul_ref(a2, digits, s_p, deq, psum_bits=psum_bits,
-                                 psum_quant=psum_quant)
+        out = ref.cim_matmul_ref(a2, logical_digits(digits), s_p, deq,
+                                 psum_bits=psum_bits, psum_quant=psum_quant)
     return out.reshape(batch_shape + (digits.shape[-1],))
 
 
@@ -46,18 +61,27 @@ def cim_conv(a_int: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
              deq: torch.Tensor, *, kh: int, kw: int, stride: int = 1,
              padding="SAME", c_per_array: int, psum_bits: int,
              psum_quant: bool = True, use_kernel: bool = True,
-             occ: torch.Tensor | None = None) -> torch.Tensor:
+             occ: torch.Tensor | None = None, variation=None,
+             variation_std=None, adc_free: bool = False) -> torch.Tensor:
     """CIM conv over activation codes (B, H, W, C_in) and packed conv planes
-    (S, k_tiles, kh*kw*c_per_array, C_out), or their nibble form with each
-    tap its own packed block. Returns (B, H', W', C_out) float32."""
+    (S, k_tiles, kh*kw*c_per_array, C_out), int8 or float32, or their
+    nibble form with each tap its own packed block. Returns (B, H', W',
+    C_out) float32."""
+    groups = kh * kw
+    if variation_wanted(variation, variation_std):
+        n_split, k_tiles, _, c_out = digits.shape
+        digits = perturb_digits(
+            logical_digits(digits, groups), variation, variation_std,
+            shape=(n_split, k_tiles, kh, kw, c_per_array, c_out))
+    geo = dict(kh=kh, kw=kw, stride=stride, padding=padding,
+               c_per_array=c_per_array)
+    if use_kernel and adc_free:
+        return cim_conv_adc_free_cuda(a_int, digits, deq, occ, **geo)
     if use_kernel:
-        return cim_conv_cuda(a_int, digits, s_p, deq, occ, kh=kh, kw=kw,
-                             stride=stride, padding=padding,
-                             c_per_array=c_per_array, psum_bits=psum_bits,
-                             psum_quant=psum_quant)
-    if digits.dtype == torch.uint8:
-        digits = unpack_nibbles(digits, groups=kh * kw)
-    return ref.cim_conv_ref(a_int, digits, s_p, deq, kh=kh, kw=kw,
-                            stride=stride, padding=padding,
-                            c_per_array=c_per_array, psum_bits=psum_bits,
-                            psum_quant=psum_quant)
+        return cim_conv_cuda(a_int, digits, s_p, deq, occ, psum_bits=psum_bits,
+                             psum_quant=psum_quant, **geo)
+    if adc_free:
+        return ref.cim_conv_adc_free_ref(a_int, logical_digits(digits, groups),
+                                         deq, **geo)
+    return ref.cim_conv_ref(a_int, logical_digits(digits, groups), s_p, deq,
+                            psum_bits=psum_bits, psum_quant=psum_quant, **geo)

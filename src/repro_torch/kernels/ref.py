@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the CIM kernels (counterpart of
 ``repro.kernels.ref``).
 
-They define the arithmetic the CUDA kernel in ``csrc/cim_matmul.cu`` must
-reproduce, run on the CPU and on the card, and are what the wrappers use
-for CPU tensors. The shift-and-add accumulates in the kernel's order
-(array tile outer, split inner, one rounded multiply and one rounded add
-per term), so the kernel and this version agree bit for bit.
+They define the arithmetic the CUDA kernels in ``csrc/cim_matmul.cu``
+must reproduce (with the ADC, and ADC-free), run on the CPU and on the
+card, and are what the wrappers use for CPU tensors. The shift-and-add
+accumulates in the kernel's order (array tile outer, split inner, one
+rounded multiply and one rounded add per term), so the kernel and this
+version agree bit for bit.
 """
 from __future__ import annotations
 
@@ -49,14 +50,36 @@ def cim_matmul_ref(a_t: torch.Tensor, digits: torch.Tensor,
     column partial sum, fused dequant, shift-and-add.
 
     a_t (M, k_tiles, rows) integer codes; digits (S, k_tiles, rows, N)
-    logical (un-nibbled) digits; s_p, deq (S, k_tiles, N). Returns (M, N)
-    float32. The MACs run in float64, exact for any integer partial sum
-    below 2^53 whatever TF32 setting is active."""
-    psum = torch.einsum("mtr,strn->mstn", a_t.to(torch.float64),
-                        digits.to(torch.float64)).to(torch.float32)
+    logical (un-nibbled) digits, integer or float32 (planes carrying cell
+    variation); s_p, deq (S, k_tiles, N). Returns (M, N) float32.
+
+    The MACs run in float64 whatever TF32 setting is active, then round
+    once to float32. For integer digits the sums are exact. For float32
+    digits each code x digit product is exact in float64 and so, for the
+    code and digit ranges of a CIM array, is their sum; so float digits
+    need no other arithmetic, and the kernel's float64 accumulation
+    matches this bit for bit."""
+    psum = _psum(a_t, digits)
     if psum_quant:
         psum = adc_quantize_ref(psum, s_p.to(torch.float32)[None], psum_bits)
     return shift_add(psum, deq.to(torch.float32))
+
+
+def cim_matmul_adc_free_ref(a_t: torch.Tensor, digits: torch.Tensor,
+                            deq: torch.Tensor) -> torch.Tensor:
+    """ADC-free CIM matmul: the partial sums leave the array exact and are
+    accumulated digitally, so there is no ADC stage and no s_p operand:
+    ``out = sum_t sum_s round(psum) * deq`` in the port's shift-and-add
+    order (t outer, s inner), float64 MACs as in ``cim_matmul_ref``.
+    On integer digits ``round`` is the identity, so this equals
+    ``cim_matmul_ref`` with ``psum_quant=False`` bit for bit."""
+    return shift_add(torch.round(_psum(a_t, digits)), deq.to(torch.float32))
+
+
+def _psum(a_t: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """(M, S, kt, N) float32 partial sums from float64 MACs."""
+    return torch.einsum("mtr,strn->mstn", a_t.to(torch.float64),
+                        digits.to(torch.float64)).to(torch.float32)
 
 
 def conv_pads(h: int, w: int, kh: int, kw: int, stride: int, padding):
@@ -108,11 +131,30 @@ def cim_conv_ref(a_int: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
     """CIM conv: stretched-kernel patches, then ``cim_matmul_ref`` per output
     position. digits (S, k_tiles, kh*kw*cpa, C_out) logical. Returns
     (B, H', W', C_out) float32."""
+    return conv_as_matmul(
+        a_int, digits, kh, kw, stride, padding, c_per_array,
+        lambda a2: cim_matmul_ref(a2, digits, s_p, deq, psum_bits=psum_bits,
+                                  psum_quant=psum_quant))
+
+
+def cim_conv_adc_free_ref(a_int: torch.Tensor, digits: torch.Tensor,
+                          deq: torch.Tensor, *, kh: int, kw: int, stride: int,
+                          padding, c_per_array: int) -> torch.Tensor:
+    """ADC-free CIM conv: the same patches, then ``cim_matmul_adc_free_ref``.
+    Returns (B, H', W', C_out) float32."""
+    return conv_as_matmul(
+        a_int, digits, kh, kw, stride, padding, c_per_array,
+        lambda a2: cim_matmul_adc_free_ref(a2, digits, deq))
+
+
+def conv_as_matmul(a_int, digits, kh, kw, stride, padding, c_per_array,
+                   matmul):
+    """Stretched-kernel patches flattened to M = B*H'*W' rows, through
+    ``matmul``, back to (B, H', W', C_out). ``digits`` may be logical or
+    nibble planes: only its k_tiles and C_out are read."""
     k_tiles = digits.shape[1]
     a_t = extract_conv_patches(a_int, kh, kw, stride, padding, k_tiles,
                                c_per_array)
     b, ho, wo = a_t.shape[:3]
-    out = cim_matmul_ref(a_t.reshape(b * ho * wo, k_tiles, a_t.shape[-1]),
-                         digits, s_p, deq, psum_bits=psum_bits,
-                         psum_quant=psum_quant)
+    out = matmul(a_t.reshape(b * ho * wo, k_tiles, a_t.shape[-1]))
     return out.reshape(b, ho, wo, digits.shape[-1])

@@ -16,6 +16,7 @@ import torch
 from repro_torch import resolve_device, to_device
 from repro_torch.core.cim_conv import _calibrate_conv, _conv_forward, _init_conv
 from repro_torch.core.cim_linear import CIMConfig
+from repro_torch.core.variation import Sampler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,18 +112,46 @@ def conv_layer_names(cfg: ResNetConfig) -> Tuple[Tuple[str, int], ...]:
     return tuple(out)
 
 
+def layer_variation(variation, name: str):
+    """The variation of the CIM conv ``name``: its own sampler
+    (``Sampler.for_layer``), its entry of a {layer name: theta} dict, or
+    None."""
+    if variation is None:
+        return None
+    if isinstance(variation, Sampler):
+        return variation.for_layer(name)
+    return variation.get(name)
+
+
 def forward(params: Dict, state: Dict, x, cfg: ResNetConfig, *, train: bool,
-            return_taps: bool = False, device=None):
+            variation=None, variation_std=None, return_taps: bool = False,
+            device=None):
     """x (B, H, W, 3) -> (logits, new_bn_state) on ``device`` (``cuda``
     unless ``"cpu"``). ``params`` may be trainable or packed
     (``api.pack_model``), as ``cfg.cim.mode`` requires. With
-    ``return_taps=True`` also returns {layer name: conv input}."""
+    ``return_taps=True`` also returns {layer name: conv input}.
+
+    ``variation`` evaluates one cell-noise realization: a ``Sampler``
+    (each CIM conv draws its own field, ``Sampler.for_layer``) or a dict
+    {layer name: theta over that layer's 6-D logical packed shape}, keyed
+    by ``conv_layer_names`` (the counterpart of the reference's
+    ``variation_keys``). Sigma is ``variation_std``, else
+    ``cfg.cim.variation_std``."""
     dev = resolve_device(device)
     params, state = to_device(params, dev), to_device(state, dev)
     x = torch.as_tensor(x, device=dev)
     new_state: Dict = {}
     taps: Dict[str, torch.Tensor] = {}
     fp = cfg.cim.replace(enabled=False)
+
+    def cim_conv(inp, block, layer, stride=1):
+        return _conv_forward(inp, params[block][layer], cfg.cim,
+                             stride=stride,
+                             variation=layer_variation(variation,
+                                                       f"{block}.{layer}"),
+                             variation_std=variation_std,
+                             compute_dtype=torch.float32)
+
     h = _conv_forward(x, params["stem"], fp, compute_dtype=torch.float32)
     h, new_state["stem_bn"] = _bn_apply(params["stem_bn"], state["stem_bn"],
                                         h, train, cfg.bn_momentum)
@@ -132,21 +161,19 @@ def forward(params: Dict, state: Dict, x, cfg: ResNetConfig, *, train: bool,
         nst: Dict = {}
         if return_taps:
             taps[f"{name}.conv1"] = h
-        y = _conv_forward(h, blk["conv1"], cfg.cim, stride=stride,
-                          compute_dtype=torch.float32)
+        y = cim_conv(h, name, "conv1", stride)
         y, nst["bn1"] = _bn_apply(blk["bn1"], bst["bn1"], y, train,
                                   cfg.bn_momentum)
         y = torch.relu(y)
         if return_taps:
             taps[f"{name}.conv2"] = y
-        y = _conv_forward(y, blk["conv2"], cfg.cim, compute_dtype=torch.float32)
+        y = cim_conv(y, name, "conv2")
         y, nst["bn2"] = _bn_apply(blk["bn2"], bst["bn2"], y, train,
                                   cfg.bn_momentum)
         if "proj" in blk:
             if return_taps:
                 taps[f"{name}.proj"] = h
-            sc = _conv_forward(h, blk["proj"], cfg.cim, stride=stride,
-                               compute_dtype=torch.float32)
+            sc = cim_conv(h, name, "proj", stride)
             sc, nst["bn_p"] = _bn_apply(blk["bn_p"], bst["bn_p"], sc, train,
                                         cfg.bn_momentum)
         else:

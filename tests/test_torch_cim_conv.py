@@ -173,6 +173,9 @@ def test_deploy_operands_reject_planes_of_another_geometry():
     assert (op["kh"], op["kw"], op["c_per_array"]) == (3, 3, 7)
     with pytest.raises(ValueError, match="different geometry"):
         conv_deploy_operands(torch.zeros((1, 8, 8, 30)), packed, tc)
-    with pytest.raises(NotImplementedError, match="variation"):
-        conv_deploy_operands(torch.from_numpy(x), packed,
-                             tc.replace(variation_std=0.1))
+    # the operands stay clean under variation: the planes are perturbed at
+    # dispatch (kernels/ops.cim_conv)
+    noisy = conv_deploy_operands(torch.from_numpy(x), packed,
+                                 tc.replace(variation_std=0.1))
+    assert torch.equal(noisy["digits"], op["digits"])
+    assert noisy["digits"].dtype == packed["w_digits"].dtype

@@ -198,7 +198,8 @@ def test_cim_config_validation_matches_reference():
     assert TCIMConfig(pack_dtype="int4", cell_bits=3).store_dtype() == tnib.INT4
     assert TCIMConfig(pack_dtype="int4", cell_bits=4).store_dtype() == torch.int8
     assert TCIMConfig(pack_dtype="int8").store_dtype() == torch.int8
-    assert set(tapi.registered_backends()) == {"off", "emulate", "deploy", "ref"}
+    assert set(tapi.registered_backends()) == {"off", "emulate", "deploy", "ref",
+                                               "adc_free", "binary"}
     with pytest.raises(ValueError):
         tapi.register_backend(tapi.get_backend("deploy"))
 
@@ -215,6 +216,25 @@ def test_deploy_act_codes_exact(bits, signed, dtype):
     assert got.dtype == dtype
     np.testing.assert_array_equal(got.numpy().astype(np.int32),
                                   ref.astype(np.int32))
+
+
+@pytest.mark.parametrize("bits,signed", [(3, False), (8, True), (8, False)])
+def test_emulate_act_codes_are_the_deploy_codes(bits, signed):
+    """Emulate's codes are the deploy codes exactly (fake-quant / s_a can
+    land an ulp off the integer), and the snap onto the grid is
+    straight-through: the gradient is ``lsq_fake_quant``'s own."""
+    from repro_torch.core.cim_linear import _quantize_act
+    _, tc = _cfgs(act_bits=bits, act_signed=signed)
+    x = _t((np.random.RandomState(bits).randn(50, 40) * 40).astype(np.float32))
+    x.requires_grad_(True)
+    s_a = _t(np.asarray([0.37], np.float32))
+    a, _ = _quantize_act(x, {"s_a": s_a}, tc)
+    codes = t_deploy_act_codes(x.detach(), s_a, tc).to(torch.float32)
+    assert torch.equal(a.detach(), codes)
+    (got,) = torch.autograd.grad(a.sum(), x)
+    (want,) = torch.autograd.grad(
+        (tq.lsq_fake_quant(x, s_a, bits, signed=signed) / s_a).sum(), x)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("gran", ["column", "array", "layer"])

@@ -1,13 +1,17 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the CIM matmul/conv kernel with the ADC, the ADC-free matmul/conv,
+and both on float32 digit planes that carry cell variation.
 
 Skips where there is no CUDA device. Imports no JAX, so it also runs on
 a machine that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-The kernel and ``kernels/ref.py`` add the same float32 terms in the same
-order with the same roundings, so they must agree bit for bit; within
-the port, deploy is bit-identical with emulate on the card as well.
+Each kernel and ``kernels/ref.py`` add the same float32 terms in the same
+order with the same roundings (float-digit partial sums are exact in
+float64 on both sides), so they must agree bit for bit; within the port,
+deploy is bit-identical with emulate on the card as well, and adc_free
+with emulate at ``psum_quant=False``.
 """
 import dataclasses
 
@@ -17,7 +21,10 @@ import torch
 from repro_torch import api
 from repro_torch.core.cim_linear import CIMConfig
 from repro_torch.core.nibble import occupancy_map, pack_nibbles, unpack_nibbles
+from repro_torch.core.variation import Sampler
 from repro_torch.kernels import ref
+from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
+                                              cim_matmul_adc_free_cuda)
 from repro_torch.kernels.cim_conv import cim_conv_cuda
 from repro_torch.kernels.cim_matmul import cim_matmul_cuda
 from repro_torch.models import resnet
@@ -96,17 +103,99 @@ def test_cim_conv_bit_exact_with_plain(kh, stride, padding, nibble):
     assert torch.equal(got, want)
 
 
+def _noisy(d, seed):
+    """float32 planes carrying one cell-variation realization (sigma 0.3)."""
+    theta = torch.randn(d.shape, generator=torch.Generator().manual_seed(seed))
+    return (d.float().cpu() * torch.exp(0.3 * theta)).to(d.device)
+
+
+@pytest.mark.parametrize("variant,unsigned", [
+    ("dense", False), ("occ", True), ("nibble+occ", False), ("nibble", True),
+    ("float", False), ("float+occ", True)])
+@pytest.mark.parametrize("n", [16, 20, 64, 130])
+def test_cim_matmul_adc_free_bit_exact_with_plain(variant, unsigned, n):
+    nibble, sparse = "nibble" in variant, "occ" in variant
+    groups = 2 if nibble else 1
+    a, d, packed, _, deq, occ = _case(n + 1, m=301, kt=2, n=n,
+                                      rows=124 if nibble else 126,
+                                      unsigned=unsigned, groups=groups)
+    digits = packed if nibble else d
+    if "float" in variant:
+        digits = d = _noisy(d, n)
+    before = cim_matmul_adc_free_cuda.launches
+    got = cim_matmul_adc_free_cuda(a, digits, deq, occ if sparse else None,
+                                   nibble_groups=groups)
+    torch.cuda.synchronize()
+    assert cim_matmul_adc_free_cuda.launches == before + 1
+    assert torch.equal(got, ref.cim_matmul_adc_free_ref(a, d, deq))
+
+
+@pytest.mark.parametrize("psum_bits,psum_quant,sparse", [
+    (4, True, False), (1, True, True), (8, True, True), (4, False, False)])
+def test_cim_matmul_float_planes_bit_exact_with_plain(psum_bits, psum_quant,
+                                                      sparse):
+    a, d, _, s_p, deq, occ = _case(psum_bits, m=517, kt=3, n=40, rows=126)
+    noisy = _noisy(d, psum_bits)
+    before = cim_matmul_cuda.float_launches
+    got = cim_matmul_cuda(a, noisy, s_p, deq, occ if sparse else None,
+                          psum_bits=psum_bits, psum_quant=psum_quant)
+    torch.cuda.synchronize()
+    assert cim_matmul_cuda.float_launches == before + 1
+    want = ref.cim_matmul_ref(a, noisy, s_p, deq, psum_bits=psum_bits,
+                              psum_quant=psum_quant)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kh,stride,padding,planes", [
+    (3, 1, "SAME", "nibble"), (3, 2, "SAME", "float"), (1, 2, "SAME", "int8"),
+    (3, 2, "VALID", "float"), (1, 1, "VALID", "nibble")])
+def test_cim_conv_adc_free_and_float_planes_bit_exact_with_plain(
+        kh, stride, padding, planes):
+    g = torch.Generator().manual_seed(kh * 100 + stride)
+    cpa, kt, s, c_in, c_out = 14, 3, 3, 40, 32
+    a = torch.randint(0, 8, (4, 16, 16, c_in), generator=g, dtype=torch.int8)
+    d6 = torch.randint(-1, 2, (s, kt, kh, kh, cpa, c_out), generator=g,
+                       dtype=torch.int8)
+    d6[:, -1, :, :, c_in - (kt - 1) * cpa:] = 0     # padded channel slots
+    d6[..., 5:9] = 0                                 # dead output channels
+    occ = occupancy_map(d6, conv=True)
+    rows = kh * kh * cpa
+    logical = d6.reshape(s, kt, rows, c_out)
+    digits = logical
+    if planes == "nibble":
+        digits = pack_nibbles(d6).reshape(s, kt, rows // 2, c_out)
+    elif planes == "float":
+        digits = logical = _noisy(logical, kh)
+    s_p = 0.5 + torch.rand((s, kt, c_out), generator=g) * 20
+    deq = torch.randn((s, kt, c_out), generator=g) * 0.1
+    a, digits, logical, s_p, deq, occ = (x.cuda() for x in (
+        a, digits, logical, s_p, deq, occ))
+    geo = dict(kh=kh, kw=kh, stride=stride, padding=padding, c_per_array=cpa)
+    before = cim_conv_adc_free_cuda.launches
+    got = cim_conv_adc_free_cuda(a, digits, deq, occ, **geo)
+    assert cim_conv_adc_free_cuda.launches == before + 1
+    assert torch.equal(got, ref.cim_conv_adc_free_ref(a, logical, deq, **geo))
+    if planes == "float":
+        got = cim_conv_cuda(a, digits, s_p, deq, occ, psum_bits=4, **geo)
+        want = ref.cim_conv_ref(a, logical, s_p, deq, psum_bits=4, **geo)
+        assert torch.equal(got, want)
+
+
 def test_wrapper_raises_on_what_the_kernel_does_not_take():
     a, d, _, s_p, deq, _ = _case(2, m=8, kt=1, rows=16, n=8)
-    with pytest.raises(NotImplementedError):          # variation planes
-        cim_matmul_cuda(a, d.float(), s_p, deq, psum_bits=4)
+    with pytest.raises(TypeError):                    # float64 planes
+        cim_matmul_cuda(a, d.double(), s_p, deq, psum_bits=4)
     with pytest.raises(TypeError):                    # float activations
         cim_matmul_cuda(a.float(), d, s_p, deq, psum_bits=4)
     with pytest.raises(ValueError):                   # planes left on the CPU
         cim_matmul_cuda(a, d.cpu(), s_p, deq, psum_bits=4)
+    with pytest.raises(TypeError):
+        cim_matmul_adc_free_cuda(a, d.half(), deq)
+    with pytest.raises(ValueError):                   # deq of the wrong shape
+        cim_matmul_adc_free_cuda(a, d, deq[:, :, :4])
 
 
-def test_resnet_deploy_bit_exact_with_emulate_on_the_card():
+def _small_resnet20():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cim = CIMConfig(enabled=True, mode="emulate", weight_bits=3, cell_bits=1,
@@ -117,11 +206,41 @@ def test_resnet_deploy_bit_exact_with_emulate_on_the_card():
     params, state = resnet.init(0, cfg)
     x = torch.randn((8, 16, 16, 3), generator=torch.Generator().manual_seed(1))
     params = resnet.calibrate(params, state, x, cfg)
+    return cfg, cim, params, state, x, api.pack_model(params, cim)
+
+
+def test_resnet_deploy_bit_exact_with_emulate_on_the_card():
+    cfg, cim, params, state, x, packed = _small_resnet20()
     y_e, _ = resnet.forward(params, state, x, cfg, train=False)
-    packed = api.pack_model(params, cim)
     dcfg = dataclasses.replace(cfg, cim=cim.replace(mode="deploy"))
     before = cim_conv_cuda.launches
     y_d, _ = resnet.forward(packed, state, x, dcfg, train=False)
     assert cim_conv_cuda.launches == before + 20
     assert y_d.is_cuda and torch.isfinite(y_d).all()
     assert torch.equal(y_d, y_e)
+
+
+def test_resnet_adc_free_equals_emulate_without_psum_quant_on_the_card():
+    cfg, cim, params, state, x, packed = _small_resnet20()
+    ecfg = dataclasses.replace(cfg, cim=cim.replace(psum_quant=False))
+    y_e, _ = resnet.forward(params, state, x, ecfg, train=False)
+    acfg = dataclasses.replace(cfg, cim=cim.replace(mode="adc_free"))
+    before = (cim_conv_adc_free_cuda.launches, cim_conv_cuda.launches)
+    y_a, _ = resnet.forward(packed, state, x, acfg, train=False)
+    assert (cim_conv_adc_free_cuda.launches, cim_conv_cuda.launches) == (
+        before[0] + 20, before[1])
+    assert y_a.is_cuda and torch.isfinite(y_a).all()
+    torch.testing.assert_close(y_a, y_e, rtol=1e-4, atol=1e-4)
+
+
+def test_resnet_varied_deploy_equals_emulate_on_the_card():
+    cfg, cim, params, state, x, packed = _small_resnet20()
+    kw = dict(train=False, variation=Sampler(3), variation_std=0.3)
+    y_e, _ = resnet.forward(params, state, x, cfg, **kw)
+    dcfg = dataclasses.replace(cfg, cim=cim.replace(mode="deploy"))
+    before = cim_conv_cuda.float_launches
+    y_d, _ = resnet.forward(packed, state, x, dcfg, **kw)
+    assert cim_conv_cuda.float_launches == before + 20
+    torch.testing.assert_close(y_d, y_e, rtol=1e-4, atol=1e-4)
+    clean, _ = resnet.forward(packed, state, x, dcfg, train=False)
+    assert not torch.equal(y_d, clean)
