@@ -42,7 +42,24 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    deploy and one sigma = 0.2 point on adc_free and on binary; the
    per-layer attribution at sigma 0.3; the float-digit conv timed at the
    path's shapes;
-9. a JSON line per kernel, the card's name and power limit, and the
+9. the CIM experts kernel (every expert of an MoE bank in one launch)
+   against its plain version: E in {1, 8, 64}, an expert whose capacity
+   buffer is all zero rows, ragged C and N, nibble banks, occupancy maps,
+   psum_bits 1/4/6/8, psum_quant off, int8 and uint8 codes; and against
+   a per-expert loop of the CIM matmul kernel;
+10. the MoE serving path: moonshot-v1-16b-a3b at its published widths
+   (d_model 2048, 16 heads of 128, 64 experts top-6 of d_ff 1408, 2
+   shared, vocab 163840), depth cut from 48 to 4 layers (1 dense + 3
+   MoE), random weights from seed 0, packed with the serving launcher's
+   CIM config (4-bit weights on 2-bit cells, 8-bit activations, 6-bit
+   partial sums, 128x128 arrays, column-wise scales) at int8 and int4,
+   served in bfloat16: one prefill forward (batch 8 x 64 tokens) on
+   deploy against emulate, ``generate_batch`` of 16 new tokens and the
+   slot engine on 3 requests at batch 2, deploy tokens against emulate
+   tokens; the launch counters (9 experts-kernel and 28 matmul-kernel
+   launches per forward); prefill and decode times; both kernels timed at
+   the operands of one prefill forward and one decode step;
+11. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Tolerances: each kernel and its plain version add the same float32 terms
@@ -50,13 +67,16 @@ in the same order with the same roundings (float-digit partial sums are
 exact in float64 on both sides), so they are expected to agree bit for
 bit; the gate is rtol 1e-5 / atol 1e-4, the reference's own
 kernel-vs-oracle tolerance. Deploy against emulate is gated at 1e-4 as in
-``tests/test_cim_conv_deploy.py``. The weights are random, so the
+``tests/test_cim_conv_deploy.py`` (the transformer's logits at 1e-4 of
+their largest magnitude); 0.0 is expected, and served tokens must be
+identical. The weights are random, so the
 accuracies printed in phase 8 mean nothing; the logit error is what the
 sweep checks.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -126,7 +146,8 @@ def main() -> int:
     n_cases = phase3b_new_kernel_cases(torch, dev, errs)
     print(f"phase 3b ADC-free and float-digit kernels vs plain: {n_cases} "
           f"cases pass; max |kernel - plain| "
-          + ", ".join(f"{k} {errs[k]!r}" for k in KERNELS), flush=True)
+          + ", ".join(f"{k} {errs[k]!r}" for k in list(KERNELS)[:5]),
+          flush=True)
 
     # 4. the main path: packed ResNet-20 inference
     timings, model = phase4_resnet20(torch, dev, errs)
@@ -138,8 +159,19 @@ def main() -> int:
     timings.update(phase6_adc_free(torch, model, errs))
     phase7_binary(torch, model)
     timings.update(phase8_variation(torch, model, errs))
+    del model                          # free the ResNet phases' tensors
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 9. results
+    # 9. the CIM experts kernel against its plain version
+    n_cases = phase9_experts_cases(torch, dev, errs)
+    print(f"phase 9 experts kernel vs plain: {n_cases} cases pass; max "
+          f"|kernel - plain| {errs['cim_matmul_experts']!r}", flush=True)
+
+    # 10. the MoE serving path at full width
+    timings.update(phase10_moe_serving(torch, errs, moe_config()))
+
+    # 11. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -167,6 +199,11 @@ KERNELS = {
     "cim_conv_adc_free": (CUDA_SOURCE, "src/repro/kernels/cim_adc_free.py:180"),
     # the conv kernel on float32 planes that carry cell variation
     "cim_conv_variation": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
+    # the matmul kernel at the MoE transformer's shapes (attention, dense
+    # MLP and shared-expert linears)
+    "cim_matmul_transformer": (CUDA_SOURCE,
+                               "src/repro/kernels/cim_matmul.py:160"),
+    "cim_matmul_experts": (CUDA_SOURCE, "src/repro/kernels/cim_matmul.py:269"),
 }
 
 
@@ -175,23 +212,26 @@ def _counted():
     from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
                                                   cim_matmul_adc_free_cuda)
     from repro_torch.kernels.cim_conv import cim_conv_cuda
-    from repro_torch.kernels.cim_matmul import cim_matmul_cuda
+    from repro_torch.kernels.cim_matmul import (cim_matmul_cuda,
+                                                cim_matmul_experts_cuda)
     return {"cim_matmul": cim_matmul_cuda, "cim_conv": cim_conv_cuda,
             "cim_matmul_adc_free": cim_matmul_adc_free_cuda,
-            "cim_conv_adc_free": cim_conv_adc_free_cuda}
+            "cim_conv_adc_free": cim_conv_adc_free_cuda,
+            "cim_matmul_experts": cim_matmul_experts_cuda}
 
 
 def _reset_counters() -> None:
     for fn in _counted().values():
         fn.launches = 0
-        fn.float_launches = 0
+        if hasattr(fn, "float_launches"):
+            fn.float_launches = 0
 
 
 def _read_counters():
     """({wrapper: launches}, {wrapper: launches on float32 planes})."""
     fns = _counted()
     return ({k: fn.launches for k, fn in fns.items()},
-            {k: fn.float_launches for k, fn in fns.items()})
+            {k: getattr(fn, "float_launches", 0) for k, fn in fns.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -979,6 +1019,366 @@ def phase8_variation(torch, model, errs):
           f"{tot['bound_ms']:.5f} ms by {tot['bound_by']} (bytes "
           f"{tot['bytes_ms']:.5f}, FP64 ops {tot['ops_ms']:.5f})", flush=True)
     return {"cim_conv_variation": tot}
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the MoE experts kernel and the MoE serving path
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# (E, C, kt, rows, N, uint8 codes, nibble, occ, psum_bits, psum_quant)
+EXPERTS_CASES = (
+    (1, 64, 16, 128, 1408, False, False, False, 4, True),
+    (8, 61, 16, 128, 1408, False, True, True, 6, True),
+    (64, 48, 16, 128, 1408, True, True, True, 6, True),
+    (64, 61, 11, 128, 2048, False, False, True, 1, True),
+    (8, 5, 2, 126, 17, True, False, True, 8, True),
+    (8, 33, 3, 128, 100, False, True, False, 4, False),
+    (64, 7, 2, 64, 130, False, True, True, 8, True))
+
+
+def _experts_operands(torch, g, e, c, kt, rows, n, uns):
+    """An MoE bank: codes (E, C, kt, rows) with expert 0's capacity buffer
+    all zero rows, S = 2 planes with dead columns and a dead (split, tile)
+    on expert 1: (a, logical d, nibble d, occ, s_p, deq)."""
+    from repro_torch.core.nibble import occupancy_map, pack_nibbles
+    if uns:
+        a = torch.randint(0, 256, (e, c, kt, rows), generator=g,
+                          dtype=torch.uint8)
+    else:
+        a = torch.randint(-128, 128, (e, c, kt, rows), generator=g,
+                          dtype=torch.int8)
+    a[0] = 0
+    d = torch.randint(-3, 4, (e, 2, kt, rows, n), generator=g,
+                      dtype=torch.int8)
+    d[..., 3:9] = 0
+    if e > 1:
+        d[1, 1, 0] = 0
+    amax = 255 if uns else 128
+    s_p = 0.5 + torch.rand((e, 2, kt, n), generator=g) * amax * rows ** 0.5 / 8
+    deq = torch.randn((e, 2, kt, n), generator=g) * 0.1
+    return a, d, pack_nibbles(d), occupancy_map(d), s_p, deq
+
+
+def phase9_experts_cases(torch, dev, errs) -> int:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_matmul import (cim_matmul_cuda,
+                                                cim_matmul_experts_cuda)
+
+    g = torch.Generator().manual_seed(9)
+    n_cases = 0
+    for e, c, kt, rows, n, uns, nibble, sparse, pb, quant in EXPERTS_CASES:
+        a, d, nib, occ, s_p, deq = (x.to(dev) for x in _experts_operands(
+            torch, g, e, c, kt, rows, n, uns))
+        digits = nib if nibble else d
+        o = occ if sparse else None
+        mq = dict(psum_bits=pb, psum_quant=quant)
+        got = cim_matmul_experts_cuda(a, digits, s_p, deq, o, **mq)
+        want = ref.cim_matmul_experts_ref(a, d, s_p, deq, **mq)
+        loop = torch.stack([cim_matmul_cuda(a[i], digits[i], s_p[i], deq[i],
+                                            None if o is None else o[i], **mq)
+                            for i in range(e)])
+        torch.cuda.synchronize()
+        what = (f"E={e} C={c} kt={kt} rows={rows} N={n} uint8={uns} "
+                f"nibble={nibble} occ={sparse} psum_bits={pb} quant={quant}")
+        _compare(torch, got, want, "cim_matmul_experts", what, errs)
+        check(torch.equal(got, loop), f"cim_matmul_experts {what}: differs "
+              "from a per-expert loop of the matmul kernel")
+        n_cases += 1
+    return n_cases
+
+
+def launcher_cim(**kw):
+    """The serving launcher's CIM config (``src/repro/launch/serve.py``):
+    4-bit weights on 2-bit cells (S = 2), 8-bit signed activations, 6-bit
+    partial sums, 128x128 arrays, column-wise scales."""
+    from repro_torch.core.cim_linear import CIMConfig
+    return CIMConfig(enabled=True, mode="emulate", weight_bits=4, cell_bits=2,
+                     act_bits=8, psum_bits=6, array_rows=128, array_cols=128,
+                     weight_granularity="column", psum_granularity="column",
+                     **kw)
+
+
+def moe_config(reduced: bool = False):
+    """The MoE phase's model and traffic: the published config with its
+    depth cut to 4 layers (1 dense + 3 MoE), batch 8 x 64-token prompts,
+    16 new tokens; the slot engine at batch 2."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(MOE_ARCH, reduced=reduced, cim=launcher_cim())
+    if not reduced:
+        cfg = cfg.replace(n_layers=4)
+    return dict(cfg=cfg, batch=8, prompt_len=64, new_tokens=16, max_len=128,
+                requests=((5, 4), (3, 2), (4, 3)), reps=10)
+
+
+def _slot_run(engine, prompts, requests):
+    rids = [engine.submit(p, max_new_tokens=n)
+            for p, (_, n) in zip(prompts, requests)]
+    done = {}
+    for _ in range(64):
+        for fin in engine.step():
+            done[fin["rid"]] = list(fin["tokens"])
+        if len(done) == len(rids):
+            break
+    return [done.get(r) for r in rids]
+
+
+def _capture_kernel_calls(fn):
+    """Run ``fn`` and return the operands of every CIM matmul and experts
+    kernel call it made through ``kernels.ops``."""
+    import repro_torch.kernels.ops as kops
+    calls = {"cim_matmul_transformer": [], "cim_matmul_experts": []}
+    orig = (kops.cim_matmul_cuda, kops.cim_matmul_experts_cuda)
+
+    def rec(name, f):
+        def wrapped(*a, **kw):
+            calls[name].append((a, kw))
+            return f(*a, **kw)
+        return wrapped
+    kops.cim_matmul_cuda = rec("cim_matmul_transformer", orig[0])
+    kops.cim_matmul_experts_cuda = rec("cim_matmul_experts", orig[1])
+    try:
+        fn()
+    finally:
+        kops.cim_matmul_cuda, kops.cim_matmul_experts_cuda = orig
+    return calls
+
+
+def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int):
+    """(bytes ms, int8 ops ms) of one call, from this run's data. Rows of a
+    code buffer that are all zero (empty capacity slots) need no MACs and
+    no code bytes; an expert with no filled row needs none of its planes.
+    MACs: filled rows x rows per tile x live (split, tile, column) cells
+    of the occupancy map. The output is written whole."""
+    if m_axis == 0:                       # one matrix: add an expert axis
+        a_t, digits, s_p, deq = (x[None] for x in (a_t, digits, s_p, deq))
+        occ = None if occ is None else occ[None]
+    e, c, kt, rows = a_t.shape
+    n = digits.shape[-1]
+    filled = (a_t.reshape(e, c, -1) != 0).any(dim=-1).sum(dim=1)   # (E,)
+    live = (occ.reshape(e, -1).sum(dim=1).to(torch.int64) if occ is not None
+            else torch.full((e,), digits[0].shape[0] * kt * n,
+                            device=a_t.device))
+    used = filled > 0
+    per_expert = (digits[0].numel() * digits.element_size()
+                  + (occ[0].numel() if occ is not None else 0)
+                  + 4 * (s_p[0].numel() + deq[0].numel()))
+    nbytes = (int(used.sum()) * per_expert + int(filled.sum()) * kt * rows
+              + 4 * e * c * n)
+    macs = int((filled * live).sum()) * rows
+    return _bytes_ops_ms(nbytes, macs, INT8_OPS_PER_S)
+
+
+def _time_moe_calls(torch, calls, errs, reps: int):
+    """Each captured call timed (CUDA events) beside its plain version and
+    its bound, summed per kernel over the captured run."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_matmul import (cim_matmul_cuda,
+                                                cim_matmul_experts_cuda,
+                                                logical_digits)
+    per_call = []
+    for name, lst in calls.items():
+        for a, kw in lst:
+            a_t, digits, s_p, deq = a[:4]
+            occ = a[4] if len(a) > 4 else kw.get("occ")
+            mq = dict(psum_bits=kw["psum_bits"],
+                      psum_quant=kw.get("psum_quant", True))
+            logical = logical_digits(digits)
+            if name == "cim_matmul_experts":
+                kern = (lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ:
+                        cim_matmul_experts_cuda(a_t, d, sp, dq, o, **mq))
+                plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq:
+                         ref.cim_matmul_experts_ref(a_t, d, sp, dq, **mq))
+                bound = _moe_bound(torch, a_t, digits, occ, s_p, deq, 1)
+            else:
+                kern = (lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ:
+                        cim_matmul_cuda(a_t, d, sp, dq, o, **mq))
+                plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq:
+                         ref.cim_matmul_ref(a_t, d, sp, dq, **mq))
+                bound = _moe_bound(torch, a_t, digits, occ, s_p, deq, 0)
+            per_call.append(_time_calls(
+                torch, {name: (kern, plain, None, bound)},
+                f"{name} {tuple(a_t.shape)}", errs, reps))
+    return _sum_layers(per_call)
+
+
+def phase10_moe_serving(torch, errs, mc):
+    """The MoE serving path: moonshot-v1-16b-a3b, 4 layers, int8 and int4
+    packs, deploy against emulate, through the serving entry points."""
+    from repro_torch.api import model_artifact
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import ServingEngine, engine_from_artifact
+
+    cfg = mc["cfg"]
+    cim = cfg.cim
+    model = get_model(cfg)
+    b, tp, new, max_len = (mc["batch"], mc["prompt_len"], mc["new_tokens"],
+                           mc["max_len"])
+    n_dense = cfg.moe.n_dense_layers
+    n_moe = cfg.n_layers - n_dense
+    k6_fwd = 3 * n_moe
+    k1_fwd = 7 * n_dense + (4 + 3 * bool(cfg.moe.n_shared)) * n_moe
+    dev = torch.device("cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model.specs(cfg), 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    arts, pack_s = {}, {}
+    for dt in ("int8", "int4"):
+        t0 = time.perf_counter()
+        arts[dt] = model_artifact(params, cim.replace(pack_dtype=dt),
+                                  meta={"arch": MOE_ARCH})
+        torch.cuda.synchronize()
+        pack_s[dt] = time.perf_counter() - t0
+    n_banks = sum(k.endswith("_digits") and v.ndim == 6 for k, v in
+                  arts["int8"].params["moe_layers"]["moe"].items())
+    check(n_banks == 3 and arts["int8"].params["moe_layers"]["moe"][
+        "wg_digits"].shape[:2] == (n_moe, cfg.moe.n_experts),
+          f"MoE banks not packed per (layer, expert): {n_banks} banks")
+    bank_bytes = {dt: sum(v.numel() for k, v in
+                          arts[dt].params["moe_layers"]["moe"].items()
+                          if k.endswith("_digits"))
+                  for dt in arts}
+    print(f"phase 10 {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"of {cfg.resolved_head_dim} (kv {cfg.n_kv_heads}), "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.moe.d_ff} + {cfg.moe.n_shared} shared, dense d_ff "
+          f"{cfg.moe.dense_d_ff}, vocab {cfg.vocab}, {cfg.compute_dtype}; "
+          f"reduced: n_layers 48 -> {cfg.n_layers} ({n_dense} dense + "
+          f"{n_moe} MoE); init {init_s:.2f} s, pack int8 "
+          f"{pack_s['int8']:.2f} s, int4 {pack_s['int4']:.2f} s; expert "
+          f"planes int8 {bank_bytes['int8'] / 1e9:.3f} GB, int4 "
+          f"{bank_bytes['int4'] / 1e9:.3f} GB; max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+
+    g = torch.Generator().manual_seed(10)
+    tokens = torch.randint(0, cfg.vocab, (b, tp), generator=g).to(dev)
+    prompts = tokens.cpu().numpy().astype(np.int32)
+    rng = np.random.default_rng(10)
+    slot_prompts = [rng.integers(0, cfg.vocab, ln).astype(np.int32)
+                    for ln, _ in mc["requests"]]
+
+    # emulate: the reference the deploy path is held against
+    t0 = time.perf_counter()
+    em = model.forward(params, tokens, cfg)
+    em_tokens = ServingEngine(model, cfg, params, batch_size=b,
+                              max_len=max_len).generate_batch(prompts, new)
+    em_slots = _slot_run(ServingEngine(model, cfg, params, batch_size=2,
+                                       max_len=max_len), slot_prompts,
+                         mc["requests"])
+    torch.cuda.synchronize()
+    em_s = time.perf_counter() - t0
+
+    # the main path: only these deploy runs may move the counters
+    _reset_counters()
+    out, invocations = {}, 0
+    for dt in ("int8", "int4"):
+        dcfg = cfg.replace(cim=arts[dt].config)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dp = model.forward(arts[dt].params, tokens, dcfg)
+        end.record()
+        eng = engine_from_artifact(arts[dt], cfg, batch_size=b,
+                                   max_len=max_len)
+        t0 = time.perf_counter()
+        gen = eng.generate_batch(prompts, new)
+        gen_s = time.perf_counter() - t0
+        slot_eng = engine_from_artifact(arts[dt], cfg, batch_size=2,
+                                        max_len=max_len)
+        slots = _slot_run(slot_eng, slot_prompts, mc["requests"])
+        torch.cuda.synchronize()
+        invocations += 1 + eng.t + slot_eng.t
+        out[dt] = dict(logits=dp, fwd_ms=start.elapsed_time(end), gen=gen,
+                       gen_s=gen_s, slots=slots, slot_steps=slot_eng.t)
+    launches, _ = _read_counters()
+    check(launches["cim_matmul_experts"] == k6_fwd * invocations,
+          f"experts kernel launched {launches['cim_matmul_experts']} times in "
+          f"{invocations} forwards, expected {k6_fwd} per forward")
+    check(launches["cim_matmul"] == k1_fwd * invocations,
+          f"matmul kernel launched {launches['cim_matmul']} times in "
+          f"{invocations} forwards, expected {k1_fwd} per forward")
+    scale = float(em.float().abs().max())
+    for dt, r in out.items():
+        y = r["logits"]
+        check(y.shape == (b, tp, cfg.vocab) and bool(torch.isfinite(y).all()),
+              f"{dt} deploy logits: shape {tuple(y.shape)} or non-finite")
+        r["diff"] = float((y.float() - em.float()).abs().max())
+        check(r["diff"] <= 1e-4 * scale, f"{dt} deploy vs emulate logits: "
+              f"max diff {r['diff']!r} at max |logit| {scale!r}")
+        check(r["gen"].shape == (b, new) and np.array_equal(r["gen"],
+                                                            em_tokens),
+              f"{dt} generate_batch tokens differ from emulate's")
+        check([len(t or ()) for t in r["slots"]] == [n for _, n in
+                                                     mc["requests"]]
+              and r["slots"] == em_slots,
+              f"{dt} slot engine: {r['slots']} against emulate {em_slots}")
+    print(f"phase 10 main path: {invocations} deploy forwards (int8 and int4: "
+          f"one prefill forward, generate_batch {b} x {tp} -> {new}, slot "
+          f"engine 3 requests at batch 2 in {out['int8']['slot_steps']} "
+          f"steps); launches {launches} = experts {k6_fwd}, matmul {k1_fwd} "
+          f"per forward; max |deploy - emulate| int8 {out['int8']['diff']!r}, "
+          f"int4 {out['int4']['diff']!r} (max |logit| {scale!r}); served "
+          f"tokens equal emulate's; emulate reference runs {em_s:.2f} s",
+          flush=True)
+
+    # prefill and decode times, outside the counted run
+    timing = {}
+    for dt in ("int8", "int4"):
+        p, dcfg = arts[dt].params, cfg.replace(cim=arts[dt].config)
+        cache = model.init_cache(cfg, b, max_len)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * new)]
+        ev[0].record()
+        logits, cache = model.decode_step(p, cache, tokens, dcfg)
+        ev[1].record()
+        tok = torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
+        for i in range(1, new):
+            ev[2 * i].record()
+            logits, cache = model.decode_step(p, cache, tok, dcfg)
+            ev[2 * i + 1].record()
+            tok = torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        steps = [ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(new)]
+        timing[dt] = dict(prefill=steps[0], decode=float(np.median(steps[1:])))
+        print(f"phase 10 {dt}: prefill forward (forward) "
+              f"{out[dt]['fwd_ms']:.2f} ms, prefill through the cache "
+              f"{steps[0]:.2f} ms, decode {timing[dt]['decode']:.2f} ms per "
+              f"step (median of {new - 1}; min {min(steps[1:]):.2f}, max "
+              f"{max(steps[1:]):.2f}); generate_batch {out[dt]['gen_s']:.3f} "
+              f"s = {b * new / out[dt]['gen_s']:.1f} tokens/s", flush=True)
+
+    # both kernels at the operands of one prefill forward and one decode step
+    results = {}
+    for dt in ("int8", "int4"):
+        p, dcfg = arts[dt].params, cfg.replace(cim=arts[dt].config)
+        for what, fn in (
+                ("prefill", lambda: model.forward(p, tokens, dcfg)),
+                ("decode", lambda: model.decode_step(
+                    p, model.init_cache(cfg, b, max_len), tokens[:, :1],
+                    dcfg))):
+            calls = _capture_kernel_calls(fn)
+            check(len(calls["cim_matmul_experts"]) == k6_fwd
+                  and len(calls["cim_matmul_transformer"]) == k1_fwd,
+                  f"{dt} {what}: captured {({k: len(v) for k, v in calls.items()})}")
+            tot = _time_moe_calls(torch, calls, errs, mc["reps"])
+            for k, t in tot.items():
+                print(f"phase 10 {k} {dt} {what}: {t['ms']:.4f} ms per "
+                      f"forward ({len(calls[k])} launches), plain "
+                      f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+                      f"by {t['bound_by']} (bytes {t['bytes_ms']:.5f}, ops "
+                      f"{t['ops_ms']:.5f})", flush=True)
+            if dt == "int8" and what == "prefill":
+                results = tot
+    for k, t in results.items():
+        t.update(launches=launches["cim_matmul" if k == "cim_matmul_transformer"
+                                   else k], library_ms=None)
+    print(f"phase 10 max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    return results
 
 
 if __name__ == "__main__":

@@ -185,10 +185,20 @@ def _group_scale(m_col: torch.Tensor, g: Granularity, t: ArrayTiling,
 # shared plumbing
 # ---------------------------------------------------------------------------
 
+def _full_weight_scale(params, t: ArrayTiling) -> torch.Tensor:
+    """(k_tiles, N) weight scale of a layer's ``s_w`` parameter."""
+    return t.broadcast_weight_scale(params["s_w"])
+
+
+def _full_psum_scale(params, t: ArrayTiling) -> torch.Tensor:
+    """(n_split, k_tiles, N) psum scale of a layer's ``s_p`` parameter."""
+    return t.broadcast_psum_scale(params["s_p"])
+
+
 def _quantize_weight_int(params, cfg: CIMConfig, t: ArrayTiling) -> torch.Tensor:
     """Integer weight codes (K, N) in float32."""
     w = params["w"].to(torch.float32)
-    s_w = t.broadcast_weight_scale(params["s_w"])
+    s_w = _full_weight_scale(params, t)
     s_full = torch.repeat_interleave(s_w, t.array_rows, dim=0)[: t.k]
     w_hat = lsq_fake_quant(w, s_full, cfg.weight_bits, signed=True)
     return w_hat / torch.clamp_min(s_full, 1e-9)
@@ -244,7 +254,7 @@ def _tile_digits(digits: torch.Tensor, t: ArrayTiling) -> torch.Tensor:
 def _deq_w(params, cfg: CIMConfig, t: ArrayTiling) -> torch.Tensor:
     """(S, kt, N) dequant scales without the activation scale:
     2^(c*s) * s_w, times the optional recalibration gain ``deq_scale``."""
-    s_w = t.broadcast_weight_scale(params["s_w"])
+    s_w = _full_weight_scale(params, t)
     places = place_values(cfg.weight_bits, cfg.cell_bits, device=s_w.device)
     deq = places[:, None, None] * s_w[None]
     if "deq_scale" in params:
@@ -293,7 +303,7 @@ def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype):
         psum = torch.einsum("...tr,strn->...stn", a_t, d_t)
     if cfg.psum_quant:
         psum = torch.round(psum)
-        s_p = t.broadcast_psum_scale(params["s_p"])
+        s_p = _full_psum_scale(params, t)
         psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True)
     y = shift_add(psum, _deq_w(params, cfg, t))
     y = y * torch.clamp_min(s_a, 1e-9)
@@ -318,7 +328,7 @@ def _forward_deploy(x, params, cfg, variation, sigma, compute_dtype,
                          f"K={x.shape[-1]} under tiling "
                          f"{(t.k_tiles, t.array_rows)}")
     a_t = _tile_inputs(a_int, t)
-    s_p = t.broadcast_psum_scale(params["s_p"])
+    s_p = _full_psum_scale(params, t)
     y = kops.cim_matmul(a_t, digits, s_p, _deq_w(params, cfg, t),
                         psum_bits=cfg.psum_bits, psum_quant=cfg.psum_quant,
                         use_kernel=cfg.use_kernel, occ=params.get("w_occ"),

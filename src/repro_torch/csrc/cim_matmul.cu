@@ -9,7 +9,11 @@
 //   repro/kernels/cim_adc_free.py::cim_matmul_adc_free_pallas (:98): the
 //     ADC-free bodies `_kernel` and `_kernel_sparse`, the same tile loop
 //     with the ADC-free epilogue and no s_p operand; entry point
-//     cim_matmul_adc_free_launch.
+//     cim_matmul_adc_free_launch;
+//   repro/kernels/cim_matmul.py::cim_matmul_experts_pallas (:269), body
+//     `_experts_kernel` (:237): the ADC kernel over every expert of an MoE
+//     bank in one launch, the expert on blockIdx.z; entry point
+//     cim_matmul_experts_launch.
 // The conv deploy paths (repro/kernels/cim_conv.py::cim_conv_pallas and
 // repro/kernels/cim_adc_free.py::cim_conv_adc_free_pallas, :180) lower onto
 // these with M = B*H'*W' and nibble groups = kh*kw.
@@ -43,6 +47,20 @@
 // dead plane adds ADC(0) * deq (+s_p * deq under the sign ADC, +0 else;
 // +0 ADC-free) and the sparse path is bit-exact with the dense one. Cell
 // variation multiplies, so dead cells stay dead and the clean map holds.
+//
+// MoE expert banks. blockIdx.z is the expert e; each operand's base pointer
+// moves by e times its per-expert size (codes M*kt*rows, digits
+// S*kt*rows_stored*N, occ/s_p/deq S*kt*N, out M*N, with M the expert's
+// capacity C), and the block then runs K1's loop unchanged. So each
+// expert's output is bit-exact with a K1 launch on that expert's slice,
+// dense, sparse and nibble alike; nibble banks and their occupancy maps are
+// read in place. With one expert (gridDim.z == 1) the offsets are 0: the
+// single-matrix entry points launch the same instances. At the MoE path's
+// shapes (64 experts, d_model 2048, expert d_ff 1408, S = 2: 369 MB of int8
+// planes per bank) the planes bound a launch by bytes, about 0.11 ms per
+// bank at 3.35 TB/s. The launch runs every slot of every expert's capacity
+// buffer, filled or not, as the reference's dispatch defines it; a block
+// whose rows are all empty slots could exit early (later work).
 //
 // Nibble planes (uint8, half-split per group): packed row g*gh + w holds
 // logical row g*2gh + w in its low nibble and g*2gh + gh + w in its high
@@ -160,6 +178,17 @@ __global__ void __launch_bounds__(kThreads) cim_matmul_kernel(
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int rows_st = kKind == kNibble ? rows / 2 : rows;
+
+  // this block's expert: every operand moves by the expert's own size
+  const long long ex = blockIdx.z;
+  const long long plane = (long long)S * kt * N;
+  a += ex * M * kt * rows;
+  out += ex * M * N;
+  digits = static_cast<const char*>(digits) +
+           ex * plane * rows_st * (kFloat ? (long long)sizeof(float) : 1LL);
+  if (occ != nullptr) occ += ex * plane;
+  if (!kAdcFree) s_p += ex * plane;
+  deq += ex * plane;
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -293,8 +322,9 @@ struct Args {
   const void* s_p;  // nullptr ADC-free
   const void* deq;
   void* out;
-  long long m;
+  long long m;      // rows of one matrix (an expert's capacity C)
   int kt, rows, S, n, groups, a_unsigned, kind, psum_bits, psum_quant;
+  int experts;      // 1 for a single matrix
   cudaStream_t stream;
 };
 
@@ -313,7 +343,7 @@ cudaError_t launch(const Args& x) {
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((unsigned)((x.m + BM - 1) / BM),
-                  (unsigned)((x.n + BN - 1) / BN));
+                  (unsigned)((x.n + BN - 1) / BN), (unsigned)x.experts);
   kern<<<grid, kThreads, smem, x.stream>>>(
       static_cast<const int8_t*>(x.a), x.digits,
       static_cast<const uint8_t*>(x.occ), static_cast<const float*>(x.s_p),
@@ -333,6 +363,7 @@ template <bool kAdcFree>
 int dispatch(const Args& x) {
   if (x.m <= 0 || x.kt <= 0 || x.rows <= 0 || x.S <= 0 || x.n <= 0 ||
       x.groups <= 0 || x.kind < kInt8 || x.kind > kFloat32 ||
+      x.experts <= 0 || x.experts > 65535 || (x.n + 15) / 16 > 65535 ||
       (!kAdcFree && (x.psum_bits < 1 || x.psum_bits > 24)) ||
       (x.kind == kNibble && ((x.rows % 2) || ((x.rows / 2) % x.groups))))
     return (int)cudaErrorInvalidValue;
@@ -353,7 +384,7 @@ int dispatch(const Args& x) {
 
 extern "C" {
 
-// Both return a cudaError_t code: 0 on a successful launch. `occ` may be
+// Each returns a cudaError_t code: 0 on a successful launch. `occ` may be
 // null. `rows` is the logical row count; nibble planes store rows / 2 rows
 // in `groups` half-split blocks. `digit_kind`: 0 int8, 1 nibble uint8,
 // 2 float32.
@@ -363,7 +394,23 @@ int cim_matmul_launch(const void* a, const void* digits, const void* occ,
                       int a_unsigned, int digit_kind, int psum_bits,
                       int psum_quant, void* stream) {
   const Args x{a, digits, occ, s_p, deq, out, m, kt, rows, S, n, groups,
-               a_unsigned, digit_kind, psum_bits, psum_quant,
+               a_unsigned, digit_kind, psum_bits, psum_quant, 1,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(x);
+}
+
+// The ADC kernel over an MoE bank: `experts` matrices of the shapes above,
+// each operand stacked on a leading expert axis (codes (E, C, kt, rows),
+// digits (E, S, kt, rows or rows/2, N), occ/s_p/deq (E, S, kt, N), out
+// (E, C, N)); `m` is C.
+int cim_matmul_experts_launch(const void* a, const void* digits,
+                              const void* occ, const void* s_p,
+                              const void* deq, void* out, long long m, int kt,
+                              int rows, int S, int n, int groups,
+                              int a_unsigned, int digit_kind, int psum_bits,
+                              int psum_quant, int experts, void* stream) {
+  const Args x{a, digits, occ, s_p, deq, out, m, kt, rows, S, n, groups,
+               a_unsigned, digit_kind, psum_bits, psum_quant, experts,
                static_cast<cudaStream_t>(stream)};
   return dispatch<false>(x);
 }
@@ -375,7 +422,7 @@ int cim_matmul_adc_free_launch(const void* a, const void* digits,
                                int groups, int a_unsigned, int digit_kind,
                                void* stream) {
   const Args x{a, digits, occ, nullptr, deq, out, m, kt, rows, S, n, groups,
-               a_unsigned, digit_kind, 0, 0,
+               a_unsigned, digit_kind, 0, 0, 1,
                static_cast<cudaStream_t>(stream)};
   return dispatch<true>(x);
 }

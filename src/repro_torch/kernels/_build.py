@@ -33,6 +33,9 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _P], _I),
         "cim_matmul_adc_free_launch": ([_P, _P, _P, _P, _P, _LL, _I, _I, _I,
                                         _I, _I, _I, _I, _P], _I),
+        "cim_matmul_experts_launch": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                                      _I),
         "cim_matmul_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -23,7 +23,8 @@ from repro_torch.core.variation import perturb_digits, variation_wanted
 from . import ref
 from .cim_adc_free import cim_conv_adc_free_cuda, cim_matmul_adc_free_cuda
 from .cim_conv import cim_conv_cuda
-from .cim_matmul import cim_matmul_cuda, logical_digits
+from .cim_matmul import (cim_matmul_cuda, cim_matmul_experts_cuda,
+                         logical_digits)
 
 
 def cim_matmul(a_t: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
@@ -55,6 +56,28 @@ def cim_matmul(a_t: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
         out = ref.cim_matmul_ref(a2, logical_digits(digits), s_p, deq,
                                  psum_bits=psum_bits, psum_quant=psum_quant)
     return out.reshape(batch_shape + (digits.shape[-1],))
+
+
+def cim_matmul_experts(a_t: torch.Tensor, digits: torch.Tensor,
+                       s_p: torch.Tensor, deq: torch.Tensor, *,
+                       psum_bits: int, psum_quant: bool = True,
+                       use_kernel: bool = True,
+                       occ: torch.Tensor | None = None) -> torch.Tensor:
+    """MoE expert-bank dispatch: every expert's capacity buffer through one
+    launch of the CIM experts kernel, bit-exact with ``cim_matmul`` once
+    per expert.
+
+    a_t (E, C, k_tiles, rows) integer codes; digits (E, S, k_tiles, rows,
+    N) int8 or nibble uint8 (E, S, k_tiles, rows // 2, N); s_p, deq (E, S,
+    k_tiles, N); occ optional (E, S, k_tiles, N). No cell variation, as in
+    the reference. Returns (E, C, N) float32."""
+    if use_kernel:
+        return cim_matmul_experts_cuda(a_t, digits, s_p, deq, occ,
+                                       psum_bits=psum_bits,
+                                       psum_quant=psum_quant)
+    return ref.cim_matmul_experts_ref(a_t, logical_digits(digits), s_p, deq,
+                                      psum_bits=psum_bits,
+                                      psum_quant=psum_quant)
 
 
 def cim_conv(a_int: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,

@@ -2,11 +2,11 @@
 ``repro.kernels.ref``).
 
 They define the arithmetic the CUDA kernels in ``csrc/cim_matmul.cu``
-must reproduce (with the ADC, and ADC-free), run on the CPU and on the
-card, and are what the wrappers use for CPU tensors. The shift-and-add
-accumulates in the kernel's order (array tile outer, split inner, one
-rounded multiply and one rounded add per term), so the kernel and this
-version agree bit for bit.
+must reproduce (with the ADC, ADC-free, and batched over MoE experts),
+run on the CPU and on the card, and are what the wrappers use for CPU
+tensors. The shift-and-add accumulates in the kernel's order (array tile
+outer, split inner, one rounded multiply and one rounded add per term),
+so the kernel and this version agree bit for bit.
 """
 from __future__ import annotations
 
@@ -63,6 +63,22 @@ def cim_matmul_ref(a_t: torch.Tensor, digits: torch.Tensor,
     if psum_quant:
         psum = adc_quantize_ref(psum, s_p.to(torch.float32)[None], psum_bits)
     return shift_add(psum, deq.to(torch.float32))
+
+
+def cim_matmul_experts_ref(a_t: torch.Tensor, digits: torch.Tensor,
+                           s_p: torch.Tensor, deq: torch.Tensor, *,
+                           psum_bits: int,
+                           psum_quant: bool = True) -> torch.Tensor:
+    """The CIM matmul of every expert of an MoE bank: ``cim_matmul_ref`` on
+    each expert's slice, in the port's order (t outer, s inner).
+
+    a_t (E, C, k_tiles, rows) integer codes; digits (E, S, k_tiles, rows,
+    N) logical digits; s_p, deq (E, S, k_tiles, N). Returns (E, C, N)
+    float32."""
+    return torch.stack([
+        cim_matmul_ref(a_t[e], digits[e], s_p[e], deq[e], psum_bits=psum_bits,
+                       psum_quant=psum_quant)
+        for e in range(a_t.shape[0])])
 
 
 def cim_matmul_adc_free_ref(a_t: torch.Tensor, digits: torch.Tensor,

@@ -1,0 +1,501 @@
+"""Transformer building blocks of the port (counterpart of
+``repro.models.layers``): norms, RoPE, GQA attention (full and KV-chunked
+online softmax), SwiGLU/GELU MLPs and the MoE block with capacity-bounded
+dispatch. Every stored-weight matmul goes through ``apply_linear``, so
+the CIM quantization applies uniformly; packed MoE expert banks on the
+``deploy`` backend run all experts of a bank in one launch of the batched
+CIM experts kernel (``kernels.ops.cim_matmul_experts``).
+
+Ported so far: the GQA and MoE paths of the decoder-only transformer with
+the compute-dtype KV cache. MLA attention, the int8 KV cache
+(``_kv_quantize``) and the conv layers come with ROADMAP queue 1, item 10.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn.linear import apply_linear, linear_specs
+from repro_torch.nn.module import ParamSpec, constrain
+
+NEG_INF = -1e30
+
+
+def cdt(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def pdt(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_specs(cfg: ModelConfig, dim: Optional[int] = None) -> Dict:
+    d = dim or cfg.d_model
+    if cfg.norm == "nonparam_ln":          # no learnable affine
+        return {}
+    return {"scale": ParamSpec((d,), torch.float32, "ones", ("embed",))}
+
+
+def apply_norm(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    if cfg.norm in ("layernorm", "nonparam_ln"):
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    else:                                   # rmsnorm
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+    if "scale" in p:
+        y = y * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def head_norm_specs(cfg: ModelConfig, hd: int) -> Dict:
+    return {"scale": ParamSpec((hd,), torch.float32, "ones", (None,))}
+
+
+def apply_head_rmsnorm(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x (..., T, H, hd); positions broadcastable to (..., T). Rotates the
+    two halves of each head (not interleaved pairs)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=x.device), exps)
+    ang = positions[..., None].to(torch.float32) * freqs       # (..., T, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention core (full + KV-chunked online softmax)
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, t, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, t, h, n_rep, d).reshape(
+        b, t, h * n_rep, d)
+
+
+def _scores(q, k, sc):
+    """(B, H, Tq, Tk) float32 scores: the compute-dtype operands are exact
+    in float32, the sum accumulates in float32."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                        k.to(torch.float32)) * sc
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, q_offset=0, kv_len: Optional[torch.Tensor] = None,
+              chunk: int = 0, scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention; q (B, Tq, H, hd), k (B, Tk, KvH, hd), v (B, Tk,
+    KvH, hdv). An online-softmax loop over KV chunks when ``chunk`` is set
+    and Tk > chunk. Masked scores are ``NEG_INF`` (finite), so a fully
+    masked row is uniform, not NaN."""
+    b, tq, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    sc = (scale if scale is not None else
+          1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                        device=q.device)))
+    tk = k.shape[1]
+
+    if not chunk or tk <= chunk:
+        s = _scores(q, k, sc)
+        mask = _build_mask(tq, tk, causal, q_offset, kv_len, q.device)
+        if mask is not None:
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+    n_chunks = (tk + chunk - 1) // chunk
+    pad = n_chunks * chunk - tk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    m = torch.full((b, h, tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, tq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    for c in range(n_chunks):
+        kb = k[:, c * chunk:(c + 1) * chunk]
+        vb = v[:, c * chunk:(c + 1) * chunk]
+        s = _scores(q, kb, sc)
+        kpos = c * chunk + torch.arange(chunk, device=q.device)
+        valid = kpos < tk
+        if kv_len is not None:
+            valid = (valid[None, :] & (kpos[None, :] < kv_len[:, None])
+                     )[:, None, None, :]
+        else:
+            valid = valid[None, None, None, :]
+        if causal:
+            qpos = _qpos(q_offset, tq, q.device)
+            valid = valid & (qpos[:, :, None] >= kpos[None, None, :])[:, None]
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(vb.dtype), vb).to(torch.float32)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype)                # (B, Tq, H, hdv)
+
+
+def _qpos(q_offset, tq: int, device) -> torch.Tensor:
+    """(B, tq) or (1, tq) query positions from a scalar or (B,) offset."""
+    off = torch.as_tensor(q_offset, device=device)
+    if off.ndim == 0:
+        off = off[None]
+    return off[:, None] + torch.arange(tq, device=device)[None, :]
+
+
+def _build_mask(tq, tk, causal, q_offset, kv_len, device):
+    parts = []
+    kpos = torch.arange(tk, device=device)
+    if causal:
+        qpos = _qpos(q_offset, tq, device)                    # (B|1, tq)
+        parts.append((qpos[:, :, None] >= kpos[None, None, :])[:, None])
+    if kv_len is not None:
+        parts.append((kpos[None, :] < kv_len[:, None])[:, None, None, :])
+    if not parts:
+        return None
+    mask = parts[0]
+    for p in parts[1:]:
+        mask = mask & p
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def gqa_specs(cfg: ModelConfig) -> Dict:
+    d, h, kvh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+    dt = pdt(cfg)
+    sp = {
+        "wq": linear_specs(d, h * hd, cim=cfg.cim, in_axis="embed",
+                           out_axis="heads", dtype=dt),
+        "wk": linear_specs(d, kvh * hd, cim=cfg.cim, in_axis="embed",
+                           out_axis="heads", dtype=dt),
+        "wv": linear_specs(d, kvh * hd, cim=cfg.cim, in_axis="embed",
+                           out_axis="heads", dtype=dt),
+        "wo": linear_specs(h * hd, d, cim=cfg.cim, in_axis="heads",
+                           out_axis="embed", dtype=dt),
+    }
+    if cfg.qk_norm:
+        sp["q_norm"] = head_norm_specs(cfg, hd)
+        sp["k_norm"] = head_norm_specs(cfg, hd)
+    return sp
+
+
+def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor, cache: Optional[Dict] = None,
+               causal: bool = True, x_kv: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """GQA self-attention (or cross-attention over ``x_kv``). With a decode
+    ``cache`` ({"k", "v", "len"}) the new K/V rows are written in place at
+    each row's ``len`` and the query attends over the prefix; the returned
+    cache holds the same K/V tensors and ``len + T``."""
+    b, t, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    src = x if x_kv is None else x_kv
+    q = apply_linear(p["wq"], x, cfg.cim, compute_dtype=cdt(cfg)
+                     ).reshape(b, t, h, hd)
+    k = apply_linear(p["wk"], src, cfg.cim, compute_dtype=cdt(cfg)
+                     ).reshape(b, src.shape[1], kvh, hd)
+    v = apply_linear(p["wv"], src, cfg.cim, compute_dtype=cdt(cfg)
+                     ).reshape(b, src.shape[1], kvh, hd)
+    if cfg.qk_norm:
+        q = apply_head_rmsnorm(p["q_norm"], q)
+        k = apply_head_rmsnorm(p["k_norm"], k)
+    if x_kv is None and cfg.rope_theta > 0:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None and x_kv is None:
+        if "k_scale" in cache:
+            raise NotImplementedError(
+                "the int8 KV cache is not ported yet (ROADMAP queue 1, "
+                "item 10)")
+        idx = cache["len"]                                   # (B,) int32
+        kc, vc = cache["k"], cache["v"]
+        rows = torch.arange(b, device=kc.device)[:, None]
+        cols = idx.to(torch.long)[:, None] + torch.arange(
+            t, device=kc.device)[None, :]
+        kc[rows, cols] = k.to(kc.dtype)
+        vc[rows, cols] = v.to(vc.dtype)
+        new_cache = {"k": kc, "v": vc, "len": idx + t}
+        out = attention(q, kc, vc, causal=True, q_offset=idx, kv_len=idx + t,
+                        chunk=cfg.attn_chunk)
+    else:
+        out = attention(q, k, v, causal=causal and x_kv is None,
+                        chunk=cfg.attn_chunk)
+    y = apply_linear(p["wo"], out.reshape(b, t, h * hd), cfg.cim,
+                     compute_dtype=cdt(cfg))
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = pdt(cfg)
+    if cfg.act == "swiglu":
+        return {
+            "wg": linear_specs(d, f, cim=cfg.cim, in_axis="embed",
+                               out_axis="mlp", dtype=dt),
+            "wu": linear_specs(d, f, cim=cfg.cim, in_axis="embed",
+                               out_axis="mlp", dtype=dt),
+            "wd": linear_specs(f, d, cim=cfg.cim, in_axis="mlp",
+                               out_axis="embed", dtype=dt),
+        }
+    return {
+        "wu": linear_specs(d, f, cim=cfg.cim, in_axis="embed", out_axis="mlp",
+                           dtype=dt),
+        "wd": linear_specs(f, d, cim=cfg.cim, in_axis="mlp", out_axis="embed",
+                           dtype=dt),
+    }
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU (or GELU) MLP; the activation runs in the compute dtype."""
+    c = cdt(cfg)
+    if cfg.act == "swiglu":
+        g = apply_linear(p["wg"], x, cfg.cim, compute_dtype=c)
+        u = apply_linear(p["wu"], x, cfg.cim, compute_dtype=c)
+        return apply_linear(p["wd"], F.silu(g) * u, cfg.cim, compute_dtype=c)
+    u = apply_linear(p["wu"], x, cfg.cim, compute_dtype=c)
+    return apply_linear(p["wd"], F.gelu(u, approximate="tanh"), cfg.cim,
+                        compute_dtype=c)
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts with capacity-bounded dispatch
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ModelConfig) -> Dict:
+    mo = cfg.moe
+    d, f, e = cfg.d_model, mo.d_ff, mo.n_experts
+    dt = pdt(cfg)
+    sp = {
+        "router": linear_specs(d, e, in_axis="embed", out_axis=None,
+                               dtype=torch.float32),
+        "wg": ParamSpec((e, d, f), dt, "fan_in:1.0", ("experts", "embed", "mlp")),
+        "wu": ParamSpec((e, d, f), dt, "fan_in:1.0", ("experts", "embed", "mlp")),
+        "wd": ParamSpec((e, f, d), dt, "fan_in:1.0", ("experts", "mlp", "embed")),
+    }
+    if cfg.cim.enabled:
+        t = cfg.cim.tiling(d, f)
+        t2 = cfg.cim.tiling(f, d)
+        for nm, tt, oax in (("wg", t, "mlp"), ("wu", t, "mlp"),
+                            ("wd", t2, "embed")):
+            wg_s = tt.weight_scale_shape(cfg.cim.weight_granularity)
+            pg_s = tt.psum_scale_shape(cfg.cim.psum_granularity)
+            sp[f"{nm}_s_w"] = ParamSpec(
+                (e,) + wg_s, torch.float32, "const:0.05",
+                ("experts", None, oax if wg_s[1] == tt.n else None))
+            sp[f"{nm}_s_p"] = ParamSpec(
+                (e,) + pg_s, torch.float32, "const:8.0",
+                ("experts", None, None, oax if pg_s[2] == tt.n else None))
+            sp[f"{nm}_s_a"] = ParamSpec((e, 1), torch.float32, "ones",
+                                        ("experts", None))
+    if mo.n_shared:
+        sp["shared"] = mlp_specs(cfg, d_ff=mo.d_ff * mo.n_shared)
+    return sp
+
+
+def _batched_experts_ok(p: Dict, nm: str, cfg: ModelConfig) -> bool:
+    """The single-launch path: a clean integer (int8 or nibble) deploy bank
+    of one layer (E-leading, rank 5), on the kernel. Every bank size takes
+    it; the reference's 4 MiB gate is a TPU VMEM budget."""
+    d = p[f"{nm}_digits"]
+    return (cfg.cim.mode == "deploy" and cfg.cim.use_kernel and d.ndim == 5
+            and d.dtype in (torch.int8, torch.uint8))
+
+
+def _bank_scale(full, key: str, bank: torch.Tensor, t) -> torch.Tensor:
+    """(E, ...) per-expert scale parameters ``key`` -> their full
+    per-expert form through ``full`` (``_full_weight_scale`` or
+    ``_full_psum_scale``)."""
+    if tuple(full({key: bank[0]}, t).shape) == tuple(bank.shape[1:]):
+        return bank                       # column granularity: already full
+    return torch.stack([full({key: s}, t) for s in bank])
+
+
+def _batched_expert_matmul(p: Dict, nm: str, x: torch.Tensor,
+                           cfg: ModelConfig) -> torch.Tensor:
+    """All experts' capacity buffers through ONE launch of the CIM experts
+    kernel (``kernels.ops.cim_matmul_experts``). The per-expert prep is
+    ``core.cim_linear._forward_deploy``'s, batched over the expert axis:
+    activation codes, tiling, ``deq = 2^(c*s) * s_w`` and ``s_a`` applied
+    after the shift-and-add, so the result equals the per-expert loop of
+    ``linear`` bit for bit."""
+    from repro_torch.core.bitsplit import place_values
+    from repro_torch.core.cim_linear import (_full_psum_scale,
+                                             _full_weight_scale, _tile_inputs,
+                                             deploy_act_codes)
+    from repro_torch.kernels import ops as kops
+    cim = cfg.cim
+    digits = p[f"{nm}_digits"]
+    t = cim.tiling(x.shape[-1], digits.shape[-1])
+    s_a = p[f"{nm}_s_a"][:, None, :]                         # (E, 1, 1)
+    a_t = _tile_inputs(deploy_act_codes(x, s_a, cim), t)
+    s_p = _bank_scale(_full_psum_scale, "s_p", p[f"{nm}_s_p"], t)
+    s_w = _bank_scale(_full_weight_scale, "s_w", p[f"{nm}_s_w"], t)
+    places = place_values(cim.weight_bits, cim.cell_bits, device=s_w.device)
+    deq = places[None, :, None, None] * s_w[:, None]
+    y = kops.cim_matmul_experts(a_t, digits, s_p, deq,
+                                psum_bits=cim.psum_bits,
+                                psum_quant=cim.psum_quant,
+                                use_kernel=cim.use_kernel,
+                                occ=p.get(f"{nm}_occ"))
+    y = y * torch.clamp_min(s_a, 1e-9)
+    return y.to(cdt(cfg))
+
+
+def _per_expert_matmul(p: Dict, nm: str, x: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """A packed bank one ``linear`` per expert: adc_free and binary banks,
+    float (variation-baked) planes, and the plain version."""
+    from repro_torch.api import linear
+    outs = []
+    for e in range(x.shape[0]):
+        node = {"w_digits": p[f"{nm}_digits"][e],
+                **{s: p[f"{nm}_{s}"][e] for s in ("s_w", "s_p", "s_a")}}
+        if f"{nm}_occ" in p:
+            node["w_occ"] = p[f"{nm}_occ"][e]
+        outs.append(linear(x[e], node, cfg.cim, compute_dtype=cdt(cfg)))
+    return torch.stack(outs)
+
+
+def _expert_matmul(p: Dict, nm: str, x: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """x (E, C, K) -> (E, C, N), CIM-quantized per expert when enabled."""
+    c = cdt(cfg)
+    if not cfg.cim.enabled:
+        return torch.einsum("eck,ekn->ecn", x, p[nm].to(c))
+    from repro_torch.api import linear
+    from repro_torch.api.backends import is_packed
+    if is_packed(cfg.cim) and f"{nm}_digits" in p:
+        if _batched_experts_ok(p, nm, cfg):
+            return _batched_expert_matmul(p, nm, x, cfg)
+        return _per_expert_matmul(p, nm, x, cfg)
+    # unpacked tree on a packed backend: emulate (the same quantization
+    # arithmetic; only the storage layout differs)
+    ecfg = (cfg.cim if not is_packed(cfg.cim)
+            else cfg.cim.replace(mode="emulate"))
+    return torch.stack([
+        linear(x[e], {"w": p[nm][e].to(torch.float32),
+                      **{s: p[f"{nm}_{s}"][e] for s in ("s_w", "s_p", "s_a")}},
+               ecfg, compute_dtype=c)
+        for e in range(x.shape[0])])
+
+
+def route(logits: torch.Tensor, cfg: ModelConfig):
+    """Top-k routing and capacity-bounded slot assignment of the reference
+    (``_apply_moe_jit``). logits (N, E) float32 -> (gates (N, k), sel
+    (N, k), slot (N*k,), cap).
+
+    Top-k is a stable descending sort, so ties go to the lower expert
+    index as ``jax.lax.top_k`` breaks them. Each expert's buffer holds
+    ``cap`` slots: dropless (cap = N*k) when N*k <= 256, else
+    ``int(capacity_factor * N*k / E) + 1``. Pairs are placed in (token,
+    rank) order; an overflowing pair gets slot ``E*cap``, which is
+    dropped."""
+    mo = cfg.moe
+    n_tok, e = logits.shape
+    k = mo.top_k
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates, sel = vals[:, :k], idx[:, :k]
+    gates = (torch.softmax(gates, dim=-1) if mo.router_scale
+             else torch.sigmoid(gates))
+    cap = int(mo.capacity_factor * n_tok * k / e) + 1
+    if n_tok * k <= 256:
+        cap = n_tok * k
+    flat_e = sel.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted = flat_e[order]
+    start = torch.searchsorted(e_sorted, torch.arange(e, device=e_sorted.device),
+                               side="left")
+    pos_in_e = torch.arange(n_tok * k, device=e_sorted.device) - start[e_sorted]
+    slot_sorted = torch.where(pos_in_e < cap, e_sorted * cap + pos_in_e,
+                              e * cap)
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    return gates, sel, slot, cap
+
+
+def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE block. The port has no mesh, so this is the reference's jit
+    path (``_apply_moe_jit``) always."""
+    return _apply_moe_jit(p, x, cfg)
+
+
+def _apply_moe_jit(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    mo = cfg.moe
+    b, t, d = x.shape
+    n_tok = b * t
+    e, k = mo.n_experts, mo.top_k
+    c = cdt(cfg)
+    xf = x.reshape(n_tok, d)
+
+    logits = apply_linear(p["router"], xf.to(torch.float32), None,
+                          compute_dtype=torch.float32)        # (N, E)
+    gates, _, slot, cap = route(logits, cfg)
+    flat_tok = torch.arange(n_tok, device=x.device).repeat_interleave(k)
+
+    # each pair's slot is written once; overflow lands on the dropped row
+    buf = torch.zeros((e * cap + 1, d), dtype=c, device=x.device)
+    buf[slot] = xf.to(c)[flat_tok]
+    buf = constrain(buf[:-1].reshape(e, cap, d), ("experts", None, None))
+
+    if cfg.act == "swiglu":
+        g = _expert_matmul(p, "wg", buf, cfg)
+        u = _expert_matmul(p, "wu", buf, cfg)
+        h = F.silu(g.to(torch.float32)).to(c) * u             # float32 SiLU
+    else:
+        h = F.gelu(_expert_matmul(p, "wu", buf, cfg).to(torch.float32),
+                   approximate="tanh").to(c)
+    out_buf = _expert_matmul(p, "wd", h, cfg).reshape(e * cap, d)
+    out_buf = torch.cat([out_buf, torch.zeros((1, d), dtype=out_buf.dtype,
+                                              device=x.device)])
+
+    # combine: each token's k contributions summed in rank order from 0.0
+    # (the order of the reference's sequential scatter-add; no atomics)
+    contrib = (out_buf[slot].to(torch.float32) * gates.reshape(-1)[:, None]
+               ).reshape(n_tok, k, d)
+    y = torch.zeros((n_tok, d), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y = y + contrib[:, j]
+    y = constrain(y.to(c), ("batch", None))
+    if mo.n_shared:
+        y = y + apply_mlp(p["shared"], xf, cfg)
+    return y.reshape(b, t, d)

@@ -1,0 +1,207 @@
+"""Decoder-only LM of the port (counterpart of ``repro.models.transformer``):
+the dense GQA family and its MoE variant, one spec/apply pair driven by
+``ModelConfig``.
+
+Parameters are stacked on a leading layer axis, as the reference stacks
+them for ``lax.scan``; the port runs the stack as a Python loop over
+per-layer views, so ``remat`` and ``scan_layers`` have no effect. Decode
+keeps per-layer KV caches in the compute dtype, stacked the same way and
+written in place. MLA attention (deepseek) comes with ROADMAP queue 1,
+item 10.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn.linear import apply_linear, linear_specs
+from repro_torch.nn.module import ParamSpec, constrain, stack_specs
+
+from .layers import (apply_mlp, apply_moe, apply_norm, cdt, gqa_attend,
+                     gqa_specs, mlp_specs, moe_specs, norm_specs, pdt)
+
+
+def _no_mla(cfg: ModelConfig) -> None:
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue 1, "
+            "item 10)")
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+def _block_specs(cfg: ModelConfig, *, moe: bool, dense_d_ff: int = 0) -> Dict:
+    sp = {"ln1": norm_specs(cfg), "ln2": norm_specs(cfg),
+          "attn": gqa_specs(cfg)}
+    if moe:
+        sp["moe"] = moe_specs(cfg)
+    else:
+        sp["mlp"] = mlp_specs(cfg, d_ff=dense_d_ff or cfg.d_ff)
+    return sp
+
+
+def specs(cfg: ModelConfig) -> Dict:
+    _no_mla(cfg)
+    sp: Dict = {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), pdt(cfg), "normal:0.02",
+                           ("vocab", "embed")),
+        "ln_f": norm_specs(cfg),
+    }
+    if cfg.moe is not None:
+        n_dense = cfg.moe.n_dense_layers
+        if n_dense:
+            sp["dense_layers"] = stack_specs(
+                _block_specs(cfg, moe=False,
+                             dense_d_ff=cfg.moe.dense_d_ff or cfg.d_ff),
+                n_dense)
+        sp["moe_layers"] = stack_specs(_block_specs(cfg, moe=True),
+                                       cfg.n_layers - n_dense)
+    else:
+        sp["layers"] = stack_specs(_block_specs(cfg, moe=False), cfg.n_layers)
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = linear_specs(
+            cfg.d_model, cfg.vocab,
+            cim=cfg.cim if cfg.cim_lm_head else None,
+            in_axis="embed", out_axis="vocab", dtype=pdt(cfg),
+            init="normal:0.02")
+    return sp
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _block(p: Dict, x, cfg: ModelConfig, positions, cache, moe: bool):
+    h, new_cache = gqa_attend(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
+                              positions=positions, cache=cache)
+    x = x + h
+    z = apply_norm(p["ln2"], x, cfg)
+    x = x + (apply_moe(p["moe"], z, cfg) if moe else
+             apply_mlp(p["mlp"], z, cfg))
+    return constrain(x, ("batch", None, None)), new_cache
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s slice (views) of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _run_stack(layer_params, x, cfg, positions, caches, moe: bool):
+    """A homogeneous stack of blocks, one layer after the other. Each
+    layer's cache slice is written in place; the returned caches hold the
+    same K/V tensors and the advanced lengths."""
+    n = _first_leaf(layer_params).shape[0]
+    lens = []
+    for i in range(n):
+        c_i = None if caches is None else _layer(caches, i)
+        x, nc = _block(_layer(layer_params, i), x, cfg, positions, c_i, moe)
+        if nc is not None:
+            lens.append(nc["len"])
+    if caches is None:
+        return x, None
+    return x, {**caches, "len": torch.stack(lens)}
+
+
+def _embed(params, tokens, cfg, extra_embeds):
+    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(cdt(cfg)), x], dim=1)
+    return x
+
+
+def _logits(params, x, cfg):
+    x = apply_norm(params["ln_f"], x, cfg)
+    if cfg.tie_embeddings:
+        return torch.einsum("btd,vd->btv", x, params["embed"].to(cdt(cfg)))
+    return apply_linear(params["lm_head"], x,
+                        cfg.cim if cfg.cim_lm_head else None,
+                        compute_dtype=cdt(cfg))
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, T) -> logits (B, T', vocab);
+    extra_embeds (B, Tp, D) are prepended."""
+    _no_mla(cfg)
+    x = _embed(params, tokens, cfg, extra_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.moe is not None:
+        if "dense_layers" in params:
+            x, _ = _run_stack(params["dense_layers"], x, cfg, positions, None,
+                              False)
+        x, _ = _run_stack(params["moe_layers"], x, cfg, positions, None, True)
+    else:
+        x, _ = _run_stack(params["layers"], x, cfg, positions, None, False)
+    return _logits(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device=None) -> Dict:
+    """Per-layer decode caches, stacked on a leading layer axis, on
+    ``device`` (``cuda`` unless ``"cpu"``)."""
+    _no_mla(cfg)
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("the int8 KV cache is not ported yet "
+                                  "(ROADMAP queue 1, item 10)")
+    dev = resolve_device(device)
+
+    def kv(n_layers):
+        shape = (n_layers, batch, max_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=cdt(cfg), device=dev),
+                "v": torch.zeros(shape, dtype=cdt(cfg), device=dev),
+                "len": torch.zeros((n_layers, batch), dtype=torch.int32,
+                                   device=dev)}
+    if cfg.moe is not None:
+        n_dense = cfg.moe.n_dense_layers
+        out = {"moe_layers": kv(cfg.n_layers - n_dense)}
+        if n_dense:
+            out["dense_layers"] = kv(n_dense)
+        return out
+    return {"layers": kv(cfg.n_layers)}
+
+
+def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One decode step: tokens (B, T) and the caches -> (logits (B, T, V),
+    caches). The caches are written in place. Raises when the T new
+    positions would overrun ``max_len`` (the reference clamps the write)."""
+    _no_mla(cfg)
+    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    first = next(iter(cache.values()))
+    t = tokens.shape[1]
+    if int(first["len"].max()) + t > first["k"].shape[2]:
+        raise ValueError(f"decode cache overrun: {t} new positions at length "
+                         f"{int(first['len'].max())} exceed max_len "
+                         f"{first['k'].shape[2]}")
+    positions = (first["len"][0][:, None].to(torch.long)
+                 + torch.arange(t, device=x.device)[None])
+    new_cache: Dict = {}
+    if cfg.moe is not None:
+        if "dense_layers" in params:
+            x, new_cache["dense_layers"] = _run_stack(
+                params["dense_layers"], x, cfg, positions,
+                cache["dense_layers"], False)
+        x, new_cache["moe_layers"] = _run_stack(
+            params["moe_layers"], x, cfg, positions, cache["moe_layers"], True)
+    else:
+        x, new_cache["layers"] = _run_stack(params["layers"], x, cfg,
+                                            positions, cache["layers"], False)
+    return _logits(params, x, cfg), new_cache

@@ -1,0 +1,125 @@
+"""Minimal functional module system (counterpart of ``repro.nn.module``).
+
+Models are pairs of plain functions: ``specs(cfg)`` gives a nested dict of
+``ParamSpec`` (shape, dtype, init, logical axes) and ``apply(params,
+inputs, cfg)`` runs the model on a dict of tensors with the same nesting.
+Parameters are materialized only by ``init_params``.
+
+The port has no mesh: the logical axes are carried for parity and
+``constrain`` is the identity. torch cannot reproduce ``jax.random``
+draws, so the port's ``init_params`` agrees with the reference only in
+distribution; parity tests carry JAX-initialized params across as numpy
+(``repro_torch.interop``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Tuple, Union
+
+import torch
+
+from repro_torch import resolve_device
+
+#: (generator, shape, dtype, device) -> tensor
+InitFn = Callable[[torch.Generator, Tuple[int, ...], Any, torch.device],
+                  torch.Tensor]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The storage dtype of a spec dtype: the ``"int4"`` marker (dense int4
+    planes) is held as int8, as everywhere in the port."""
+    return torch.int8 if dtype == "int4" else dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    dtype: Any = torch.float32
+    init: Union[str, InitFn] = "normal:0.02"
+    pspec: Optional[Tuple[Optional[str], ...]] = None  # logical axes
+
+    def initializer(self) -> InitFn:
+        if callable(self.init):
+            return self.init
+        kind, _, arg = self.init.partition(":")
+        if kind == "zeros":
+            return lambda g, s, d, dev: torch.zeros(s, dtype=torch_dtype(d),
+                                                    device=dev)
+        if kind == "ones":
+            return lambda g, s, d, dev: torch.ones(s, dtype=torch_dtype(d),
+                                                   device=dev)
+        if kind == "const":
+            v = float(arg)
+            return lambda g, s, d, dev: torch.full(s, v, dtype=torch_dtype(d),
+                                                   device=dev)
+        if kind == "normal":
+            std = float(arg) if arg else 0.02
+            return lambda g, s, d, dev: (_randn(g, s, dev) * std).to(
+                torch_dtype(d))
+        if kind == "fan_in":
+            scale = float(arg) if arg else 1.0
+
+            def fan_in(g, s, d, dev):
+                fan = s[-2] if len(s) >= 2 else s[-1]
+                return (_randn(g, s, dev) * scale / math.sqrt(fan)).to(
+                    torch_dtype(d))
+            return fan_in
+        raise ValueError(f"unknown init {self.init!r}")
+
+
+def _randn(g: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=g, dtype=torch.float32,
+                       device=device)
+
+
+def _path_hash(path: Tuple[str, ...]) -> int:
+    h = 0
+    for part in path:
+        for ch in str(part):
+            h = (h * 131 + ord(ch)) % (2 ** 31 - 1)
+        h = (h * 131 + 7) % (2 ** 31 - 1)
+    return h
+
+
+def init_params(specs, seed: int, *, device=None):
+    """Materialize parameters on ``device`` (``cuda`` unless ``"cpu"``).
+    Each leaf draws from its own ``torch.Generator`` on that device,
+    seeded from (``seed``, a hash of its tree path), so adding or removing
+    a parameter never reshuffles the others."""
+    dev = resolve_device(device)
+
+    def build(tree, path=()):
+        if isinstance(tree, ParamSpec):
+            g = torch.Generator(device=dev)
+            g.manual_seed((int(seed) * (2 ** 31 - 1) + _path_hash(path))
+                          % (2 ** 63 - 1))
+            return tree.initializer()(g, tuple(tree.shape), tree.dtype, dev)
+        return {k: build(v, path + (k,)) for k, v in tree.items()}
+    return build(specs)
+
+
+def constrain(x, logical):
+    """Sharding hint of the reference; the port has no mesh."""
+    return x
+
+
+def stack_specs(specs, n: int):
+    """Prepend a layer axis of ``n`` (the reference's scan-over-layers
+    stacking). Each layer's slice is drawn with the unstacked shape, one
+    after the other from the leaf's generator."""
+    def build(tree):
+        if isinstance(tree, ParamSpec):
+            ps = (None,) + tree.pspec if tree.pspec is not None else None
+            base = tree.initializer()
+
+            def stacked(g, s, d, dev, _base=base):
+                out = torch.empty(s, dtype=torch_dtype(d), device=dev)
+                for i in range(s[0]):
+                    out[i] = _base(g, s[1:], d, dev)
+                return out
+
+            return ParamSpec(shape=(n,) + tuple(tree.shape), dtype=tree.dtype,
+                             init=stacked, pspec=ps)
+        return {k: build(v) for k, v in tree.items()}
+    return build(specs)

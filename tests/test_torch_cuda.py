@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the CIM matmul/conv kernel with the ADC, the ADC-free matmul/conv,
-and both on float32 digit planes that carry cell variation.
+both on float32 digit planes that carry cell variation, and the MoE
+experts kernel (every expert of a bank in one launch).
 
 Skips where there is no CUDA device. Imports no JAX, so it also runs on
 a machine that has only PyTorch and the CUDA toolkit:
@@ -10,8 +11,9 @@ a machine that has only PyTorch and the CUDA toolkit:
 Each kernel and ``kernels/ref.py`` add the same float32 terms in the same
 order with the same roundings (float-digit partial sums are exact in
 float64 on both sides), so they must agree bit for bit; within the port,
-deploy is bit-identical with emulate on the card as well, and adc_free
-with emulate at ``psum_quant=False``.
+deploy is bit-identical with emulate on the card as well (ResNet-20 and
+the reduced MoE transformer), and adc_free with emulate at
+``psum_quant=False``.
 """
 import dataclasses
 
@@ -26,7 +28,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
                                               cim_matmul_adc_free_cuda)
 from repro_torch.kernels.cim_conv import cim_conv_cuda
-from repro_torch.kernels.cim_matmul import cim_matmul_cuda
+from repro_torch.kernels.cim_matmul import (cim_matmul_cuda,
+                                            cim_matmul_experts_cuda)
 from repro_torch.models import resnet
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -244,3 +247,100 @@ def test_resnet_varied_deploy_equals_emulate_on_the_card():
     torch.testing.assert_close(y_d, y_e, rtol=1e-4, atol=1e-4)
     clean, _ = resnet.forward(packed, state, x, dcfg, train=False)
     assert not torch.equal(y_d, clean)
+
+
+def _experts_case(seed, *, e, c, kt, rows, n, s=2, unsigned=False):
+    """An MoE bank of ``e`` experts: codes (E, C, kt, rows) with expert 0's
+    rows all zero (an empty capacity buffer), planes with dead columns
+    and a dead (split, tile) on expert 1, their nibble form, scales and
+    occupancy maps."""
+    g = torch.Generator().manual_seed(seed)
+    if unsigned:
+        a = torch.randint(0, 256, (e, c, kt, rows), generator=g,
+                          dtype=torch.uint8)
+    else:
+        a = torch.randint(-128, 128, (e, c, kt, rows), generator=g,
+                          dtype=torch.int8)
+    a[0] = 0
+    d = torch.randint(-3, 4, (e, s, kt, rows, n), generator=g,
+                      dtype=torch.int8)
+    d[..., 3:9] = 0
+    if e > 1:
+        d[1, min(1, s - 1), 0] = 0
+    amax = 255 if unsigned else 128
+    s_p = 0.5 + torch.rand((e, s, kt, n), generator=g) * amax * rows ** 0.5 / 8
+    deq = torch.randn((e, s, kt, n), generator=g) * 0.1
+    return [x.cuda() for x in (a, d, pack_nibbles(d), s_p, deq,
+                               occupancy_map(d))]
+
+
+@pytest.mark.parametrize("e,c,kt,rows,n", [
+    (1, 64, 16, 128, 1408), (8, 61, 3, 128, 100), (64, 48, 16, 128, 64),
+    (8, 5, 2, 126, 17)])
+@pytest.mark.parametrize("variant,psum_bits,psum_quant,unsigned", [
+    ("dense", 4, True, False), ("nibble+occ", 6, True, False),
+    ("occ", 1, True, True), ("nibble", 8, True, True),
+    ("nibble+occ", 6, False, False)])
+def test_cim_matmul_experts_bit_exact_with_plain(e, c, kt, rows, n, variant,
+                                                 psum_bits, psum_quant,
+                                                 unsigned):
+    nibble, sparse = "nibble" in variant, "occ" in variant
+    a, d, packed, s_p, deq, occ = _experts_case(
+        e + c + n, e=e, c=c, kt=kt, rows=rows, n=n, unsigned=unsigned)
+    before = cim_matmul_experts_cuda.launches
+    got = cim_matmul_experts_cuda(a, packed if nibble else d, s_p, deq,
+                                  occ if sparse else None,
+                                  psum_bits=psum_bits, psum_quant=psum_quant)
+    torch.cuda.synchronize()
+    assert cim_matmul_experts_cuda.launches == before + 1
+    want = ref.cim_matmul_experts_ref(a, d, s_p, deq, psum_bits=psum_bits,
+                                      psum_quant=psum_quant)
+    assert got.shape == (e, c, n)
+    assert torch.equal(got, want)
+    # expert by expert, the single-matrix kernel gives the same bits
+    loop = torch.stack([
+        cim_matmul_cuda(a[i], (packed if nibble else d)[i], s_p[i], deq[i],
+                        occ[i] if sparse else None, psum_bits=psum_bits,
+                        psum_quant=psum_quant) for i in range(e)])
+    assert torch.equal(got, loop)
+
+
+def test_experts_wrapper_raises_on_what_the_kernel_does_not_take():
+    a, d, _, s_p, deq, _ = _experts_case(0, e=2, c=4, kt=1, rows=16, n=8)
+    with pytest.raises(TypeError):                    # float (varied) planes
+        cim_matmul_experts_cuda(a, d.float(), s_p, deq, psum_bits=4)
+    with pytest.raises(ValueError):                   # planes of 3 experts
+        cim_matmul_experts_cuda(a, torch.cat([d, d[:1]]), s_p, deq,
+                                psum_bits=4)
+    with pytest.raises(ValueError):                   # one expert's codes
+        cim_matmul_experts_cuda(a[0], d, s_p, deq, psum_bits=4)
+
+
+@pytest.mark.parametrize("pack_dtype", ["int8", "int4"])
+def test_moe_transformer_deploy_bit_exact_with_emulate_on_the_card(
+        pack_dtype):
+    """The reduced moonshot transformer (1 dense layer, 1 MoE layer of 8
+    experts) in bfloat16, 128-row arrays: its deploy logits, through K1
+    and one K6 launch per expert bank, equal its emulate logits."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cim = CIMConfig(enabled=True, mode="emulate", weight_bits=4, cell_bits=2,
+                    act_bits=8, psum_bits=6, array_rows=128, array_cols=128,
+                    pack_dtype=pack_dtype)
+    cfg = get_config("moonshot-v1-16b-a3b", reduced=True, cim=cim)
+    model = get_model(cfg)
+    params = init_params(model.specs(cfg), 0)
+    tokens = torch.randint(0, cfg.vocab, (4, 40), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    y_e = model.forward(params, tokens, cfg)
+    art = api.model_artifact(params, cim)
+    dcfg = cfg.replace(cim=art.config)
+    before = (cim_matmul_experts_cuda.launches, cim_matmul_cuda.launches)
+    y_d = model.forward(art.params, tokens, dcfg)
+    torch.cuda.synchronize()
+    assert cim_matmul_experts_cuda.launches == before[0] + 3
+    assert cim_matmul_cuda.launches == before[1] + 7 + 7
+    assert y_d.dtype == torch.bfloat16 and torch.isfinite(y_d).all()
+    assert torch.equal(y_d, y_e)

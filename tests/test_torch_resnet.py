@@ -187,15 +187,34 @@ def test_conv_layer_names_match_reference():
 
 def test_pack_model_refuses_what_is_not_ported():
     tc = TCIMConfig(**CIM)
-    stacked = {"blk": {"w": torch.zeros(2, 8, 4), "s_w": torch.ones(2, 1, 1),
+    g = torch.Generator().manual_seed(0)
+    # stacked layers and MoE expert banks pack one slice at a time (they
+    # were refused before the transformer slice; tests/test_torch_
+    # transformer.py holds them against the reference byte for byte)
+    stacked = {"blk": {"w": torch.randn((2, 8, 4), generator=g),
+                       "s_w": torch.ones(2, 1, 1),
                        "s_p": torch.ones(2, 3, 1, 1), "s_a": torch.ones(2, 1)}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.pack_model(stacked, tc, device=CPU)
-    bank = {"moe": {"wg": torch.zeros(4, 8, 6), "wg_s_w": torch.ones(4, 1, 1),
+    got = tapi.pack_model(stacked, tc, device=CPU)["blk"]
+    one = tapi.pack_model({k: v[1] for k, v in stacked["blk"].items()}, tc,
+                          device=CPU)
+    assert set(got) == set(one)
+    for k, v in one.items():
+        assert torch.equal(got[k][1], v), k
+    bank = {"moe": {"wg": torch.randn((4, 8, 6), generator=g),
+                    "wg_s_w": torch.ones(4, 1, 1),
                     "wg_s_p": torch.ones(4, 3, 1, 1),
                     "wg_s_a": torch.ones(4, 1)}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.pack_model(bank, tc, device=CPU)
+    moe = tapi.pack_model(bank, tc, device=CPU)["moe"]
+    assert "wg" not in moe and moe["wg_digits"].shape[0] == 4
+    assert torch.equal(moe["wg_digits"][2], tapi.pack_model(
+        {"w": bank["moe"]["wg"][2], "s_w": torch.ones(1, 1),
+         "s_p": torch.ones(3, 1, 1), "s_a": torch.ones(1)}, tc,
+        device=CPU)["w_digits"])
+    # a weight of a rank no CIM layer has is refused
+    with pytest.raises(ValueError, match="rank"):
+        tapi.pack_model({"x": {"w": torch.zeros(1, 2, 3, 4, 5, 6),
+                               "s_w": torch.ones(1), "s_p": torch.ones(1),
+                               "s_a": torch.ones(1)}}, tc, device=CPU)
     # full-precision nodes pass through untouched
     fp = {"fc": {"w": torch.ones(3, 2), "b": torch.zeros(2)}}
     assert torch.equal(tapi.pack_model(fp, tc, device=CPU)["fc"]["w"],
