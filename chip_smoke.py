@@ -17,7 +17,11 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    activations, ragged M and N, conv 3x3/1x1 at stride 1/2, SAME/VALID);
    3b. the same case grid through the ADC-free matmul/conv kernels, and
    float32 digit planes carrying cell variation (sigma 0.3) through both
-   kernel families;
+   kernel families; then the tensor-core ADC-free matmul and the
+   implicit-GEMM conv on the shapes their loaders find hard (C_in 3 to 64
+   at 14 channels per array, odd and even sizes at stride 2 under SAME
+   and VALID, 1x1 projections, blocks across images, ragged M, rows not
+   a multiple of 32, N from 1 to 200);
 4. the main path: ResNet-20 at full width (16, 32, 64; 32x32; 10
    classes) with the paper's CIFAR-10 settings, initialised from a seed,
    calibrated on one batch, packed at int8 and int4, answering batches of
@@ -28,12 +32,16 @@ Phases (each prints one line or a few; any failed check exits non-zero):
 5. ResNet-18 (widths 64..512, 32x32) one deploy forward per pack dtype
    against emulate at batch 64;
 6. the ``adc_free`` backend on the same packed ResNet-20, int8 and int4:
-   logits against emulate with ``psum_quant=False``, the ADC-free
-   kernels' counters against 20 per forward (the ADC kernel's at 0), and
+   logits against emulate with ``psum_quant=False``, the implicit-GEMM
+   ADC-free conv's counter against 20 per forward, the ADC-free matmul's,
+   the ADC kernel's and the plain-torch patch gathers' at 0, and
    per-layer times beside the plain version, the bound and one PyTorch
    call of the same function (``library_ms``: on clean integer planes
    the ADC-free conv is one float32 ``F.conv2d`` with the split-folded
    weight, the matmul one ``torch.matmul``; timed as a yardstick only);
+   the ADC-free matmul is timed too, on the convs' materialized patches
+   (its own entry, ``cim_matmul_adc_free_resnet``, with 0 launches: no
+   path gives it these shapes now);
 7. the ``binary`` backend: ResNet-20 packed with ``mode="binary"``, its
    kernel forward against its plain version, counters at 20 per forward;
 8. cell variation: one deploy forward with a ``Sampler`` at sigma 0.3
@@ -57,10 +65,23 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    deploy against emulate, ``generate_batch`` of 16 new tokens and the
    slot engine on 3 requests at batch 2, deploy tokens against emulate
    tokens; the launch counters (9 experts-kernel and 28 matmul-kernel
-   launches per forward); prefill and decode times; both kernels timed at
-   the operands of one prefill forward and one decode step;
+   launches per forward); the same packs on the ``adc_free`` backend,
+   one prefill forward each against emulate with ``psum_quant=False``,
+   the ADC-free matmul on every CIM linear (K4's path: 28 + 9 x 64
+   launches per forward), then timed at the operands of one prefill
+   forward and one decode step against its plain version, its bound and
+   one float32 ``torch.matmul`` with the split-folded weight, with the
+   planes relaid on every call and relaid once; prefill and
+   decode times; both ADC kernels timed at the operands of one prefill
+   forward and one decode step;
 11. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
+
+Times: each kernel and each library call is timed as the device time of
+a CUDA-graph replay of repeated calls (no host launch gaps: ``ms``,
+``library_ms``), and eagerly by CUDA events, host launch gaps included
+(printed in brackets); the plain versions run eagerly, timed by CUDA
+events.
 
 Tolerances: each kernel and its plain version add the same float32 terms
 in the same order with the same roundings (float-digit partial sums are
@@ -129,12 +150,12 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build()
-    ptxas = [ln.strip() for name in _build.SOURCES
-             for ln in _build.build_log.get(name, "").splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"phase 2 build: {', '.join(n + '.cu' for n in _build.SOURCES)} in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas: "
-          f"{' | '.join(ptxas[:8]) or 'already built'}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in _build.SOURCES:
+        print(f"phase 2 ptxas {name}.cu: "
+              + ("; ".join(_ptxas_summary(_build.build_log.get(name, "")))
+                 or "already built"), flush=True)
 
     errs = {name: 0.0 for name in KERNELS}
 
@@ -146,7 +167,9 @@ def main() -> int:
     n_cases = phase3b_new_kernel_cases(torch, dev, errs)
     print(f"phase 3b ADC-free and float-digit kernels vs plain: {n_cases} "
           f"cases pass; max |kernel - plain| "
-          + ", ".join(f"{k} {errs[k]!r}" for k in list(KERNELS)[:5]),
+          + ", ".join(f"{k} {errs[k]!r}" for k in (
+              "cim_matmul", "cim_conv", "cim_matmul_adc_free",
+              "cim_conv_adc_free", "cim_conv_variation")),
           flush=True)
 
     # 4. the main path: packed ResNet-20 inference
@@ -190,13 +213,20 @@ def main() -> int:
 
 
 CUDA_SOURCE = "src/repro_torch/csrc/cim_matmul.cu"
+MMA_SOURCE = "src/repro_torch/csrc/cim_adc_free_mma.cu"
 #: kernel entries of the results line: (source, TPU kernel it replaces)
 KERNELS = {
     "cim_matmul": (CUDA_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
     "cim_conv": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
-    "cim_matmul_adc_free": (CUDA_SOURCE,
+    # integer planes on the int8 tensor cores; the conv an implicit GEMM.
+    # The matmul at its path's shapes (every CIM linear of the MoE
+    # transformer on adc_free), and at the 20 ResNet-20 convs'
+    # materialized patches, a shape no path gives it now (launches 0)
+    "cim_matmul_adc_free": (MMA_SOURCE,
                             "src/repro/kernels/cim_adc_free.py:98"),
-    "cim_conv_adc_free": (CUDA_SOURCE, "src/repro/kernels/cim_adc_free.py:180"),
+    "cim_matmul_adc_free_resnet": (MMA_SOURCE,
+                                   "src/repro/kernels/cim_adc_free.py:98"),
+    "cim_conv_adc_free": (MMA_SOURCE, "src/repro/kernels/cim_adc_free.py:180"),
     # the conv kernel on float32 planes that carry cell variation
     "cim_conv_variation": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
     # the matmul kernel at the MoE transformer's shapes (attention, dense
@@ -221,17 +251,57 @@ def _counted():
 
 
 def _reset_counters() -> None:
+    from repro_torch.kernels import ref
     for fn in _counted().values():
         fn.launches = 0
         if hasattr(fn, "float_launches"):
             fn.float_launches = 0
+    ref.extract_conv_patches.cuda_gathers = 0
 
 
 def _read_counters():
-    """({wrapper: launches}, {wrapper: launches on float32 planes})."""
+    """({wrapper: launches, "plain_gathers": patch gathers in plain torch
+    on the card}, {wrapper: launches on float32 planes})."""
+    from repro_torch.kernels import ref
     fns = _counted()
-    return ({k: fn.launches for k, fn in fns.items()},
+    launches = {k: fn.launches for k, fn in fns.items()}
+    launches["plain_gathers"] = ref.extract_conv_patches.cuda_gathers
+    return (launches,
             {k: getattr(fn, "float_launches", 0) for k, fn in fns.items()})
+
+
+def _ptxas_summary(log: str):
+    """One entry per compiled kernel of an nvcc -Xptxas -v log: its name
+    (template arguments kept), registers, spill stores and loads, bytes."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            for junk in ("_ZN", "_GLOBAL__N_"):
+                name = name.replace(junk, "")
+        elif "spill stores" in ln:
+            parts = ln.replace(",", "").split()
+            spill = f"spill {parts[parts.index('spill') - 2]}/" \
+                    f"{parts[parts.index('loads') - 3]} B"
+        elif "Used" in ln and "registers" in ln and name is not None:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{_short_kernel_name(name)} {regs} regs {spill}")
+            name, spill = None, ""
+    return out
+
+
+def _short_kernel_name(mangled: str) -> str:
+    """``..._ZN..23cim_adc_free_mma_kernelILi16ELb1ELb0ELb1EEEv..`` -> the
+    kernel's name with its template arguments, ``...<16,1,0,1>``."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        ident = mangled[m.end(): m.end() + int(m.group())]
+        if ident.endswith("_kernel"):
+            rest = mangled[m.end() + len(ident):]
+            args = (re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
+                    if rest.startswith("I") else [])
+            return ident + (f"<{','.join(args)}>" if args else "")
+    return mangled[:48]
 
 
 # ---------------------------------------------------------------------------
@@ -352,10 +422,66 @@ def phase3_kernel_cases(torch, dev, errs) -> int:
     return n_cases
 
 
+# The case tables and the operand builder below also parametrise the card
+# tests of tests/test_torch_cuda.py.
+# the tensor-core ADC-free matmul on shapes its loaders find hard:
+# (M, kt, rows, N, uint8 codes, nibble groups or 0, occ); rows not a
+# multiple of 32 (16/96: 16-byte aligned loads; 40, 100, 127: staged),
+# N from 1 to 200 (column tiles 16/32/64, several of them), ragged M, and
+# enough row blocks that each persistent block takes several
+ADC_FREE_MATMUL_CASES = (
+    (1, 1, 16, 1, False, 0, False), (333, 2, 40, 3, True, 0, True),
+    (1000, 3, 100, 20, False, 2, True), (2049, 1, 127, 33, True, 0, True),
+    (515, 4, 96, 64, False, 4, True), (70001, 2, 126, 16, True, 9, True),
+    (4097, 2, 128, 200, False, 1, True), (129, 5, 126, 64, True, 0, False))
+# the implicit-GEMM conv: (batch, H, W, C_in, k, stride, padding, cpa,
+# C_out, nibble, uint8 codes, occ). C_in 3/14/15/16/29/64 at cpa 14 (16-byte
+# aligned pixels at 16 and 64: direct loads; the rest staged), odd and even
+# H and W at stride 2 under SAME (pads 0 before, 1 after on even sizes) and
+# VALID, 1x1 projections at cpa 128, blocks that straddle images (H'W' well
+# under a 64-row block), M not a multiple of the block
+IMPLICIT_CONV_CASES = (
+    (5, 9, 9, 3, 3, 1, "SAME", 14, 16, False, True, True),
+    (4, 10, 12, 14, 3, 2, "SAME", 14, 20, True, False, True),
+    (3, 11, 7, 15, 3, 2, "SAME", 14, 32, False, True, False),
+    (7, 8, 8, 16, 3, 2, "SAME", 14, 32, True, True, True),
+    (2, 13, 10, 29, 3, 2, "VALID", 14, 64, False, False, True),
+    (6, 6, 6, 64, 3, 1, "SAME", 14, 64, True, True, True),
+    (9, 8, 8, 64, 3, 2, "VALID", 14, 70, False, True, True),
+    (11, 16, 16, 16, 1, 2, "SAME", 128, 32, True, True, True),
+    (5, 15, 15, 32, 1, 2, "SAME", 128, 64, False, False, False),
+    (3, 5, 5, 29, 1, 1, "VALID", 128, 9, False, True, True),
+    (13, 4, 4, 16, 3, 1, "SAME", 14, 16, False, False, True))
+
+
+def implicit_conv_operands(torch, g, b, h, w, c_in, kh, cpa, n, uns):
+    """Codes (b, h, w, c_in) over their whole range, conv planes (S = 3,
+    digits -8..7) with dead output channels and a dead (split, tile), on
+    the CPU: (a, logical (S, kt, rows, n), nibble planes, occ, deq)."""
+    from repro_torch.core.nibble import occupancy_map, pack_nibbles
+    kt = -(-c_in // cpa)
+    if uns:
+        a = torch.randint(0, 256, (b, h, w, c_in), generator=g,
+                          dtype=torch.uint8)
+    else:
+        a = torch.randint(-128, 128, (b, h, w, c_in), generator=g,
+                          dtype=torch.int8)
+    d6 = torch.randint(-8, 8, (3, kt, kh, kh, cpa, n), generator=g,
+                       dtype=torch.int8)
+    d6[..., 1:4] = 0                       # dead output channels
+    d6[1, 0] = 0                           # a dead (split, tile)
+    rows = kh * kh * cpa
+    logical = d6.reshape(3, kt, rows, n)
+    packed = pack_nibbles(d6).reshape(3, kt, rows // 2, n)
+    deq = torch.randn((3, kt, n), generator=g) * 0.1
+    return a, logical, packed, occupancy_map(d6, conv=True), deq
+
+
 def phase3b_new_kernel_cases(torch, dev, errs) -> int:
     """Phase 3's case grid through the ADC-free kernels, and float32 digit
     planes carrying one cell-variation realization (sigma 0.3) through
-    both kernel families."""
+    both kernel families; then the tensor-core ADC-free matmul and the
+    implicit-GEMM conv on the shapes their loaders find hard."""
     from repro_torch.core.variation import perturb_digits
     from repro_torch.kernels import ref
     from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
@@ -415,6 +541,37 @@ def phase3b_new_kernel_cases(torch, dev, errs) -> int:
             torch.cuda.synchronize()
             _compare(torch, got, want, name, f"{what} {planes} planes", errs)
             n_cases += 1
+
+    for m, kt, rows, n, uns, groups, sparse in ADC_FREE_MATMUL_CASES:
+        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, groups)
+        a, d, digits, occ, _, deq = (x.to(dev) for x in ops)
+        got = cim_matmul_adc_free_cuda(a, digits, deq,
+                                       occ if sparse else None,
+                                       nibble_groups=max(groups, 1))
+        want = ref.cim_matmul_adc_free_ref(a, d, deq)
+        torch.cuda.synchronize()
+        _compare(torch, got, want, "cim_matmul_adc_free",
+                 f"M={m} kt={kt} rows={rows} N={n} uint8={uns} "
+                 f"nibble={groups} occ={sparse}", errs)
+        n_cases += 1
+
+    for (b, h, w, c_in, kh, stride, padding, cpa, n, nibble, uns,
+         sparse) in IMPLICIT_CONV_CASES:
+        a, logical, packed, occ, deq = (x.to(dev) for x in
+                                        implicit_conv_operands(
+                                            torch, g, b, h, w, c_in, kh, cpa,
+                                            n, uns))
+        geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
+                   c_per_array=cpa)
+        got = cim_conv_adc_free_cuda(a, packed if nibble else logical, deq,
+                                     occ if sparse else None, **geo)
+        want = ref.cim_conv_adc_free_ref(a, logical, deq, **geo)
+        torch.cuda.synchronize()
+        _compare(torch, got, want, "cim_conv_adc_free",
+                 f"implicit B={b} {h}x{w}x{c_in} {kh}x{kh} stride {stride} "
+                 f"{padding} cpa={cpa} N={n} nibble={nibble} uint8={uns} "
+                 f"occ={sparse}", errs)
+        n_cases += 1
     return n_cases
 
 
@@ -444,6 +601,32 @@ def _events_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, reps: int) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    the replay timed with CUDA events, so host launch gaps are left out
+    (a kernel faster than its wrapper's host work would otherwise be timed
+    at the host's pace)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                               # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def _bytes_ops_ms(nbytes: int, macs: int, ops_per_s: float):
@@ -476,17 +659,24 @@ def _folded_weight(torch, logical, deq):
 
 def _time_calls(torch, calls, name, errs, reps):
     """calls: {kernel: (kernel fn, plain fn, library fn or None, bound_ms
-    pair)}; checks kernel against plain and times all three."""
+    pair)}; checks kernel against plain and times all three: the kernel
+    and the library call by CUDA-graph replay (device time, ``ms`` and
+    ``library_ms``) and eagerly by CUDA events (``events_ms`` and
+    ``library_events_ms``, host launch gaps included), the plain version
+    eagerly by CUDA events."""
     out = {}
     for kname, (kern, plain, lib, (bytes_ms, ops_ms)) in calls.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         _compare(torch, got, want, kname, f"{name} at the path's shapes",
                  errs)
-        t = {"ms": _events_ms(torch, kern, reps),
+        t = {"ms": _graph_ms(torch, kern, reps),
+             "events_ms": _events_ms(torch, kern, reps),
              "plain_ms": _events_ms(torch, plain, max(2, reps // 4), warmup=1),
-             "library_ms": None if lib is None else _events_ms(torch, lib,
-                                                               reps),
+             "library_ms": None if lib is None else _graph_ms(torch, lib,
+                                                              reps),
+             "library_events_ms": None if lib is None else _events_ms(
+                 torch, lib, reps),
              "bytes_ms": bytes_ms, "ops_ms": ops_ms,
              "bound_ms": max(bytes_ms, ops_ms)}
         out[kname] = t
@@ -498,9 +688,11 @@ def _sum_layers(per_layer):
     tot = {}
     for layer in per_layer:
         for k, t in layer.items():
-            acc = tot.setdefault(k, {"ms": 0.0, "plain_ms": 0.0,
-                                     "library_ms": 0.0, "bound_ms": 0.0,
-                                     "bytes_ms": 0.0, "ops_ms": 0.0})
+            acc = tot.setdefault(k, {"ms": 0.0, "events_ms": 0.0,
+                                     "plain_ms": 0.0, "library_ms": 0.0,
+                                     "library_events_ms": 0.0,
+                                     "bound_ms": 0.0, "bytes_ms": 0.0,
+                                     "ops_ms": 0.0})
             for f in acc:
                 acc[f] = None if (acc[f] is None or t[f] is None) else \
                     acc[f] + t[f]
@@ -511,9 +703,23 @@ def _sum_layers(per_layer):
 
 
 def _fmt(k, t):
-    lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-    return (f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
-            f"{t['bound_ms']:.5f}, library {lib})")
+    """One kernel's times: graph replay, then eager events in brackets."""
+    lib = ("n/a" if t["library_ms"] is None else
+           f"{t['library_ms']:.4f} [{t['library_events_ms']:.4f}]")
+    return (f"{k} {t['ms']:.4f} [{t['events_ms']:.4f}] ms (plain "
+            f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f}, library {lib})")
+
+
+def _fmt_total(t, launches: str, ops: str = "ops") -> str:
+    """A kernel's per-forward sums: graph replay, eager events, plain,
+    bound and, where there is one, the library call both ways."""
+    lib = ("" if t["library_ms"] is None else
+           f", library {t['library_ms']:.4f} ms [events "
+           f"{t['library_events_ms']:.4f}]")
+    return (f"{t['ms']:.4f} ms per forward [events {t['events_ms']:.4f}] "
+            f"({launches}), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms by {t['bound_by']} (bytes "
+            f"{t['bytes_ms']:.5f}, {ops} {t['ops_ms']:.5f}){lib}")
 
 
 def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
@@ -650,14 +856,12 @@ def phase4_resnet20(torch, dev, errs):
     for dt in ("int8", "int4"):
         _, _, taps = resnet.forward(packed[dt], state, requests[0], dcfg,
                                     train=False, return_taps=True)
-        print(f"phase 4 per-layer times, {dt} planes (CUDA events):",
-              flush=True)
+        print(f"phase 4 per-layer times, {dt} planes (graph replay "
+              "[eager events]):", flush=True)
         tot = _time_layers(torch, cfg, packed[dt], taps, errs, reps=20)
         for k, t in tot.items():
-            print(f"phase 4 {k} {dt}: {t['ms']:.4f} ms per forward (20 "
-                  f"launches), plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.5f} ms by {t['bound_by']} (bytes "
-                  f"{t['bytes_ms']:.5f}, ops {t['ops_ms']:.5f})", flush=True)
+            print(f"phase 4 {k} {dt}: {_fmt_total(t, '20 launches')}",
+                  flush=True)
         if dt == "int8":
             timings.update(tot)
     for k, t in timings.items():
@@ -755,7 +959,7 @@ def _time_adc_free_layers(torch, model_cfg, packed, taps, errs, reps: int):
                 + 4 * op["deq"].numel() + 4 * m * n)
         macs = _needed_macs(op, m)
         calls = {
-            "cim_matmul_adc_free": (
+            "cim_matmul_adc_free_resnet": (
                 lambda: cim_matmul_adc_free_cuda(a_t, op["digits"], op["deq"],
                                                  op["occ"],
                                                  nibble_groups=kh * kw),
@@ -803,13 +1007,15 @@ def phase6_adc_free(torch, model, errs):
     torch.cuda.synchronize()
     launches, _ = _read_counters()
     forwards = 2 * len(requests)
-    for k in ("cim_matmul_adc_free", "cim_conv_adc_free"):
-        check(launches[k] == 20 * forwards, f"{k} launched {launches[k]} "
-              f"times in {forwards} adc_free forwards, expected "
-              f"{20 * forwards}")
-    for k in ("cim_matmul", "cim_conv"):
-        check(launches[k] == 0, f"{k} launched {launches[k]} times in the "
-              "adc_free forwards, expected 0")
+    check(launches["cim_conv_adc_free"] == 20 * forwards,
+          f"cim_conv_adc_free launched {launches['cim_conv_adc_free']} times "
+          f"in {forwards} adc_free forwards, expected {20 * forwards}")
+    # the implicit-GEMM conv gathers its own patch rows: no matmul launch,
+    # no patch tensor
+    for k in ("cim_matmul_adc_free", "plain_gathers", "cim_matmul",
+              "cim_conv"):
+        check(launches[k] == 0, f"{k}: {launches[k]} in the adc_free "
+              "forwards, expected 0")
     worst = 0.0
     for dt in ("int8", "int4"):
         for y, w in zip(got[dt], want):
@@ -831,20 +1037,20 @@ def phase6_adc_free(torch, model, errs):
     for dt in ("int8", "int4"):
         _, _, taps = resnet.forward(packed[dt], state, requests[0], acfg,
                                     train=False, return_taps=True)
-        print(f"phase 6 per-layer times, {dt} planes (CUDA events):",
-              flush=True)
+        print(f"phase 6 per-layer times, {dt} planes (graph replay "
+              "[eager events]):", flush=True)
         tot = _time_adc_free_layers(torch, acfg, packed[dt], taps, errs,
                                     reps=20)
         for k, t in tot.items():
-            print(f"phase 6 {k} {dt}: {t['ms']:.4f} ms per forward (20 "
-                  f"launches), plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.5f} ms by {t['bound_by']} (bytes "
-                  f"{t['bytes_ms']:.5f}, ops {t['ops_ms']:.5f}), library "
-                  f"{t['library_ms']:.4f} ms", flush=True)
+            print(f"phase 6 {k} {dt}: {_fmt_total(t, '20 calls')}",
+                  flush=True)
         if dt == "int8":
             timings.update(tot)
-    for k, t in timings.items():
-        t["launches"] = launches[k]
+    # K4 on the materialized patches of the 20 convs, as first ported:
+    # its own entry, launched by no path (the adc_free forward runs the
+    # implicit conv); K4's path is the adc_free transformer (phase 10)
+    timings["cim_conv_adc_free"]["launches"] = launches["cim_conv_adc_free"]
+    timings["cim_matmul_adc_free_resnet"]["launches"] = 0
     return timings
 
 
@@ -1014,10 +1220,9 @@ def phase8_variation(torch, model, errs):
               flush=True)
     tot = _sum_layers(per_layer)["cim_conv_variation"]
     tot["launches"] = floats["cim_conv"]
-    print(f"phase 8 cim_conv_variation: {tot['ms']:.4f} ms per forward (20 "
-          f"launches on float planes), plain {tot['plain_ms']:.4f} ms, bound "
-          f"{tot['bound_ms']:.5f} ms by {tot['bound_by']} (bytes "
-          f"{tot['bytes_ms']:.5f}, FP64 ops {tot['ops_ms']:.5f})", flush=True)
+    print(f"phase 8 cim_conv_variation: "
+          f"{_fmt_total(tot, '20 launches on float planes', 'FP64 ops')}",
+          flush=True)
     return {"cim_conv_variation": tot}
 
 
@@ -1123,36 +1328,45 @@ def _slot_run(engine, prompts, requests):
     return [done.get(r) for r in rids]
 
 
+#: the kernel wrappers ``kernels.ops`` calls, by their names in the
+#: results line
+_OPS_WRAPPERS = {"cim_matmul_transformer": "cim_matmul_cuda",
+                 "cim_matmul_experts": "cim_matmul_experts_cuda",
+                 "cim_matmul_adc_free": "cim_matmul_adc_free_cuda"}
+
+
 def _capture_kernel_calls(fn):
-    """Run ``fn`` and return the operands of every CIM matmul and experts
-    kernel call it made through ``kernels.ops``."""
+    """Run ``fn`` and return the operands of every CIM matmul, experts and
+    ADC-free matmul kernel call it made through ``kernels.ops``."""
     import repro_torch.kernels.ops as kops
-    calls = {"cim_matmul_transformer": [], "cim_matmul_experts": []}
-    orig = (kops.cim_matmul_cuda, kops.cim_matmul_experts_cuda)
+    calls = {name: [] for name in _OPS_WRAPPERS}
+    orig = {name: getattr(kops, w) for name, w in _OPS_WRAPPERS.items()}
 
     def rec(name, f):
         def wrapped(*a, **kw):
             calls[name].append((a, kw))
             return f(*a, **kw)
         return wrapped
-    kops.cim_matmul_cuda = rec("cim_matmul_transformer", orig[0])
-    kops.cim_matmul_experts_cuda = rec("cim_matmul_experts", orig[1])
+    for name, w in _OPS_WRAPPERS.items():
+        setattr(kops, w, rec(name, orig[name]))
     try:
         fn()
     finally:
-        kops.cim_matmul_cuda, kops.cim_matmul_experts_cuda = orig
+        for name, w in _OPS_WRAPPERS.items():
+            setattr(kops, w, orig[name])
     return calls
 
 
 def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int):
-    """(bytes ms, int8 ops ms) of one call, from this run's data. Rows of a
-    code buffer that are all zero (empty capacity slots) need no MACs and
-    no code bytes; an expert with no filled row needs none of its planes.
+    """(bytes ms, int8 ops ms) of one call, from this run's data (``s_p``
+    None for the ADC-free matmul). Rows of a code buffer that are all zero
+    (empty capacity slots) need no MACs and no code bytes; an expert with
+    no filled row needs none of its planes.
     MACs: filled rows x rows per tile x live (split, tile, column) cells
     of the occupancy map. The output is written whole."""
     if m_axis == 0:                       # one matrix: add an expert axis
-        a_t, digits, s_p, deq = (x[None] for x in (a_t, digits, s_p, deq))
-        occ = None if occ is None else occ[None]
+        a_t, digits, deq = (x[None] for x in (a_t, digits, deq))
+        s_p, occ = (None if x is None else x[None] for x in (s_p, occ))
     e, c, kt, rows = a_t.shape
     n = digits.shape[-1]
     filled = (a_t.reshape(e, c, -1) != 0).any(dim=-1).sum(dim=1)   # (E,)
@@ -1162,7 +1376,8 @@ def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int):
     used = filled > 0
     per_expert = (digits[0].numel() * digits.element_size()
                   + (occ[0].numel() if occ is not None else 0)
-                  + 4 * (s_p[0].numel() + deq[0].numel()))
+                  + 4 * (s_p[0].numel() if s_p is not None else 0)
+                  + 4 * deq[0].numel())
     nbytes = (int(used.sum()) * per_expert + int(filled.sum()) * kt * rows
               + 4 * e * c * n)
     macs = int((filled * live).sum()) * rows
@@ -1173,12 +1388,31 @@ def _time_moe_calls(torch, calls, errs, reps: int):
     """Each captured call timed (CUDA events) beside its plain version and
     its bound, summed per kernel over the captured run."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_adc_free import cim_matmul_adc_free_cuda
     from repro_torch.kernels.cim_matmul import (cim_matmul_cuda,
                                                 cim_matmul_experts_cuda,
                                                 logical_digits)
     per_call = []
     for name, lst in calls.items():
         for a, kw in lst:
+            if name == "cim_matmul_adc_free":
+                a_t, digits, deq = a[:3]
+                occ = a[3] if len(a) > 3 else kw.get("occ")
+                logical = logical_digits(digits)
+                kern = (lambda a_t=a_t, d=digits, dq=deq, o=occ:
+                        cim_matmul_adc_free_cuda(a_t, d, dq, o))
+                plain = (lambda a_t=a_t, d=logical, dq=deq:
+                         ref.cim_matmul_adc_free_ref(a_t, d, dq))
+                # the yardstick, as on ResNet-20 (phase 6): one float32
+                # matmul with the split-folded weight
+                lib = (lambda a_f=a_t.reshape(a_t.shape[0], -1).float(),
+                       w=_folded_weight(torch, logical, deq):
+                       torch.matmul(a_f, w))
+                per_call.append(_time_calls(
+                    torch, {name: (kern, plain, lib, _moe_bound(
+                        torch, a_t, digits, occ, None, deq, 0))},
+                    f"{name} {tuple(a_t.shape)}", errs, reps))
+                continue
             a_t, digits, s_p, deq = a[:4]
             occ = a[4] if len(a) > 4 else kw.get("occ")
             mq = dict(psum_bits=kw["psum_bits"],
@@ -1326,6 +1560,11 @@ def phase10_moe_serving(torch, errs, mc):
           f"tokens equal emulate's; emulate reference runs {em_s:.2f} s",
           flush=True)
 
+    # the adc_free backend on the same packs: the ADC-free matmul on every
+    # CIM linear (expert banks one linear per expert), its own counted run
+    k4 = phase10_adc_free(torch, errs, mc, model, params, arts, tokens,
+                          k1_fwd + k6_fwd * cfg.moe.n_experts)
+
     # prefill and decode times, outside the counted run
     timing = {}
     for dt in ("int8", "int4"):
@@ -1362,23 +1601,137 @@ def phase10_moe_serving(torch, errs, mc):
                     dcfg))):
             calls = _capture_kernel_calls(fn)
             check(len(calls["cim_matmul_experts"]) == k6_fwd
-                  and len(calls["cim_matmul_transformer"]) == k1_fwd,
+                  and len(calls["cim_matmul_transformer"]) == k1_fwd
+                  and not calls["cim_matmul_adc_free"],
                   f"{dt} {what}: captured {({k: len(v) for k, v in calls.items()})}")
             tot = _time_moe_calls(torch, calls, errs, mc["reps"])
             for k, t in tot.items():
-                print(f"phase 10 {k} {dt} {what}: {t['ms']:.4f} ms per "
-                      f"forward ({len(calls[k])} launches), plain "
-                      f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-                      f"by {t['bound_by']} (bytes {t['bytes_ms']:.5f}, ops "
-                      f"{t['ops_ms']:.5f})", flush=True)
+                print(f"phase 10 {k} {dt} {what}: "
+                      f"{_fmt_total(t, f'{len(calls[k])} launches')}",
+                      flush=True)
             if dt == "int8" and what == "prefill":
                 results = tot
     for k, t in results.items():
         t.update(launches=launches["cim_matmul" if k == "cim_matmul_transformer"
-                                   else k], library_ms=None)
+                                   else k])
+    results["cim_matmul_adc_free"] = k4
     print(f"phase 10 max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     return results
+
+
+def phase10_adc_free(torch, errs, mc, model, params, arts, tokens,
+                     k4_fwd: int):
+    """One prefill forward of the MoE transformer on the ``adc_free``
+    backend per pack dtype, against emulate with ``psum_quant=False``;
+    the counters read ``k4_fwd`` ADC-free matmul launches per forward and
+    no other kernel. Then the ADC-free matmul at the operands of one
+    prefill forward and one decode step, each call against its plain
+    version, timed beside it, its bound and the folded-weight matmul,
+    and the forward's calls with
+    the planes relaid on every call against relaid once. Returns the
+    int8 prefill sums with the counted launches."""
+    from repro_torch.kernels.cim_adc_free import clear_relaid_planes
+
+    cfg, b, max_len = mc["cfg"], mc["batch"], mc["max_len"]
+    em = model.forward(params, tokens,
+                       cfg.replace(cim=cfg.cim.replace(psum_quant=False)))
+    torch.cuda.synchronize()
+    _reset_counters()
+    got, ms = {}, {}
+    for dt in ("int8", "int4"):
+        acfg = cfg.replace(cim=arts[dt].config.replace(mode="adc_free"))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got[dt] = model.forward(arts[dt].params, tokens, acfg)
+        end.record()
+        ms[dt] = (start, end)
+    torch.cuda.synchronize()
+    launches, _ = _read_counters()
+    check(launches["cim_matmul_adc_free"] == 2 * k4_fwd,
+          f"adc_free transformer: ADC-free matmul launched "
+          f"{launches['cim_matmul_adc_free']} times in 2 forwards, expected "
+          f"{k4_fwd} per forward")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "cim_matmul_adc_free"),
+          f"adc_free transformer: other launches {launches}")
+    scale = float(em.float().abs().max())
+    diffs = {}
+    for dt, y in got.items():
+        check(y.shape == em.shape and bool(torch.isfinite(y).all()),
+              f"adc_free {dt} transformer logits: shape or non-finite")
+        diffs[dt] = float((y.float() - em.float()).abs().max())
+        check(diffs[dt] <= 1e-4 * scale, f"adc_free {dt} transformer vs "
+              f"emulate(psum_quant=False): max diff {diffs[dt]!r} at max "
+              f"|logit| {scale!r}")
+    print(f"phase 10 adc_free: prefill forward int8 "
+          f"{ms['int8'][0].elapsed_time(ms['int8'][1]):.2f} ms, int4 "
+          f"{ms['int4'][0].elapsed_time(ms['int4'][1]):.2f} ms (first "
+          f"forward: planes relaid); {launches['cim_matmul_adc_free']} "
+          f"ADC-free matmul launches = {k4_fwd} per forward; max |adc_free - "
+          f"emulate(psum_quant=False)| {diffs} (max |logit| {scale!r})",
+          flush=True)
+
+    k4 = None
+    for dt in ("int8", "int4"):
+        p = arts[dt].params
+        acfg = cfg.replace(cim=arts[dt].config.replace(mode="adc_free"))
+        for what, fn in (
+                ("prefill", lambda: model.forward(p, tokens, acfg)),
+                ("decode", lambda: model.decode_step(
+                    p, model.init_cache(cfg, b, max_len), tokens[:, :1],
+                    acfg))):
+            calls = _capture_kernel_calls(fn)
+            lst = calls.pop("cim_matmul_adc_free")
+            check(len(lst) == k4_fwd and not any(calls.values()),
+                  f"adc_free {dt} {what}: captured {len(lst)} ADC-free "
+                  f"matmul calls, expected {k4_fwd}, and "
+                  f"{({k: len(v) for k, v in calls.items()})} others")
+            tot = _time_moe_calls(torch, {"cim_matmul_adc_free": lst}, errs,
+                                  mc["reps"])["cim_matmul_adc_free"]
+            every, once = _relayout_ms(torch, lst)
+            print(f"phase 10 cim_matmul_adc_free {dt} {what}: "
+                  f"{_fmt_total(tot, f'{len(lst)} launches')}; the forward's "
+                  f"calls by graph replay: planes relaid on every call "
+                  f"{every:.4f} ms, relaid once {once:.4f} ms", flush=True)
+            if dt == "int8" and what == "prefill":
+                k4 = tot
+        before = torch.cuda.memory_allocated()
+        clear_relaid_planes()
+        print(f"phase 10 adc_free {dt}: relaid planes kept "
+              f"{(before - torch.cuda.memory_allocated()) / 1e9:.3f} GB "
+              f"(freed)", flush=True)
+    k4["launches"] = launches["cim_matmul_adc_free"]
+    return k4
+
+
+def _relayout_ms(torch, calls):
+    """Device time of the captured ADC-free matmul calls, all in one CUDA
+    graph: (planes relaid by every call, as when nothing is kept; planes
+    relaid once and kept)."""
+    from repro_torch.kernels.cim_adc_free import (cim_matmul_adc_free_cuda,
+                                                  clear_relaid_planes)
+
+    def run():
+        for a, kw in calls:
+            cim_matmul_adc_free_cuda(*a, **kw)
+    once = _graph_ms(torch, run, 1)        # its warm-up keeps the planes
+    clear_relaid_planes()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):          # nothing kept: each call relays
+        run()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    every = start.elapsed_time(end)
+    del graph
+    run()                                  # keep the planes again
+    return every, once
 
 
 if __name__ == "__main__":

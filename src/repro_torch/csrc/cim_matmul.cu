@@ -6,17 +6,18 @@
 //   repro/kernels/cim_matmul.py::cim_matmul_pallas (:160): its dense body
 //     `_kernel`, the occupancy-skip body `_kernel_sparse` and the nibble
 //     decode `decode_digit_block`; entry point cim_matmul_launch;
-//   repro/kernels/cim_adc_free.py::cim_matmul_adc_free_pallas (:98): the
-//     ADC-free bodies `_kernel` and `_kernel_sparse`, the same tile loop
-//     with the ADC-free epilogue and no s_p operand; entry point
-//     cim_matmul_adc_free_launch;
+//   repro/kernels/cim_adc_free.py::cim_matmul_adc_free_pallas (:98) on
+//     float32 planes: the ADC-free bodies `_kernel` and `_kernel_sparse`,
+//     the same tile loop with the ADC-free epilogue and no s_p operand;
+//     entry point cim_matmul_adc_free_launch (integer planes run
+//     cim_adc_free_mma.cu);
 //   repro/kernels/cim_matmul.py::cim_matmul_experts_pallas (:269), body
 //     `_experts_kernel` (:237): the ADC kernel over every expert of an MoE
 //     bank in one launch, the expert on blockIdx.z; entry point
 //     cim_matmul_experts_launch.
-// The conv deploy paths (repro/kernels/cim_conv.py::cim_conv_pallas and
-// repro/kernels/cim_adc_free.py::cim_conv_adc_free_pallas, :180) lower onto
-// these with M = B*H'*W' and nibble groups = kh*kw.
+// The conv deploy paths (repro/kernels/cim_conv.py::cim_conv_pallas, and
+// repro/kernels/cim_adc_free.py::cim_conv_adc_free_pallas, :180, on float32
+// planes) lower onto these with M = B*H'*W' and nibble groups = kh*kw.
 //
 //   p[m,s,t,n] = sum_r a[m,t,r] * d[s,t,r,n]
 //   ADC:       out[m,n] = sum_t sum_s deq[s,t,n] * ADC(round(p))
@@ -80,8 +81,10 @@
 // once per (t, s)), picks the N tile from {16, 32, 64} so a 16-wide layer
 // does not idle 7/8 of a 128-wide tile, and writes the output once. It
 // runs its MACs on dp4a (float64 FMAs for float digits) rather than on the
-// tensor cores (wgmma) and does not gather the patches itself (implicit
-// GEMM); both are later work.
+// tensor cores, and its conv callers gather the patches in plain torch.
+// The ADC-free path on integer planes has moved to cim_adc_free_mma.cu
+// (int8 tensor cores; the conv gathers its patch rows inside the kernel);
+// cim_matmul_adc_free_launch here serves float32 (cell-variation) planes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -19,13 +19,14 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("cim_matmul",)
+SOURCES = ("cim_matmul", "cim_adc_free_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 # argtypes/restype of every exported C function, per library
 _SIGNATURES = {
     "cim_matmul": {
@@ -37,6 +38,14 @@ _SIGNATURES = {
                                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
                                       _I),
         "cim_matmul_error_string": ([_I], ctypes.c_char_p),
+    },
+    "cim_adc_free_mma": {
+        "cim_adc_free_mma_workspace": ([_I] * 5, _LL),
+        "cim_matmul_adc_free_mma_launch": ([_P] * 6 + [_LL, _PLL, _LL]
+                                           + [_I] * 7 + [_P], _I),
+        "cim_conv_adc_free_implicit_launch": ([_P] * 6 + [_LL, _PLL]
+                                              + [_I] * 17 + [_P], _I),
+        "cim_adc_free_mma_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

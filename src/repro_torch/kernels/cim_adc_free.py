@@ -1,26 +1,52 @@
 """ADC-free CIM matmul and conv (the ``adc_free`` hardware style): the
-wrappers of the ADC-free kernel in ``csrc/cim_matmul.cu``
-(``cim_matmul_adc_free_launch``), the port of
-``repro/kernels/cim_adc_free.py::cim_matmul_adc_free_pallas`` and
+port of ``repro/kernels/cim_adc_free.py::cim_matmul_adc_free_pallas`` and
 ``cim_conv_adc_free_pallas``.
 
 Each (split, array tile, column) partial sum leaves the array exact and is
 accumulated digitally: ``out = sum_t sum_s round(psum) * deq``, with no ADC
-stage and no s_p operand. The conv lowers stretched-kernel patches onto the
-matmul kernel, as ``kernels/cim_conv.py`` does, with ``nibble_groups =
-kh*kw``.
+stage and no s_p operand.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-versions ``ref.cim_matmul_adc_free_ref`` / ``ref.cim_conv_adc_free_ref``.
-Each wrapper carries its own ``launches`` count (and ``float_launches``
-for float32 digit planes); the conv's launches also count on the matmul's.
+Dispatch on the planes' dtype, for CUDA tensors:
+- integer planes (int8, or int4 nibble pairs in uint8) run the
+  tensor-core kernels of ``csrc/cim_adc_free_mma.cu``: the matmul on
+  pre-tiled codes (``cim_matmul_adc_free_mma_launch``), and the conv as an
+  implicit GEMM that gathers its stretched-kernel patch rows from the NHWC
+  codes inside the kernel (``cim_conv_adc_free_implicit_launch``; pads, H'
+  and W' from ``ref.conv_geometry``), so no patch tensor is made;
+- float32 planes (cell variation) run the float64 branch of
+  ``csrc/cim_matmul.cu`` (``cim_matmul_adc_free_launch``), the conv on
+  patches gathered in plain torch (``ref.conv_as_matmul``).
+A refused launch raises. A CPU tensor runs the plain versions
+``ref.cim_matmul_adc_free_ref`` / ``ref.cim_conv_adc_free_ref``.
+
+The tensor-core kernels read the planes relaid K-major (nibbles decoded)
+into a device workspace. The workspace is kept per plane tensor (its
+base, offset, shape and dtype, and the call's taps and segment), beside
+the id of the layout it holds, so constant planes are relaid once and
+later launches read the relaid copy; an in-place write to the planes
+(their ``_version``) or a launch that needs another layout relays them
+again, and the entry goes with the planes' base tensor. The copy costs
+device memory about the planes' int8 size (twice a nibble plane's);
+``clear_relaid_planes()`` frees it. A launch inside a CUDA-graph capture
+uses what is kept and keeps nothing new; it raises if what is kept is in
+another layout (run the call once before capturing it). Later launches
+must be on the stream that relaid the planes or ordered after it.
+
+Counters: each wrapper's ``launches`` and, of them, ``float_launches`` on
+float32 planes. The conv's float-plane launches also count on the
+matmul's, which runs them; its integer launches do not.
 """
 from __future__ import annotations
+
+import ctypes
+import weakref
 
 import torch
 
 from . import _build, ref
 from .cim_matmul import kernel_operands, logical_digits, raise_on_error
+
+_MMA = "cim_adc_free_mma"
 
 
 def cim_matmul_adc_free_cuda(a_t: torch.Tensor, digits: torch.Tensor,
@@ -40,18 +66,34 @@ def cim_matmul_adc_free_cuda(a_t: torch.Tensor, digits: torch.Tensor,
                          deq=deq)
     if op.m == 0:
         return op.out
-    lib = _build.load("cim_matmul")
+    floats = digits.dtype == torch.float32
+    lib = _build.load("cim_matmul" if floats else _MMA)
+    occ_ptr = op.occ.data_ptr() if op.occ is not None else None
     with torch.cuda.device(a_t.device):
-        rc = lib.cim_matmul_adc_free_launch(
-            a_t.data_ptr(), digits.data_ptr(),
-            op.occ.data_ptr() if op.occ is not None else None,
-            op.cols["deq"].data_ptr(), op.out.data_ptr(),
-            *op.common_args(nibble_groups),
-            torch.cuda.current_stream(a_t.device).cuda_stream)
-    raise_on_error(lib, rc, "cim_matmul_adc_free")
+        stream = torch.cuda.current_stream(a_t.device).cuda_stream
+        if floats:
+            rc = lib.cim_matmul_adc_free_launch(
+                a_t.data_ptr(), digits.data_ptr(), occ_ptr,
+                op.cols["deq"].data_ptr(), op.out.data_ptr(),
+                *op.common_args(nibble_groups), stream)
+        else:
+            work, layout, kept = _relaid(lib, digits, op.k_tiles,
+                                         op.n_split, op.n, 1, op.rows,
+                                         op.k_tiles * op.rows)
+            rc = lib.cim_matmul_adc_free_mma_launch(
+                a_t.data_ptr(), digits.data_ptr(), occ_ptr,
+                op.cols["deq"].data_ptr(), op.out.data_ptr(),
+                work.data_ptr(), work.numel(), ctypes.byref(layout),
+                *op.common_args(nibble_groups)[:-1],
+                int(digits.dtype == torch.uint8), stream)
+    if floats:
+        raise_on_error(lib, rc, "cim_matmul_adc_free")
+    else:
+        raise_on_error(lib, rc, "cim_matmul_adc_free_mma",
+                       "cim_adc_free_mma_error_string")
+        _check_capture(layout, kept, "cim_matmul_adc_free_cuda")
     cim_matmul_adc_free_cuda.launches += 1
-    cim_matmul_adc_free_cuda.float_launches += int(
-        digits.dtype == torch.float32)
+    cim_matmul_adc_free_cuda.float_launches += int(floats)
     return op.out
 
 
@@ -79,15 +121,122 @@ def cim_conv_adc_free_cuda(a_int: torch.Tensor, digits: torch.Tensor,
     if a_int.device.type != "cuda":
         raise ValueError(f"cim_conv_adc_free_cuda: unsupported device "
                          f"{a_int.device}")
-    out = ref.conv_as_matmul(
-        a_int, digits, kh, kw, stride, padding, c_per_array,
-        lambda a_t: cim_matmul_adc_free_cuda(a_t, digits, deq, occ,
-                                             nibble_groups=kh * kw))
+    floats = digits.dtype == torch.float32
+    if floats:
+        out = ref.conv_as_matmul(
+            a_int, digits, kh, kw, stride, padding, c_per_array,
+            lambda a_t: cim_matmul_adc_free_cuda(a_t, digits, deq, occ,
+                                                 nibble_groups=kh * kw))
+    else:
+        out = _implicit_conv(a_int, digits, deq, occ, ref.conv_geometry(
+            a_int.shape, kh, kw, stride, padding, digits.shape[1],
+            c_per_array))
     cim_conv_adc_free_cuda.launches += 1
-    cim_conv_adc_free_cuda.float_launches += int(
-        digits.dtype == torch.float32)
+    cim_conv_adc_free_cuda.float_launches += int(floats)
     return out
 
 
 cim_conv_adc_free_cuda.launches = 0
 cim_conv_adc_free_cuda.float_launches = 0
+
+
+def _implicit_conv(a_int, digits, deq, occ, geo: ref.ConvGeometry):
+    """One launch of the implicit-GEMM conv kernel on checked operands."""
+    name = "cim_conv_adc_free_cuda"
+    if a_int.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"{name}: activation codes must be int8 or uint8, "
+                        f"got {a_int.dtype}")
+    if digits.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"{name}: integer planes must be int8 or nibble "
+                        f"uint8, got {digits.dtype}")
+    if a_int.ndim != 4 or digits.ndim != 4:
+        raise ValueError(f"{name}: codes {tuple(a_int.shape)} and planes "
+                         f"{tuple(digits.shape)} have the wrong rank")
+    n_split, k_tiles, _, n = digits.shape      # rows checked by the caller
+    if k_tiles * geo.c_per_array < geo.c_in:
+        raise ValueError(f"{name}: {k_tiles} tiles of {geo.c_per_array} "
+                         f"channels do not cover C_in = {geo.c_in}")
+    shape = (n_split, k_tiles, n)
+    for nm, v in (("deq", deq),) + ((("occ", occ),) if occ is not None
+                                    else ()):
+        if tuple(v.shape) != shape:
+            raise ValueError(f"{name}: {nm} has shape {tuple(v.shape)}, "
+                             f"expected {shape}")
+    if not (a_int.is_contiguous() and digits.is_contiguous()):
+        raise ValueError(f"{name}: a_int and digits must be contiguous")
+    dev = a_int.device
+    if digits.device != dev:
+        raise ValueError(f"{name}: operands on different devices")
+    deq = deq.to(device=dev, dtype=torch.float32).contiguous()
+    if occ is not None:
+        occ = occ.to(device=dev, dtype=torch.uint8).contiguous()
+    out = torch.empty((geo.batch, geo.ho, geo.wo, n), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    (top, _), (left, _) = geo.pads
+    lib = _build.load(_MMA)
+    work, layout, kept = _relaid(lib, digits, k_tiles, n_split, n,
+                                 geo.kh * geo.kw, geo.c_per_array, geo.c_in)
+    with torch.cuda.device(dev):
+        rc = lib.cim_conv_adc_free_implicit_launch(
+            a_int.data_ptr(), digits.data_ptr(),
+            occ.data_ptr() if occ is not None else None, deq.data_ptr(),
+            out.data_ptr(), work.data_ptr(), work.numel(),
+            ctypes.byref(layout), geo.batch, geo.h,
+            geo.w, geo.c_in, geo.kh, geo.kw, geo.stride, top, left, geo.ho,
+            geo.wo, geo.c_per_array, k_tiles, n_split, n,
+            int(a_int.dtype == torch.uint8),
+            int(digits.dtype == torch.uint8),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(lib, rc, "cim_conv_adc_free_implicit",
+                   "cim_adc_free_mma_error_string")
+    _check_capture(layout, kept, name)
+    return out
+
+
+#: relaid planes: {id(base tensor): {(offset, shape, dtype, taps, seg, C):
+#: [planes' _version, workspace, layout id]}}
+_RELAID: dict = {}
+
+
+def _relaid(lib, digits, k_tiles, n_split, n, taps, seg, c):
+    """(workspace, layout id, the id kept before or None) for a launch on
+    ``digits``: the kept pair if the planes were not written since (the
+    kernel relays them anyway if the id is not the layout it needs, and
+    stores the new id), else a new workspace (its size from the library)
+    with id 0, kept unless a CUDA graph is being captured."""
+    nbytes = lib.cim_adc_free_mma_workspace(k_tiles, n_split, n, taps, seg)
+    base = digits if digits._base is None else digits._base
+    key = (digits.storage_offset(), tuple(digits.shape), digits.dtype, taps,
+           seg, c)
+    kept = _RELAID.get(id(base), {}).get(key)
+    if kept is not None and kept[0] == digits._version:
+        return kept[1], kept[2], kept[2].value
+    work = torch.empty(nbytes, dtype=torch.uint8, device=digits.device)
+    layout = ctypes.c_longlong(0)
+    if not torch.cuda.is_current_stream_capturing():
+        if id(base) not in _RELAID:
+            _RELAID[id(base)] = {}
+            weakref.finalize(base, _RELAID.pop, id(base), None)
+        _RELAID[id(base)][key] = [digits._version, work, layout]
+    return work, layout, None
+
+
+def _check_capture(layout, kept_id, name: str) -> None:
+    """Raise if a launch under CUDA-graph capture relaid kept planes: the
+    relayout is only recorded, not run, so the kept copy no longer holds
+    the layout its id names; it is dropped."""
+    if (kept_id is not None and layout.value != kept_id
+            and torch.cuda.is_current_stream_capturing()):
+        clear_relaid_planes()
+        raise RuntimeError(f"{name}: planes relaid in another layout during "
+                           "a CUDA-graph capture; launch once on these "
+                           "operands before capturing")
+
+
+def clear_relaid_planes() -> None:
+    """Free every kept relaid-plane workspace (the next launch on each
+    plane relays it again)."""
+    for per_base in _RELAID.values():
+        per_base.clear()

@@ -3,8 +3,8 @@ the hand-written Hopper kernel ``csrc/cim_matmul.cu``, the port of
 ``repro/kernels/cim_matmul.py::cim_matmul_pallas`` (dense body, occupancy
 skip and nibble decode in one kernel family) and of its MoE variant
 ``cim_matmul_experts_pallas`` (every expert of a bank in one launch), plus
-the operand checks the ADC-free wrapper (``kernels/cim_adc_free.py``)
-shares.
+the operand checks the ADC-free wrappers (``kernels/cim_adc_free.py``)
+share.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version (``ref.cim_matmul_ref``, ``ref.cim_matmul_experts_ref``).
@@ -108,10 +108,13 @@ def kernel_operands(name: str, a_t: torch.Tensor, digits: torch.Tensor,
         kind=DIGIT_KINDS[digits.dtype], experts=ex[0] if ex else 1)
 
 
-def raise_on_error(lib, rc: int, name: str) -> None:
+def raise_on_error(lib, rc: int, name: str,
+                   error_string: str = "cim_matmul_error_string") -> None:
+    """Raise with the CUDA error's text if a launch returned ``rc`` != 0;
+    ``error_string`` names the library's function that gives the text."""
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.cim_matmul_error_string(rc).decode()}")
+        msg = getattr(lib, error_string)(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 
 def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,

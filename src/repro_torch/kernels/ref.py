@@ -2,14 +2,22 @@
 ``repro.kernels.ref``).
 
 They define the arithmetic the CUDA kernels in ``csrc/cim_matmul.cu``
-must reproduce (with the ADC, ADC-free, and batched over MoE experts),
-run on the CPU and on the card, and are what the wrappers use for CPU
-tensors. The shift-and-add accumulates in the kernel's order (array tile
-outer, split inner, one rounded multiply and one rounded add per term),
-so the kernel and this version agree bit for bit.
+and ``csrc/cim_adc_free_mma.cu`` must reproduce (with the ADC, ADC-free,
+and batched over MoE experts), run on the CPU and on the card, and are
+what the wrappers use for CPU tensors. The shift-and-add accumulates in
+the kernel's order (array tile outer, split inner, one rounded multiply
+and one rounded add per term), so the kernel and this version agree bit
+for bit.
+
+``conv_geometry`` gives the implicit-GEMM conv kernel its launch
+arguments, and ``implicit_conv_rows`` mirrors that kernel's index map
+(output row -> pixel, logical row -> tap and channel) in plain torch.
+``extract_conv_patches.cuda_gathers`` counts patch gathers run on a CUDA
+tensor, so a run can show that a conv path gathered nothing in torch.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -117,20 +125,96 @@ def conv_pads(h: int, w: int, kh: int, kw: int, stride: int, padding):
     return tuple((int(lo), int(hi)) for lo, hi in padding)
 
 
+@dataclasses.dataclass(frozen=True)
+class ConvGeometry:
+    """One CIM conv's shapes: input (batch, h, w, c_in) NHWC, kernel kh x
+    kw at ``stride``, explicit ``pads`` ((top, bottom), (left, right)),
+    output ho x wo, ``k_tiles`` array tiles of ``c_per_array`` channels."""
+
+    batch: int
+    h: int
+    w: int
+    c_in: int
+    kh: int
+    kw: int
+    stride: int
+    pads: tuple
+    ho: int
+    wo: int
+    k_tiles: int
+    c_per_array: int
+
+    @property
+    def m(self) -> int:
+        """Output rows of the lowered matmul, B*H'*W'."""
+        return self.batch * self.ho * self.wo
+
+    @property
+    def rows(self) -> int:
+        """Logical rows of one array tile, kh*kw*c_per_array."""
+        return self.kh * self.kw * self.c_per_array
+
+
+def conv_geometry(shape, kh: int, kw: int, stride: int, padding,
+                  k_tiles: int, c_per_array: int) -> ConvGeometry:
+    """The geometry of a conv over NHWC codes of ``shape``: pads by
+    ``conv_pads`` (XLA's rule), H' and W' as ``extract_conv_patches``
+    computes them."""
+    b, h, w, c = (int(v) for v in shape)
+    pads = conv_pads(h, w, kh, kw, stride, padding)
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
+    ho = (h + ph_lo + ph_hi - kh) // stride + 1
+    wo = (w + pw_lo + pw_hi - kw) // stride + 1
+    return ConvGeometry(batch=b, h=h, w=w, c_in=c, kh=kh, kw=kw,
+                        stride=stride, pads=pads, ho=ho, wo=wo,
+                        k_tiles=k_tiles, c_per_array=c_per_array)
+
+
+def implicit_conv_rows(a_int: torch.Tensor, m_idx, t: int, *, kh: int,
+                       kw: int, stride: int, pads,
+                       c_per_array: int) -> torch.Tensor:
+    """Rows of array tile ``t`` of the stretched-kernel patches at output
+    rows ``m_idx``, by the implicit-GEMM conv kernel's own index map: row
+    m is (b, ho, wo) = (m // (H'W'), m % (H'W') // W', m % W'); logical row
+    r is tap (dh, dw) = divmod(r // cpa, kw) and channel c = r % cpa; the
+    code is a_int[b, ho*stride + dh - top, wo*stride + dw - left,
+    t*cpa + c], zero outside the image and for channels >= C_in. Returns
+    (len(m_idx), kh*kw*c_per_array) in a_int's dtype."""
+    b_, h, w, c_in = a_int.shape
+    (top, bottom), (left, right) = pads
+    ho = (h + top + bottom - kh) // stride + 1
+    wo = (w + left + right - kw) // stride + 1
+    m = torch.as_tensor(m_idx, dtype=torch.int64, device=a_int.device)
+    r = torch.arange(kh * kw * c_per_array, device=a_int.device)
+    b, rem = m // (ho * wo), m % (ho * wo)
+    oh, ow = rem // wo, rem % wo
+    tap, c = r // c_per_array, r % c_per_array
+    dh, dw = tap // kw, tap % kw
+    hi = oh[:, None] * stride + dh[None] - top
+    wi = ow[:, None] * stride + dw[None] - left
+    ch = (t * c_per_array + c)[None].expand_as(hi)
+    ok = ((hi >= 0) & (hi < h) & (wi >= 0) & (wi < w) & (ch < c_in)
+          & (b[:, None] < b_))
+    vals = a_int[b[:, None].clamp(max=b_ - 1), hi.clamp(0, h - 1),
+                 wi.clamp(0, w - 1), ch.clamp(max=c_in - 1)]
+    return torch.where(ok, vals, torch.zeros_like(vals))
+
+
 def extract_conv_patches(a: torch.Tensor, kh: int, kw: int, stride: int,
                          padding, k_tiles: int,
                          c_per_array: int) -> torch.Tensor:
     """Stretched-kernel patches (paper §III-C): (B, H, W, C) ->
     (B, H', W', k_tiles, kh*kw*c_per_array), each tile's rows flattened
     tap-major (dh, dw, c), channels zero-padded to k_tiles*c_per_array.
-    Keeps the input dtype."""
-    b, h, w, c = a.shape
-    (ph_lo, ph_hi), (pw_lo, pw_hi) = conv_pads(h, w, kh, kw, stride, padding)
-    c_pad = k_tiles * c_per_array - c
-    a = F.pad(a, (0, c_pad, pw_lo, pw_hi, ph_lo, ph_hi))
-    hp, wp = h + ph_lo + ph_hi, w + pw_lo + pw_hi
-    ho = (hp - kh) // stride + 1
-    wo = (wp - kw) // stride + 1
+    Keeps the input dtype. Counts its calls on a CUDA tensor in
+    ``extract_conv_patches.cuda_gathers``."""
+    extract_conv_patches.cuda_gathers += int(a.is_cuda)
+    geo = conv_geometry(a.shape, kh, kw, stride, padding, k_tiles,
+                        c_per_array)
+    b, ho, wo = geo.batch, geo.ho, geo.wo
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = geo.pads
+    a = F.pad(a, (0, k_tiles * c_per_array - geo.c_in, pw_lo, pw_hi, ph_lo,
+                  ph_hi))
     taps = [a[:, dh: dh + (ho - 1) * stride + 1: stride,
               dw: dw + (wo - 1) * stride + 1: stride, :]
             for dh in range(kh) for dw in range(kw)]
@@ -138,6 +222,9 @@ def extract_conv_patches(a: torch.Tensor, kh: int, kw: int, stride: int,
     p = p.reshape(b, ho, wo, kh * kw, k_tiles, c_per_array)
     p = p.permute(0, 1, 2, 4, 3, 5)                 # (B,H',W',kt,taps,cpa)
     return p.reshape(b, ho, wo, k_tiles, kh * kw * c_per_array)
+
+
+extract_conv_patches.cuda_gathers = 0
 
 
 def cim_conv_ref(a_int: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,

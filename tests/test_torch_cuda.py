@@ -16,6 +16,8 @@ the reduced MoE transformer), and adc_free with emulate at
 ``psum_quant=False``.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
@@ -35,6 +37,12 @@ from repro_torch.models import resnet
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="the CUDA kernel runs only on the card")
 
+# chip_smoke.py's case tables and operand builder, shared with its phase 3b
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
 
 def _case(seed, *, m, kt, rows, n, s=3, unsigned=False, groups=1):
     g = torch.Generator().manual_seed(seed)
@@ -48,8 +56,9 @@ def _case(seed, *, m, kt, rows, n, s=3, unsigned=False, groups=1):
     amax = 255 if unsigned else 8
     s_p = 0.5 + torch.rand((s, kt, n), generator=g) * amax * rows ** 0.5
     deq = torch.randn((s, kt, n), generator=g) * 0.1
-    packed = pack_nibbles(d.reshape(s, kt, groups, rows // groups, n)
-                          ).reshape(s, kt, rows // 2, n)
+    packed = (pack_nibbles(d.reshape(s, kt, groups, rows // groups, n)
+                           ).reshape(s, kt, rows // 2, n) if groups
+              else d)
     return [x.cuda() for x in (a, d, packed, s_p, deq, occupancy_map(d))]
 
 
@@ -182,6 +191,135 @@ def test_cim_conv_adc_free_and_float_planes_bit_exact_with_plain(
         got = cim_conv_cuda(a, digits, s_p, deq, occ, psum_bits=4, **geo)
         want = ref.cim_conv_ref(a, logical, s_p, deq, psum_bits=4, **geo)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,kt,rows,n,unsigned,groups,sparse",
+                         chip_smoke.ADC_FREE_MATMUL_CASES)
+def test_adc_free_tensor_core_matmul_bit_exact_with_plain(m, kt, rows, n,
+                                                         unsigned, groups,
+                                                         sparse):
+    """The tensor-core ADC-free matmul on integer planes: rows not a
+    multiple of 32 (16-byte aligned or staged loads), N from 1 to 200,
+    ragged M, many row blocks per persistent block, nibbles (``groups``
+    half-split blocks; 0: int8 planes), dead planes."""
+    a, d, _, _, deq, occ = _case(m + n, m=m, kt=kt, rows=rows, n=n,
+                                 unsigned=unsigned,
+                                 groups=max(groups, 1) if rows % 2 == 0
+                                 else 0)
+    digits = d
+    if groups:
+        digits = pack_nibbles(d.reshape(3, kt, groups, rows // groups, n)
+                              ).reshape(3, kt, rows // 2, n)
+    before = cim_matmul_adc_free_cuda.launches, \
+        cim_matmul_adc_free_cuda.float_launches
+    got = cim_matmul_adc_free_cuda(a, digits, deq, occ if sparse else None,
+                                   nibble_groups=max(groups, 1))
+    torch.cuda.synchronize()
+    assert (cim_matmul_adc_free_cuda.launches,
+            cim_matmul_adc_free_cuda.float_launches) == (before[0] + 1,
+                                                         before[1])
+    assert torch.equal(got, ref.cim_matmul_adc_free_ref(a, d, deq))
+
+
+def _implicit_case(seed, *, b, h, w, c_in, kh, cpa, n, unsigned):
+    """(a, logical, nibble planes, deq, occ) on the card."""
+    a, logical, packed, occ, deq = chip_smoke.implicit_conv_operands(
+        torch, torch.Generator().manual_seed(seed), b, h, w, c_in, kh, cpa, n,
+        unsigned)
+    return [x.cuda() for x in (a, logical, packed, deq, occ)]
+
+
+@pytest.mark.parametrize("b,h,w,c_in,kh,stride,padding,cpa,n",
+                         [c[:9] for c in chip_smoke.IMPLICIT_CONV_CASES])
+@pytest.mark.parametrize("variant", ["int8+occ", "nibble+uint8"])
+def test_adc_free_implicit_conv_bit_exact_with_plain(b, h, w, c_in, kh, stride,
+                                                     padding, cpa, n,
+                                                     variant):
+    """The implicit-GEMM conv: C_in 3 to 64 at 14 channels per array
+    (16-byte aligned pixels or not), odd and even sizes at stride 2 under
+    SAME and VALID, 1x1 projections, row blocks across images, ragged M;
+    int8 planes with the occupancy map, nibble planes under uint8 codes."""
+    nibble = variant.startswith("nibble")
+    a, logical, packed, deq, occ = _implicit_case(
+        b * h + c_in, b=b, h=h, w=w, c_in=c_in, kh=kh, cpa=cpa, n=n,
+        unsigned=nibble)
+    geo = dict(kh=kh, kw=kh, stride=stride, padding=padding, c_per_array=cpa)
+    before = (cim_conv_adc_free_cuda.launches,
+              cim_matmul_adc_free_cuda.launches,
+              ref.extract_conv_patches.cuda_gathers)
+    got = cim_conv_adc_free_cuda(a, packed if nibble else logical, deq,
+                                 None if nibble else occ, **geo)
+    torch.cuda.synchronize()
+    assert (cim_conv_adc_free_cuda.launches,
+            cim_matmul_adc_free_cuda.launches,
+            ref.extract_conv_patches.cuda_gathers) == (
+                before[0] + 1, before[1], before[2])
+    assert torch.equal(got, ref.cim_conv_adc_free_ref(a, logical, deq, **geo))
+
+
+def test_resnet_adc_free_forward_gathers_no_patches_on_the_card():
+    """The integer adc_free ResNet-20 forward: 20 implicit-GEMM conv
+    launches, no ADC-free matmul launch, no patch gather in torch."""
+    cfg, cim, params, state, x, packed = _small_resnet20()
+    acfg = dataclasses.replace(cfg, cim=cim.replace(mode="adc_free"))
+    before = (cim_conv_adc_free_cuda.launches,
+              cim_matmul_adc_free_cuda.launches,
+              ref.extract_conv_patches.cuda_gathers)
+    y, _ = resnet.forward(packed, state, x, acfg, train=False)
+    torch.cuda.synchronize()
+    assert (cim_conv_adc_free_cuda.launches,
+            cim_matmul_adc_free_cuda.launches,
+            ref.extract_conv_patches.cuda_gathers) == (
+                before[0] + 20, before[1], before[2])
+    assert torch.isfinite(y).all()
+
+
+def test_implicit_conv_wrapper_raises_on_what_the_kernel_does_not_take():
+    a, logical, _, deq, _ = _implicit_case(0, b=2, h=6, w=6, c_in=16, kh=3,
+                                           cpa=14, n=8, unsigned=False)
+    geo = dict(kh=3, kw=3, stride=1, padding="SAME", c_per_array=14)
+    with pytest.raises(TypeError):                    # float codes
+        cim_conv_adc_free_cuda(a.float(), logical, deq, **geo)
+    with pytest.raises(ValueError):                   # deq of the wrong shape
+        cim_conv_adc_free_cuda(a, logical, deq[:, :, :4], **geo)
+    with pytest.raises(ValueError):                   # codes not contiguous
+        cim_conv_adc_free_cuda(a.transpose(1, 2), logical, deq, **geo)
+    with pytest.raises(ValueError):                   # planes on the CPU
+        cim_conv_adc_free_cuda(a, logical.cpu(), deq, **geo)
+    with pytest.raises(ValueError):                   # rows not kh*kw*cpa
+        cim_conv_adc_free_cuda(a, logical[:, :, :120].contiguous(), deq,
+                               **geo)
+    with pytest.raises(ValueError):                   # tiles miss channels
+        cim_conv_adc_free_cuda(a, logical[:, :1].contiguous(),
+                               deq[:, :1].contiguous(), **geo)
+
+
+def test_adc_free_kernels_relay_planes_after_an_in_place_write():
+    """The relaid planes are kept per plane tensor: launches on the same
+    planes, or on one expert's slice of a bank, read the kept copy, and
+    an in-place write to the planes makes the next launch relay them."""
+    a, d, _, _, deq, _ = _case(11, m=300, kt=2, rows=128, n=40)
+    bank = torch.stack([d, d.flip(0)])                # two experts
+    for _ in range(2):
+        for e in range(2):
+            assert torch.equal(
+                cim_matmul_adc_free_cuda(a, bank[e], deq),
+                ref.cim_matmul_adc_free_ref(a, bank[e], deq))
+    bank[1, :, 0] = bank[1, :, 0].flip(-1)            # write one expert
+    for e in range(2):
+        assert torch.equal(cim_matmul_adc_free_cuda(a, bank[e], deq),
+                           ref.cim_matmul_adc_free_ref(a, bank[e], deq))
+
+    a, logical, _, deq, occ = _implicit_case(12, b=3, h=8, w=8, c_in=16, kh=3,
+                                             cpa=14, n=24, unsigned=True)
+    geo = dict(kh=3, kw=3, stride=1, padding="SAME", c_per_array=14)
+    for _ in range(2):
+        assert torch.equal(
+            cim_conv_adc_free_cuda(a, logical, deq, occ, **geo),
+            ref.cim_conv_adc_free_ref(a, logical, deq, **geo))
+    logical[0] = logical[0].flip(-1)
+    assert torch.equal(cim_conv_adc_free_cuda(a, logical, deq, None, **geo),
+                       ref.cim_conv_adc_free_ref(a, logical, deq, **geo))
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take():
