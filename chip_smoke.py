@@ -10,11 +10,16 @@ Phases (each prints one line or a few; any failed check exits non-zero):
 
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. builds the hand-written kernels of ``src/repro_torch/csrc/`` (one
-   ``nvcc`` per source, all at once);
-3. holds the CIM matmul/conv kernel against its plain PyTorch version on
-   random inputs (dense, occupancy skip with dead columns and dead
-   blocks, nibble planes, psum_bits 1/4/8, psum_quant off, int8 and uint8
-   activations, ragged M and N, conv 3x3/1x1 at stride 1/2, SAME/VALID);
+   ``nvcc`` per source, all at once) and prints each instance's ptxas
+   registers and spills;
+3. holds the CIM matmul/conv kernel (int8 tensor cores on integer planes)
+   against its plain PyTorch version on random inputs (dense, occupancy
+   skip with dead columns and dead blocks, nibble planes, psum_bits
+   1/4/8, psum_quant off, int8 and uint8 activations, ragged M and N,
+   conv 3x3/1x1 at stride 1/2, SAME/VALID); then at decode's row counts
+   (M 1, 8, 16, 33: one-warp row blocks, narrow column tiles, the split
+   tile loop) with N from 1 to 11264, rows 126 and 128, psum_bits
+   1/4/6/8 and psum_quant off, sparse against dense bit for bit;
    3b. the same case grid through the ADC-free matmul/conv kernels, and
    float32 digit planes carrying cell variation (sigma 0.3) through both
    kernel families; then the tensor-core ADC-free matmul and the
@@ -54,7 +59,10 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    against its plain version: E in {1, 8, 64}, an expert whose capacity
    buffer is all zero rows, ragged C and N, nibble banks, occupancy maps,
    psum_bits 1/4/6/8, psum_quant off, int8 and uint8 codes; and against
-   a per-expert loop of the CIM matmul kernel;
+   a per-expert loop of the CIM matmul kernel; then with ``counts`` (each
+   expert's filled capacity slots: an expert with none, one full, ragged
+   and decode-like counts, the sign ADC), against the plain version with
+   counts and a per-expert loop on codes zeroed past them;
 10. the MoE serving path: moonshot-v1-16b-a3b at its published widths
    (d_model 2048, 16 heads of 128, 64 experts top-6 of d_ff 1408, 2
    shared, vocab 163840), depth cut from 48 to 4 layers (1 dense + 3
@@ -65,15 +73,19 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    deploy against emulate, ``generate_batch`` of 16 new tokens and the
    slot engine on 3 requests at batch 2, deploy tokens against emulate
    tokens; the launch counters (9 experts-kernel and 28 matmul-kernel
-   launches per forward); the same packs on the ``adc_free`` backend,
+   launches per forward), every experts launch given the counts its MoE
+   block computed on the device; the same packs on the ``adc_free`` backend,
    one prefill forward each against emulate with ``psum_quant=False``,
    the ADC-free matmul on every CIM linear (K4's path: 28 + 9 x 64
    launches per forward), then timed at the operands of one prefill
    forward and one decode step against its plain version, its bound and
    one float32 ``torch.matmul`` with the split-folded weight, with the
    planes relaid on every call and relaid once; prefill and
-   decode times; both ADC kernels timed at the operands of one prefill
-   forward and one decode step;
+   decode times; one decode step captured in a CUDA graph and replayed
+   (the counts need no host sync): its tokens against the eager decode
+   loop's, and its time per step; both ADC kernels timed at the operands
+   of one prefill forward and one decode step, the experts kernel with
+   the counts of those calls;
 11. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
@@ -214,10 +226,15 @@ def main() -> int:
 
 CUDA_SOURCE = "src/repro_torch/csrc/cim_matmul.cu"
 MMA_SOURCE = "src/repro_torch/csrc/cim_adc_free_mma.cu"
-#: kernel entries of the results line: (source, TPU kernel it replaces)
+MMA_ADC_SOURCE = "src/repro_torch/csrc/cim_matmul_mma.cu"
+#: kernel entries of the results line: (source, TPU kernel it replaces).
+#: Integer planes run on the int8 tensor cores (``cim_mma.cuh``, included
+#: by both MMA sources); float32 (cell-variation) planes on the float64
+#: kernel of CUDA_SOURCE.
 KERNELS = {
-    "cim_matmul": (CUDA_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
-    "cim_conv": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
+    "cim_matmul": (MMA_ADC_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
+    # K3: patches gathered in torch, then K1
+    "cim_conv": (MMA_ADC_SOURCE, "src/repro/kernels/cim_conv.py:60"),
     # integer planes on the int8 tensor cores; the conv an implicit GEMM.
     # The matmul at its path's shapes (every CIM linear of the MoE
     # transformer on adc_free), and at the 20 ResNet-20 convs'
@@ -231,9 +248,10 @@ KERNELS = {
     "cim_conv_variation": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
     # the matmul kernel at the MoE transformer's shapes (attention, dense
     # MLP and shared-expert linears)
-    "cim_matmul_transformer": (CUDA_SOURCE,
+    "cim_matmul_transformer": (MMA_ADC_SOURCE,
                                "src/repro/kernels/cim_matmul.py:160"),
-    "cim_matmul_experts": (CUDA_SOURCE, "src/repro/kernels/cim_matmul.py:269"),
+    "cim_matmul_experts": (MMA_ADC_SOURCE,
+                           "src/repro/kernels/cim_matmul.py:269"),
 }
 
 
@@ -291,16 +309,20 @@ def _ptxas_summary(log: str):
 
 
 def _short_kernel_name(mangled: str) -> str:
-    """``..._ZN..23cim_adc_free_mma_kernelILi16ELb1ELb0ELb1EEEv..`` -> the
-    kernel's name with its template arguments, ``...<16,1,0,1>``."""
+    """``..._ZN..14cim_mma_kernelILi16ELb1ELb0ELb1ELb0EEEv..`` -> the
+    kernel's name with its template arguments, ``...<16,1,0,1,0>``. A
+    length may follow other digits (an anonymous namespace's hash), so
+    every digit run's suffixes are tried."""
     import re
     for m in re.finditer(r"\d+", mangled):
-        ident = mangled[m.end(): m.end() + int(m.group())]
-        if ident.endswith("_kernel"):
-            rest = mangled[m.end() + len(ident):]
-            args = (re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
-                    if rest.startswith("I") else [])
-            return ident + (f"<{','.join(args)}>" if args else "")
+        for k in range(len(m.group())):
+            n = int(m.group()[k:])
+            ident = mangled[m.end(): m.end() + n]
+            if n and ident.endswith("_kernel") and ident.isidentifier():
+                rest = mangled[m.end() + n:]
+                args = (re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
+                        if rest.startswith("I") else [])
+                return ident + (f"<{','.join(args)}>" if args else "")
     return mangled[:48]
 
 
@@ -328,6 +350,24 @@ MATMUL_CASES = (
     (300, 2, 126, 32, False, 0, False, 1, True),
     (257, 37, 126, 512, False, 9, True, 4, True),
     (64, 4, 128, 17, True, 2, True, 8, True))
+# The case table below also parametrises tests/test_torch_cuda.py.
+# the tensor-core ADC matmul at decode's row counts: (M, kt, rows, N,
+# uint8 codes, nibble groups or 0, occ, psum_bits, psum_quant). M 1-16:
+# one-warp row blocks and 16-column tiles; under two blocks per SM the
+# tile loop splits (kt 16, 22 and 88 at N 2048: the MoE transformer's
+# attention, shared-expert and dense down projections); N 11264 (the
+# dense layer's up projections) does not; M 33 takes a 48-row block
+SMALL_M_CASES = (
+    (1, 16, 128, 2048, False, 0, True, 6, True),
+    (8, 16, 128, 2048, False, 1, True, 6, True),
+    (8, 88, 128, 2048, False, 0, True, 6, True),
+    (8, 16, 128, 11264, True, 0, True, 8, True),
+    (16, 22, 128, 2048, True, 2, True, 1, True),
+    (16, 5, 126, 17, False, 9, True, 1, True),
+    (33, 3, 126, 100, False, 9, True, 4, True),
+    (1, 2, 126, 1, True, 0, False, 4, False),
+    (8, 4, 128, 2048, False, 0, True, 4, False),
+    (8, 7, 128, 40, True, 0, True, 1, True))
 # (kh, stride, padding, nibble, occ, psum_bits)
 CONV_CASES = (
     (3, 1, "SAME", False, True, 4), (3, 2, "SAME", True, True, 4),
@@ -403,6 +443,27 @@ def phase3_kernel_cases(torch, dev, errs) -> int:
                  f"M={m} kt={kt} rows={rows} N={n} uint8={uns} "
                  f"nibble={groups} occ={sparse} psum_bits={pb} quant={quant}",
                  errs)
+        n_cases += 1
+
+    # decode's row counts; sparse equals dense bit for bit (the sign ADC
+    # included: a dead plane still passes p = 0 through the ADC)
+    for m, kt, rows, n, uns, groups, sparse, pb, quant in SMALL_M_CASES:
+        a, d, digits, occ, s_p, deq = (
+            x.to(dev) for x in _matmul_operands(torch, g, m, kt, rows, n,
+                                                uns, groups))
+        kw = dict(psum_bits=pb, psum_quant=quant,
+                  nibble_groups=max(groups, 1))
+        got = cim_matmul_cuda(a, digits, s_p, deq, occ if sparse else None,
+                              **kw)
+        dense = cim_matmul_cuda(a, digits, s_p, deq, None, **kw)
+        want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=pb,
+                                  psum_quant=quant)
+        torch.cuda.synchronize()
+        what = (f"small M={m} kt={kt} rows={rows} N={n} uint8={uns} "
+                f"nibble={groups} occ={sparse} psum_bits={pb} quant={quant}")
+        _compare(torch, got, want, "cim_matmul", what, errs)
+        check(torch.equal(got, dense), f"cim_matmul {what}: sparse differs "
+              "from dense")
         n_cases += 1
 
     for kh, stride, padding, nibble, sparse, pb in CONV_CASES:
@@ -1242,6 +1303,17 @@ EXPERTS_CASES = (
     (64, 7, 2, 64, 130, False, True, True, 8, True))
 
 
+# (E, C, kt, rows, N, uint8 codes, nibble, occ, psum_bits, counts): an
+# expert with no filled slot, one full (C), ragged ones; "decode": 48
+# token-expert pairs over 64 experts, as a moonshot decode step
+EXPERTS_COUNTS_CASES = (
+    (64, 48, 16, 128, 1408, False, False, True, 6, "decode"),
+    (8, 61, 11, 128, 2048, False, True, True, 1,
+     (0, 61, 1, 17, 33, 48, 60, 5)),
+    (8, 61, 16, 128, 1408, True, False, False, 4, (61,) * 8),
+    (4, 5, 2, 126, 17, True, True, True, 8, (5, 0, 2, 3)))
+
+
 def _experts_operands(torch, g, e, c, kt, rows, n, uns):
     """An MoE bank: codes (E, C, kt, rows) with expert 0's capacity buffer
     all zero rows, S = 2 planes with dead columns and a dead (split, tile)
@@ -1289,6 +1361,43 @@ def phase9_experts_cases(torch, dev, errs) -> int:
         _compare(torch, got, want, "cim_matmul_experts", what, errs)
         check(torch.equal(got, loop), f"cim_matmul_experts {what}: differs "
               "from a per-expert loop of the matmul kernel")
+        n_cases += 1
+
+    # counts: each expert's filled capacity slots, a prefix of its buffer
+    for (e, c, kt, rows, n, uns, nibble, sparse, pb,
+         counts) in EXPERTS_COUNTS_CASES:
+        a, d, nib, occ, s_p, deq = (x.to(dev) for x in _experts_operands(
+            torch, g, e, c, kt, rows, n, uns))
+        if counts == "decode":             # 48 pairs over the experts
+            counts = torch.bincount(torch.randint(0, e, (48,), generator=g),
+                                    minlength=e).clamp(max=c).tolist()
+        cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        digits = nib if nibble else d
+        o = occ if sparse else None
+        got = cim_matmul_experts_cuda(a, digits, s_p, deq, o, psum_bits=pb,
+                                      counts=cnt)
+        full = cim_matmul_experts_cuda(a, digits, s_p, deq, o, psum_bits=pb)
+        want = ref.cim_matmul_experts_ref(a, d, s_p, deq, psum_bits=pb,
+                                          counts=cnt)
+        a0 = a.clone()
+        for j, cj in enumerate(counts):
+            a0[j, cj:] = 0
+        loop = torch.stack([cim_matmul_cuda(a0[i], digits[i], s_p[i],
+                                            deq[i], None if o is None
+                                            else o[i], psum_bits=pb)
+                            for i in range(e)])
+        torch.cuda.synchronize()
+        what = (f"E={e} C={c} kt={kt} rows={rows} N={n} uint8={uns} "
+                f"nibble={nibble} occ={sparse} psum_bits={pb} counts "
+                f"{counts}")
+        _compare(torch, got, want, "cim_matmul_experts", what, errs)
+        check(torch.equal(got, loop), f"cim_matmul_experts {what}: differs "
+              "from a per-expert loop of the matmul kernel on codes zeroed "
+              "past the counts")
+        check(all(torch.equal(got[j, :cj], full[j, :cj])
+                  for j, cj in enumerate(counts)),
+              f"cim_matmul_experts {what}: filled rows differ from the "
+              "launch without counts")
         n_cases += 1
     return n_cases
 
@@ -1357,11 +1466,13 @@ def _capture_kernel_calls(fn):
     return calls
 
 
-def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int):
+def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int,
+               counts=None):
     """(bytes ms, int8 ops ms) of one call, from this run's data (``s_p``
-    None for the ADC-free matmul). Rows of a code buffer that are all zero
-    (empty capacity slots) need no MACs and no code bytes; an expert with
-    no filled row needs none of its planes.
+    None for the ADC-free matmul). The filled rows of an expert's buffer
+    are its ``counts``, or without them its rows that are not all zero;
+    the others (empty capacity slots) need no MACs and no code bytes; an
+    expert with no filled row needs none of its planes.
     MACs: filled rows x rows per tile x live (split, tile, column) cells
     of the occupancy map. The output is written whole."""
     if m_axis == 0:                       # one matrix: add an expert axis
@@ -1369,7 +1480,9 @@ def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int):
         s_p, occ = (None if x is None else x[None] for x in (s_p, occ))
     e, c, kt, rows = a_t.shape
     n = digits.shape[-1]
-    filled = (a_t.reshape(e, c, -1) != 0).any(dim=-1).sum(dim=1)   # (E,)
+    filled = ((a_t.reshape(e, c, -1) != 0).any(dim=-1).sum(dim=1)
+              if counts is None else
+              counts.to(torch.int64).clamp(0, c))                  # (E,)
     live = (occ.reshape(e, -1).sum(dim=1).to(torch.int64) if occ is not None
             else torch.full((e,), digits[0].shape[0] * kt * n,
                             device=a_t.device))
@@ -1419,11 +1532,15 @@ def _time_moe_calls(torch, calls, errs, reps: int):
                       psum_quant=kw.get("psum_quant", True))
             logical = logical_digits(digits)
             if name == "cim_matmul_experts":
-                kern = (lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ:
-                        cim_matmul_experts_cuda(a_t, d, sp, dq, o, **mq))
-                plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq:
-                         ref.cim_matmul_experts_ref(a_t, d, sp, dq, **mq))
-                bound = _moe_bound(torch, a_t, digits, occ, s_p, deq, 1)
+                cnt = kw.get("counts")
+                kern = (lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ,
+                        cnt=cnt: cim_matmul_experts_cuda(a_t, d, sp, dq, o,
+                                                         counts=cnt, **mq))
+                plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq, cnt=cnt:
+                         ref.cim_matmul_experts_ref(a_t, d, sp, dq,
+                                                    counts=cnt, **mq))
+                bound = _moe_bound(torch, a_t, digits, occ, s_p, deq, 1,
+                                   cnt)
             else:
                 kern = (lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ:
                         cim_matmul_cuda(a_t, d, sp, dq, o, **mq))
@@ -1507,28 +1624,30 @@ def phase10_moe_serving(torch, errs, mc):
     torch.cuda.synchronize()
     em_s = time.perf_counter() - t0
 
-    # the main path: only these deploy runs may move the counters
+    # the main path: only these deploy runs may move the counters; every
+    # experts launch must be given its MoE block's counts
     _reset_counters()
     out, invocations = {}, 0
-    for dt in ("int8", "int4"):
-        dcfg = cfg.replace(cim=arts[dt].config)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        dp = model.forward(arts[dt].params, tokens, dcfg)
-        end.record()
-        eng = engine_from_artifact(arts[dt], cfg, batch_size=b,
-                                   max_len=max_len)
-        t0 = time.perf_counter()
-        gen = eng.generate_batch(prompts, new)
-        gen_s = time.perf_counter() - t0
-        slot_eng = engine_from_artifact(arts[dt], cfg, batch_size=2,
-                                        max_len=max_len)
-        slots = _slot_run(slot_eng, slot_prompts, mc["requests"])
-        torch.cuda.synchronize()
-        invocations += 1 + eng.t + slot_eng.t
-        out[dt] = dict(logits=dp, fwd_ms=start.elapsed_time(end), gen=gen,
-                       gen_s=gen_s, slots=slots, slot_steps=slot_eng.t)
+    with _CountsSeen() as seen:
+        for dt in ("int8", "int4"):
+            dcfg = cfg.replace(cim=arts[dt].config)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dp = model.forward(arts[dt].params, tokens, dcfg)
+            end.record()
+            eng = engine_from_artifact(arts[dt], cfg, batch_size=b,
+                                       max_len=max_len)
+            t0 = time.perf_counter()
+            gen = eng.generate_batch(prompts, new)
+            gen_s = time.perf_counter() - t0
+            slot_eng = engine_from_artifact(arts[dt], cfg, batch_size=2,
+                                            max_len=max_len)
+            slots = _slot_run(slot_eng, slot_prompts, mc["requests"])
+            torch.cuda.synchronize()
+            invocations += 1 + eng.t + slot_eng.t
+            out[dt] = dict(logits=dp, fwd_ms=start.elapsed_time(end), gen=gen,
+                           gen_s=gen_s, slots=slots, slot_steps=slot_eng.t)
     launches, _ = _read_counters()
     check(launches["cim_matmul_experts"] == k6_fwd * invocations,
           f"experts kernel launched {launches['cim_matmul_experts']} times in "
@@ -1536,6 +1655,10 @@ def phase10_moe_serving(torch, errs, mc):
     check(launches["cim_matmul"] == k1_fwd * invocations,
           f"matmul kernel launched {launches['cim_matmul']} times in "
           f"{invocations} forwards, expected {k1_fwd} per forward")
+    check(seen["calls"] == launches["cim_matmul_experts"]
+          and seen["with_counts"] == seen["calls"],
+          f"experts kernel: {seen['with_counts']} of {seen['calls']} calls "
+          "given counts")
     scale = float(em.float().abs().max())
     for dt, r in out.items():
         y = r["logits"]
@@ -1557,18 +1680,21 @@ def phase10_moe_serving(torch, errs, mc):
           f"steps); launches {launches} = experts {k6_fwd}, matmul {k1_fwd} "
           f"per forward; max |deploy - emulate| int8 {out['int8']['diff']!r}, "
           f"int4 {out['int4']['diff']!r} (max |logit| {scale!r}); served "
-          f"tokens equal emulate's; emulate reference runs {em_s:.2f} s",
-          flush=True)
+          f"tokens equal emulate's; every experts launch given its block's "
+          f"counts ({seen['filled']} filled slots in all); emulate "
+          f"reference runs {em_s:.2f} s", flush=True)
 
     # the adc_free backend on the same packs: the ADC-free matmul on every
     # CIM linear (expert banks one linear per expert), its own counted run
     k4 = phase10_adc_free(torch, errs, mc, model, params, arts, tokens,
                           k1_fwd + k6_fwd * cfg.moe.n_experts)
 
-    # prefill and decode times, outside the counted run
+    # prefill and decode times, outside the counted run (after a warm-up
+    # forward: the adc_free phase freed the kept relaid planes)
     timing = {}
     for dt in ("int8", "int4"):
         p, dcfg = arts[dt].params, cfg.replace(cim=arts[dt].config)
+        model.forward(p, tokens, dcfg)
         cache = model.init_cache(cfg, b, max_len)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * new)]
         ev[0].record()
@@ -1589,6 +1715,14 @@ def phase10_moe_serving(torch, errs, mc):
               f"step (median of {new - 1}; min {min(steps[1:]):.2f}, max "
               f"{max(steps[1:]):.2f}); generate_batch {out[dt]['gen_s']:.3f} "
               f"s = {b * new / out[dt]['gen_s']:.1f} tokens/s", flush=True)
+        same, replay_ms, eager_ms = _graph_decode(torch, model, cfg, arts[dt],
+                                                  tokens, b, max_len, new - 1)
+        check(same, f"{dt}: the decode step replayed from a CUDA graph gave "
+              "other tokens than the eager decode loop")
+        print(f"phase 10 {dt}: one decode step captured in a CUDA graph, "
+              f"replayed {new - 1} times: tokens equal the eager loop's; "
+              f"{replay_ms:.2f} ms per step by replay (median; eager "
+              f"{eager_ms:.2f} ms in the same loop)", flush=True)
 
     # both kernels at the operands of one prefill forward and one decode step
     results = {}
@@ -1602,8 +1736,12 @@ def phase10_moe_serving(torch, errs, mc):
             calls = _capture_kernel_calls(fn)
             check(len(calls["cim_matmul_experts"]) == k6_fwd
                   and len(calls["cim_matmul_transformer"]) == k1_fwd
-                  and not calls["cim_matmul_adc_free"],
-                  f"{dt} {what}: captured {({k: len(v) for k, v in calls.items()})}")
+                  and not calls["cim_matmul_adc_free"]
+                  and all(kw.get("counts") is not None
+                          for _, kw in calls["cim_matmul_experts"]),
+                  f"{dt} {what}: captured "
+                  f"{({k: len(v) for k, v in calls.items()})}, or an experts "
+                  "call without counts")
             tot = _time_moe_calls(torch, calls, errs, mc["reps"])
             for k, t in tot.items():
                 print(f"phase 10 {k} {dt} {what}: "
@@ -1620,6 +1758,95 @@ def phase10_moe_serving(torch, errs, mc):
     return results
 
 
+class _CountsSeen:
+    """Within: counts the experts-kernel calls made through ``kernels.ops``
+    and those given ``counts``, and sums the filled slots (read after the
+    run; the calls themselves sync nothing)."""
+
+    def __enter__(self):
+        import repro_torch.kernels.ops as kops
+        self.kops, self.orig = kops, kops.cim_matmul_experts_cuda
+        self.counts = []
+        self.seen = {"calls": 0, "with_counts": 0, "filled": 0}
+
+        def spy(*a, **kw):
+            self.seen["calls"] += 1
+            if kw.get("counts") is not None:
+                self.seen["with_counts"] += 1
+                self.counts.append(kw["counts"].sum())
+            return self.orig(*a, **kw)
+        kops.cim_matmul_experts_cuda = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.kops.cim_matmul_experts_cuda = self.orig
+        self.seen["filled"] = int(sum(int(c) for c in self.counts))
+        return False
+
+
+def _graph_decode(torch, model, cfg, art, tokens, b, max_len, steps):
+    """One deploy decode step captured in a CUDA graph after the prompt and
+    replayed ``steps`` times, each replay's token fed to the next (the
+    caches' lengths copied back between replays): (its tokens equal the
+    eager decode loop's, median ms per replayed step, median ms per eager
+    step), both by CUDA events around each step."""
+    p, dcfg = art.params, cfg.replace(cim=art.config)
+
+    def prompt():
+        cache = model.init_cache(cfg, b, max_len)
+        logits, cache = model.decode_step(p, cache, tokens, dcfg)
+        return (torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32),
+                cache)
+
+    def timed(step):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step()
+        end.record()
+        return out, (start, end)
+
+    tok, cache = prompt()
+    eager, ev_e = [], []
+    for _ in range(steps):
+        def step(tok=tok, cache=cache):
+            logits, cache = model.decode_step(p, cache, tok, dcfg)
+            return (torch.argmax(logits[:, -1:].float(), dim=-1)
+                    .to(torch.int32), cache)
+        (tok, cache), ev = timed(step)
+        eager.append(tok)
+        ev_e.append(ev)
+
+    tok, cache = prompt()
+    static = tok.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up outside the capture
+        lens = {k: v["len"].clone() for k, v in cache.items()}
+        model.decode_step(p, cache, static, dcfg)
+        for k, v in cache.items():
+            v["len"].copy_(lens[k])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, out_cache = model.decode_step(p, cache, static, dcfg)
+        nxt = torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
+    replayed, ev_g = [], []
+    for _ in range(steps):
+        _, ev = timed(graph.replay)
+        for k, v in cache.items():
+            v["len"].copy_(out_cache[k]["len"])
+        static.copy_(nxt)
+        replayed.append(nxt.clone())
+        ev_g.append(ev)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(replayed, eager))
+    ms = [float(np.median([s.elapsed_time(e) for s, e in evs]))
+          for evs in (ev_g, ev_e)]
+    del graph
+    return same, ms[0], ms[1]
+
+
 def phase10_adc_free(torch, errs, mc, model, params, arts, tokens,
                      k4_fwd: int):
     """One prefill forward of the MoE transformer on the ``adc_free``
@@ -1631,7 +1858,7 @@ def phase10_adc_free(torch, errs, mc, model, params, arts, tokens,
     and the forward's calls with
     the planes relaid on every call against relaid once. Returns the
     int8 prefill sums with the counted launches."""
-    from repro_torch.kernels.cim_adc_free import clear_relaid_planes
+    from repro_torch.kernels.relaid import clear_relaid_planes
 
     cfg, b, max_len = mc["cfg"], mc["batch"], mc["max_len"]
     em = model.forward(params, tokens,
@@ -1710,8 +1937,8 @@ def _relayout_ms(torch, calls):
     """Device time of the captured ADC-free matmul calls, all in one CUDA
     graph: (planes relaid by every call, as when nothing is kept; planes
     relaid once and kept)."""
-    from repro_torch.kernels.cim_adc_free import (cim_matmul_adc_free_cuda,
-                                                  clear_relaid_planes)
+    from repro_torch.kernels.cim_adc_free import cim_matmul_adc_free_cuda
+    from repro_torch.kernels.relaid import clear_relaid_planes
 
     def run():
         for a, kw in calls:

@@ -31,9 +31,13 @@ def split_digits(w_int: torch.Tensor, weight_bits: int,
 
 
 def place_values(weight_bits: int, cell_bits: int, device=None) -> torch.Tensor:
+    """(n_split,) float32 place values 2**(cell_bits*s), made on ``device``
+    itself (no host-to-device copy, so a forward that calls it can be
+    captured in a CUDA graph)."""
     s_count = n_splits(weight_bits, cell_bits)
-    return torch.tensor([2.0 ** (cell_bits * s) for s in range(s_count)],
-                        dtype=torch.float32, device=device)
+    shift = cell_bits * torch.arange(s_count, dtype=torch.int64, device=device)
+    return torch.bitwise_left_shift(torch.ones_like(shift),
+                                    shift).to(torch.float32)
 
 
 def recombine(digits: torch.Tensor, weight_bits: int,

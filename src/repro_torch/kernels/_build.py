@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into ``build/<name>-<hash>.so`` at the repository root (the hash is of the
-source and the flags, so an edited source rebuilds), then loads with
-``ctypes``. ``build()`` starts one ``nvcc`` per missing library, all at
-once, and waits for them. Nothing is built or loaded at import time.
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header rebuilds), then loads with ``ctypes``. ``cim_adc_free_mma.cu`` and
+``cim_matmul_mma.cu`` both include the tensor-core core ``cim_mma.cuh``
+and build in parallel: ``build()`` starts one ``nvcc`` per missing
+library, all at once, and waits for them. Nothing is built or loaded at
+import time.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("cim_matmul", "cim_adc_free_mma")
+SOURCES = ("cim_matmul", "cim_adc_free_mma", "cim_matmul_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -30,13 +33,9 @@ _PLL = ctypes.POINTER(ctypes.c_longlong)
 # argtypes/restype of every exported C function, per library
 _SIGNATURES = {
     "cim_matmul": {
-        "cim_matmul_launch": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P], _I),
-        "cim_matmul_adc_free_launch": ([_P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                                        _I, _I, _I, _I, _P], _I),
-        "cim_matmul_experts_launch": ([_P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                                      _I),
+        "cim_matmul_launch": ([_P] * 6 + [_LL] + [_I] * 7 + [_P], _I),
+        "cim_matmul_adc_free_launch": ([_P] * 5 + [_LL] + [_I] * 5 + [_P],
+                                       _I),
         "cim_matmul_error_string": ([_I], ctypes.c_char_p),
     },
     "cim_adc_free_mma": {
@@ -46,6 +45,15 @@ _SIGNATURES = {
         "cim_conv_adc_free_implicit_launch": ([_P] * 6 + [_LL, _PLL]
                                               + [_I] * 17 + [_P], _I),
         "cim_adc_free_mma_error_string": ([_I], ctypes.c_char_p),
+    },
+    "cim_matmul_mma": {
+        "cim_matmul_mma_workspace": ([_I] * 5, _LL),
+        "cim_matmul_mma_terms_bytes": ([_LL] + [_I] * 4, _LL),
+        "cim_matmul_mma_launch": ([_P] * 7 + [_LL, _PLL, _P, _LL, _LL]
+                                  + [_I] * 9 + [_P], _I),
+        "cim_matmul_experts_mma_launch": ([_P] * 8 + [_LL, _PLL, _LL]
+                                          + [_I] * 9 + [_P], _I),
+        "cim_matmul_mma_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -65,7 +73,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

@@ -20,17 +20,9 @@ A refused launch raises. A CPU tensor runs the plain versions
 ``ref.cim_matmul_adc_free_ref`` / ``ref.cim_conv_adc_free_ref``.
 
 The tensor-core kernels read the planes relaid K-major (nibbles decoded)
-into a device workspace. The workspace is kept per plane tensor (its
-base, offset, shape and dtype, and the call's taps and segment), beside
-the id of the layout it holds, so constant planes are relaid once and
-later launches read the relaid copy; an in-place write to the planes
-(their ``_version``) or a launch that needs another layout relays them
-again, and the entry goes with the planes' base tensor. The copy costs
-device memory about the planes' int8 size (twice a nibble plane's);
-``clear_relaid_planes()`` frees it. A launch inside a CUDA-graph capture
-uses what is kept and keeps nothing new; it raises if what is kept is in
-another layout (run the call once before capturing it). Later launches
-must be on the stream that relaid the planes or ordered after it.
+into a device workspace kept per plane tensor (``kernels/relaid.py``): a
+launch inside a CUDA-graph capture raises if it would relay kept planes
+(run the call once before capturing it).
 
 Counters: each wrapper's ``launches`` and, of them, ``float_launches`` on
 float32 planes. The conv's float-plane launches also count on the
@@ -39,12 +31,12 @@ matmul's, which runs them; its integer launches do not.
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import torch
 
 from . import _build, ref
 from .cim_matmul import kernel_operands, logical_digits, raise_on_error
+from .relaid import check_capture, relaid_planes
 
 _MMA = "cim_adc_free_mma"
 
@@ -75,23 +67,24 @@ def cim_matmul_adc_free_cuda(a_t: torch.Tensor, digits: torch.Tensor,
             rc = lib.cim_matmul_adc_free_launch(
                 a_t.data_ptr(), digits.data_ptr(), occ_ptr,
                 op.cols["deq"].data_ptr(), op.out.data_ptr(),
-                *op.common_args(nibble_groups), stream)
+                *op.shape_args(), op.a_unsigned, stream)
         else:
-            work, layout, kept = _relaid(lib, digits, op.k_tiles,
-                                         op.n_split, op.n, 1, op.rows,
-                                         op.k_tiles * op.rows)
+            work, layout, kept = relaid_planes(
+                digits, lib.cim_adc_free_mma_workspace(
+                    op.k_tiles, op.n_split, op.n, 1, op.rows),
+                (1, op.rows, op.k_tiles * op.rows))
             rc = lib.cim_matmul_adc_free_mma_launch(
                 a_t.data_ptr(), digits.data_ptr(), occ_ptr,
                 op.cols["deq"].data_ptr(), op.out.data_ptr(),
                 work.data_ptr(), work.numel(), ctypes.byref(layout),
-                *op.common_args(nibble_groups)[:-1],
-                int(digits.dtype == torch.uint8), stream)
+                *op.shape_args(), nibble_groups, op.a_unsigned, op.nibble,
+                stream)
     if floats:
         raise_on_error(lib, rc, "cim_matmul_adc_free")
     else:
         raise_on_error(lib, rc, "cim_matmul_adc_free_mma",
                        "cim_adc_free_mma_error_string")
-        _check_capture(layout, kept, "cim_matmul_adc_free_cuda")
+        check_capture(layout, kept, "cim_matmul_adc_free_cuda")
     cim_matmul_adc_free_cuda.launches += 1
     cim_matmul_adc_free_cuda.float_launches += int(floats)
     return op.out
@@ -176,8 +169,11 @@ def _implicit_conv(a_int, digits, deq, occ, geo: ref.ConvGeometry):
         return out
     (top, _), (left, _) = geo.pads
     lib = _build.load(_MMA)
-    work, layout, kept = _relaid(lib, digits, k_tiles, n_split, n,
-                                 geo.kh * geo.kw, geo.c_per_array, geo.c_in)
+    taps = geo.kh * geo.kw
+    work, layout, kept = relaid_planes(
+        digits, lib.cim_adc_free_mma_workspace(k_tiles, n_split, n, taps,
+                                               geo.c_per_array),
+        (taps, geo.c_per_array, geo.c_in))
     with torch.cuda.device(dev):
         rc = lib.cim_conv_adc_free_implicit_launch(
             a_int.data_ptr(), digits.data_ptr(),
@@ -191,52 +187,6 @@ def _implicit_conv(a_int, digits, deq, occ, geo: ref.ConvGeometry):
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(lib, rc, "cim_conv_adc_free_implicit",
                    "cim_adc_free_mma_error_string")
-    _check_capture(layout, kept, name)
+    check_capture(layout, kept, name)
     return out
 
-
-#: relaid planes: {id(base tensor): {(offset, shape, dtype, taps, seg, C):
-#: [planes' _version, workspace, layout id]}}
-_RELAID: dict = {}
-
-
-def _relaid(lib, digits, k_tiles, n_split, n, taps, seg, c):
-    """(workspace, layout id, the id kept before or None) for a launch on
-    ``digits``: the kept pair if the planes were not written since (the
-    kernel relays them anyway if the id is not the layout it needs, and
-    stores the new id), else a new workspace (its size from the library)
-    with id 0, kept unless a CUDA graph is being captured."""
-    nbytes = lib.cim_adc_free_mma_workspace(k_tiles, n_split, n, taps, seg)
-    base = digits if digits._base is None else digits._base
-    key = (digits.storage_offset(), tuple(digits.shape), digits.dtype, taps,
-           seg, c)
-    kept = _RELAID.get(id(base), {}).get(key)
-    if kept is not None and kept[0] == digits._version:
-        return kept[1], kept[2], kept[2].value
-    work = torch.empty(nbytes, dtype=torch.uint8, device=digits.device)
-    layout = ctypes.c_longlong(0)
-    if not torch.cuda.is_current_stream_capturing():
-        if id(base) not in _RELAID:
-            _RELAID[id(base)] = {}
-            weakref.finalize(base, _RELAID.pop, id(base), None)
-        _RELAID[id(base)][key] = [digits._version, work, layout]
-    return work, layout, None
-
-
-def _check_capture(layout, kept_id, name: str) -> None:
-    """Raise if a launch under CUDA-graph capture relaid kept planes: the
-    relayout is only recorded, not run, so the kept copy no longer holds
-    the layout its id names; it is dropped."""
-    if (kept_id is not None and layout.value != kept_id
-            and torch.cuda.is_current_stream_capturing()):
-        clear_relaid_planes()
-        raise RuntimeError(f"{name}: planes relaid in another layout during "
-                           "a CUDA-graph capture; launch once on these "
-                           "operands before capturing")
-
-
-def clear_relaid_planes() -> None:
-    """Free every kept relaid-plane workspace (the next launch on each
-    plane relays it again)."""
-    for per_base in _RELAID.values():
-        per_base.clear()

@@ -1,20 +1,32 @@
 """Fused CIM matmul with partial-sum (ADC) quantization: the wrappers of
-the hand-written Hopper kernel ``csrc/cim_matmul.cu``, the port of
+the hand-written Hopper kernels that port
 ``repro/kernels/cim_matmul.py::cim_matmul_pallas`` (dense body, occupancy
-skip and nibble decode in one kernel family) and of its MoE variant
-``cim_matmul_experts_pallas`` (every expert of a bank in one launch), plus
-the operand checks the ADC-free wrappers (``kernels/cim_adc_free.py``)
-share.
+skip and nibble decode) and its MoE variant ``cim_matmul_experts_pallas``
+(every expert of a bank in one launch), plus the operand checks the
+ADC-free wrappers (``kernels/cim_adc_free.py``) share.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version (``ref.cim_matmul_ref``, ``ref.cim_matmul_experts_ref``).
-``cim_matmul_cuda.launches`` counts the kernel's launches,
-``cim_matmul_cuda.float_launches`` those of them on float32
-(cell-variation) digit planes; ``cim_matmul_experts_cuda.launches`` counts
-the MoE launches.
+Dispatch on the planes' dtype, for CUDA tensors:
+- integer planes (int8, or int4 nibble pairs in uint8) run the int8
+  tensor-core kernels of ``csrc/cim_matmul_mma.cu``
+  (``cim_matmul_mma_launch``; the experts kernel
+  ``cim_matmul_experts_mma_launch``, which takes a bank's per-expert
+  filled-slot ``counts`` and skips the empty slots). They read the planes
+  relaid K-major into a workspace kept per plane tensor
+  (``kernels/relaid.py``): a launch inside a CUDA-graph capture raises if
+  it would relay kept planes (run the call once before capturing it);
+- float32 planes (cell variation) run the float64 kernel of
+  ``csrc/cim_matmul.cu`` (``cim_matmul_launch``); the experts kernel does
+  not take them.
+A refused launch raises. A CPU tensor runs the plain version
+(``ref.cim_matmul_ref``, ``ref.cim_matmul_experts_ref``).
+
+``cim_matmul_cuda.launches`` counts the matmul's launches,
+``cim_matmul_cuda.float_launches`` those of them on float32 digit planes;
+``cim_matmul_experts_cuda.launches`` counts the MoE launches.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -22,9 +34,12 @@ import torch
 from repro_torch.core.nibble import unpack_nibbles
 
 from . import _build, ref
+from .relaid import check_capture, relaid_planes
 
-#: digit-plane storage -> the kernel's ``digit_kind``
-DIGIT_KINDS = {torch.int8: 0, torch.uint8: 1, torch.float32: 2}
+_MMA = "cim_matmul_mma"
+
+#: digit-plane storages the kernels take
+DIGIT_DTYPES = (torch.int8, torch.uint8, torch.float32)
 
 
 def logical_digits(digits: torch.Tensor, groups: int = 1) -> torch.Tensor:
@@ -37,7 +52,7 @@ def logical_digits(digits: torch.Tensor, groups: int = 1) -> torch.Tensor:
 
 @dataclasses.dataclass
 class KernelOperands:
-    """Checked operands of one launch of the CIM matmul kernel family."""
+    """Checked operands of one launch of a CIM matmul kernel."""
 
     a_t: torch.Tensor
     digits: torch.Tensor
@@ -49,13 +64,19 @@ class KernelOperands:
     rows: int
     n_split: int
     n: int
-    kind: int
     experts: int = 1      # leading expert axis of an MoE bank, else 1
 
-    def common_args(self, nibble_groups: int):
-        """(m, kt, rows, S, n, groups, a_unsigned, digit_kind)"""
-        return (self.m, self.k_tiles, self.rows, self.n_split, self.n,
-                nibble_groups, int(self.a_t.dtype == torch.uint8), self.kind)
+    def shape_args(self):
+        """(m, kt, rows, S, n)"""
+        return self.m, self.k_tiles, self.rows, self.n_split, self.n
+
+    @property
+    def a_unsigned(self) -> int:
+        return int(self.a_t.dtype == torch.uint8)
+
+    @property
+    def nibble(self) -> int:
+        return int(self.digits.dtype == torch.uint8)
 
 
 def kernel_operands(name: str, a_t: torch.Tensor, digits: torch.Tensor,
@@ -68,7 +89,7 @@ def kernel_operands(name: str, a_t: torch.Tensor, digits: torch.Tensor,
     MoE bank), and so does the output."""
     if a_t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {a_t.device}")
-    if digits.dtype not in DIGIT_KINDS:
+    if digits.dtype not in DIGIT_DTYPES:
         raise TypeError(f"{name}: digit planes must be int8, nibble uint8 or "
                         f"float32 (cell variation), got {digits.dtype}")
     if a_t.dtype not in (torch.int8, torch.uint8):
@@ -105,7 +126,7 @@ def kernel_operands(name: str, a_t: torch.Tensor, digits: torch.Tensor,
         a_t=a_t, digits=digits, occ=occ, cols=cols,
         out=torch.empty(ex + (m, n), dtype=torch.float32, device=dev), m=m,
         k_tiles=k_tiles, rows=rows, n_split=n_split, n=n,
-        kind=DIGIT_KINDS[digits.dtype], experts=ex[0] if ex else 1)
+        experts=ex[0] if ex else 1)
 
 
 def raise_on_error(lib, rc: int, name: str,
@@ -115,6 +136,15 @@ def raise_on_error(lib, rc: int, name: str,
     if rc != 0:
         msg = getattr(lib, error_string)(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
+
+
+def _relaid_workspace(lib, op: KernelOperands):
+    """The relaid-plane workspace of a tensor-core launch on ``op``:
+    (workspace, layout id, the id kept before)."""
+    return relaid_planes(
+        op.digits, lib.cim_matmul_mma_workspace(op.k_tiles, op.n_split,
+                                                op.n, op.rows, op.experts),
+        (1, op.rows, op.k_tiles * op.rows))
 
 
 def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
@@ -140,17 +170,35 @@ def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
                          deq=deq)
     if op.m == 0:
         return op.out
-    lib = _build.load("cim_matmul")
-    with torch.cuda.device(a_t.device):
-        rc = lib.cim_matmul_launch(
-            a_t.data_ptr(), digits.data_ptr(),
-            op.occ.data_ptr() if op.occ is not None else None,
+    floats = digits.dtype == torch.float32
+    lib = _build.load("cim_matmul" if floats else _MMA)
+    occ_ptr = op.occ.data_ptr() if op.occ is not None else None
+    ptrs = (a_t.data_ptr(), digits.data_ptr(), occ_ptr,
             op.cols["s_p"].data_ptr(), op.cols["deq"].data_ptr(),
-            op.out.data_ptr(), *op.common_args(nibble_groups), psum_bits,
-            int(psum_quant), torch.cuda.current_stream(a_t.device).cuda_stream)
-    raise_on_error(lib, rc, "cim_matmul")
+            op.out.data_ptr())
+    with torch.cuda.device(a_t.device):
+        stream = torch.cuda.current_stream(a_t.device).cuda_stream
+        if floats:
+            rc = lib.cim_matmul_launch(*ptrs, *op.shape_args(), op.a_unsigned,
+                                       psum_bits, int(psum_quant), stream)
+        else:
+            work, layout, kept = _relaid_workspace(lib, op)
+            nterms = lib.cim_matmul_mma_terms_bytes(*op.shape_args())
+            terms = (torch.empty(nterms // 4, dtype=torch.float32,
+                                 device=a_t.device) if nterms else None)
+            rc = lib.cim_matmul_mma_launch(
+                *ptrs, work.data_ptr(), work.numel(), ctypes.byref(layout),
+                terms.data_ptr() if terms is not None else None, nterms,
+                *op.shape_args(), nibble_groups, op.a_unsigned, op.nibble,
+                psum_bits, int(psum_quant), stream)
+    if floats:
+        raise_on_error(lib, rc, "cim_matmul")
+    else:
+        raise_on_error(lib, rc, "cim_matmul_mma",
+                       "cim_matmul_mma_error_string")
+        check_capture(layout, kept, "cim_matmul_cuda")
     cim_matmul_cuda.launches += 1
-    cim_matmul_cuda.float_launches += int(digits.dtype == torch.float32)
+    cim_matmul_cuda.float_launches += int(floats)
     return op.out
 
 
@@ -161,18 +209,26 @@ cim_matmul_cuda.float_launches = 0
 def cim_matmul_experts_cuda(a_t: torch.Tensor, digits: torch.Tensor,
                             s_p: torch.Tensor, deq: torch.Tensor,
                             occ: torch.Tensor | None = None, *,
-                            psum_bits: int,
-                            psum_quant: bool = True) -> torch.Tensor:
+                            psum_bits: int, psum_quant: bool = True,
+                            counts: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """The CIM matmul of every expert of an MoE bank in one launch:
     out[e] = cim_matmul_cuda(a_t[e], digits[e], s_p[e], deq[e], occ[e]),
-    bit for bit.
+    bit for bit, with the rows at or past ``counts[e]`` taken as all-zero
+    code rows.
 
     a_t     (E, C, k_tiles, rows) int8 or uint8 activation codes
     digits  (E, S, k_tiles, rows, N) int8, or nibble-packed uint8 (E, S,
-            k_tiles, rows // 2, N), read in place
+            k_tiles, rows // 2, N)
     s_p     (E, S, k_tiles, N) ADC scales
     deq     (E, S, k_tiles, N) fused dequant scales
     occ     optional (E, S, k_tiles, N) uint8 occupancy maps
+    counts  optional (E,) int32 on the codes' device: expert e's filled
+            capacity slots, rows 0 .. counts[e] - 1 of its buffer (the MoE
+            dispatch fills a prefix). The kernel reads no code of a row at
+            or past them, and no plane of an expert with none; those rows
+            still get a value, that of an all-zero code row. None: every
+            row is computed.
 
     Planes carrying cell variation (float32) are not taken, as in the
     reference: they go through ``cim_matmul_cuda`` one expert at a time.
@@ -183,21 +239,35 @@ def cim_matmul_experts_cuda(a_t: torch.Tensor, digits: torch.Tensor,
     if a_t.device.type == "cpu":
         return ref.cim_matmul_experts_ref(a_t, logical_digits(digits), s_p,
                                           deq, psum_bits=psum_bits,
-                                          psum_quant=psum_quant)
+                                          psum_quant=psum_quant,
+                                          counts=counts)
     op = kernel_operands("cim_matmul_experts_cuda", a_t, digits, occ,
                          experts=True, s_p=s_p, deq=deq)
+    if counts is not None and (counts.dtype != torch.int32
+                               or tuple(counts.shape) != (op.experts,)
+                               or counts.device != a_t.device
+                               or not counts.is_contiguous()):
+        raise ValueError(f"cim_matmul_experts_cuda: counts must be a "
+                         f"contiguous ({op.experts},) int32 tensor on "
+                         f"{a_t.device}")
     if op.m == 0 or op.experts == 0:
         return op.out
-    lib = _build.load("cim_matmul")
+    lib = _build.load(_MMA)
+    work, layout, kept = _relaid_workspace(lib, op)
     with torch.cuda.device(a_t.device):
-        rc = lib.cim_matmul_experts_launch(
+        rc = lib.cim_matmul_experts_mma_launch(
             a_t.data_ptr(), digits.data_ptr(),
             op.occ.data_ptr() if op.occ is not None else None,
             op.cols["s_p"].data_ptr(), op.cols["deq"].data_ptr(),
-            op.out.data_ptr(), *op.common_args(1), psum_bits,
+            op.out.data_ptr(),
+            counts.data_ptr() if counts is not None else None,
+            work.data_ptr(), work.numel(), ctypes.byref(layout),
+            *op.shape_args(), op.a_unsigned, op.nibble, psum_bits,
             int(psum_quant), op.experts,
             torch.cuda.current_stream(a_t.device).cuda_stream)
-    raise_on_error(lib, rc, "cim_matmul_experts")
+    raise_on_error(lib, rc, "cim_matmul_experts_mma",
+                   "cim_matmul_mma_error_string")
+    check_capture(layout, kept, "cim_matmul_experts_cuda")
     cim_matmul_experts_cuda.launches += 1
     return op.out
 

@@ -65,22 +65,26 @@ def cim_matmul_experts(a_t: torch.Tensor, digits: torch.Tensor,
                        s_p: torch.Tensor, deq: torch.Tensor, *,
                        psum_bits: int, psum_quant: bool = True,
                        use_kernel: bool = True,
-                       occ: torch.Tensor | None = None) -> torch.Tensor:
+                       occ: torch.Tensor | None = None,
+                       counts: torch.Tensor | None = None) -> torch.Tensor:
     """MoE expert-bank dispatch: every expert's capacity buffer through one
     launch of the CIM experts kernel, bit-exact with ``cim_matmul`` once
-    per expert.
+    per expert on the buffers with their rows at or past ``counts``
+    zeroed.
 
     a_t (E, C, k_tiles, rows) integer codes; digits (E, S, k_tiles, rows,
     N) int8 or nibble uint8 (E, S, k_tiles, rows // 2, N); s_p, deq (E, S,
-    k_tiles, N); occ optional (E, S, k_tiles, N). No cell variation, as in
-    the reference. Returns (E, C, N) float32."""
+    k_tiles, N); occ optional (E, S, k_tiles, N); counts optional (E,)
+    int32, each expert's filled capacity slots (the kernel skips the
+    rest). No cell variation, as in the reference. Returns (E, C, N)
+    float32."""
     if use_kernel:
         return cim_matmul_experts_cuda(a_t, digits, s_p, deq, occ,
                                        psum_bits=psum_bits,
-                                       psum_quant=psum_quant)
+                                       psum_quant=psum_quant, counts=counts)
     return ref.cim_matmul_experts_ref(a_t, logical_digits(digits), s_p, deq,
                                       psum_bits=psum_bits,
-                                      psum_quant=psum_quant)
+                                      psum_quant=psum_quant, counts=counts)
 
 
 def cim_conv(a_int: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,

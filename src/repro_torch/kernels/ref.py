@@ -1,17 +1,20 @@
 """Plain PyTorch versions of the CIM kernels (counterpart of
 ``repro.kernels.ref``).
 
-They define the arithmetic the CUDA kernels in ``csrc/cim_matmul.cu``
-and ``csrc/cim_adc_free_mma.cu`` must reproduce (with the ADC, ADC-free,
+They define the arithmetic the CUDA kernels in ``csrc/`` (the float64
+kernel ``cim_matmul.cu`` and the tensor-core ``cim_matmul_mma.cu`` and
+``cim_adc_free_mma.cu``) must reproduce (with the ADC, ADC-free,
 and batched over MoE experts), run on the CPU and on the card, and are
 what the wrappers use for CPU tensors. The shift-and-add accumulates in
 the kernel's order (array tile outer, split inner, one rounded multiply
 and one rounded add per term), so the kernel and this version agree bit
 for bit.
 
-``conv_geometry`` gives the implicit-GEMM conv kernel its launch
-arguments, and ``implicit_conv_rows`` mirrors that kernel's index map
-(output row -> pixel, logical row -> tap and channel) in plain torch.
+``ordered_sum`` mirrors the ordered pass that adds a split tile loop's
+terms (``shift_add_terms``). ``conv_geometry`` gives the implicit-GEMM
+conv kernel its launch arguments, and ``implicit_conv_rows`` mirrors that
+kernel's index map (output row -> pixel, logical row -> tap and channel)
+in plain torch.
 ``extract_conv_patches.cuda_gathers`` counts patch gathers run on a CUDA
 tensor, so a run can show that a conv path gathered nothing in torch.
 """
@@ -51,6 +54,29 @@ def shift_add(psum: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def shift_add_terms(psum: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
+    """The terms of ``shift_add``, each its one rounded multiply: (kt, S,
+    ..., N) float32, term[t, s] = psum[..., s, t, :] * deq[s, t]. What a
+    block of the split tile loop (``csrc/cim_mma.cuh``) writes out."""
+    n_split, k_tiles, _ = deq.shape
+    return torch.stack([torch.stack([psum[..., s, t, :] * deq[s, t]
+                                     for s in range(n_split)])
+                        for t in range(k_tiles)])
+
+
+def ordered_sum(terms: torch.Tensor) -> torch.Tensor:
+    """(kt, S, ..., N) terms summed from 0.0 in the kernel's order, tile t
+    outer, split s inner: the ordered pass after a split tile loop
+    (``cim_ordered_sum_kernel``). ``ordered_sum(shift_add_terms(p, deq))``
+    is ``shift_add(p, deq)`` bit for bit."""
+    out = torch.zeros(tuple(terms.shape[2:]), dtype=torch.float32,
+                      device=terms.device)
+    for t in range(terms.shape[0]):
+        for s in range(terms.shape[1]):
+            out = out + terms[t, s]
+    return out
+
+
 def cim_matmul_ref(a_t: torch.Tensor, digits: torch.Tensor,
                    s_p: torch.Tensor, deq: torch.Tensor, *, psum_bits: int,
                    psum_quant: bool = True) -> torch.Tensor:
@@ -75,14 +101,21 @@ def cim_matmul_ref(a_t: torch.Tensor, digits: torch.Tensor,
 
 def cim_matmul_experts_ref(a_t: torch.Tensor, digits: torch.Tensor,
                            s_p: torch.Tensor, deq: torch.Tensor, *,
-                           psum_bits: int,
-                           psum_quant: bool = True) -> torch.Tensor:
+                           psum_bits: int, psum_quant: bool = True,
+                           counts: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """The CIM matmul of every expert of an MoE bank: ``cim_matmul_ref`` on
     each expert's slice, in the port's order (t outer, s inner).
 
     a_t (E, C, k_tiles, rows) integer codes; digits (E, S, k_tiles, rows,
-    N) logical digits; s_p, deq (E, S, k_tiles, N). Returns (E, C, N)
-    float32."""
+    N) logical digits; s_p, deq (E, S, k_tiles, N); counts optional (E,)
+    integers: expert e's rows at or past counts[e] are taken as all-zero
+    code rows (its empty capacity slots). Returns (E, C, N) float32."""
+    if counts is not None:
+        rows = torch.arange(a_t.shape[1], device=a_t.device)
+        keep = rows[None] < counts.to(device=a_t.device,
+                                      dtype=torch.int64)[:, None]
+        a_t = torch.where(keep[:, :, None, None], a_t, torch.zeros_like(a_t))
     return torch.stack([
         cim_matmul_ref(a_t[e], digits[e], s_p[e], deq[e], psum_bits=psum_bits,
                        psum_quant=psum_quant)

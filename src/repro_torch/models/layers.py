@@ -77,8 +77,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     half = hd // 2
     exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=x.device), exps)
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=x.device), exps)
     ang = positions[..., None].to(torch.float32) * freqs       # (..., T, half)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
@@ -118,8 +118,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     sc = (scale if scale is not None else
-          1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
-                                        device=q.device)))
+          1.0 / torch.sqrt(torch.full((), float(hd), dtype=torch.float32,
+                                      device=q.device)))
     tk = k.shape[1]
 
     if not chunk or tk <= chunk:
@@ -351,13 +351,16 @@ def _bank_scale(full, key: str, bank: torch.Tensor, t) -> torch.Tensor:
 
 
 def _batched_expert_matmul(p: Dict, nm: str, x: torch.Tensor,
-                           cfg: ModelConfig) -> torch.Tensor:
+                           cfg: ModelConfig,
+                           counts: torch.Tensor | None = None) -> torch.Tensor:
     """All experts' capacity buffers through ONE launch of the CIM experts
     kernel (``kernels.ops.cim_matmul_experts``). The per-expert prep is
     ``core.cim_linear._forward_deploy``'s, batched over the expert axis:
     activation codes, tiling, ``deq = 2^(c*s) * s_w`` and ``s_a`` applied
     after the shift-and-add, so the result equals the per-expert loop of
-    ``linear`` bit for bit."""
+    ``linear`` bit for bit on the rows below ``counts`` (each expert's
+    filled slots; the kernel skips the rest and gives them the value of a
+    zero input row)."""
     from repro_torch.core.bitsplit import place_values
     from repro_torch.core.cim_linear import (_full_psum_scale,
                                              _full_weight_scale, _tile_inputs,
@@ -376,7 +379,7 @@ def _batched_expert_matmul(p: Dict, nm: str, x: torch.Tensor,
                                 psum_bits=cim.psum_bits,
                                 psum_quant=cim.psum_quant,
                                 use_kernel=cim.use_kernel,
-                                occ=p.get(f"{nm}_occ"))
+                                occ=p.get(f"{nm}_occ"), counts=counts)
     y = y * torch.clamp_min(s_a, 1e-9)
     return y.to(cdt(cfg))
 
@@ -396,9 +399,12 @@ def _per_expert_matmul(p: Dict, nm: str, x: torch.Tensor,
     return torch.stack(outs)
 
 
-def _expert_matmul(p: Dict, nm: str, x: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """x (E, C, K) -> (E, C, N), CIM-quantized per expert when enabled."""
+def _expert_matmul(p: Dict, nm: str, x: torch.Tensor, cfg: ModelConfig,
+                   counts: torch.Tensor | None = None) -> torch.Tensor:
+    """x (E, C, K) -> (E, C, N), CIM-quantized per expert when enabled.
+    ``counts`` (E,) int32: each expert's filled capacity slots, which the
+    batched kernel path computes alone (the rows past them are not read
+    downstream); the other paths compute every row."""
     c = cdt(cfg)
     if not cfg.cim.enabled:
         return torch.einsum("eck,ekn->ecn", x, p[nm].to(c))
@@ -406,7 +412,7 @@ def _expert_matmul(p: Dict, nm: str, x: torch.Tensor,
     from repro_torch.api.backends import is_packed
     if is_packed(cfg.cim) and f"{nm}_digits" in p:
         if _batched_experts_ok(p, nm, cfg):
-            return _batched_expert_matmul(p, nm, x, cfg)
+            return _batched_expert_matmul(p, nm, x, cfg, counts)
         return _per_expert_matmul(p, nm, x, cfg)
     # unpacked tree on a packed backend: emulate (the same quantization
     # arithmetic; only the storage layout differs)
@@ -453,6 +459,20 @@ def route(logits: torch.Tensor, cfg: ModelConfig):
     return gates, sel, slot, cap
 
 
+def expert_counts(slot: torch.Tensor, n_experts: int,
+                  cap: int) -> torch.Tensor:
+    """(E,) int32 filled capacity slots per expert, from ``route``'s slots.
+    Expert j's pairs fill slots j*cap + 0, 1, ...: a prefix of its buffer
+    of min(pairs routed to j, cap) rows (dropped pairs, slot E*cap, count
+    for no expert). Counted on the device with ``index_add_`` (CUDA's
+    ``bincount`` reads the largest index back to the host), so a decode
+    step can be captured in a CUDA graph."""
+    counts = torch.zeros(n_experts + 1, dtype=torch.int32,
+                         device=slot.device)
+    return counts.index_add_(0, slot // cap, torch.ones_like(
+        slot, dtype=torch.int32))[:n_experts]
+
+
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The MoE block. The port has no mesh, so this is the reference's jit
     path (``_apply_moe_jit``) always."""
@@ -473,18 +493,22 @@ def _apply_moe_jit(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     flat_tok = torch.arange(n_tok, device=x.device).repeat_interleave(k)
 
     # each pair's slot is written once; overflow lands on the dropped row
+    counts = expert_counts(slot, e, cap)
     buf = torch.zeros((e * cap + 1, d), dtype=c, device=x.device)
     buf[slot] = xf.to(c)[flat_tok]
     buf = constrain(buf[:-1].reshape(e, cap, d), ("experts", None, None))
 
     if cfg.act == "swiglu":
-        g = _expert_matmul(p, "wg", buf, cfg)
-        u = _expert_matmul(p, "wu", buf, cfg)
+        g = _expert_matmul(p, "wg", buf, cfg, counts)
+        u = _expert_matmul(p, "wu", buf, cfg, counts)
         h = F.silu(g.to(torch.float32)).to(c) * u             # float32 SiLU
     else:
-        h = F.gelu(_expert_matmul(p, "wu", buf, cfg).to(torch.float32),
+        h = F.gelu(_expert_matmul(p, "wu", buf, cfg, counts
+                                  ).to(torch.float32),
                    approximate="tanh").to(c)
-    out_buf = _expert_matmul(p, "wd", h, cfg).reshape(e * cap, d)
+    # rows of out_buf past counts are not read: combine reads the filled
+    # slots and the dropped row
+    out_buf = _expert_matmul(p, "wd", h, cfg, counts).reshape(e * cap, d)
     out_buf = torch.cat([out_buf, torch.zeros((1, d), dtype=out_buf.dtype,
                                               device=x.device)])
 

@@ -182,12 +182,16 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step: tokens (B, T) and the caches -> (logits (B, T, V),
     caches). The caches are written in place. Raises when the T new
-    positions would overrun ``max_len`` (the reference clamps the write)."""
+    positions would overrun ``max_len`` (the reference clamps the write);
+    under a CUDA-graph capture that check is the caller's (reading the
+    lengths back would end the capture), and the step syncs nothing, so
+    it can be captured once and replayed."""
     _no_mla(cfg)
     x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
     first = next(iter(cache.values()))
     t = tokens.shape[1]
-    if int(first["len"].max()) + t > first["k"].shape[2]:
+    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+    if not capturing and int(first["len"].max()) + t > first["k"].shape[2]:
         raise ValueError(f"decode cache overrun: {t} new positions at length "
                          f"{int(first['len'].max())} exceed max_len "
                          f"{first['k'].shape[2]}")

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the CIM matmul/conv kernel with the ADC, the ADC-free matmul/conv,
-both on float32 digit planes that carry cell variation, and the MoE
-experts kernel (every expert of a bank in one launch).
+card: the CIM matmul/conv kernel with the ADC (int8 tensor cores on
+integer planes, small M and the split tile loop included), the ADC-free
+matmul/conv, both on float32 digit planes that carry cell variation, and
+the MoE experts kernel (every expert of a bank in one launch, with each
+expert's filled-slot ``counts``); and a MoE decode step captured in a
+CUDA graph.
 
 Skips where there is no CUDA device. Imports no JAX, so it also runs on
 a machine that has only PyTorch and the CUDA toolkit:
@@ -482,3 +485,189 @@ def test_moe_transformer_deploy_bit_exact_with_emulate_on_the_card(
     assert cim_matmul_cuda.launches == before[1] + 7 + 7
     assert y_d.dtype == torch.bfloat16 and torch.isfinite(y_d).all()
     assert torch.equal(y_d, y_e)
+
+
+@pytest.mark.parametrize(
+    "m,kt,rows,n,unsigned,groups,sparse,psum_bits,psum_quant",
+    chip_smoke.SMALL_M_CASES)
+def test_cim_matmul_small_m_bit_exact_with_plain(m, kt, rows, n, unsigned,
+                                                 groups, sparse, psum_bits,
+                                                 psum_quant):
+    """The tensor-core ADC matmul at decode's row counts (M 1, 8, 16, 33):
+    one-warp row blocks, 16-column tiles, the split tile loop with its
+    ordered pass, N from 1 to 11264, rows 126 (staged) and 128 (direct),
+    psum_bits 1/4/6/8 and psum_quant off; sparse equals dense under the
+    sign ADC."""
+    a, d, digits, occ, s_p, deq = (x.cuda() for x in chip_smoke
+                                   ._matmul_operands(torch, torch.Generator()
+                                                     .manual_seed(m + n + kt),
+                                                     m, kt, rows, n, unsigned,
+                                                     groups))
+    kw = dict(psum_bits=psum_bits, psum_quant=psum_quant,
+              nibble_groups=max(groups, 1))
+    before = cim_matmul_cuda.launches
+    got = cim_matmul_cuda(a, digits, s_p, deq, occ if sparse else None, **kw)
+    dense = cim_matmul_cuda(a, digits, s_p, deq, None, **kw)
+    torch.cuda.synchronize()
+    assert cim_matmul_cuda.launches == before + 2
+    want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=psum_bits,
+                              psum_quant=psum_quant)
+    assert torch.equal(got, want)
+    assert torch.equal(dense, want)
+
+
+@pytest.mark.parametrize("e,c,kt,rows,n,counts", [
+    (8, 61, 3, 128, 100, [0, 61, 1, 17, 33, 48, 60, 5]),
+    (64, 48, 4, 128, 64, None),
+    (4, 5, 2, 126, 17, [5, 0, 2, 3])])
+@pytest.mark.parametrize("variant,psum_bits,unsigned", [
+    ("dense", 6, False), ("nibble+occ", 1, True), ("occ", 4, False)])
+def test_cim_matmul_experts_counts_bit_exact_with_plain(e, c, kt, rows, n,
+                                                        counts, variant,
+                                                        psum_bits, unsigned):
+    """The experts kernel with ``counts``: an empty expert, a full one and
+    ragged ones (decode-like: most experts hold a row or none). Rows below
+    counts[e] equal the kernel without counts; the output equals the
+    plain version with counts, and a per-expert loop of the matmul kernel
+    on codes zeroed past them, bit for bit."""
+    nibble, sparse = "nibble" in variant, "occ" in variant
+    a, d, packed, s_p, deq, occ = _experts_case(
+        e + c + n, e=e, c=c, kt=kt, rows=rows, n=n, unsigned=unsigned)
+    if counts is None:                     # 48 pairs over 64 experts
+        g = torch.Generator().manual_seed(e)
+        counts = torch.bincount(torch.randint(0, e, (c,), generator=g),
+                                minlength=e).tolist()
+    cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    digits = packed if nibble else d
+    kw = dict(psum_bits=psum_bits)
+    o = occ if sparse else None
+    before = cim_matmul_experts_cuda.launches
+    got = cim_matmul_experts_cuda(a, digits, s_p, deq, o, counts=cnt, **kw)
+    full = cim_matmul_experts_cuda(a, digits, s_p, deq, o, **kw)
+    torch.cuda.synchronize()
+    assert cim_matmul_experts_cuda.launches == before + 2
+    assert torch.equal(got, ref.cim_matmul_experts_ref(a, d, s_p, deq,
+                                                       counts=cnt, **kw))
+    a0 = a.clone()
+    for j, cj in enumerate(counts):
+        assert torch.equal(got[j, :cj], full[j, :cj])
+        a0[j, cj:] = 0
+    loop = torch.stack([cim_matmul_cuda(a0[i], digits[i], s_p[i], deq[i],
+                                        None if o is None else o[i], **kw)
+                        for i in range(e)])
+    assert torch.equal(got, loop)
+    with pytest.raises(ValueError):               # counts of the wrong type
+        cim_matmul_experts_cuda(a, digits, s_p, deq, o, counts=cnt.long(),
+                                **kw)
+
+
+def test_matmul_and_adc_free_launches_share_the_relaid_planes():
+    """The ADC matmul and the ADC-free matmul on the same planes keep one
+    relaid copy (their layout ids agree); the experts kernel relays a bank
+    as one tensor."""
+    from repro_torch.kernels import relaid
+    relaid.clear_relaid_planes()
+    a, d, _, s_p, deq, _ = _case(21, m=40, kt=2, rows=128, n=64)
+    cim_matmul_cuda(a, d, s_p, deq, psum_bits=4)
+    kept = [w for per in relaid._KEPT.values() for w in per.values()]
+    assert len(kept) == 1
+    layout = kept[0][2].value
+    assert torch.equal(cim_matmul_adc_free_cuda(a, d, deq),
+                       ref.cim_matmul_adc_free_ref(a, d, deq))
+    kept = [w for per in relaid._KEPT.values() for w in per.values()]
+    assert len(kept) == 1 and kept[0][2].value == layout
+    relaid.clear_relaid_planes()
+
+
+def _reduced_moe(pack_dtype="int8"):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cim = CIMConfig(enabled=True, mode="emulate", weight_bits=4, cell_bits=2,
+                    act_bits=8, psum_bits=6, array_rows=128, array_cols=128,
+                    pack_dtype=pack_dtype)
+    cfg = get_config("moonshot-v1-16b-a3b", reduced=True, cim=cim)
+    model = get_model(cfg)
+    params = init_params(model.specs(cfg), 0)
+    return cfg, model, params
+
+
+def test_moe_decode_step_replays_from_a_cuda_graph_with_counts():
+    """A deploy decode step of the reduced moonshot transformer, captured
+    once in a CUDA graph: the experts' ``counts`` come from the device (no
+    host sync), the K6 launches take them, and replaying the graph gives
+    the tokens of the eager decode loop."""
+    import repro_torch.kernels.ops as kops
+    cfg, model, params = _reduced_moe()
+    art = api.model_artifact(params, cfg.cim)
+    dcfg = cfg.replace(cim=art.config)
+    p = art.params
+    b, steps = 4, 6
+    tokens = torch.randint(0, cfg.vocab, (b, 12), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+
+    def prompt():
+        cache = model.init_cache(cfg, b, 32)
+        logits, cache = model.decode_step(p, cache, tokens, dcfg)
+        return torch.argmax(logits[:, -1:].float(), -1).to(torch.int32), cache
+
+    tok, cache = prompt()
+    eager = []
+    for _ in range(steps):
+        logits, cache = model.decode_step(p, cache, tok, dcfg)
+        tok = torch.argmax(logits[:, -1:].float(), -1).to(torch.int32)
+        eager.append(tok)
+
+    tok, cache = prompt()
+    static = tok.clone()
+    seen = []
+    orig = kops.cim_matmul_experts_cuda
+
+    def spy(*args, **kw):
+        seen.append(kw.get("counts"))
+        return orig(*args, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    kops.cim_matmul_experts_cuda = spy
+    try:
+        with torch.cuda.stream(side):
+            warm = {k: v["len"].clone() for k, v in cache.items()}
+            model.decode_step(p, cache, static, dcfg)   # warm-up, then undo
+            for k, v in cache.items():
+                v["len"].copy_(warm[k])
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            logits, out_cache = model.decode_step(p, cache, static, dcfg)
+            nxt = torch.argmax(logits[:, -1:].float(), -1).to(torch.int32)
+    finally:
+        kops.cim_matmul_experts_cuda = orig
+    assert seen and all(c is not None and c.dtype == torch.int32
+                        for c in seen)
+    replayed = []
+    for _ in range(steps):
+        graph.replay()
+        for k, v in cache.items():
+            v["len"].copy_(out_cache[k]["len"])
+        static.copy_(nxt)
+        replayed.append(nxt.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(replayed, eager))
+
+
+@pytest.mark.parametrize("psum_bits,sp_scale", [(6, 1.0), (23, 1.0),
+                                                (4, 1e31), (8, 1e-20)])
+def test_cim_matmul_adc_divide_paths_bit_exact_with_plain(psum_bits,
+                                                          sp_scale):
+    """The ADC's divide: from the column's reciprocal where every scale of
+    a block lies in [2^-100, 2^100] and psum_bits <= 22, else by the IEEE
+    divide; both give the plain version's bits (scales of 1e31 and 1e-20,
+    and 23-bit partial sums, take the second)."""
+    a, d, _, s_p, deq, occ = _case(psum_bits, m=200, kt=3, rows=128, n=48)
+    s_p = s_p * sp_scale
+    if sp_scale > 1:
+        s_p[0, 0, :8] = 1.0            # one block mixes the two ranges
+    got = cim_matmul_cuda(a, d, s_p, deq, occ, psum_bits=psum_bits)
+    want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=psum_bits)
+    assert torch.equal(got, want)

@@ -8,7 +8,9 @@ reference's kernel-vs-oracle tolerance (rtol 1e-5, atol 1e-4): both sum
 the same float32 terms in the same (t outer, s inner) order. Within the
 port the batched expert dispatch equals the per-expert loop of
 ``linear`` bit for bit, and ``_pack_bank`` packs byte for byte as the
-reference's.
+reference's. With ``counts`` (each expert's filled capacity slots) the
+filled rows keep their values and the rows past them take the value of
+an all-zero code row.
 """
 import jax
 import jax.numpy as jnp
@@ -154,3 +156,38 @@ def test_batched_expert_dispatch_equals_per_expert_loop(pack_dtype):
     ref_cfg = _Cfg(cim.replace(use_kernel=False))
     assert not L._batched_experts_ok(p, "up", ref_cfg)
     assert torch.equal(L._expert_matmul(p, "up", x, ref_cfg), y_batched)
+
+
+@pytest.mark.parametrize("psum_bits", [1, 4, 6])
+@pytest.mark.parametrize("nibble", [False, True])
+def test_experts_counts_give_filled_rows_and_zero_rows_past_them(psum_bits,
+                                                                 nibble):
+    """``counts`` (each expert's filled capacity slots): an empty expert,
+    a full one (cap) and ragged ones. Rows below counts[e] are the
+    no-counts result bit for bit, and match the reference's batched
+    experts kernel; rows at or past it take the value of an all-zero code
+    row (the reference on zeroed codes), bit for bit the port on codes
+    zeroed there."""
+    ops = _mk_experts(4, 8, 2, 32, 16, 2, seed=psum_bits)
+    counts = np.array([0, 8, 3, 5], np.int32)
+    a, d, s_p, deq = _port(*ops)
+    digits = pack_nibbles(d) if nibble else d
+    occ = occupancy_map(d) if nibble else None
+    kw = dict(psum_bits=psum_bits, occ=occ)
+    got = tops.cim_matmul_experts(a, digits, s_p, deq,
+                                  counts=torch.from_numpy(counts), **kw)
+    full = tops.cim_matmul_experts(a, digits, s_p, deq, **kw)
+    want = np.asarray(jops.cim_matmul_experts(*ops, psum_bits=psum_bits))
+    zero_rows = np.asarray(jops.cim_matmul_experts(
+        jnp.zeros_like(ops[0]), *ops[1:], psum_bits=psum_bits))
+    a0 = a.clone()
+    for j, c in enumerate(counts):
+        assert torch.equal(got[j, :c], full[j, :c])
+        np.testing.assert_allclose(got[j, :c].numpy(), want[j, :c],
+                                   **KERNEL_TOL)
+        np.testing.assert_allclose(got[j, c:].numpy(), zero_rows[j, c:],
+                                   **KERNEL_TOL)
+        a0[j, c:] = 0
+    assert torch.equal(got, tops.cim_matmul_experts(a0, digits, s_p, deq,
+                                                    **kw))
+    assert not torch.equal(got, full)

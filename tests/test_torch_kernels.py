@@ -7,6 +7,9 @@ Same integer inputs, made with numpy from a seed; outputs agree at the
 reference's kernel-vs-oracle tolerance (rtol 1e-5, atol 1e-4: both sum
 the same float32 terms, but XLA may fuse a multiply and an add).
 
+The split tile loop's ordered sum (``ref.ordered_sum`` of
+``ref.shift_add_terms``) equals ``ref.shift_add`` bit for bit.
+
 At psum_bits == 1 the port is held against the JAX kernel's dense body
 only: the reference's occupancy-skip body drifts from its dense body
 under the sign ADC (ROADMAP, faults). The CUDA kernel itself is held
@@ -198,3 +201,32 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
                       torch.zeros((3, 1, 20, 5), dtype=torch.int8),
                       torch.ones(3, 1, 5), torch.ones(3, 1, 5), kh=3, kw=3,
                       stride=1, padding="SAME", c_per_array=2, psum_bits=4)
+
+
+@pytest.mark.parametrize("psum_bits,chunk", [(4, 1), (1, 2), (6, 3)])
+def test_split_tile_loop_ordered_sum_matches_shift_add_and_pallas(psum_bits,
+                                                                  chunk):
+    """The split tile loop of the tensor-core matmul at small M: blocks
+    write the per-(t, s) terms of their chunk of tiles, and the ordered
+    pass adds them from 0.0, t outer and s inner. Its plain mirror
+    (``ref.shift_add_terms`` per chunk, then ``ref.ordered_sum``) equals
+    ``ref.shift_add`` bit for bit, and so the port's matmul; both match the
+    reference's dense Pallas kernel."""
+    a, d, _, s_p, deq, _ = _matmul_case(10 + psum_bits, m=8, kt=5, rows=32)
+    psum = ref.adc_quantize_ref(ref._psum(_t(a), _t(d)), _t(s_p)[None],
+                                psum_bits)
+    deq_t = _t(deq)
+    kt = deq.shape[1]
+    terms = torch.cat([ref.shift_add_terms(psum[..., t0:t0 + chunk, :],
+                                           deq_t[:, t0:t0 + chunk])
+                       for t0 in range(0, kt, chunk)])
+    assert terms.shape == (kt, 3, 8, 20)
+    got = ref.ordered_sum(terms)
+    assert torch.equal(got, ref.shift_add(psum, deq_t))
+    assert torch.equal(got, cim_matmul_cuda(_t(a), _t(d), _t(s_p), deq_t,
+                                            psum_bits=psum_bits))
+    want = cim_matmul_pallas(jnp.asarray(a), jnp.asarray(d), jnp.asarray(s_p),
+                             jnp.asarray(deq), None, None, None,
+                             psum_bits=psum_bits, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)

@@ -1,41 +1,36 @@
-"""The kept relaid planes of the ADC-free tensor-core kernels
-(``repro_torch.kernels.cim_adc_free._relaid``): which launches reuse a kept
-workspace and its layout id, and which get a new one, so the kernel relays
-the planes. The bookkeeping is plain Python and runs here with a stand-in
-for the library's workspace size; the kernels that read the workspace run
-only on the card, where ``tests/test_torch_cuda.py`` holds them against
-their plain versions after in-place writes to the planes.
+"""The kept relaid planes of the tensor-core kernels
+(``repro_torch.kernels.relaid``, shared by the ADC and ADC-free wrappers):
+which launches reuse a kept workspace and its layout id, and which get a
+new one, so the kernel relays the planes. The bookkeeping is plain Python
+and runs here with a stand-in for the library's workspace size; the
+kernels that read the workspace run only on the card, where
+``tests/test_torch_cuda.py`` holds them against their plain versions after
+in-place writes to the planes.
 """
 import gc
 
 import pytest
 import torch
 
-from repro_torch.kernels import cim_adc_free
-
-
-class _Lib:
-    """The one library function ``_relaid`` calls."""
-
-    @staticmethod
-    def cim_adc_free_mma_workspace(kt, s, n, taps, seg):
-        return kt * s * n * taps * seg
+from repro_torch.kernels import relaid
 
 
 @pytest.fixture(autouse=True)
 def _eager(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
-    cim_adc_free.clear_relaid_planes()
+    relaid.clear_relaid_planes()
     yield
-    cim_adc_free.clear_relaid_planes()
+    relaid.clear_relaid_planes()
 
 
 def _relaid(d, taps=1, seg=None, c=None):
-    s, kt, rows, n = d.shape
-    return cim_adc_free._relaid(_Lib, d, kt, s, n, taps,
-                                rows if seg is None else seg,
-                                kt * rows if c is None else c)
+    """A launch's workspace, of a stand-in size (the library's workspace
+    function sizes it on the card)."""
+    s, kt, rows, n = d.shape[-4:]
+    seg = rows if seg is None else seg
+    return relaid.relaid_planes(d, kt * s * n * taps * seg,
+                                (taps, seg, kt * rows if c is None else c))
 
 
 def _planes(*shape):
@@ -90,16 +85,16 @@ def test_the_entry_goes_with_the_planes():
     d = _planes(3, 2, 16, 8)
     key = id(d)
     _relaid(d[:, :1])                      # a view keeps the base alive
-    assert key in cim_adc_free._RELAID
+    assert key in relaid._KEPT
     del d
     gc.collect()
-    assert key not in cim_adc_free._RELAID
+    assert key not in relaid._KEPT
 
 
 def test_clear_frees_what_is_kept():
     d = _planes(3, 2, 16, 8)
     work = _relaid(d)[0]
-    cim_adc_free.clear_relaid_planes()
+    relaid.clear_relaid_planes()
     assert _relaid(d)[0] is not work
 
 
@@ -111,12 +106,12 @@ def test_a_capture_uses_what_is_kept_and_keeps_nothing_new(monkeypatch):
                         lambda: True)
     work2, layout2, kept = _relaid(kept_d)
     assert work2 is work and kept == 7
-    cim_adc_free._check_capture(layout2, kept, "k")   # same layout: fine
+    relaid.check_capture(layout2, kept, "k")   # same layout: fine
     fresh = _relaid(new_d)
     assert fresh[2] is None and _relaid(new_d)[0] is not fresh[0]
     layout2.value = 8                      # the launch relaid kept planes
     with pytest.raises(RuntimeError, match="CUDA-graph capture"):
-        cim_adc_free._check_capture(layout2, kept, "k")
+        relaid.check_capture(layout2, kept, "k")
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
     assert _relaid(kept_d)[0] is not work  # the stale entry was dropped

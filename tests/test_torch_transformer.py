@@ -9,7 +9,9 @@ them across as numpy. The port's specs, emulate logits, packed
 artifact and deploy logits then match the reference's (logits at rtol /
 atol 1e-4, planes byte for byte); within the port deploy equals emulate
 bit for bit. The MoE routing (top-k ties, capacity overflow, dropped
-slots) is held against the reference's formulas on the same logits.
+slots) and each expert's filled-slot count are held against the
+reference's formulas on the same logits, and the MoE block gives the
+same output with and without the counts.
 """
 import dataclasses
 
@@ -208,6 +210,66 @@ def test_routing_matches_reference_with_ties_and_overflow(n_tok):
     dropped = int((slot == tcfg.moe.n_experts * cap).sum())
     assert dropped > 0 if n_tok * tcfg.moe.top_k > 256 else dropped == 0
     np.testing.assert_allclose(gates.sum(-1).numpy(), 1.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("n_tok", [40, 160])
+def test_expert_counts_equal_the_reference_slot_fill(n_tok):
+    """Each expert's filled capacity slots (``counts``, what the experts
+    kernel computes alone) from the port's slots equal the fill of the
+    reference's slot assignment on the same logits: min(pairs routed to
+    the expert, cap), capacity overflow included."""
+    jcfg, tcfg = _cfgs()
+    e = tcfg.moe.n_experts
+    rng = np.random.default_rng(n_tok + 1)
+    logits = rng.integers(0, 3, (n_tok, e)).astype(np.float32)
+    logits[:, 3] += 2.0                     # expert 3 overflows at 160
+    sel_j, slot_j, cap = _j_route(jnp.asarray(logits), jcfg)
+    _, _, slot, _ = TL.route(torch.from_numpy(logits), tcfg)
+    counts = TL.expert_counts(slot, e, cap)
+    assert counts.dtype == torch.int32 and counts.shape == (e,)
+    fill = np.bincount(slot_j[slot_j < e * cap] // cap, minlength=e)
+    np.testing.assert_array_equal(counts.numpy(), fill)
+    routed = np.bincount(sel_j.reshape(-1), minlength=e)
+    np.testing.assert_array_equal(counts.numpy(), np.minimum(routed, cap))
+    assert (routed > cap).any() == (n_tok * tcfg.moe.top_k > 256)
+
+
+@pytest.mark.parametrize("psum_bits", [6, 1])
+def test_moe_block_same_with_and_without_counts_and_matches_reference(
+        reference, psum_bits, monkeypatch):
+    """The deploy MoE block (int8 banks): with ``counts`` the experts
+    kernel gives the empty capacity slots a zero-row value, which the
+    combine step never reads, so the block's output is bit for bit the one
+    computed on every slot; it matches the reference's ``_apply_moe_jit``
+    at the launcher's 6-bit partial sums and under the sign ADC."""
+    import repro_torch.kernels.ops as tops
+    jcfg, tcfg = _cfgs(psum_bits=psum_bits)
+    p_np = jax.tree.map(lambda a: a[0],
+                        reference["int8"][0]["moe_layers"]["moe"])
+    x = (np.random.default_rng(psum_bits).standard_normal(
+        (B, T, tcfg.d_model)).astype(np.float32))
+    dcfg_j = jcfg.replace(cim=jcfg.cim.replace(mode="deploy"))
+    dcfg_t = tcfg.replace(cim=tcfg.cim.replace(mode="deploy"))
+    want = np.asarray(jax.jit(lambda p, x_: JL._apply_moe_jit(p, x_, dcfg_j))(
+        p_np, jnp.asarray(x)))
+    p_t = from_numpy_tree(p_np, CPU)
+    xt = torch.from_numpy(x)
+    seen = []
+    orig = tops.cim_matmul_experts_cuda
+
+    def spy(*a, **kw):
+        seen.append(kw.get("counts"))
+        return orig(*a, **kw)
+    monkeypatch.setattr(tops, "cim_matmul_experts_cuda", spy)
+    got = TL.apply_moe(p_t, xt, dcfg_t)
+    assert len(seen) == 3 and all(c is not None for c in seen)
+    cap = B * T * tcfg.moe.top_k           # dropless at this size
+    assert int(seen[0].min()) < cap         # some slots are empty
+    monkeypatch.setattr(TL, "expert_counts", lambda *a: None)
+    full = TL.apply_moe(p_t, xt, dcfg_t)
+    assert seen[-1] is None
+    assert torch.equal(got, full)
+    np.testing.assert_allclose(got.numpy(), want, **LOGIT_TOL)
 
 
 def test_moe_block_with_overflowing_expert_matches_reference(reference):
