@@ -11,7 +11,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. builds the hand-written kernels of ``src/repro_torch/csrc/`` (one
    ``nvcc`` per source, all at once) and prints each instance's ptxas
-   registers and spills;
+   registers and spills, and each library's count of tensor-core
+   instructions in its SASS (the float-digit kernel must hold DMMA);
 3. holds the CIM matmul/conv kernel (int8 tensor cores on integer planes)
    against its plain PyTorch version on random inputs (dense, occupancy
    skip with dead columns and dead blocks, nibble planes, psum_bits
@@ -19,23 +20,32 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    conv 3x3/1x1 at stride 1/2, SAME/VALID); then at decode's row counts
    (M 1, 8, 16, 33: one-warp row blocks, narrow column tiles, the split
    tile loop) with N from 1 to 11264, rows 126 and 128, psum_bits
-   1/4/6/8 and psum_quant off, sparse against dense bit for bit;
+   1/4/6/8 and psum_quant off, sparse against dense bit for bit; then
+   K3 as an implicit GEMM (``IMPLICIT_ADC_CONV_CASES``: psum_bits 1/4/6,
+   psum_quant off, int8 and uint8 codes, stride 1/2, 1x1 and 3x3, ragged
+   M, batch 1), each case on int8 and int4 planes with and without the
+   occupancy map, all four equal;
    3b. the same case grid through the ADC-free matmul/conv kernels, and
    float32 digit planes carrying cell variation (sigma 0.3) through both
    kernel families; then the tensor-core ADC-free matmul and the
    implicit-GEMM conv on the shapes their loaders find hard (C_in 3 to 64
    at 14 channels per array, odd and even sizes at stride 2 under SAME
    and VALID, 1x1 projections, blocks across images, ragged M, rows not
-   a multiple of 32, N from 1 to 200);
+   a multiple of 32, N from 1 to 200); then the float-plane implicit
+   convs (FP64 tensor cores), ADC and ADC-free, on K3's grid at sigma
+   0.1, 0.2, 0.3 and 0.4, sparse against dense;
 4. the main path: ResNet-20 at full width (16, 32, 64; 32x32; 10
    classes) with the paper's CIFAR-10 settings, initialised from a seed,
    calibrated on one batch, packed at int8 and int4, answering batches of
    256 images in deploy mode. Deploy logits are held against emulate
-   logits, the kernel's launch counters against 20 convs per forward,
-   and the kernel is timed at the main path's shapes beside its plain
-   version and its bound;
+   logits, the launch counters against 20 K3 launches per forward, no
+   matmul launch and no patch gather in torch, and the kernel is timed
+   at the main path's shapes beside its plain version and its bound
+   (and K1 on the convs' materialized patches, a shape no path gives it
+   now);
 5. ResNet-18 (widths 64..512, 32x32) one deploy forward per pack dtype
-   against emulate at batch 64;
+   against emulate at batch 64, with the same counters, and the convs
+   that K3 runs on its staged path (a 128-row input window over 32 KB);
 6. the ``adc_free`` backend on the same packed ResNet-20, int8 and int4:
    logits against emulate with ``psum_quant=False``, the implicit-GEMM
    ADC-free conv's counter against 20 per forward, the ADC-free matmul's,
@@ -50,7 +60,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
 7. the ``binary`` backend: ResNet-20 packed with ``mode="binary"``, its
    kernel forward against its plain version, counters at 20 per forward;
 8. cell variation: one deploy forward with a ``Sampler`` at sigma 0.3
-   against emulate under the same fields, with the float-digit counters;
+   against emulate under the same fields, with the float-digit counters
+   (20 float-plane K3 launches, no patch gather);
    the Monte-Carlo sweep over sigma in {0, .1, .2, .3, .4} x 4 samples on
    deploy and one sigma = 0.2 point on adc_free and on binary; the
    per-layer attribution at sigma 0.3; the float-digit conv timed at the
@@ -83,7 +94,11 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    planes relaid on every call and relaid once; prefill and
    decode times; one decode step captured in a CUDA graph and replayed
    (the counts need no host sync): its tokens against the eager decode
-   loop's, and its time per step; both ADC kernels timed at the operands
+   loop's, and its time per step; a decode step captured in a cache with
+   room for 2 positions and replayed 5 times, past ``max_len``: no device
+   error, and its caches and tokens equal the same steps run eagerly
+   through the layer path (the reference's clamped write); both ADC
+   kernels timed at the operands
    of one prefill forward and one decode step, the experts kernel with
    the counts of those calls;
 11. a JSON line per kernel, the card's name and power limit, and the
@@ -97,8 +112,9 @@ events.
 
 Tolerances: each kernel and its plain version add the same float32 terms
 in the same order with the same roundings (float-digit partial sums are
-exact in float64 on both sides), so they are expected to agree bit for
-bit; the gate is rtol 1e-5 / atol 1e-4, the reference's own
+exact in float64 on both sides on these grids,
+``tests/test_torch_float_digits.py``), so they are expected to agree bit
+for bit; the gate is rtol 1e-5 / atol 1e-4, the reference's own
 kernel-vs-oracle tolerance. Deploy against emulate is gated at 1e-4 as in
 ``tests/test_cim_conv_deploy.py`` (the transformer's logits at 1e-4 of
 their largest magnitude); 0.0 is expected, and served tokens must be
@@ -168,15 +184,26 @@ def main() -> int:
         print(f"phase 2 ptxas {name}.cu: "
               + ("; ".join(_ptxas_summary(_build.build_log.get(name, "")))
                  or "already built"), flush=True)
+    sass = {name: _sass_counts(_build.library_path(name))
+            for name in _build.SOURCES}
+    print("phase 2 SASS tensor-core instructions (cuobjdump -sass): "
+          + "; ".join(f"{n}.cu {c}" for n, c in sass.items()), flush=True)
+    check(sass["cim_matmul"]["DMMA"] > 0,
+          "the float-digit kernel's SASS holds no DMMA (FP64 tensor core)")
 
-    errs = {name: 0.0 for name in KERNELS}
+    # "cim_matmul": K1's cases of phases 3 and 3b, at shapes of their own
+    errs = {name: 0.0 for name in (*KERNELS, "cim_matmul")}
 
     # 3. kernel against its plain version
     n_cases = phase3_kernel_cases(torch, dev, errs)
-    print(f"phase 3 kernel vs plain: {n_cases} cases pass; max |kernel - "
+    n_cases += phase3_implicit_adc_cases(torch, dev, errs)
+    print(f"phase 3 kernel vs plain: {n_cases} cases pass (K3 an implicit "
+          f"GEMM: {len(IMPLICIT_ADC_CONV_CASES)} of them on int8 and int4 "
+          f"planes with and without occ, all four equal); max |kernel - "
           f"plain| cim_matmul {errs['cim_matmul']!r}, cim_conv "
           f"{errs['cim_conv']!r}", flush=True)
     n_cases = phase3b_new_kernel_cases(torch, dev, errs)
+    n_cases += phase3b_float_implicit_cases(torch, dev, errs)
     print(f"phase 3b ADC-free and float-digit kernels vs plain: {n_cases} "
           f"cases pass; max |kernel - plain| "
           + ", ".join(f"{k} {errs[k]!r}" for k in (
@@ -229,11 +256,10 @@ MMA_SOURCE = "src/repro_torch/csrc/cim_adc_free_mma.cu"
 MMA_ADC_SOURCE = "src/repro_torch/csrc/cim_matmul_mma.cu"
 #: kernel entries of the results line: (source, TPU kernel it replaces).
 #: Integer planes run on the int8 tensor cores (``cim_mma.cuh``, included
-#: by both MMA sources); float32 (cell-variation) planes on the float64
-#: kernel of CUDA_SOURCE.
+#: by both MMA sources); float32 (cell-variation) planes on the FP64
+#: tensor-core kernel of CUDA_SOURCE. Every conv is an implicit GEMM.
 KERNELS = {
-    "cim_matmul": (MMA_ADC_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
-    # K3: patches gathered in torch, then K1
+    # K3: the implicit GEMM with the ADC epilogue
     "cim_conv": (MMA_ADC_SOURCE, "src/repro/kernels/cim_conv.py:60"),
     # integer planes on the int8 tensor cores; the conv an implicit GEMM.
     # The matmul at its path's shapes (every CIM linear of the MoE
@@ -244,10 +270,11 @@ KERNELS = {
     "cim_matmul_adc_free_resnet": (MMA_SOURCE,
                                    "src/repro/kernels/cim_adc_free.py:98"),
     "cim_conv_adc_free": (MMA_SOURCE, "src/repro/kernels/cim_adc_free.py:180"),
-    # the conv kernel on float32 planes that carry cell variation
+    # K3 on float32 planes that carry cell variation: the implicit GEMM on
+    # the FP64 tensor cores
     "cim_conv_variation": (CUDA_SOURCE, "src/repro/kernels/cim_conv.py:60"),
-    # the matmul kernel at the MoE transformer's shapes (attention, dense
-    # MLP and shared-expert linears)
+    # K1 at its path's shapes: the MoE transformer's attention, dense MLP
+    # and shared-expert linears
     "cim_matmul_transformer": (MMA_ADC_SOURCE,
                                "src/repro/kernels/cim_matmul.py:160"),
     "cim_matmul_experts": (MMA_ADC_SOURCE,
@@ -286,6 +313,22 @@ def _read_counters():
     launches["plain_gathers"] = ref.extract_conv_patches.cuda_gathers
     return (launches,
             {k: getattr(fn, "float_launches", 0) for k, fn in fns.items()})
+
+
+def _sass_counts(path):
+    """{"DMMA", "IMMA", "HMMA": count} of a built library's SASS (FP64,
+    integer and half-precision tensor-core instructions, by
+    ``cuobjdump -sass``); fails where the toolkit has no cuobjdump."""
+    import os
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(exe), "cuobjdump not found: the SASS of the "
+          "float-digit kernel cannot be checked for DMMA")
+    sass = subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("DMMA", "IMMA", "HMMA")}
 
 
 def _ptxas_summary(log: str):
@@ -340,20 +383,22 @@ def _compare(torch, got, want, name, what, errs):
           f"{name} {what}: max |kernel - plain| = {err!r}")
 
 
-# (M, kt, rows, N, unsigned codes, nibble groups or 0, occ, psum_bits, quant)
+# (M, kt, rows, N, unsigned codes, nibble planes (1) or int8 (0), occ,
+# psum_bits, quant)
 MATMUL_CASES = (
     (4096, 2, 126, 16, False, 0, False, 4, True),
     (4097, 2, 126, 20, False, 0, True, 1, True),
-    (1000, 3, 126, 32, True, 9, True, 4, True),
+    (1000, 3, 126, 32, True, 1, True, 4, True),
     (777, 1, 128, 64, False, 1, False, 8, True),
     (513, 5, 126, 130, True, 0, True, 4, False),
     (300, 2, 126, 32, False, 0, False, 1, True),
-    (257, 37, 126, 512, False, 9, True, 4, True),
-    (64, 4, 128, 17, True, 2, True, 8, True))
+    (257, 37, 126, 512, False, 1, True, 4, True),
+    (64, 4, 128, 17, True, 1, True, 8, True))
 # The case table below also parametrises tests/test_torch_cuda.py.
 # the tensor-core ADC matmul at decode's row counts: (M, kt, rows, N,
-# uint8 codes, nibble groups or 0, occ, psum_bits, psum_quant). M 1-16:
-# one-warp row blocks and 16-column tiles; under two blocks per SM the
+# uint8 codes, nibble planes (1) or int8 (0), occ, psum_bits,
+# psum_quant). M 1-16: one-warp row blocks and 16-column tiles; under two
+# blocks per SM the
 # tile loop splits (kt 16, 22 and 88 at N 2048: the MoE transformer's
 # attention, shared-expert and dense down projections); N 11264 (the
 # dense layer's up projections) does not; M 33 takes a 48-row block
@@ -362,9 +407,9 @@ SMALL_M_CASES = (
     (8, 16, 128, 2048, False, 1, True, 6, True),
     (8, 88, 128, 2048, False, 0, True, 6, True),
     (8, 16, 128, 11264, True, 0, True, 8, True),
-    (16, 22, 128, 2048, True, 2, True, 1, True),
-    (16, 5, 126, 17, False, 9, True, 1, True),
-    (33, 3, 126, 100, False, 9, True, 4, True),
+    (16, 22, 128, 2048, True, 1, True, 1, True),
+    (16, 5, 126, 17, False, 1, True, 1, True),
+    (33, 3, 126, 100, False, 1, True, 4, True),
     (1, 2, 126, 1, True, 0, False, 4, False),
     (8, 4, 128, 2048, False, 0, True, 4, False),
     (8, 7, 128, 40, True, 0, True, 1, True))
@@ -375,7 +420,7 @@ CONV_CASES = (
     (1, 1, "VALID", True, True, 1), (3, 2, "VALID", True, True, 4))
 
 
-def _matmul_operands(torch, g, m, kt, rows, n, uns, groups):
+def _matmul_operands(torch, g, m, kt, rows, n, uns, nibble):
     """Random codes, and S = 3 digit planes with dead columns and a fully
     dead (split, tile): (a, logical d, stored digits, occ, s_p, deq)."""
     from repro_torch.core.nibble import occupancy_map, pack_nibbles
@@ -387,10 +432,7 @@ def _matmul_operands(torch, g, m, kt, rows, n, uns, groups):
     d = torch.randint(-3, 4, (3, kt, rows, n), generator=g, dtype=torch.int8)
     d[:, :, :, 3:9] = 0                    # dead columns
     d[1, 0] = 0                            # a fully dead (split, tile)
-    digits = d
-    if groups:
-        digits = pack_nibbles(d.reshape(3, kt, groups, rows // groups, n)
-                              ).reshape(3, kt, rows // 2, n)
+    digits = pack_nibbles(d) if nibble else d
     amax = 255 if uns else 8
     s_p = 0.5 + torch.rand((3, kt, n), generator=g) * amax * rows ** 0.5
     deq = torch.randn((3, kt, n), generator=g) * 0.1
@@ -427,32 +469,30 @@ def phase3_kernel_cases(torch, dev, errs) -> int:
 
     g = torch.Generator().manual_seed(0)
     n_cases = 0
-    for m, kt, rows, n, uns, groups, sparse, pb, quant in MATMUL_CASES:
-        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, groups)
-        if groups:
-            check(torch.equal(unpack_nibbles(ops[2], groups=groups), ops[1]),
+    for m, kt, rows, n, uns, nibble, sparse, pb, quant in MATMUL_CASES:
+        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, nibble)
+        if nibble:
+            check(torch.equal(unpack_nibbles(ops[2]), ops[1]),
                   "nibble round trip")
         a, d, digits, occ, s_p, deq = (x.to(dev) for x in ops)
         got = cim_matmul_cuda(a, digits, s_p, deq, occ if sparse else None,
-                              psum_bits=pb, psum_quant=quant,
-                              nibble_groups=max(groups, 1))
+                              psum_bits=pb, psum_quant=quant)
         want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=pb,
                                   psum_quant=quant)
         torch.cuda.synchronize()
         _compare(torch, got, want, "cim_matmul",
                  f"M={m} kt={kt} rows={rows} N={n} uint8={uns} "
-                 f"nibble={groups} occ={sparse} psum_bits={pb} quant={quant}",
+                 f"nibble={nibble} occ={sparse} psum_bits={pb} quant={quant}",
                  errs)
         n_cases += 1
 
     # decode's row counts; sparse equals dense bit for bit (the sign ADC
     # included: a dead plane still passes p = 0 through the ADC)
-    for m, kt, rows, n, uns, groups, sparse, pb, quant in SMALL_M_CASES:
+    for m, kt, rows, n, uns, nibble, sparse, pb, quant in SMALL_M_CASES:
         a, d, digits, occ, s_p, deq = (
             x.to(dev) for x in _matmul_operands(torch, g, m, kt, rows, n,
-                                                uns, groups))
-        kw = dict(psum_bits=pb, psum_quant=quant,
-                  nibble_groups=max(groups, 1))
+                                                uns, nibble))
+        kw = dict(psum_bits=pb, psum_quant=quant)
         got = cim_matmul_cuda(a, digits, s_p, deq, occ if sparse else None,
                               **kw)
         dense = cim_matmul_cuda(a, digits, s_p, deq, None, **kw)
@@ -460,7 +500,7 @@ def phase3_kernel_cases(torch, dev, errs) -> int:
                                   psum_quant=quant)
         torch.cuda.synchronize()
         what = (f"small M={m} kt={kt} rows={rows} N={n} uint8={uns} "
-                f"nibble={groups} occ={sparse} psum_bits={pb} quant={quant}")
+                f"nibble={nibble} occ={sparse} psum_bits={pb} quant={quant}")
         _compare(torch, got, want, "cim_matmul", what, errs)
         check(torch.equal(got, dense), f"cim_matmul {what}: sparse differs "
               "from dense")
@@ -486,14 +526,14 @@ def phase3_kernel_cases(torch, dev, errs) -> int:
 # The case tables and the operand builder below also parametrise the card
 # tests of tests/test_torch_cuda.py.
 # the tensor-core ADC-free matmul on shapes its loaders find hard:
-# (M, kt, rows, N, uint8 codes, nibble groups or 0, occ); rows not a
-# multiple of 32 (16/96: 16-byte aligned loads; 40, 100, 127: staged),
+# (M, kt, rows, N, uint8 codes, nibble planes (1) or int8 (0), occ); rows
+# not a multiple of 32 (16/96: 16-byte aligned loads; 40, 100, 127: staged),
 # N from 1 to 200 (column tiles 16/32/64, several of them), ragged M, and
 # enough row blocks that each persistent block takes several
 ADC_FREE_MATMUL_CASES = (
     (1, 1, 16, 1, False, 0, False), (333, 2, 40, 3, True, 0, True),
-    (1000, 3, 100, 20, False, 2, True), (2049, 1, 127, 33, True, 0, True),
-    (515, 4, 96, 64, False, 4, True), (70001, 2, 126, 16, True, 9, True),
+    (1000, 3, 100, 20, False, 1, True), (2049, 1, 127, 33, True, 0, True),
+    (515, 4, 96, 64, False, 1, True), (70001, 2, 126, 16, True, 1, True),
     (4097, 2, 128, 200, False, 1, True), (129, 5, 126, 64, True, 0, False))
 # the implicit-GEMM conv: (batch, H, W, C_in, k, stride, padding, cpa,
 # C_out, nibble, uint8 codes, occ). C_in 3/14/15/16/29/64 at cpa 14 (16-byte
@@ -538,6 +578,117 @@ def implicit_conv_operands(torch, g, b, h, w, c_in, kh, cpa, n, uns):
     return a, logical, packed, occupancy_map(d6, conv=True), deq
 
 
+# K3, the ADC conv as an implicit GEMM, on the implicit conv's grid and at
+# batch 1 (ResNet-20's first and last stages): (batch, H, W, C_in, k,
+# stride, padding, cpa, C_out, uint8 codes, psum_bits, psum_quant). Each
+# case runs on int8 and int4 (nibble) planes, with and without the
+# occupancy map: the four results must be equal, and equal to the plain
+# version. The float-plane cases run the same grid with planes carrying
+# cell variation at each sigma of VARIATION_SIGMAS, ADC and ADC-free.
+IMPLICIT_ADC_CONV_CASES = (
+    (5, 9, 9, 3, 3, 1, "SAME", 14, 16, True, 4, True),
+    (4, 10, 12, 14, 3, 2, "SAME", 14, 20, False, 1, True),
+    (3, 11, 7, 15, 3, 2, "SAME", 14, 32, True, 6, True),
+    (7, 8, 8, 16, 3, 2, "SAME", 14, 32, True, 4, False),
+    (2, 13, 10, 29, 3, 2, "VALID", 14, 64, False, 4, True),
+    (6, 6, 6, 64, 3, 1, "SAME", 14, 64, True, 1, True),
+    (9, 8, 8, 64, 3, 2, "VALID", 14, 70, True, 6, True),
+    (11, 16, 16, 16, 1, 2, "SAME", 128, 32, True, 1, True),
+    (5, 15, 15, 32, 1, 2, "SAME", 128, 64, False, 4, True),
+    (3, 5, 5, 29, 1, 1, "VALID", 128, 9, True, 6, False),
+    (13, 4, 4, 16, 3, 1, "SAME", 14, 16, False, 4, True),
+    (1, 32, 32, 16, 3, 1, "SAME", 14, 16, True, 1, True),
+    (1, 8, 8, 64, 3, 1, "SAME", 14, 64, False, 6, True))
+VARIATION_SIGMAS = (0.1, 0.2, 0.3, 0.4)
+
+
+def implicit_adc_conv_operands(torch, g, b, h, w, c_in, kh, cpa, n, uns):
+    """``implicit_conv_operands`` and ADC scales over the partial sums'
+    range: (a, logical, nibble planes, occ, s_p, deq), on the CPU."""
+    a, logical, packed, occ, deq = implicit_conv_operands(
+        torch, g, b, h, w, c_in, kh, cpa, n, uns)
+    rows = kh * kh * cpa
+    s_p = 0.5 + torch.rand(deq.shape, generator=g) * (255 if uns else 128) * (
+        rows ** 0.5)
+    return a, logical, packed, occ, s_p, deq
+
+
+def varied_planes(torch, g, logical, sigma):
+    """float32 planes carrying one cell-variation realization at
+    ``sigma``, theta drawn from ``g`` (the planes' logical layout)."""
+    from repro_torch.core.variation import perturb_digits
+    return perturb_digits(logical, torch.randn(logical.shape, generator=g),
+                          sigma)
+
+
+def phase3_implicit_adc_cases(torch, dev, errs) -> int:
+    """K3 as an implicit GEMM against the plain conv: int8 and int4 planes,
+    with and without the occupancy map, all four equal bit for bit (sparse
+    == dense under the sign ADC too)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_conv import cim_conv_cuda
+
+    g = torch.Generator().manual_seed(2)
+    for case in IMPLICIT_ADC_CONV_CASES:
+        b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
+        a, logical, packed, occ, s_p, deq = (
+            x.to(dev) for x in implicit_adc_conv_operands(
+                torch, g, b, h, w, c_in, kh, cpa, n, uns))
+        geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
+                   c_per_array=cpa, psum_bits=pb, psum_quant=quant)
+        outs = [cim_conv_cuda(a, planes, s_p, deq, o, **geo)
+                for planes in (logical, packed) for o in (None, occ)]
+        want = ref.cim_conv_ref(a, logical, s_p, deq, **geo)
+        torch.cuda.synchronize()
+        what = (f"implicit B={b} {h}x{w}x{c_in} {kh}x{kh} stride {stride} "
+                f"{padding} cpa={cpa} N={n} uint8={uns} psum_bits={pb} "
+                f"quant={quant}")
+        for got in outs:
+            _compare(torch, got, want, "cim_conv", what, errs)
+        check(all(torch.equal(o, outs[0]) for o in outs[1:]),
+              f"cim_conv {what}: int4 or sparse differs from int8 dense")
+    return len(IMPLICIT_ADC_CONV_CASES)
+
+
+def phase3b_float_implicit_cases(torch, dev, errs) -> int:
+    """The float-plane implicit convs (FP64 tensor cores), ADC and
+    ADC-free, at each sigma of VARIATION_SIGMAS, against their plain
+    versions; sparse equals dense."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_adc_free import cim_conv_adc_free_cuda
+    from repro_torch.kernels.cim_conv import cim_conv_cuda
+
+    g = torch.Generator().manual_seed(3)
+    n_cases = 0
+    for case in IMPLICIT_ADC_CONV_CASES:
+        b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
+        a, logical, _, occ, s_p, deq = implicit_adc_conv_operands(
+            torch, g, b, h, w, c_in, kh, cpa, n, uns)
+        geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
+                   c_per_array=cpa)
+        mq = dict(psum_bits=pb, psum_quant=quant)
+        for sigma in VARIATION_SIGMAS:
+            a_d, noisy, occ_d, s_d, deq_d = (x.to(dev) for x in (
+                a, varied_planes(torch, g, logical, sigma), occ, s_p, deq))
+            what = (f"implicit float sigma {sigma} B={b} {h}x{w}x{c_in} "
+                    f"{kh}x{kh} stride {stride} {padding} N={n} uint8={uns}")
+            for name, sparse, dense, want in (
+                    ("cim_conv_variation",
+                     cim_conv_cuda(a_d, noisy, s_d, deq_d, occ_d, **geo, **mq),
+                     cim_conv_cuda(a_d, noisy, s_d, deq_d, None, **geo, **mq),
+                     ref.cim_conv_ref(a_d, noisy, s_d, deq_d, **geo, **mq)),
+                    ("cim_conv_adc_free",
+                     cim_conv_adc_free_cuda(a_d, noisy, deq_d, occ_d, **geo),
+                     cim_conv_adc_free_cuda(a_d, noisy, deq_d, None, **geo),
+                     ref.cim_conv_adc_free_ref(a_d, noisy, deq_d, **geo))):
+                torch.cuda.synchronize()
+                _compare(torch, sparse, want, name, what, errs)
+                check(torch.equal(sparse, dense),
+                      f"{name} {what}: sparse differs from dense")
+                n_cases += 1
+    return n_cases
+
+
 def phase3b_new_kernel_cases(torch, dev, errs) -> int:
     """Phase 3's case grid through the ADC-free kernels, and float32 digit
     planes carrying one cell-variation realization (sigma 0.3) through
@@ -552,20 +703,19 @@ def phase3b_new_kernel_cases(torch, dev, errs) -> int:
 
     g = torch.Generator().manual_seed(1)
     n_cases = 0
-    for m, kt, rows, n, uns, groups, sparse, pb, quant in MATMUL_CASES:
-        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, groups)
+    for m, kt, rows, n, uns, nibble, sparse, pb, quant in MATMUL_CASES:
+        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, nibble)
         noisy = perturb_digits(ops[1], torch.randn(ops[1].shape, generator=g),
                                SIGMA)
         a, d, digits, occ, s_p, deq, noisy = (x.to(dev)
                                               for x in ops + (noisy,))
         o = occ if sparse else None
         what = (f"M={m} kt={kt} rows={rows} N={n} uint8={uns} "
-                f"nibble={groups} occ={sparse}")
+                f"nibble={nibble} occ={sparse}")
         mq = dict(psum_bits=pb, psum_quant=quant)
         for name, planes, got, want in (
                 ("cim_matmul_adc_free", "integer",
-                 cim_matmul_adc_free_cuda(a, digits, deq, o,
-                                          nibble_groups=max(groups, 1)),
+                 cim_matmul_adc_free_cuda(a, digits, deq, o),
                  ref.cim_matmul_adc_free_ref(a, d, deq)),
                 ("cim_matmul_adc_free", "float",
                  cim_matmul_adc_free_cuda(a, noisy, deq, o),
@@ -603,17 +753,16 @@ def phase3b_new_kernel_cases(torch, dev, errs) -> int:
             _compare(torch, got, want, name, f"{what} {planes} planes", errs)
             n_cases += 1
 
-    for m, kt, rows, n, uns, groups, sparse in ADC_FREE_MATMUL_CASES:
-        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, groups)
+    for m, kt, rows, n, uns, nibble, sparse in ADC_FREE_MATMUL_CASES:
+        ops = _matmul_operands(torch, g, m, kt, rows, n, uns, nibble)
         a, d, digits, occ, _, deq = (x.to(dev) for x in ops)
         got = cim_matmul_adc_free_cuda(a, digits, deq,
-                                       occ if sparse else None,
-                                       nibble_groups=max(groups, 1))
+                                       occ if sparse else None)
         want = ref.cim_matmul_adc_free_ref(a, d, deq)
         torch.cuda.synchronize()
         _compare(torch, got, want, "cim_matmul_adc_free",
                  f"M={m} kt={kt} rows={rows} N={n} uint8={uns} "
-                 f"nibble={groups} occ={sparse}", errs)
+                 f"nibble={nibble} occ={sparse}", errs)
         n_cases += 1
 
     for (b, h, w, c_in, kh, stride, padding, cpa, n, nibble, uns,
@@ -784,14 +933,13 @@ def _fmt_total(t, launches: str, ops: str = "ops") -> str:
 
 
 def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
-    """Times both kernel wrappers and their plain versions on the operands
-    the deploy forward gave each CIM conv; returns per-kernel sums over
-    one forward and prints one line per layer."""
+    """Times K3 and its plain version on the operands the deploy forward
+    gave each CIM conv; returns per-kernel sums over one forward and
+    prints one line per layer."""
     from repro_torch.core.cim_conv import conv_deploy_operands
     from repro_torch.core.nibble import unpack_nibbles
     from repro_torch.kernels import ref
     from repro_torch.kernels.cim_conv import cim_conv_cuda
-    from repro_torch.kernels.cim_matmul import cim_matmul_cuda
     from repro_torch.models.resnet import conv_layer_names
 
     cim = model_cfg.cim
@@ -800,21 +948,15 @@ def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
         blk, layer = name.split(".")
         op = conv_deploy_operands(taps[name], packed[blk][layer], cim)
         kh, kw, cpa = op["kh"], op["kw"], op["c_per_array"]
-        groups = kh * kw
         nibble = op["digits"].dtype == torch.uint8
-        logical = (unpack_nibbles(op["digits"], groups=groups) if nibble
+        logical = (unpack_nibbles(op["digits"], groups=kh * kw) if nibble
                    else op["digits"])
         geo = dict(kh=kh, kw=kw, stride=stride, padding="SAME",
                    c_per_array=cpa, psum_bits=cim.psum_bits,
                    psum_quant=cim.psum_quant)
-        kt = op["digits"].shape[1]
-        patches = ref.extract_conv_patches(op["a_int"], kh, kw, stride, "SAME",
-                                           kt, cpa)
-        b, ho, wo = patches.shape[:3]
-        m = b * ho * wo
-        a_t = patches.reshape(m, kt, -1)
-        n = op["digits"].shape[-1]
-        mq = dict(psum_bits=cim.psum_bits, psum_quant=cim.psum_quant)
+        kt, n = op["digits"].shape[1], op["digits"].shape[-1]
+        b, h, w = op["a_int"].shape[:3]
+        m = b * (-(-h // stride)) * (-(-w // stride))     # SAME: ceil(H / s)
         # bytes: each input read once, the output written once; ops: the
         # int8 MACs of the occupied planes over the real input rows
         rest = (op["digits"].numel()
@@ -822,14 +964,6 @@ def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
                 + 4 * (op["s_p"].numel() + op["deq"].numel()) + 4 * m * n)
         macs = _needed_macs(op, m)
         calls = {
-            "cim_matmul": (
-                lambda: cim_matmul_cuda(a_t, op["digits"], op["s_p"],
-                                        op["deq"], op["occ"],
-                                        nibble_groups=groups, **mq),
-                lambda: ref.cim_matmul_ref(a_t, logical, op["s_p"], op["deq"],
-                                           **mq),
-                None, _bytes_ops_ms(a_t.numel() + rest, macs,
-                                    INT8_OPS_PER_S)),
             "cim_conv": (
                 lambda: cim_conv_cuda(op["a_int"], op["digits"], op["s_p"],
                                       op["deq"], op["occ"], **geo),
@@ -850,8 +984,6 @@ def _time_layers(torch, model_cfg, packed, taps, errs, reps: int):
 def phase4_resnet20(torch, dev, errs):
     from repro_torch.api import pack_model
     from repro_torch.data.pipeline import make_image_dataset
-    from repro_torch.kernels.cim_conv import cim_conv_cuda
-    from repro_torch.kernels.cim_matmul import cim_matmul_cuda
     from repro_torch.models import resnet
 
     cim = paper_cim()
@@ -876,8 +1008,7 @@ def phase4_resnet20(torch, dev, errs):
             for xb in requests]
 
     # the main path: only these deploy forwards may move the counters
-    cim_matmul_cuda.launches = 0
-    cim_conv_cuda.launches = 0
+    _reset_counters()
     got, ms = {}, {}
     for dt in ("int8", "int4"):
         got[dt], ms[dt] = [], []
@@ -890,12 +1021,15 @@ def phase4_resnet20(torch, dev, errs):
             got[dt].append(y)
             ms[dt].append((start, end))
     torch.cuda.synchronize()
-    launches = {"cim_matmul": cim_matmul_cuda.launches,
-                "cim_conv": cim_conv_cuda.launches}
+    counted, _ = _read_counters()
     forwards = 2 * len(requests)
+    # K3 gathers its own patch rows: 20 implicit-GEMM launches a forward,
+    # no matmul launch, no patch tensor
+    launches = {"cim_conv": n_convs * forwards, "cim_matmul": 0,
+                "plain_gathers": 0}
     for k, v in launches.items():
-        check(v == n_convs * forwards, f"{k} launched {v} times in "
-              f"{forwards} forwards, expected {n_convs * forwards}")
+        check(counted[k] == v, f"{k}: {counted[k]} in {forwards} deploy "
+              f"forwards, expected {v}")
     worst = 0.0
     for dt in ("int8", "int4"):
         for y, w in zip(got[dt], want):
@@ -910,7 +1044,8 @@ def phase4_resnet20(torch, dev, errs):
           f"(init, calibrate, 2 packs) {setup_s:.2f} s; {forwards} deploy "
           f"forwards; ms per batch int8 {[round(v, 3) for v in ms['int8']]}, "
           f"int4 {[round(v, 3) for v in ms['int4']]}; max |deploy - emulate| "
-          f"{worst!r}; launches {launches} = 20 x {forwards}", flush=True)
+          f"{worst!r}; launches {counted} (cim_conv 20 x {forwards})",
+          flush=True)
 
     # per-kernel times at the main path's shapes, outside the counted run
     timings = {}
@@ -934,7 +1069,10 @@ def phase4_resnet20(torch, dev, errs):
 
 def phase5_resnet18(torch, dev) -> None:
     from repro_torch.api import pack_model
+    from repro_torch.core.cim_conv import conv_deploy_operands
     from repro_torch.data.pipeline import make_image_dataset
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_conv import window_mode
     from repro_torch.models import resnet
 
     cim = paper_cim()
@@ -946,17 +1084,42 @@ def phase5_resnet18(torch, dev) -> None:
     params = resnet.calibrate(params, state, xc, cfg)
     want, _ = resnet.forward(params, state, xb, cfg, train=False)
     dcfg = dataclasses.replace(cfg, cim=cim.replace(mode="deploy"))
-    diffs = {}
+    diffs, packed = {}, {}
+    n_convs = len(resnet.conv_layer_names(cfg))
     for dt in ("int8", "int4"):
-        y, _ = resnet.forward(pack_model(params, cim.replace(pack_dtype=dt)),
-                              state, xb, dcfg, train=False)
+        packed[dt] = pack_model(params, cim.replace(pack_dtype=dt))
+        _reset_counters()
+        y, _ = resnet.forward(packed[dt], state, xb, dcfg, train=False)
+        torch.cuda.synchronize()
+        counted, _ = _read_counters()
+        check(counted["cim_conv"] == n_convs and counted["cim_matmul"] == 0
+              and counted["plain_gathers"] == 0,
+              f"ResNet-18 {dt}: launches {counted}, expected {n_convs} "
+              "cim_conv, no matmul launch and no patch gather")
         check(y.shape == (64, 10) and bool(torch.isfinite(y).all()),
               f"ResNet-18 {dt} logits: shape or non-finite")
         diffs[dt] = float((y - want).abs().max())
         check(bool(torch.allclose(y, want, **LOGIT_TOL)),
               f"ResNet-18 {dt} deploy vs emulate: max diff {diffs[dt]!r}")
+    # which convs run K3 in window mode, which on its staged path (a
+    # 128-row block's input window over 32 KB)
+    _, _, taps = resnet.forward(packed["int8"], state, xb, dcfg, train=False,
+                                return_taps=True)
+    staged = []
+    for name, stride in resnet.conv_layer_names(cfg):
+        blk, layer = name.split(".")
+        op = conv_deploy_operands(taps[name], packed["int8"][blk][layer], cim)
+        s, kt, _, n = op["digits"].shape
+        geo = ref.conv_geometry(op["a_int"].shape, op["kh"], op["kw"], stride,
+                                "SAME", kt, op["c_per_array"])
+        if not window_mode(geo, s, n):
+            staged.append(f"{name} ({geo.h}x{geo.w}x{geo.c_in}, "
+                          f"{geo.kh}x{geo.kw}/{stride})")
     print(f"phase 5 ResNet-18 (widths 64..512, 32x32, batch 64, k_tiles up "
-          f"to 37): max |deploy - emulate| {diffs}", flush=True)
+          f"to 37): {n_convs} K3 launches a forward, no patch gather; max "
+          f"|deploy - emulate| {diffs}; K3 on its staged path (no window "
+          f"mode) for {len(staged)} of {n_convs} convs: "
+          f"{', '.join(staged) or 'none'}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -970,7 +1133,7 @@ def _time_adc_free_layers(torch, model_cfg, packed, taps, errs, reps: int):
     import torch.nn.functional as F
 
     from repro_torch.core.cim_conv import conv_deploy_operands
-    from repro_torch.core.nibble import unpack_nibbles
+    from repro_torch.core.nibble import pack_nibbles, unpack_nibbles
     from repro_torch.kernels import ref
     from repro_torch.kernels.cim_adc_free import (cim_conv_adc_free_cuda,
                                                   cim_matmul_adc_free_cuda)
@@ -1019,11 +1182,12 @@ def _time_adc_free_layers(torch, model_cfg, packed, taps, errs, reps: int):
                 + (op["occ"].numel() if op["occ"] is not None else 0)
                 + 4 * op["deq"].numel() + 4 * m * n)
         macs = _needed_macs(op, m)
+        # the matmul takes nibble planes in one half-split block
+        mm_digits = pack_nibbles(logical) if nibble else logical
         calls = {
             "cim_matmul_adc_free_resnet": (
-                lambda: cim_matmul_adc_free_cuda(a_t, op["digits"], op["deq"],
-                                                 op["occ"],
-                                                 nibble_groups=kh * kw),
+                lambda: cim_matmul_adc_free_cuda(a_t, mm_digits, op["deq"],
+                                                 op["occ"]),
                 lambda: ref.cim_matmul_adc_free_ref(a_t, logical, op["deq"]),
                 lib_mm, _bytes_ops_ms(a_t.numel() + rest, macs,
                                       INT8_OPS_PER_S)),
@@ -1142,9 +1306,10 @@ def phase7_binary(torch, model) -> None:
            for xb in requests]
     torch.cuda.synchronize()
     launches, _ = _read_counters()
-    for k in ("cim_matmul", "cim_conv"):
-        check(launches[k] == 20 * len(requests), f"binary: {k} launched "
-              f"{launches[k]} times in {len(requests)} forwards")
+    for k, v in (("cim_conv", 20 * len(requests)), ("cim_matmul", 0),
+                 ("plain_gathers", 0)):
+        check(launches[k] == v, f"binary: {k} {launches[k]} in "
+              f"{len(requests)} forwards, expected {v}")
     worst = 0.0
     for y, w in zip(got, want):
         check(y.shape == (BATCH, 10) and bool(torch.isfinite(y).all()),
@@ -1192,9 +1357,10 @@ def phase8_variation(torch, model, errs):
     torch.cuda.synchronize()
     launches, floats = _read_counters()
     check(launches["cim_conv"] == 20 and floats["cim_conv"] == 20
-          and floats["cim_matmul"] == 20,
+          and launches["cim_matmul"] == 0 and launches["plain_gathers"] == 0,
           f"varied deploy forward: launches {launches}, on float planes "
-          f"{floats}; expected 20 float-plane conv launches")
+          f"{floats}; expected 20 float-plane conv launches, no matmul "
+          "launch and no patch gather")
     diff = float((got - want).abs().max())
     check(got.shape == (BATCH, 10) and bool(torch.isfinite(got).all()),
           "varied deploy logits: shape or non-finite")
@@ -1723,6 +1889,13 @@ def phase10_moe_serving(torch, errs, mc):
               f"replayed {new - 1} times: tokens equal the eager loop's; "
               f"{replay_ms:.2f} ms per step by replay (median; eager "
               f"{eager_ms:.2f} ms in the same loop)", flush=True)
+    past = _graph_decode_overrun(torch, model, cfg, arts["int8"], tokens, b,
+                                 room=2, steps=5)
+    print(f"phase 10 int8: a decode step captured in a CUDA graph in a cache "
+          f"with room for 2 new positions, replayed 5 times ({past} past "
+          f"max_len): no device error; the caches (K, V, lengths) equal the "
+          f"same steps run eagerly through the layer path (the write clamped "
+          f"as the reference's), and so do the tokens", flush=True)
 
     # both kernels at the operands of one prefill forward and one decode step
     results = {}
@@ -1845,6 +2018,71 @@ def _graph_decode(torch, model, cfg, art, tokens, b, max_len, steps):
           for evs in (ev_g, ev_e)]
     del graph
     return same, ms[0], ms[1]
+
+
+def _graph_decode_overrun(torch, model, cfg, art, tokens, b, room, steps):
+    """A deploy decode step captured in a CUDA graph after the prompt, in a
+    cache of max_len = prompt + ``room``, replayed ``steps`` times, the
+    lengths copied back and each replay's token fed to the next, so the
+    lengths pass max_len. Against the same steps run eagerly: through
+    ``decode_step`` while they fit, then through ``_decode_step``, below
+    its host check (the layer path, whose write clamps as the
+    reference's). Checks that the
+    card reports no error, that every replay's token equals the eager
+    step's, and that the caches equal bit for bit; returns the number of
+    steps past max_len."""
+    from repro_torch.models import transformer
+
+    p, dcfg = art.params, cfg.replace(cim=art.config)
+    max_len = tokens.shape[1] + room
+
+    def prompt():
+        cache = model.init_cache(cfg, b, max_len)
+        logits, cache = model.decode_step(p, cache, tokens, dcfg)
+        return (torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32),
+                cache)
+
+    tok, eager = prompt()
+    eager_toks = []
+    for i in range(steps):
+        step = transformer.decode_step if i < room else \
+            transformer._decode_step
+        logits, eager = step(p, eager, tok, dcfg)
+        tok = torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
+        eager_toks.append(tok)
+
+    tok, cache = prompt()
+    static = tok.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up outside the capture
+        lens = {k: v["len"].clone() for k, v in cache.items()}
+        model.decode_step(p, cache, static, dcfg)
+        for k, v in cache.items():
+            v["len"].copy_(lens[k])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, out_cache = model.decode_step(p, cache, static, dcfg)
+        nxt = torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
+    replayed = []
+    for _ in range(steps):
+        graph.replay()
+        for k, v in cache.items():
+            v["len"].copy_(out_cache[k]["len"])
+        static.copy_(nxt)
+        replayed.append(nxt.clone())
+    torch.cuda.synchronize()               # a device-side fault raises here
+    del graph
+    check(all(torch.equal(x, y) for x, y in zip(replayed, eager_toks)),
+          "decode replayed past max_len: tokens differ from the eager steps")
+    for k, v in cache.items():
+        for f in ("k", "v", "len"):
+            check(torch.equal(v[f], eager[k][f]), f"decode replayed past "
+                  f"max_len: cache {k}.{f} differs from the eager steps'")
+    check(int(cache[next(iter(cache))]["len"].max()) == max_len - room
+          + steps, "decode replayed past max_len: lengths not advanced")
+    return steps - room
 
 
 def phase10_adc_free(torch, errs, mc, model, params, arts, tokens,

@@ -11,7 +11,8 @@
 //     them onto the matmul; here the kernel gathers the patch rows itself
 //     from the NHWC codes (implicit GEMM), and no patch tensor exists;
 //     entry point cim_conv_adc_free_implicit_launch.
-// Float32 planes (cell variation) keep the float64 branch of cim_matmul.cu.
+// Float32 planes (cell variation) run on the FP64 tensor cores
+// (cim_matmul.cu).
 //
 //   out[m,n] = sum_t sum_s deq[s,t,n] * rint(p[m,s,t,n]),
 //   p[m,s,t,n] = sum_r a[m,t,r] * d[s,t,r,n]
@@ -36,21 +37,10 @@ int column_tile(int n, long long m) {
   return (m + 127) / 128 * ((n + 63) / 64) >= 2LL * sm_count() ? 64 : 32;
 }
 
-// 128-row blocks unless they would leave half the SMs idle: a block
-// reloads the digit tiles for every row block it takes, so fewer, larger
-// row blocks move fewer digit bytes. Every digit tile resident if that
-// leaves room for three blocks per SM, else two digit buffers, else one,
-// for two blocks per SM; then whatever fits.
+// Row blocks and digit buffers: streaming_buffers (cim_mma.cuh).
 template <int BN, bool kUnsignedA, bool kImplicit, bool kDirect>
 cudaError_t launch(const Ops& o, Geo g, cudaStream_t stream) {
-  const long long nblk_n = (g.N + BN - 1) / BN;
-  const int bm0 = ((g.M + 127) / 128) * nblk_n * 2 >= sm_count() ? 128 : 64;
-  const long long cand[6][3] = {
-      {bm0, 0, kThreeBlocks}, {bm0, 2, kTwoBlocks}, {bm0, 1, kTwoBlocks},
-      {64, 0, kThreeBlocks},  {64, 2, kTwoBlocks},  {64, 1, kTwoBlocks}};
-  g.tc = g.kt;
-  g.nsplit = 1;
-  const long long smem = choose_buffers<BN, kImplicit, kDirect>(g, cand, 6);
+  const long long smem = streaming_buffers<BN, kImplicit, kDirect>(g);
   if (smem < 0) return cudaErrorInvalidValue;
   return run<BN, kUnsignedA, kImplicit, kDirect, false>(o, g, smem, stream);
 }
@@ -90,13 +80,14 @@ extern "C" {
 
 // Each launch returns a cudaError_t code: 0 on a successful launch. `occ`
 // may be null. `rows` is the logical row count; nibble planes (nibble = 1)
-// store rows / 2 rows in `groups` half-split blocks. `work` is a device
-// buffer of `work_bytes` >= cim_adc_free_mma_workspace(...) bytes for the
-// relaid digit operand, and `*held` the id of the layout it holds (0:
-// none). A launch relays the planes into `work` (a small kernel, first on
-// the stream) only if its layout id differs from `*held`, then stores
-// its id there: a caller that keeps `work` and `*held` beside constant
-// planes relays them once. Both kernels run on `stream`.
+// store rows / 2 rows, half-split (the conv's: in kh*kw blocks).
+// `work` is a device buffer of `work_bytes` >=
+// cim_adc_free_mma_workspace(...) bytes for the relaid digit operand, and
+// `*held` the id of the layout it holds (0: none). A launch relays the
+// planes into `work` (a small kernel, first on the stream) only if its
+// layout id differs from `*held`, then stores its id there: a caller that
+// keeps `work` and `*held` beside constant planes relays them once. Both
+// kernels run on `stream`.
 
 // Workspace bytes for kt tiles, S splits, n columns, taps segments of seg
 // codes (the matmul: taps 1, seg rows; the conv: kh*kw, cpa).
@@ -111,11 +102,11 @@ int cim_matmul_adc_free_mma_launch(const void* a, const void* digits,
                                    const void* occ, const void* deq, void* out,
                                    void* work, long long work_bytes,
                                    long long* held, long long m, int kt,
-                                   int rows, int S, int n, int groups,
-                                   int a_unsigned, int nibble, void* stream) {
+                                   int rows, int S, int n, int a_unsigned,
+                                   int nibble, void* stream) {
   Geo g{};
   g.M = m; g.kt = kt; g.rows = rows; g.S = S; g.N = n;
-  g.nibble = nibble; g.groups = groups;
+  g.nibble = nibble; g.groups = 1;
   g.taps = 1; g.seg = rows; g.C = kt * rows; g.kh = 1; g.kw = 1;
   g.stride = 1; g.experts = 1;
   return dispatch<false>(ops(a, digits, occ, deq, out, work, work_bytes, held),
@@ -134,16 +125,10 @@ int cim_conv_adc_free_implicit_launch(const void* a, const void* digits,
                                       int ho, int wo, int cpa, int kt, int S,
                                       int n, int a_unsigned, int nibble,
                                       void* stream) {
-  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || kh <= 0 || kw <= 0 ||
-      stride <= 0 || ho <= 0 || wo <= 0 || cpa <= 0 ||
-      (long long)batch * h * w > 0x7FFFFFFFLL)
+  Geo g;
+  if (!conv_geo(g, batch, h, w, c, kh, kw, stride, ph, pw, ho, wo, cpa, kt,
+                S, n, nibble, 0, 0, 0))
     return (int)cudaErrorInvalidValue;
-  Geo g{};
-  g.M = (long long)batch * ho * wo; g.kt = kt; g.rows = kh * kw * cpa;
-  g.S = S; g.N = n; g.nibble = nibble; g.groups = kh * kw;
-  g.taps = kh * kw; g.seg = cpa; g.C = c;
-  g.H = h; g.W = w; g.Ho = ho; g.Wo = wo; g.kh = kh; g.kw = kw;
-  g.stride = stride; g.ph = ph; g.pw = pw; g.experts = 1;
   return dispatch<true>(ops(a, digits, occ, deq, out, work, work_bytes, held),
                         g, a_unsigned, stream);
 }

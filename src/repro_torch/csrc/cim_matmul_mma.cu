@@ -8,15 +8,21 @@
 //     `_kernel` (:80), the occupancy-skip body `_kernel_sparse` (:101) and
 //     the nibble decode `decode_digit_block` (:59; here the relayout decodes
 //     the nibbles once per plane tensor); entry point
-//     cim_matmul_mma_launch. The conv deploy path
-//     (repro/kernels/cim_conv.py::cim_conv_pallas, :60) lowers its patches
-//     onto it with M = B*H'*W' and nibble groups = kh*kw;
+//     cim_matmul_mma_launch;
+//   repro/kernels/cim_conv.py::cim_conv_pallas (:60), which takes
+//     stretched-kernel patches outside its Pallas kernel and runs the ADC
+//     matmul on them with M = B*H'*W'; here the same kernel gathers the
+//     patch rows itself from the NHWC codes (implicit GEMM, the ADC-free
+//     conv's loader: window mode or the staged path, cim_mma.cuh), and no
+//     patch tensor exists; entry point cim_conv_mma_implicit_launch, its
+//     relaid planes in K5's layout (an int8 pack is relaid once for both);
 //   repro/kernels/cim_matmul.py::cim_matmul_experts_pallas (:269), body
 //     `_experts_kernel` (:237): the same kernel over every expert of an MoE
 //     bank in one launch, the expert on blockIdx.z, the bank relaid once as
 //     one tensor, and the empty capacity slots skipped (`counts`); entry
 //     point cim_matmul_experts_mma_launch.
-// Float32 planes (cell variation) keep the float64 branch of cim_matmul.cu.
+// Float32 planes (cell variation) run on the FP64 tensor cores
+// (cim_matmul.cu).
 //
 //   out[m,n] = sum_t sum_s deq[s,t,n] * ADC(p[m,s,t,n]),
 //   p[m,s,t,n] = sum_r a[m,t,r] * d[s,t,r,n]
@@ -36,8 +42,9 @@
 //     (`counts`, a prefix of its capacity buffer) only: at decode 48
 //     token-expert pairs fill about 35 of 64 experts, and the others read
 //     no plane.
-// ResNet-20's convs (rows 126, M up to 262,144) are bound by the patch
-// bytes the torch gather writes and the kernel reads.
+// ResNet-20's convs (rows 126, M up to 262,144) are bound by the codes
+// read once and the float32 output written once: the conv reads its input
+// window, not a patch tensor nine times the codes.
 
 #include "cim_mma.cuh"
 
@@ -86,33 +93,39 @@ void split_plan(Geo& g, int bn) {
   g.tc = g.nsplit > 1 ? tc : g.kt;
 }
 
-// Row blocks: one warp per 16 rows up to 64 rows; above, 128-row blocks
-// unless they would leave half the SMs idle. A block that walks several
-// row blocks keeps its digit tiles resident where they fit (on any SM
-// when the launch has no more blocks than SMs): they are read once. A
-// block of one row block double-buffers them (resident tiles would all
-// arrive before its first MAC); else one buffer.
-template <int BN, bool kUnsignedA, bool kDirect>
+// The matmul's row blocks: one warp per 16 rows up to 64 rows; above,
+// 128-row blocks unless they would leave half the SMs idle. A block that
+// walks several row blocks keeps its digit tiles resident where they fit
+// (on any SM when the launch has no more blocks than SMs): they are read
+// once. A block of one row block double-buffers them (resident tiles
+// would all arrive before its first MAC); else one buffer. The conv's:
+// streaming_buffers (cim_mma.cuh), as the ADC-free conv's.
+template <int BN, bool kUnsignedA, bool kImplicit, bool kDirect>
 cudaError_t launch(const Ops& o, Geo g, cudaStream_t stream) {
-  const long long nblk_n = (g.N + BN - 1) / BN;
-  const long long nz = g.nsplit > 1 ? g.nsplit : g.experts;
-  const int bm0 = g.M <= 64 ? (int)round_up(g.M, 16)
-                  : ((g.M + 127) / 128) * nblk_n * nz * 2 >= sm_count()
-                      ? 128 : 64;
-  const int bm1 = bm0 < 64 ? bm0 : 64;
-  const long long blocks = (g.M + bm0 - 1) / bm0 * nblk_n * nz;
-  const long long res = blocks <= sm_count() ? kMaxSmem
-                        : bm0 <= 32          ? kTwoBlocks
-                                             : kThreeBlocks;
-  const bool one = g.M <= bm0;           // one row block per block
-  const long long cand[7][3] = {
-      {bm0, one ? 2 : 0, one ? kTwoBlocks : res},
-      {bm0, 2, kTwoBlocks}, {bm0, 1, kTwoBlocks}, {bm0, 0, res},
-      {bm1, 0, kThreeBlocks}, {bm1, 2, kTwoBlocks}, {bm1, 1, kTwoBlocks}};
-  const long long smem = choose_buffers<BN, false, kDirect>(g, cand, 7);
+  long long smem;
+  if (kImplicit) {
+    smem = streaming_buffers<BN, kImplicit, kDirect>(g);
+  } else {
+    const long long nblk_n = (g.N + BN - 1) / BN;
+    const long long nz = g.nsplit > 1 ? g.nsplit : g.experts;
+    const int bm0 = g.M <= 64 ? (int)round_up(g.M, 16)
+                    : ((g.M + 127) / 128) * nblk_n * nz * 2 >= sm_count()
+                        ? 128 : 64;
+    const int bm1 = bm0 < 64 ? bm0 : 64;
+    const long long blocks = (g.M + bm0 - 1) / bm0 * nblk_n * nz;
+    const long long res = blocks <= sm_count() ? kMaxSmem
+                          : bm0 <= 32          ? kTwoBlocks
+                                               : kThreeBlocks;
+    const bool one = g.M <= bm0;           // one row block per block
+    const long long cand[7][3] = {
+        {bm0, one ? 2 : 0, one ? kTwoBlocks : res},
+        {bm0, 2, kTwoBlocks}, {bm0, 1, kTwoBlocks}, {bm0, 0, res},
+        {bm1, 0, kThreeBlocks}, {bm1, 2, kTwoBlocks}, {bm1, 1, kTwoBlocks}};
+    smem = choose_buffers<BN, kImplicit, kDirect>(g, cand, 7);
+  }
   if (smem < 0) return cudaErrorInvalidValue;
-  cudaError_t e = run<BN, kUnsignedA, false, kDirect, true>(o, g, smem,
-                                                            stream);
+  cudaError_t e = run<BN, kUnsignedA, kImplicit, kDirect, true>(o, g, smem,
+                                                                stream);
   if (e != cudaSuccess || g.nsplit <= 1) return e;
   const long long mn = g.M * g.N;
   cim_ordered_sum_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
@@ -120,11 +133,11 @@ cudaError_t launch(const Ops& o, Geo g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-Geo matmul_geo(long long m, int kt, int rows, int S, int n, int groups,
-               int nibble, int psum_bits, int psum_quant, int experts) {
+Geo matmul_geo(long long m, int kt, int rows, int S, int n, int nibble,
+               int psum_bits, int psum_quant, int experts) {
   Geo g{};
   g.M = m; g.kt = kt; g.rows = rows; g.S = S; g.N = n;
-  g.nibble = nibble; g.groups = groups;
+  g.nibble = nibble; g.groups = 1;
   g.taps = 1; g.seg = rows; g.C = kt * rows; g.kh = 1; g.kw = 1;
   g.stride = 1; g.adc = 1; g.psum_bits = psum_bits;
   g.psum_quant = psum_quant; g.experts = experts;
@@ -132,13 +145,15 @@ Geo matmul_geo(long long m, int kt, int rows, int S, int n, int groups,
   return g;
 }
 
+template <bool kImplicit>
 int dispatch(const Ops& o, Geo g, int a_unsigned, bool split, void* stream) {
-  if (!prepare<false>(g, o.a)) return (int)cudaErrorInvalidValue;
+  if (!prepare<kImplicit>(g, o.a)) return (int)cudaErrorInvalidValue;
   const int bn = column_tile(g);
   if (split) split_plan(g, bn);
   auto* st = static_cast<cudaStream_t>(stream);
-#define CIM_LAUNCH(BN, U)                                                  \
-  (g.direct ? launch<BN, U, true>(o, g, st) : launch<BN, U, false>(o, g, st))
+#define CIM_LAUNCH(BN, U)                                          \
+  (g.direct ? launch<BN, U, kImplicit, true>(o, g, st)             \
+            : launch<BN, U, kImplicit, false>(o, g, st))
   cudaError_t e;
   if (bn == 16)
     e = a_unsigned ? CIM_LAUNCH(16, true) : CIM_LAUNCH(16, false);
@@ -156,27 +171,30 @@ extern "C" {
 
 // Each launch returns a cudaError_t code: 0 on a successful launch. `occ`
 // may be null. `rows` is the logical row count; nibble planes (nibble = 1)
-// store rows / 2 rows in `groups` half-split blocks. `work` is a device
-// buffer of `work_bytes` >= cim_matmul_mma_workspace(...) bytes for the
-// relaid digit operand, and `*held` the id of the layout it holds (0:
-// none): a launch relays the planes into `work` only if its layout id
-// differs, then stores its id there (as cim_adc_free_mma.cu's launches,
-// with the same layout ids: the two libraries can share a kept copy).
+// store rows / 2 rows, half-split (the conv's: in kh*kw blocks).
+// `work` is a device buffer of `work_bytes` >=
+// cim_matmul_mma_workspace(...) bytes for the relaid digit operand, and
+// `*held` the id of the layout it holds (0: none): a launch relays the
+// planes into `work` only if its layout id differs, then stores its id
+// there (as cim_adc_free_mma.cu's launches, with the same layout ids: the
+// two libraries can share a kept copy).
 // Every kernel runs on `stream`.
 
-// Workspace bytes for `experts` matrices of kt tiles, S splits, n columns
-// of `rows` rows.
-long long cim_matmul_mma_workspace(int kt, int S, int n, int rows,
+// Workspace bytes for `experts` matrices of kt tiles, S splits, n
+// columns, taps segments of seg codes (the matmul: taps 1, seg rows; the
+// conv: kh*kw, cpa; as cim_adc_free_mma_workspace).
+long long cim_matmul_mma_workspace(int kt, int S, int n, int taps, int seg,
                                    int experts) {
-  if (kt <= 0 || S <= 0 || n <= 0 || rows <= 0 || experts <= 0) return 0;
-  return experts * workspace_bytes(kt, S, n, 1, rows);
+  if (kt <= 0 || S <= 0 || n <= 0 || taps <= 0 || seg <= 0 || experts <= 0)
+    return 0;
+  return experts * workspace_bytes(kt, S, n, taps, seg);
 }
 
 // Bytes of the terms workspace cim_matmul_mma_launch needs at these
 // shapes: 4 * kt * S * m * n where it splits the tile loop, else 0.
 long long cim_matmul_mma_terms_bytes(long long m, int kt, int rows, int S,
                                      int n) {
-  Geo g = matmul_geo(m, kt, rows, S, n, 1, 0, 4, 1, 1);
+  Geo g = matmul_geo(m, kt, rows, S, n, 0, 4, 1, 1);
   if (!prepare<false>(g, reinterpret_cast<const void*>(16))) return 0;
   split_plan(g, column_tile(g));
   return g.nsplit > 1 ? 4LL * kt * S * m * n : 0;
@@ -189,8 +207,8 @@ int cim_matmul_mma_launch(const void* a, const void* digits, const void* occ,
                           const void* s_p, const void* deq, void* out,
                           void* work, long long work_bytes, long long* held,
                           void* terms, long long terms_bytes, long long m,
-                          int kt, int rows, int S, int n, int groups,
-                          int a_unsigned, int nibble, int psum_bits,
+                          int kt, int rows, int S, int n, int a_unsigned,
+                          int nibble, int psum_bits,
                           int psum_quant, void* stream) {
   const Ops o{static_cast<const uint8_t*>(a),
               static_cast<const uint8_t*>(digits),
@@ -199,9 +217,9 @@ int cim_matmul_mma_launch(const void* a, const void* digits, const void* occ,
               static_cast<float*>(out), nullptr,
               static_cast<uint8_t*>(work), work_bytes, held,
               static_cast<float*>(terms), terms_bytes};
-  return dispatch(o, matmul_geo(m, kt, rows, S, n, groups, nibble, psum_bits,
-                                psum_quant, 1),
-                  a_unsigned, true, stream);
+  return dispatch<false>(o, matmul_geo(m, kt, rows, S, n, nibble,
+                                       psum_bits, psum_quant, 1),
+                         a_unsigned, true, stream);
 }
 
 // K6: the ADC matmul over an MoE bank, each operand stacked on a leading
@@ -224,9 +242,52 @@ int cim_matmul_experts_mma_launch(const void* a, const void* digits,
               static_cast<const float*>(s_p), static_cast<const float*>(deq),
               static_cast<float*>(out), static_cast<const int*>(counts),
               static_cast<uint8_t*>(work), work_bytes, held, nullptr, 0};
-  return dispatch(o, matmul_geo(m, kt, rows, S, n, 1, nibble, psum_bits,
-                                psum_quant, experts),
-                  a_unsigned, false, stream);
+  return dispatch<false>(o, matmul_geo(m, kt, rows, S, n, nibble,
+                                       psum_bits, psum_quant, experts),
+                         a_unsigned, false, stream);
+}
+
+// K3: the ADC conv as an implicit GEMM. Codes (batch, h, w, c) NHWC int8
+// (a_unsigned = 0) or uint8; planes (S, kt, kh*kw*cpa or half, n) with
+// nibble groups kh*kw; occ, s_p, deq (S, kt, n); out (batch, ho, wo, n).
+// The pads before (ph, pw) and ho, wo come from the caller (XLA's
+// SAME/VALID rule). `work`: as K1, sized by cim_matmul_mma_workspace(kt,
+// S, n, kh*kw, cpa, 1); the layout is K5's.
+int cim_conv_mma_implicit_launch(const void* a, const void* digits,
+                                 const void* occ, const void* s_p,
+                                 const void* deq, void* out, void* work,
+                                 long long work_bytes, long long* held,
+                                 int batch, int h, int w, int c, int kh,
+                                 int kw, int stride, int ph, int pw, int ho,
+                                 int wo, int cpa, int kt, int S, int n,
+                                 int a_unsigned, int nibble, int psum_bits,
+                                 int psum_quant, void* stream) {
+  Geo g;
+  if (!conv_geo(g, batch, h, w, c, kh, kw, stride, ph, pw, ho, wo, cpa, kt,
+                S, n, nibble, 1, psum_bits, psum_quant))
+    return (int)cudaErrorInvalidValue;
+  const Ops o{static_cast<const uint8_t*>(a),
+              static_cast<const uint8_t*>(digits),
+              static_cast<const uint8_t*>(occ),
+              static_cast<const float*>(s_p), static_cast<const float*>(deq),
+              static_cast<float*>(out), nullptr,
+              static_cast<uint8_t*>(work), work_bytes, held, nullptr, 0};
+  return dispatch<true>(o, g, a_unsigned, false, stream);
+}
+
+// Whether K3 (and K5) at these sizes runs in window mode (1: its row
+// blocks copy their input windows; 0: the staged path of the same kernel,
+// e.g. a window over kWindowMax bytes; -1: sizes out of range), for codes
+// at a 16-byte aligned address.
+int cim_conv_mma_window_mode(int batch, int h, int w, int c, int kh, int kw,
+                             int stride, int ph, int pw, int ho, int wo,
+                             int cpa, int kt, int S, int n) {
+  Geo g;
+  if (!conv_geo(g, batch, h, w, c, kh, kw, stride, ph, pw, ho, wo, cpa, kt,
+                S, n, 0, 1, 4, 1) ||
+      !prepare<true>(g, reinterpret_cast<const void*>(16)))
+    return -1;
+  return g.direct;
 }
 
 const char* cim_matmul_mma_error_string(int code) {

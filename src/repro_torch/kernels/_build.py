@@ -33,26 +33,32 @@ _PLL = ctypes.POINTER(ctypes.c_longlong)
 # argtypes/restype of every exported C function, per library
 _SIGNATURES = {
     "cim_matmul": {
-        "cim_matmul_launch": ([_P] * 6 + [_LL] + [_I] * 7 + [_P], _I),
-        "cim_matmul_adc_free_launch": ([_P] * 5 + [_LL] + [_I] * 5 + [_P],
-                                       _I),
+        "cim_float_workspace": ([_I] * 5, _LL),
+        "cim_matmul_launch": ([_P] * 7 + [_LL, _LL] + [_I] * 7 + [_P], _I),
+        "cim_matmul_adc_free_launch": ([_P] * 6 + [_LL, _LL] + [_I] * 5
+                                       + [_P], _I),
+        "cim_conv_float_implicit_launch": ([_P] * 7 + [_LL] + [_I] * 19
+                                           + [_P], _I),
         "cim_matmul_error_string": ([_I], ctypes.c_char_p),
     },
     "cim_adc_free_mma": {
         "cim_adc_free_mma_workspace": ([_I] * 5, _LL),
         "cim_matmul_adc_free_mma_launch": ([_P] * 6 + [_LL, _PLL, _LL]
-                                           + [_I] * 7 + [_P], _I),
+                                           + [_I] * 6 + [_P], _I),
         "cim_conv_adc_free_implicit_launch": ([_P] * 6 + [_LL, _PLL]
                                               + [_I] * 17 + [_P], _I),
         "cim_adc_free_mma_error_string": ([_I], ctypes.c_char_p),
     },
     "cim_matmul_mma": {
-        "cim_matmul_mma_workspace": ([_I] * 5, _LL),
+        "cim_matmul_mma_workspace": ([_I] * 6, _LL),
         "cim_matmul_mma_terms_bytes": ([_LL] + [_I] * 4, _LL),
         "cim_matmul_mma_launch": ([_P] * 7 + [_LL, _PLL, _P, _LL, _LL]
-                                  + [_I] * 9 + [_P], _I),
+                                  + [_I] * 8 + [_P], _I),
         "cim_matmul_experts_mma_launch": ([_P] * 8 + [_LL, _PLL, _LL]
                                           + [_I] * 9 + [_P], _I),
+        "cim_conv_mma_implicit_launch": ([_P] * 7 + [_LL, _PLL] + [_I] * 19
+                                         + [_P], _I),
+        "cim_conv_mma_window_mode": ([_I] * 15, _I),
         "cim_matmul_mma_error_string": ([_I], ctypes.c_char_p),
     },
 }

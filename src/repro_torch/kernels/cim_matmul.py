@@ -14,9 +14,11 @@ Dispatch on the planes' dtype, for CUDA tensors:
   relaid K-major into a workspace kept per plane tensor
   (``kernels/relaid.py``): a launch inside a CUDA-graph capture raises if
   it would relay kept planes (run the call once before capturing it);
-- float32 planes (cell variation) run the float64 kernel of
-  ``csrc/cim_matmul.cu`` (``cim_matmul_launch``); the experts kernel does
-  not take them.
+- float32 planes (cell variation) run the FP64 tensor-core kernel of
+  ``csrc/cim_matmul.cu`` (``cim_matmul_launch``), which first writes the
+  planes as float64 into a workspace made per launch (they are drawn
+  fresh for each Monte-Carlo sample); the experts kernel does not take
+  them.
 A refused launch raises. A CPU tensor runs the plain version
 (``ref.cim_matmul_ref``, ``ref.cim_matmul_experts_ref``).
 
@@ -138,34 +140,42 @@ def raise_on_error(lib, rc: int, name: str,
         raise RuntimeError(f"{name} kernel launch failed: {msg}")
 
 
+def float_workspace(lib, device, k_tiles: int, n_split: int, n: int,
+                    taps: int, seg: int) -> torch.Tensor:
+    """The float64 digit workspace of one launch of the FP64 kernels
+    (``csrc/cim_matmul.cu``) on float32 planes: the matmul has taps 1 and
+    segments of ``rows``, the conv kh*kw taps of ``c_per_array``."""
+    return torch.empty(lib.cim_float_workspace(k_tiles, n_split, n, taps,
+                                               seg),
+                       dtype=torch.uint8, device=device)
+
+
 def _relaid_workspace(lib, op: KernelOperands):
     """The relaid-plane workspace of a tensor-core launch on ``op``:
     (workspace, layout id, the id kept before)."""
     return relaid_planes(
         op.digits, lib.cim_matmul_mma_workspace(op.k_tiles, op.n_split,
-                                                op.n, op.rows, op.experts),
+                                                op.n, 1, op.rows, op.experts),
         (1, op.rows, op.k_tiles * op.rows))
 
 
 def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
                     s_p: torch.Tensor, deq: torch.Tensor,
                     occ: torch.Tensor | None = None, *, psum_bits: int,
-                    psum_quant: bool = True,
-                    nibble_groups: int = 1) -> torch.Tensor:
+                    psum_quant: bool = True) -> torch.Tensor:
     """out (M, N) float32 = sum_t sum_s deq * ADC(a_t[:, t] @ digits[s, t]).
 
     a_t     (M, k_tiles, rows) int8 or uint8 activation codes
     digits  (S, k_tiles, rows, N) int8 or float32 (planes carrying cell
             variation), or nibble-packed uint8 (S, k_tiles, rows // 2, N)
-            in ``nibble_groups`` half-split blocks
+            in one half-split block
     s_p     (S, k_tiles, N) ADC scales
     deq     (S, k_tiles, N) fused dequant scales
     occ     optional (S, k_tiles, N) uint8 occupancy map of the planes
     """
     if a_t.device.type == "cpu":
-        return ref.cim_matmul_ref(a_t, logical_digits(digits, nibble_groups),
-                                  s_p, deq, psum_bits=psum_bits,
-                                  psum_quant=psum_quant)
+        return ref.cim_matmul_ref(a_t, logical_digits(digits), s_p, deq,
+                                  psum_bits=psum_bits, psum_quant=psum_quant)
     op = kernel_operands("cim_matmul_cuda", a_t, digits, occ, s_p=s_p,
                          deq=deq)
     if op.m == 0:
@@ -179,7 +189,10 @@ def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream(a_t.device).cuda_stream
         if floats:
-            rc = lib.cim_matmul_launch(*ptrs, *op.shape_args(), op.a_unsigned,
+            work = float_workspace(lib, a_t.device, op.k_tiles, op.n_split,
+                                   op.n, 1, op.rows)
+            rc = lib.cim_matmul_launch(*ptrs, work.data_ptr(), work.numel(),
+                                       *op.shape_args(), op.a_unsigned,
                                        psum_bits, int(psum_quant), stream)
         else:
             work, layout, kept = _relaid_workspace(lib, op)
@@ -189,8 +202,8 @@ def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
             rc = lib.cim_matmul_mma_launch(
                 *ptrs, work.data_ptr(), work.numel(), ctypes.byref(layout),
                 terms.data_ptr() if terms is not None else None, nterms,
-                *op.shape_args(), nibble_groups, op.a_unsigned, op.nibble,
-                psum_bits, int(psum_quant), stream)
+                *op.shape_args(), op.a_unsigned, op.nibble, psum_bits,
+                int(psum_quant), stream)
     if floats:
         raise_on_error(lib, rc, "cim_matmul")
     else:

@@ -5,10 +5,9 @@ single-device branches of ``repro.kernels.ops``).
 kernel for a CUDA tensor (or raise) and run the plain version for a CPU
 tensor. ``use_kernel=False`` runs the plain version (``kernels.ref``) on
 whatever device the tensors are on. ``adc_free=True`` takes the ADC-free
-kernels (no ADC, no s_p). The ADC-free conv on integer planes gathers its
-patch rows inside the kernel (implicit GEMM); the ADC conv and any conv on
-float32 planes gather them in plain torch first
-(``ref.extract_conv_patches``).
+kernels (no ADC, no s_p). Every conv, ADC or ADC-free, on integer or
+float32 planes, gathers its patch rows inside the kernel (implicit GEMM,
+``kernels.cim_conv.implicit_conv``); no patch tensor is made on the card.
 
 Cell variation (``variation`` = a theta tensor or a ``Sampler``, with
 ``variation_std``) perturbs the planes here, before dispatch: nibble

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the CIM kernels (counterpart of
 ``repro.kernels.ref``).
 
-They define the arithmetic the CUDA kernels in ``csrc/`` (the float64
-kernel ``cim_matmul.cu`` and the tensor-core ``cim_matmul_mma.cu`` and
-``cim_adc_free_mma.cu``) must reproduce (with the ADC, ADC-free,
+They define the arithmetic the CUDA kernels in ``csrc/`` (the FP64
+tensor-core kernel ``cim_matmul.cu`` for float32 planes and the int8
+tensor-core ``cim_matmul_mma.cu`` and ``cim_adc_free_mma.cu``) must
+reproduce (with the ADC, ADC-free,
 and batched over MoE experts), run on the CPU and on the card, and are
 what the wrappers use for CPU tensors. The shift-and-add accumulates in
 the kernel's order (array tile outer, split inner, one rounded multiply
@@ -12,8 +13,8 @@ for bit.
 
 ``ordered_sum`` mirrors the ordered pass that adds a split tile loop's
 terms (``shift_add_terms``). ``conv_geometry`` gives the implicit-GEMM
-conv kernel its launch arguments, and ``implicit_conv_rows`` mirrors that
-kernel's index map (output row -> pixel, logical row -> tap and channel)
+conv kernels their launch arguments, and ``implicit_conv_rows`` mirrors
+their index map (output row -> pixel, logical row -> tap and channel)
 in plain torch.
 ``extract_conv_patches.cuda_gathers`` counts patch gathers run on a CUDA
 tensor, so a run can show that a conv path gathered nothing in torch.

@@ -220,7 +220,12 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     """GQA self-attention (or cross-attention over ``x_kv``). With a decode
     ``cache`` ({"k", "v", "len"}) the new K/V rows are written in place at
     each row's ``len`` and the query attends over the prefix; the returned
-    cache holds the same K/V tensors and ``len + T``."""
+    cache holds the same K/V tensors and ``len + T``. As the reference's
+    ``dynamic_update_slice``, the write starts at ``len`` clamped to
+    [0, max_len - T], computed on the device, so it never leaves the cache
+    (``decode_step`` raises on an overrun before it gets here, except
+    under a CUDA-graph capture); the attention keeps the unclamped
+    ``len`` as the query offset and ``len + T`` as the valid length."""
     b, t, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     src = x if x_kv is None else x_kv
@@ -246,8 +251,8 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         idx = cache["len"]                                   # (B,) int32
         kc, vc = cache["k"], cache["v"]
         rows = torch.arange(b, device=kc.device)[:, None]
-        cols = idx.to(torch.long)[:, None] + torch.arange(
-            t, device=kc.device)[None, :]
+        start = idx.to(torch.long).clamp(0, kc.shape[1] - t)
+        cols = start[:, None] + torch.arange(t, device=kc.device)[None, :]
         kc[rows, cols] = k.to(kc.dtype)
         vc[rows, cols] = v.to(vc.dtype)
         new_cache = {"k": kc, "v": vc, "len": idx + t}

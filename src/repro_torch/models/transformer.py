@@ -181,20 +181,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step: tokens (B, T) and the caches -> (logits (B, T, V),
-    caches). The caches are written in place. Raises when the T new
-    positions would overrun ``max_len`` (the reference clamps the write);
-    under a CUDA-graph capture that check is the caller's (reading the
-    lengths back would end the capture), and the step syncs nothing, so
-    it can be captured once and replayed."""
+    caches). The caches are written in place. Eagerly, raises when the T
+    new positions would overrun ``max_len``. Under a CUDA-graph capture
+    the check would read the lengths back and end the capture, so it is
+    skipped and the step syncs nothing: it can be captured once and
+    replayed, and a replay past ``max_len`` writes as the reference's
+    ``dynamic_update_slice`` does, at the start clamped to ``max_len - T``
+    in ``layers.gqa_attend``."""
     _no_mla(cfg)
-    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
     first = next(iter(cache.values()))
     t = tokens.shape[1]
-    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+    capturing = (tokens.is_cuda
+                 and torch.cuda.is_current_stream_capturing())
     if not capturing and int(first["len"].max()) + t > first["k"].shape[2]:
         raise ValueError(f"decode cache overrun: {t} new positions at length "
                          f"{int(first['len'].max())} exceed max_len "
                          f"{first['k'].shape[2]}")
+    return _decode_step(params, cache, tokens, cfg)
+
+
+def _decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """``decode_step`` below its host check: the write past ``max_len``
+    clamps as the reference's does."""
+    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    first = next(iter(cache.values()))
+    t = tokens.shape[1]
     positions = (first["len"][0][:, None].to(torch.long)
                  + torch.arange(t, device=x.device)[None])
     new_cache: Dict = {}

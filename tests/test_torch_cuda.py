@@ -47,7 +47,7 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 
-def _case(seed, *, m, kt, rows, n, s=3, unsigned=False, groups=1):
+def _case(seed, *, m, kt, rows, n, s=3, unsigned=False):
     g = torch.Generator().manual_seed(seed)
     if unsigned:
         a = torch.randint(0, 256, (m, kt, rows), generator=g, dtype=torch.uint8)
@@ -59,9 +59,7 @@ def _case(seed, *, m, kt, rows, n, s=3, unsigned=False, groups=1):
     amax = 255 if unsigned else 8
     s_p = 0.5 + torch.rand((s, kt, n), generator=g) * amax * rows ** 0.5
     deq = torch.randn((s, kt, n), generator=g) * 0.1
-    packed = (pack_nibbles(d.reshape(s, kt, groups, rows // groups, n)
-                           ).reshape(s, kt, rows // 2, n) if groups
-              else d)
+    packed = pack_nibbles(d) if rows % 2 == 0 else d
     return [x.cuda() for x in (a, d, packed, s_p, deq, occupancy_map(d))]
 
 
@@ -74,18 +72,17 @@ def _case(seed, *, m, kt, rows, n, s=3, unsigned=False, groups=1):
 def test_cim_matmul_bit_exact_with_plain(variant, psum_bits, psum_quant,
                                          unsigned, n):
     nibble, sparse = "nibble" in variant, "occ" in variant
-    groups = 2 if nibble else 1
     a, d, packed, s_p, deq, occ = _case(n, m=301, kt=2, n=n,
                                         rows=124 if nibble else 126,
-                                        unsigned=unsigned, groups=groups)
+                                        unsigned=unsigned)
     before = cim_matmul_cuda.launches
     got = cim_matmul_cuda(a, packed if nibble else d, s_p, deq,
                           occ if sparse else None, psum_bits=psum_bits,
-                          psum_quant=psum_quant, nibble_groups=groups)
+                          psum_quant=psum_quant)
     torch.cuda.synchronize()
     assert cim_matmul_cuda.launches == before + 1
     if nibble:
-        assert torch.equal(unpack_nibbles(packed, groups=groups), d)
+        assert torch.equal(unpack_nibbles(packed), d)
     want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=psum_bits,
                               psum_quant=psum_quant)
     assert torch.equal(got, want)
@@ -130,16 +127,14 @@ def _noisy(d, seed):
 @pytest.mark.parametrize("n", [16, 20, 64, 130])
 def test_cim_matmul_adc_free_bit_exact_with_plain(variant, unsigned, n):
     nibble, sparse = "nibble" in variant, "occ" in variant
-    groups = 2 if nibble else 1
     a, d, packed, _, deq, occ = _case(n + 1, m=301, kt=2, n=n,
                                       rows=124 if nibble else 126,
-                                      unsigned=unsigned, groups=groups)
+                                      unsigned=unsigned)
     digits = packed if nibble else d
     if "float" in variant:
         digits = d = _noisy(d, n)
     before = cim_matmul_adc_free_cuda.launches
-    got = cim_matmul_adc_free_cuda(a, digits, deq, occ if sparse else None,
-                                   nibble_groups=groups)
+    got = cim_matmul_adc_free_cuda(a, digits, deq, occ if sparse else None)
     torch.cuda.synchronize()
     assert cim_matmul_adc_free_cuda.launches == before + 1
     assert torch.equal(got, ref.cim_matmul_adc_free_ref(a, d, deq))
@@ -196,27 +191,21 @@ def test_cim_conv_adc_free_and_float_planes_bit_exact_with_plain(
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("m,kt,rows,n,unsigned,groups,sparse",
+@pytest.mark.parametrize("m,kt,rows,n,unsigned,nibble,sparse",
                          chip_smoke.ADC_FREE_MATMUL_CASES)
 def test_adc_free_tensor_core_matmul_bit_exact_with_plain(m, kt, rows, n,
-                                                         unsigned, groups,
+                                                         unsigned, nibble,
                                                          sparse):
     """The tensor-core ADC-free matmul on integer planes: rows not a
     multiple of 32 (16-byte aligned or staged loads), N from 1 to 200,
-    ragged M, many row blocks per persistent block, nibbles (``groups``
-    half-split blocks; 0: int8 planes), dead planes."""
-    a, d, _, _, deq, occ = _case(m + n, m=m, kt=kt, rows=rows, n=n,
-                                 unsigned=unsigned,
-                                 groups=max(groups, 1) if rows % 2 == 0
-                                 else 0)
-    digits = d
-    if groups:
-        digits = pack_nibbles(d.reshape(3, kt, groups, rows // groups, n)
-                              ).reshape(3, kt, rows // 2, n)
+    ragged M, many row blocks per persistent block, nibbles, dead
+    planes."""
+    a, d, packed, _, deq, occ = _case(m + n, m=m, kt=kt, rows=rows, n=n,
+                                      unsigned=unsigned)
+    digits = packed if nibble else d
     before = cim_matmul_adc_free_cuda.launches, \
         cim_matmul_adc_free_cuda.float_launches
-    got = cim_matmul_adc_free_cuda(a, digits, deq, occ if sparse else None,
-                                   nibble_groups=max(groups, 1))
+    got = cim_matmul_adc_free_cuda(a, digits, deq, occ if sparse else None)
     torch.cuda.synchronize()
     assert (cim_matmul_adc_free_cuda.launches,
             cim_matmul_adc_free_cuda.float_launches) == (before[0] + 1,
@@ -488,10 +477,10 @@ def test_moe_transformer_deploy_bit_exact_with_emulate_on_the_card(
 
 
 @pytest.mark.parametrize(
-    "m,kt,rows,n,unsigned,groups,sparse,psum_bits,psum_quant",
+    "m,kt,rows,n,unsigned,nibble,sparse,psum_bits,psum_quant",
     chip_smoke.SMALL_M_CASES)
 def test_cim_matmul_small_m_bit_exact_with_plain(m, kt, rows, n, unsigned,
-                                                 groups, sparse, psum_bits,
+                                                 nibble, sparse, psum_bits,
                                                  psum_quant):
     """The tensor-core ADC matmul at decode's row counts (M 1, 8, 16, 33):
     one-warp row blocks, 16-column tiles, the split tile loop with its
@@ -502,9 +491,8 @@ def test_cim_matmul_small_m_bit_exact_with_plain(m, kt, rows, n, unsigned,
                                    ._matmul_operands(torch, torch.Generator()
                                                      .manual_seed(m + n + kt),
                                                      m, kt, rows, n, unsigned,
-                                                     groups))
-    kw = dict(psum_bits=psum_bits, psum_quant=psum_quant,
-              nibble_groups=max(groups, 1))
+                                                     nibble))
+    kw = dict(psum_bits=psum_bits, psum_quant=psum_quant)
     before = cim_matmul_cuda.launches
     got = cim_matmul_cuda(a, digits, s_p, deq, occ if sparse else None, **kw)
     dense = cim_matmul_cuda(a, digits, s_p, deq, None, **kw)
@@ -671,3 +659,141 @@ def test_cim_matmul_adc_divide_paths_bit_exact_with_plain(psum_bits,
     got = cim_matmul_cuda(a, d, s_p, deq, occ, psum_bits=psum_bits)
     want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=psum_bits)
     assert torch.equal(got, want)
+
+
+def _adc_case_id(c):
+    return "x".join(map(str, c[:5])) + f"-s{c[5]}-n{c[8]}-b{c[10]}"
+
+
+@pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES,
+                         ids=_adc_case_id)
+def test_implicit_adc_conv_bit_exact_with_plain(case):
+    """K3 as an implicit GEMM with the ADC epilogue, on chip_smoke.py's
+    phase-3 grid: int8 and int4 planes, with and without the occupancy
+    map, all four equal to the plain conv (sparse equals dense under the
+    sign ADC too); no matmul launch and no patch gather in torch."""
+    b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
+    a, logical, packed, occ, s_p, deq = (
+        x.cuda() for x in chip_smoke.implicit_adc_conv_operands(
+            torch, torch.Generator().manual_seed(sum(case[:6]) + n), b, h, w,
+            c_in, kh, cpa, n, uns))
+    geo = dict(kh=kh, kw=kh, stride=stride, padding=padding, c_per_array=cpa,
+               psum_bits=pb, psum_quant=quant)
+    before = (cim_conv_cuda.launches, cim_matmul_cuda.launches,
+              ref.extract_conv_patches.cuda_gathers)
+    outs = [cim_conv_cuda(a, planes, s_p, deq, o, **geo)
+            for planes in (logical, packed) for o in (None, occ)]
+    torch.cuda.synchronize()
+    assert (cim_conv_cuda.launches, cim_matmul_cuda.launches,
+            ref.extract_conv_patches.cuda_gathers) == (
+                before[0] + 4, before[1], before[2])
+    want = ref.cim_conv_ref(a, logical, s_p, deq, **geo)
+    for got in outs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sigma", chip_smoke.VARIATION_SIGMAS)
+@pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES,
+                         ids=_adc_case_id)
+def test_float_plane_implicit_convs_bit_exact_with_plain(case, sigma):
+    """The float-plane convs (cell variation at sigma 0.1-0.4) as implicit
+    GEMMs on the FP64 tensor cores, with the ADC and ADC-free, against
+    their plain versions; sparse equals dense; counted as float-plane
+    launches, no matmul launch, no patch gather in torch."""
+    b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
+    g = torch.Generator().manual_seed(sum(case[:6]) + n)
+    a, logical, _, occ, s_p, deq = chip_smoke.implicit_adc_conv_operands(
+        torch, g, b, h, w, c_in, kh, cpa, n, uns)
+    a, noisy, occ, s_p, deq = (x.cuda() for x in (
+        a, chip_smoke.varied_planes(torch, g, logical, sigma), occ, s_p, deq))
+    geo = dict(kh=kh, kw=kh, stride=stride, padding=padding, c_per_array=cpa)
+    mq = dict(psum_bits=pb, psum_quant=quant)
+    before = (cim_conv_cuda.float_launches,
+              cim_conv_adc_free_cuda.float_launches,
+              cim_matmul_cuda.launches, cim_matmul_adc_free_cuda.launches,
+              ref.extract_conv_patches.cuda_gathers)
+    adc = [cim_conv_cuda(a, noisy, s_p, deq, o, **geo, **mq)
+           for o in (occ, None)]
+    free = [cim_conv_adc_free_cuda(a, noisy, deq, o, **geo)
+            for o in (occ, None)]
+    torch.cuda.synchronize()
+    assert (cim_conv_cuda.float_launches,
+            cim_conv_adc_free_cuda.float_launches, cim_matmul_cuda.launches,
+            cim_matmul_adc_free_cuda.launches,
+            ref.extract_conv_patches.cuda_gathers) == (
+                before[0] + 2, before[1] + 2, before[2], before[3], before[4])
+    want = ref.cim_conv_ref(a, noisy, s_p, deq, **geo, **mq)
+    want_free = ref.cim_conv_adc_free_ref(a, noisy, deq, **geo)
+    assert torch.equal(adc[0], want) and torch.equal(adc[1], want)
+    assert torch.equal(free[0], want_free) and torch.equal(free[1], want_free)
+
+
+@pytest.mark.parametrize("psum_bits,sp_scale", [(6, 1.0), (23, 1.0),
+                                                (4, 1e31), (8, 1e-20)])
+def test_float_plane_conv_adc_divide_paths_bit_exact_with_plain(psum_bits,
+                                                                sp_scale):
+    """The float-plane conv's ADC divide, as the integer kernels': from
+    the column's reciprocal where a tile's scales lie in [2^-100, 2^100]
+    and psum_bits <= 22, else by the IEEE divide; both give the plain
+    version's bits."""
+    g = torch.Generator().manual_seed(psum_bits)
+    a, logical, _, occ, s_p, deq = chip_smoke.implicit_adc_conv_operands(
+        torch, g, 4, 8, 8, 16, 3, 14, 24, True)
+    s_p = s_p * sp_scale
+    if sp_scale > 1:
+        s_p[0, 0, :8] = 1.0            # one block mixes the two ranges
+    a, noisy, occ, s_p, deq = (x.cuda() for x in (
+        a, chip_smoke.varied_planes(torch, g, logical, 0.2), occ, s_p, deq))
+    geo = dict(kh=3, kw=3, stride=1, padding="SAME", c_per_array=14,
+               psum_bits=psum_bits)
+    assert torch.equal(cim_conv_cuda(a, noisy, s_p, deq, occ, **geo),
+                       ref.cim_conv_ref(a, noisy, s_p, deq, **geo))
+
+
+def test_resnet_deploy_and_varied_forwards_gather_no_patches():
+    """The deploy ResNet-20 forward and the varied one: 20 K3 launches
+    each (the varied ones on float planes), no matmul launch, no patch
+    gather in torch."""
+    cfg, cim, params, state, x, packed = _small_resnet20()
+    dcfg = dataclasses.replace(cfg, cim=cim.replace(mode="deploy"))
+    before = (cim_conv_cuda.launches, cim_conv_cuda.float_launches,
+              cim_matmul_cuda.launches, ref.extract_conv_patches.cuda_gathers)
+    y, _ = resnet.forward(packed, state, x, dcfg, train=False)
+    y_v, _ = resnet.forward(packed, state, x, dcfg, train=False,
+                            variation=Sampler(5), variation_std=0.2)
+    torch.cuda.synchronize()
+    assert (cim_conv_cuda.launches, cim_conv_cuda.float_launches,
+            cim_matmul_cuda.launches,
+            ref.extract_conv_patches.cuda_gathers) == (
+                before[0] + 40, before[1] + 20, before[2], before[3])
+    assert torch.isfinite(y).all() and torch.isfinite(y_v).all()
+
+
+def test_k3_and_k5_share_the_relaid_planes_and_the_window_mode():
+    """The ADC and ADC-free implicit convs on the same planes keep one
+    relaid copy; ``window_mode`` tells which convs copy their input window
+    (ResNet-20's) and which take the staged path (a wide layer whose
+    128-row window exceeds 32 KB)."""
+    from repro_torch.kernels import relaid
+    from repro_torch.kernels.cim_conv import window_mode
+    relaid.clear_relaid_planes()
+    a, logical, _, occ, s_p, deq = (
+        x.cuda() for x in chip_smoke.implicit_adc_conv_operands(
+            torch, torch.Generator().manual_seed(31), 3, 8, 8, 32, 3, 14, 24,
+            True))
+    geo = dict(kh=3, kw=3, stride=1, padding="SAME", c_per_array=14)
+    assert torch.equal(cim_conv_cuda(a, logical, s_p, deq, occ, psum_bits=4,
+                                     **geo),
+                       ref.cim_conv_ref(a, logical, s_p, deq, psum_bits=4,
+                                        **geo))
+    kept = [w for per in relaid._KEPT.values() for w in per.values()]
+    assert len(kept) == 1
+    assert torch.equal(cim_conv_adc_free_cuda(a, logical, deq, occ, **geo),
+                       ref.cim_conv_adc_free_ref(a, logical, deq, **geo))
+    assert len([w for per in relaid._KEPT.values()
+                for w in per.values()]) == 1
+    relaid.clear_relaid_planes()
+    assert window_mode(ref.conv_geometry((256, 32, 32, 16), 3, 3, 1, "SAME",
+                                         2, 14), 3, 16)
+    assert not window_mode(ref.conv_geometry((64, 8, 8, 256), 3, 3, 1,
+                                             "SAME", 19, 14), 3, 256)

@@ -1,0 +1,182 @@
+"""Exactness of the float-digit kernel's float64 partial sums, on the CPU.
+
+The float-digit kernel (``csrc/cim_matmul.cu``) runs its MACs on the FP64
+tensor cores, whose m16n8k16 MMA may add its sixteen products and the
+accumulator in any order. It equals its plain version (a float64 einsum,
+``ref._psum``) bit for bit only where each tile's float64 partial sum is
+exact. These tests draw planes carrying cell variation (``d *
+exp(sigma * theta)``, sigma 0.1-0.4, theta from numpy) on the paper's
+ResNet-20 ranges (S = 3, 1-bit cells, 3-bit unsigned codes, rows 126 and
+128) and on the grids the card checks (``chip_smoke.py``'s implicit-conv,
+matmul and conv cases, which ``tests/test_torch_cuda.py`` shares), and
+for every (row, split, tile, column):
+- sum the products in float64 in row order and in a k16-chunked,
+  fragment-wise order like the MMA's (a pairwise tree over each chunk of
+  16 rows, added to the running sum), and compare both with the exact sum
+  (integers after scaling each plane by its least digit exponent): all
+  three are equal;
+- bound the sum of the products' magnitudes below 2^53 units of the
+  plane's least digit bit, so every partial sum in any order is exact.
+The plain float-plane conv is also held against the JAX package's Pallas
+conv (interpret mode), theta drawn in JAX and passed in.
+"""
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import variation as jvar
+from repro.kernels.cim_conv import cim_conv_pallas
+from repro_torch.core.variation import perturb_digits
+from repro_torch.kernels import ref
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+SIGMAS = (0.1, 0.2, 0.3, 0.4)
+
+
+def _check_exact(a_t, digits):
+    """a_t (M, kt, rows) integer codes, digits (S, kt, rows, N) float32:
+    the row-order and the k16-chunked float64 sums of every tile equal the
+    exact sum, and the magnitudes' sum stays below 2^53 units."""
+    a = a_t.numpy().astype(np.int64)
+    d = digits.numpy().astype(np.float64)
+    for s in range(d.shape[0]):
+        for t in range(d.shape[1]):
+            plane = d[s, t]                               # (rows, N)
+            nz = plane[plane != 0]
+            if nz.size == 0:
+                continue
+            # every float32 digit is an integer multiple of 2^(e - 24)
+            shift = 24 - int(np.frexp(np.abs(nz))[1].min())
+            d_int = np.ldexp(plane, shift)
+            assert np.array_equal(d_int, np.round(d_int))
+            d_int = d_int.astype(np.int64)
+            a_tile = a[:, t]                              # (M, rows)
+            bound = np.abs(a_tile) @ np.abs(d_int)
+            assert int(bound.max()) < 2 ** 53
+            exact = np.ldexp((a_tile @ d_int).astype(np.float64), -shift)
+            prods = a_tile[:, :, None].astype(np.float64) * plane[None]
+            rows = plane.shape[0]
+            row_order = np.zeros(exact.shape)
+            for r in range(rows):
+                row_order = row_order + prods[:, r]
+            chunked = np.zeros(exact.shape)
+            pad = np.concatenate([prods, np.zeros(
+                (prods.shape[0], (-rows) % 16, prods.shape[2]))], axis=1)
+            for k0 in range(0, pad.shape[1], 16):
+                tree = pad[:, k0:k0 + 16]
+                while tree.shape[1] > 1:
+                    tree = tree[:, 0::2] + tree[:, 1::2]
+                chunked = chunked + tree[:, 0]
+            assert np.array_equal(row_order, exact)
+            assert np.array_equal(chunked, exact)
+            # the plain version's float64 einsum gives the same sum
+            einsum = torch.einsum("mr,rn->mn",
+                                  torch.from_numpy(a_tile).double(),
+                                  torch.from_numpy(plane)).numpy()
+            assert np.array_equal(einsum, exact)
+
+
+@pytest.mark.parametrize("sigma", SIGMAS)
+@pytest.mark.parametrize("rows", [126, 128])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_paper_grid_tile_sums_are_exact_in_any_order(sigma, rows, seed):
+    """ResNet-20's column (benchmarks/common.py): 3-bit weights on 1-bit
+    cells (S = 3 signed digits in {-1, 0, 1}), 3-bit unsigned codes."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(0, 8, (96, 2, rows)).astype(np.uint8))
+    d = torch.from_numpy(rng.integers(-1, 2, (3, 2, rows, 40))
+                         .astype(np.int8))
+    theta = rng.standard_normal(d.shape).astype(np.float32)
+    _check_exact(a, perturb_digits(d, theta, sigma))
+
+
+@pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES,
+                         ids=lambda c: "x".join(map(str, c[:5])))
+def test_card_implicit_grid_tile_sums_are_exact_in_any_order(case):
+    """The float-plane implicit convs of chip_smoke.py (phase 3b) and
+    tests/test_torch_cuda.py: 8-bit codes, digits -8..7, every sigma."""
+    b, h, w, c_in, kh, stride, padding, cpa, n, uns, _, _ = case
+    g = torch.Generator().manual_seed(sum(case[:6]) + n)
+    a, logical, _, _, _, _ = chip_smoke.implicit_adc_conv_operands(
+        torch, g, b, h, w, c_in, kh, cpa, n, uns)
+    a_t = ref.extract_conv_patches(a, kh, kh, stride, padding,
+                                   logical.shape[1], cpa)
+    a_t = a_t.reshape(-1, logical.shape[1], logical.shape[2])
+    for sigma in SIGMAS:
+        _check_exact(a_t, chip_smoke.varied_planes(torch, g, logical, sigma))
+
+
+@pytest.mark.parametrize("case", chip_smoke.MATMUL_CASES,
+                         ids=lambda c: "x".join(map(str, c[:4])))
+def test_card_matmul_grid_tile_sums_are_exact_in_any_order(case):
+    """chip_smoke.py's float-plane matmul cases (phase 3b, sigma 0.3 there;
+    every sigma here), on their first 64 rows of codes: the ranges, not
+    the row count, set the bits a sum needs."""
+    m, kt, rows, n, uns, groups, _, _, _ = case
+    g = torch.Generator().manual_seed(m)
+    a, d, *_ = chip_smoke._matmul_operands(torch, g, min(m, 64), kt, rows, n,
+                                           uns, groups)
+    for sigma in SIGMAS:
+        _check_exact(a, chip_smoke.varied_planes(torch, g, d, sigma))
+
+
+@pytest.mark.parametrize("case", chip_smoke.CONV_CASES,
+                         ids=lambda c: "x".join(map(str, c[:3])))
+def test_card_conv_grid_tile_sums_are_exact_in_any_order(case):
+    kh, stride, padding, *_ = case
+    g = torch.Generator().manual_seed(kh * 10 + stride)
+    a, _, logical, *_, cpa = chip_smoke._conv_operands(torch, g, kh, False)
+    a_t = ref.extract_conv_patches(a, kh, kh, stride, padding,
+                                   logical.shape[1], cpa)
+    a_t = a_t.reshape(-1, logical.shape[1], logical.shape[2])
+    for sigma in SIGMAS:
+        _check_exact(a_t, chip_smoke.varied_planes(torch, g, logical, sigma))
+
+
+@pytest.mark.parametrize("sigma", SIGMAS)
+@pytest.mark.parametrize("kh,stride,psum_bits", [(3, 1, 4), (3, 2, 1),
+                                                 (1, 1, 6)])
+def test_plain_float_conv_matches_pallas_conv(sigma, kh, stride, psum_bits):
+    """``ref.cim_conv_ref`` on float planes against the reference's
+    ``cim_conv_pallas`` (interpret mode) on the same clean planes and the
+    same theta: the reference draws theta from its key over the logical
+    planes, and the port gets that field as numpy. The paper's ranges
+    (3-bit unsigned codes, S = 3 digits in {-1, 0, 1}), 14 channels per
+    array at 3x3, 128 at 1x1."""
+    rng = np.random.default_rng(int(10 * sigma) + kh + stride)
+    cpa = 14 if kh == 3 else 128
+    c_in, c_out = 20, 12
+    kt = -(-c_in // cpa)
+    a = rng.integers(0, 8, (2, 7, 6, c_in)).astype(np.int8)
+    d6 = rng.integers(-1, 2, (3, kt, kh, kh, cpa, c_out)).astype(np.int8)
+    d6[:, -1, :, :, c_in - (kt - 1) * cpa:] = 0      # padded channel slots
+    logical = d6.reshape(3, kt, kh * kh * cpa, c_out)
+    s_p = (0.5 + rng.random((3, kt, c_out)) * 20).astype(np.float32)
+    deq = (rng.standard_normal((3, kt, c_out)) * 0.1).astype(np.float32)
+    key = jax.random.PRNGKey(int(100 * sigma) + kh)
+    geo = dict(kh=kh, kw=kh, stride=stride, padding="SAME", c_per_array=cpa,
+               psum_bits=psum_bits)
+    theta = np.asarray(jax.jit(lambda k: jax.random.normal(
+        k, logical.shape, jnp.float32))(key))
+    # the reference perturbs with the same field
+    np.testing.assert_array_equal(
+        np.asarray(jvar.perturb_digits(jnp.asarray(logical), key, sigma)),
+        np.asarray(jnp.asarray(logical, jnp.float32)
+                   * jnp.exp(jnp.float32(sigma) * jnp.asarray(theta))))
+    want = np.asarray(cim_conv_pallas(
+        jnp.asarray(a), jnp.asarray(logical), jnp.asarray(s_p),
+        jnp.asarray(deq), key, sigma, interpret=True, **geo))
+    noisy = perturb_digits(torch.from_numpy(logical), theta, sigma)
+    got = ref.cim_conv_ref(torch.from_numpy(a), noisy, torch.from_numpy(s_p),
+                           torch.from_numpy(deq), **geo)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)

@@ -30,7 +30,8 @@ from repro.kernels import ref as jref
 from repro.kernels.cim_conv import cim_conv_pallas
 from repro.kernels.cim_matmul import cim_matmul_pallas
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.cim_conv import cim_conv_cuda
+from repro_torch.kernels.cim_adc_free import cim_conv_adc_free_cuda
+from repro_torch.kernels.cim_conv import cim_conv_cuda, implicit_conv
 from repro_torch.kernels.cim_matmul import cim_matmul_cuda
 
 
@@ -201,6 +202,53 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
                       torch.zeros((3, 1, 20, 5), dtype=torch.int8),
                       torch.ones(3, 1, 5), torch.ones(3, 1, 5), kh=3, kw=3,
                       stride=1, padding="SAME", c_per_array=2, psum_bits=4)
+    with pytest.raises(ValueError, match="do not match"):
+        cim_conv_adc_free_cuda(torch.zeros((1, 4, 4, 3), dtype=torch.int8),
+                               torch.zeros((3, 1, 20, 5)),
+                               torch.ones(3, 1, 5), kh=3, kw=3, stride=1,
+                               padding="SAME", c_per_array=2)
+
+
+@pytest.mark.parametrize("adc", [True, False])
+@pytest.mark.parametrize("planes", ["int8", "nibble", "float32"])
+def test_implicit_conv_launch_refuses_what_the_kernels_do_not_take(adc,
+                                                                   planes):
+    """The launch every CIM conv shares (K3 and K5 on the int8 tensor
+    cores, ADC and ADC-free convs on float32 planes on the FP64 ones)
+    checks its operands before it builds or launches anything: these
+    refusals are the same on the CPU as on the card."""
+    a = torch.zeros((2, 6, 6, 16), dtype=torch.int8)
+    rows = 9 * 14 // (2 if planes == "nibble" else 1)
+    dtype = {"int8": torch.int8, "nibble": torch.uint8,
+             "float32": torch.float32}[planes]
+    d = torch.zeros((3, 2, rows, 8), dtype=dtype)
+    cols = torch.ones(3, 2, 8)
+    geo = ref.conv_geometry(a.shape, 3, 3, 1, "SAME", 2, 14)
+    kw = dict(s_p=cols, psum_bits=4, psum_quant=True) if adc else {}
+
+    def launch(a_=a, d_=d, deq=cols, occ=None, g=geo):
+        return implicit_conv("conv", a_, d_, deq, occ, g, **kw)
+    with pytest.raises(TypeError, match="activation codes"):
+        launch(a_=a.float())
+    with pytest.raises(TypeError, match="digit planes"):
+        launch(d_=d.double())
+    with pytest.raises(ValueError, match="wrong rank"):
+        launch(d_=d[0])
+    with pytest.raises(ValueError, match="deq has shape"):
+        launch(deq=cols[:, :, :4])
+    with pytest.raises(ValueError, match="occ has shape"):
+        launch(occ=torch.ones(3, 1, 8, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="do not cover"):
+        launch(d_=d[:, :1], deq=cols[:, :1],
+               g=ref.conv_geometry(a.shape, 3, 3, 1, "SAME", 1, 14))
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(a_=a.transpose(1, 2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        launch()
+    if adc:
+        with pytest.raises(ValueError, match="s_p has shape"):
+            implicit_conv("conv", a, d, cols, None, geo, s_p=cols[:1],
+                          psum_bits=4, psum_quant=True)
 
 
 @pytest.mark.parametrize("psum_bits,chunk", [(4, 1), (1, 2), (6, 3)])

@@ -33,6 +33,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.cim_linear import CIMConfig as TCIMConfig
 from repro_torch.interop import from_numpy_tree, to_numpy_tree
 from repro_torch.models import layers as TL
+from repro_torch.models import transformer
 from repro_torch.models.registry import get_model
 from repro_torch.nn.module import ParamSpec, torch_dtype
 
@@ -172,6 +173,91 @@ def test_decode_matches_forward(reference, mode):
     assert rel < 5e-3, rel
     with pytest.raises(ValueError, match="overrun"):
         model.decode_step(params, cache, tokens[:, :5], tcfg)
+
+
+@pytest.mark.parametrize("back,t", [(1, 2), (0, 1)])
+def test_cache_write_at_the_end_matches_reference(reference, back, t):
+    """The attention layer with a decode cache, called below
+    ``decode_step``'s host check, at ``len = max_len - back`` with T new
+    positions: the write runs past the cache, and the port clamps its start
+    on the device as the reference's ``dynamic_update_slice`` does. The
+    port's cache is, bit for bit, the reference's write of the port's new
+    K/V rows (the two frameworks' projections differ in the last bit); the
+    two layers' caches and outputs agree within 1e-5."""
+    jcfg, tcfg = _cfgs()
+    p_np = jax.tree.map(lambda a: a[0],
+                        reference["params"]["dense_layers"]["attn"])
+    p_t = from_numpy_tree(p_np, CPU)
+    max_len, kvh, hd = 6, tcfg.n_kv_heads, tcfg.resolved_head_dim
+    rng = np.random.default_rng(10 * back + t)
+    x = rng.standard_normal((B, t, tcfg.d_model)).astype(np.float32)
+    k0, v0 = (rng.standard_normal((B, max_len, kvh, hd)).astype(np.float32)
+              for _ in range(2))
+    idx = np.full((B,), max_len - back, np.int32)
+    idx[0] -= 2                             # one row well inside the cache
+    pos = (idx[:, None] + np.arange(t)[None]).astype(np.int32)
+    y_j, c_j = jax.jit(lambda p, x_, c: JL.gqa_attend(
+        p, x_, jcfg, positions=jnp.asarray(pos), cache=c))(
+        p_np, jnp.asarray(x), {"k": jnp.asarray(k0), "v": jnp.asarray(v0),
+                               "len": jnp.asarray(idx)})
+
+    def port(k_init, v_init):
+        return TL.gqa_attend(
+            p_t, torch.from_numpy(x), tcfg,
+            positions=torch.from_numpy(pos).long(),
+            cache={"k": torch.from_numpy(k_init.copy()),
+                   "v": torch.from_numpy(v_init.copy()),
+                   "len": torch.from_numpy(idx)})
+    y_t, c_t = port(k0, v0)
+    # the port's new rows, from a cache with room for them
+    pad = np.zeros((B, t, kvh, hd), np.float32)
+    _, c_big = port(np.concatenate([k0, pad], 1), np.concatenate([v0, pad], 1))
+    rows = np.arange(B)[:, None]
+    cols = idx[:, None] + np.arange(t)[None]
+    for name, c0 in (("k", k0), ("v", v0)):
+        new = c_big[name].numpy()[rows, cols]
+        dus = jax.vmap(lambda c, n, i: jax.lax.dynamic_update_slice(
+            c, n, (i, 0, 0)))(jnp.asarray(c0), jnp.asarray(new),
+                              jnp.asarray(idx))
+        np.testing.assert_array_equal(c_t[name].numpy(), np.asarray(dus))
+        np.testing.assert_allclose(c_t[name].numpy(), np.asarray(c_j[name]),
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(c_t["len"].numpy(), idx + t)
+    np.testing.assert_array_equal(np.asarray(c_j["len"]), idx + t)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_decode_past_max_len_matches_reference(reference):
+    """``_decode_step`` (``decode_step`` below its host check, the path a
+    replayed CUDA graph takes) decodes past ``max_len`` as the
+    reference's ``decode_step`` does (it has no check): the cache write
+    clamps to the last T rows. A 6-token prompt in a cache of 7, then two
+    single-token steps, the second past the end: the logits of every step
+    and the final caches match JAX's."""
+    jcfg, tcfg = _cfgs()
+    jmodel, model = j_get_model(jcfg), get_model(tcfg)
+    tokens = np.array(reference["tokens"])
+    j_params = jax.tree.map(jnp.asarray, reference["params"])
+    params = from_numpy_tree(reference["params"], CPU)
+    jstep = jax.jit(lambda p, c, t: jmodel.decode_step(p, c, t, jcfg))
+    j_cache = jmodel.init_cache(jcfg, B, 7)
+    cache = model.init_cache(tcfg, B, 7, device=CPU)
+    for t0, t1 in ((0, 6), (6, 7), (7, 8)):
+        j_logits, j_cache = jstep(j_params, j_cache,
+                                  jnp.asarray(tokens[:, t0:t1]))
+        logits, cache = transformer._decode_step(
+            params, cache, torch.from_numpy(tokens[:, t0:t1]), tcfg)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits),
+                                   **LOGIT_TOL)
+    for stack in cache:
+        np.testing.assert_array_equal(cache[stack]["len"].numpy(),
+                                      np.asarray(j_cache[stack]["len"]))
+        assert int(cache[stack]["len"].max()) == 8
+        for f in ("k", "v"):
+            np.testing.assert_allclose(cache[stack][f].numpy(),
+                                       np.asarray(j_cache[stack][f]),
+                                       rtol=1e-5, atol=1e-5)
 
 
 def _j_route(logits, cfg):

@@ -3,9 +3,11 @@
 
 Runs the main path of ``chip_smoke.py`` (ResNet-20 at full width, the
 paper's CIFAR-10 settings, batch 256, int8 and int4 planes) under
-``torch.profiler`` and prints, per pack dtype: the wall time per batch,
-the device's busy share (summed kernel and copy time over wall time),
-and the CUDA kernels that take the most device time per forward.
+``torch.profiler`` and prints, per pack dtype, and for the int8 pack
+under cell variation at chip_smoke's sigma of 0.3 (one ``Sampler``
+realization, the float-plane path): the wall time per batch, the
+device's busy share (summed kernel and copy time over wall time), and
+the CUDA kernels that take the most device time per forward.
 
     python3 tools/profile_torch_deploy.py [--batch 256] [--forwards 5]
 
@@ -21,6 +23,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the cell variation of the varied forward, as chip_smoke.py's
+SIGMA = 0.3
 
 
 def main() -> int:
@@ -39,6 +43,7 @@ def main() -> int:
 
     from repro_torch.api import pack_model
     from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.core.variation import Sampler
     from repro_torch.data.pipeline import make_image_dataset
     from repro_torch.models import resnet
 
@@ -63,16 +68,19 @@ def main() -> int:
     dcfg = dataclasses.replace(cfg, cim=cim.replace(mode="deploy"))
     cuda_type = torch.autograd.DeviceType.CUDA
 
-    for dt in ("int8", "int4"):
-        packed = pack_model(params, cim.replace(pack_dtype=dt))
+    runs = [(dt, dt, {}) for dt in ("int8", "int4")]
+    runs.append((f"int8 varied sigma {SIGMA}", "int8",
+                 dict(variation=Sampler(0), variation_std=SIGMA)))
+    for dt, pack, kw in runs:
+        packed = pack_model(params, cim.replace(pack_dtype=pack))
         for _ in range(2):                           # warm-up
-            resnet.forward(packed, state, xb, dcfg, train=False)
+            resnet.forward(packed, state, xb, dcfg, train=False, **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(args.forwards):
-                resnet.forward(packed, state, xb, dcfg, train=False)
+                resnet.forward(packed, state, xb, dcfg, train=False, **kw)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / args.forwards
         kernels = [e for e in prof.key_averages()
