@@ -101,7 +101,22 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    kernels timed at the operands
    of one prefill forward and one decode step, the experts kernel with
    the counts of those calls;
-11. a JSON line per kernel, the card's name and power limit, and the
+11. the training path, train -> checkpoint -> pack -> save -> load ->
+   serve: one-stage column-wise QAT of ResNet-20 at full width with the
+   paper's CIFAR-10 settings (``repro_torch.train.qat.train_qat``: LSQ
+   and straight-through gradients on the emulate backend) on
+   ``make_image_dataset(n=4096, hw=32, seed=0)``, the first quarter held
+   out, 300 steps at batch 128, lr 0.05 cosine; a ``CheckpointManager``
+   save at step 150 whose restored params, BN state and momentum equal
+   the saved ones bit for bit; the trained model packed int8 and int4,
+   each ``DeployArtifact`` saved and loaded back (leaves equal in dtype
+   and bits), and the loaded artifacts deployed at batch 256: 20 K3, 0
+   K1 and 0 plain patch gathers per forward, logits against emulate of
+   the trained params. Gates: the mean loss of the last 20 steps at most
+   0.7 x that of the first 20, held-out accuracy at least 0.20 (chance
+   0.10). Prints ms per QAT step (CUDA events, median over steps
+   10-300) and the save and load seconds;
+12. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
@@ -147,6 +162,13 @@ REQUESTS = 3                      # deploy forwards per pack dtype
 SIGMA = 0.3                       # cell variation of the float-plane checks
 SWEEP_SIGMAS = (0.0, 0.1, 0.2, 0.3, 0.4)
 SWEEP_SAMPLES = 4
+QAT_IMAGES = 4096                 # the first quarter held out
+QAT_STEPS = 300
+QAT_BATCH = 128
+QAT_LR = 0.05
+QAT_CKPT_STEP = 150
+QAT_LOSS_RATIO = 0.7              # last-20 mean over first-20 mean, at most
+QAT_MIN_ACC = 0.20                # held-out accuracy (chance 0.10)
 
 
 def check(ok: bool, what: str) -> None:
@@ -232,8 +254,13 @@ def main() -> int:
 
     # 10. the MoE serving path at full width
     timings.update(phase10_moe_serving(torch, errs, moe_config()))
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 11. results
+    # 11. the training path: QAT, checkpoint, artifacts on disk, deploy
+    phase11_qat(torch, dev, smi)
+
+    # 12. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -2197,6 +2224,138 @@ def _relayout_ms(torch, calls):
     del graph
     run()                                  # keep the planes again
     return every, once
+
+
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+def _trees_bit_equal(torch, got, want, path=""):
+    """Two trees of tensors equal in structure, dtype, shape and bits."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want),
+              f"{path or '<root>'}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _trees_bit_equal(torch, got[k], want[k], f"{path}/{k}")
+        return
+    if isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{path}: length")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _trees_bit_equal(torch, g, w, f"{path}/{i}")
+        return
+    check(got.dtype == want.dtype and got.shape == want.shape
+          and got.device == want.device, f"{path}: {got.dtype} "
+          f"{tuple(got.shape)} {got.device} != {want.dtype} "
+          f"{tuple(want.shape)} {want.device}")
+    check(bool(torch.equal(got, want)), f"{path}: values differ")
+
+
+def phase11_qat(torch, dev, smi) -> None:
+    """train -> checkpoint -> pack -> save -> load -> serve, at full width."""
+    import shutil
+    from repro_torch.api import DeployArtifact, model_artifact
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import resnet
+    from repro_torch.train import qat
+
+    work = ROOT / "build" / "chip_smoke_qat"
+    shutil.rmtree(work, ignore_errors=True)
+    cim = paper_cim()
+    data = qat._data(seed=0, n=QAT_IMAGES, hw=32)
+    (xtr, _), (xte, _) = data
+    mgr = CheckpointManager(str(work / "ckpt"), keep_n=2, async_save=True)
+    saved = {}
+    events = []
+
+    def on_step(it, params, state, mom):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if it + 1 == QAT_CKPT_STEP:
+            saved.update(params=params, state=state, mom=mom)
+            mgr.save(QAT_CKPT_STEP, saved)
+
+    t0 = time.perf_counter()
+    out = qat.train_qat(cim, steps=QAT_STEPS, batch=QAT_BATCH, lr=QAT_LR,
+                        seed=0, data=data, widths=(16, 32, 64), hw=32,
+                        device=dev, on_step=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = sorted(events[i - 1].elapsed_time(events[i])
+                     for i in range(10, len(events)))
+    losses = np.asarray(out["losses"])
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    print(f"phase 11 QAT ResNet-20 (widths 16/32/64, 32x32, paper CIFAR-10 "
+          f"settings, column-wise W/psum; {len(xtr)} training and "
+          f"{len(xte)} held-out images): {QAT_STEPS} steps at batch "
+          f"{QAT_BATCH}, lr {QAT_LR} cosine: {wall_s:.2f} s with calibration "
+          f"and evaluation; ms per step (CUDA events, steps 10-{QAT_STEPS}) "
+          f"median {step_ms[len(step_ms) // 2]:.3f}, min {step_ms[0]:.3f}, "
+          f"max {step_ms[-1]:.3f}; mean loss first 20 {first:.4f}, last 20 "
+          f"{last:.4f} (ratio {last / first:.4f}); held-out accuracy "
+          f"{out['acc']:.4f}; nvidia-smi: {smi}", flush=True)
+    check(bool(np.all(np.isfinite(losses))), "QAT losses are not finite")
+    check(last <= QAT_LOSS_RATIO * first,
+          f"QAT loss fell to {last / first:.4f} x, expected at most "
+          f"{QAT_LOSS_RATIO}")
+    check(out["acc"] >= QAT_MIN_ACC, f"held-out accuracy {out['acc']:.4f} "
+          f"below {QAT_MIN_ACC}")
+
+    # the checkpoint of step 150, restored bit for bit
+    mgr.wait()
+    check(mgr.latest_step() == QAT_CKPT_STEP, "no checkpoint of step "
+          f"{QAT_CKPT_STEP}")
+    restored = mgr.restore(saved, step=QAT_CKPT_STEP, device=dev)
+    _trees_bit_equal(torch, restored, saved)
+
+    # pack, save, load: each loaded tree equals the packed one
+    params, state, cfg = out["params"], out["state"], out["cfg"]
+    loaded, io_s = {}, {}
+    for dt in ("int8", "int4"):
+        art = model_artifact(params, cim.replace(pack_dtype=dt))
+        torch.cuda.synchronize()
+        path = str(work / f"artifact_{dt}")
+        t0 = time.perf_counter()
+        art.save(path)
+        t1 = time.perf_counter()
+        loaded[dt] = DeployArtifact.load(path)
+        torch.cuda.synchronize()
+        io_s[dt] = (t1 - t0, time.perf_counter() - t1)
+        check(loaded[dt].config == art.config
+              and loaded[dt].meta == art.meta, f"{dt} artifact header")
+        _trees_bit_equal(torch, loaded[dt].params, art.params, dt)
+
+    # deploy of the loaded artifacts against emulate of the trained params
+    xb = torch.as_tensor(xte[:BATCH], device=dev)
+    want, _ = resnet.forward(params, state, xb, cfg, train=False)
+    n_convs = len(resnet.conv_layer_names(cfg))
+    _reset_counters()
+    got = {dt: resnet.forward(a.params, state, xb, dataclasses.replace(
+        cfg, cim=a.config), train=False)[0] for dt, a in loaded.items()}
+    torch.cuda.synchronize()
+    counted, _ = _read_counters()
+    launches = {"cim_conv": n_convs * len(got), "cim_matmul": 0,
+                "plain_gathers": 0}
+    for k, v in launches.items():
+        check(counted[k] == v, f"phase 11 {k}: {counted[k]} in {len(got)} "
+              f"deploy forwards of the loaded artifacts, expected {v}")
+    worst = 0.0
+    for dt, y in got.items():
+        check(y.shape == (BATCH, 10) and bool(torch.isfinite(y).all()),
+              f"{dt} loaded-artifact logits: shape or non-finite")
+        worst = max(worst, float((y - want).abs().max()))
+        check(bool(torch.allclose(y, want, **LOGIT_TOL)),
+              f"{dt} loaded-artifact deploy vs emulate: max diff "
+              f"{float((y - want).abs().max())!r}")
+    print(f"phase 11 checkpoint of step {QAT_CKPT_STEP} restored bit for bit "
+          f"(params, BN state, momentum); artifacts saved / loaded in "
+          + ", ".join(f"{dt} {s:.3f} / {l:.3f} s" for dt, (s, l)
+                      in io_s.items())
+          + f" (leaves equal in dtype and bits); deploy of the loaded "
+          f"artifacts at batch {BATCH}: launches {counted} (cim_conv 20 x "
+          f"{len(got)}); max |deploy - emulate| {worst!r}; nvidia-smi: {smi}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 if __name__ == "__main__":

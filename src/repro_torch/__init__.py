@@ -28,17 +28,38 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict/list tree (tuples come back
+    as lists); ``rest`` are trees with at least ``tree``'s structure, whose
+    matching nodes (a leaf of ``tree`` may face a subtree) are passed
+    along."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict/list tree, in insertion order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
 def to_device(tree, device: torch.device):
     """Move every tensor leaf of a nested dict/list tree to ``device`` (a
     no-op for tensors already there); other leaves pass through. Numpy
     trees from the JAX package go through ``repro_torch.interop``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [to_device(v, device) for v in tree]
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return tree
+    return tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor)
+                    else v, tree)
 
 
-__all__ = ["resolve_device", "to_device"]
+__all__ = ["resolve_device", "to_device", "tree_leaves", "tree_map"]

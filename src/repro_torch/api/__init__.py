@@ -1,6 +1,7 @@
 """Public CIM-layer API of the port (counterpart of ``repro.api``): the
-functional layer lifecycle on explicit param dicts, the backend registry,
-whole-model packing and the in-memory ``DeployArtifact``.
+functional layer lifecycle on explicit param dicts, the layer handles
+``QuantLinear``/``QuantConv2d``, the backend registry, whole-model packing
+and the ``DeployArtifact`` with its save and load.
 
 ``linear`` and ``conv2d`` take ``variation`` (a theta tensor over the
 logical packed layout, or a ``Sampler``) and ``variation_std`` to evaluate
@@ -15,11 +16,13 @@ from repro_torch.core.cim_linear import _init_linear as init_linear
 from repro_torch.core.cim_linear import _linear_forward as linear
 from repro_torch.core.variation import Sampler
 
-from .artifact import (DeployArtifact, _packed_config, col_shard_axes,
-                       model_artifact, pack_model)
+from .artifact import (ARTIFACT_LAYOUT_VERSION, SCALE_DELTA_VERSION,
+                       ArtifactVersionError, DeployArtifact, _packed_config,
+                       col_shard_axes, model_artifact, pack_model)
 from .backends import (Backend, conv_plane_tiling, get_backend, has_own_pack,
                        is_packed, packers_for, plane_bits, plane_tiling,
                        register_backend, registered_backends)
+from .handles import QuantConv2d, QuantLinear, Variation
 
 
 def pack_linear(params, cfg, *, variation=None, variation_std=None):
@@ -39,7 +42,9 @@ def pack_conv(params, cfg, *, variation=None, variation_std=None):
 
 
 __all__ = [
-    "Backend", "CIMConfig", "DeployArtifact", "Sampler", "calibrate_conv",
+    "ARTIFACT_LAYOUT_VERSION", "ArtifactVersionError", "Backend",
+    "CIMConfig", "DeployArtifact", "QuantConv2d", "QuantLinear",
+    "SCALE_DELTA_VERSION", "Sampler", "Variation", "calibrate_conv",
     "calibrate_linear", "col_shard_axes", "conv2d", "conv_plane_tiling",
     "get_backend", "has_own_pack", "init_conv", "init_linear", "is_packed",
     "linear", "model_artifact", "pack_conv", "pack_linear", "pack_model",

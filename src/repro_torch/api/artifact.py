@@ -10,27 +10,143 @@ keys with leading (layer, expert) axes -- pack per expert into
 scales. Every other node (embeddings, norms, routers, full-precision
 stems, BatchNorm) passes through.
 
-``DeployArtifact`` is the in-memory unit a server loads: the packed tree,
-the ``CIMConfig`` pinned to a packed backend, the layout version and
-``meta`` (``meta["col_shard"]`` from ``col_shard_axes``). Saving and
-loading it, sharding it and migrating older layouts come with ROADMAP
-queue 1, item 7.
+``DeployArtifact`` is the unit a server loads: the packed tree, the
+``CIMConfig`` pinned to a packed backend, the layout version and ``meta``
+(``meta["col_shard"]`` from ``col_shard_axes``). ``save`` and ``load``
+use the reference's on-disk layout, so an artifact packed by either
+package serves on the other, bit for bit::
+
+    <path>/
+      artifact.json        format, layout_version, kind, backend, config,
+                           meta (written last: its presence marks a
+                           complete artifact)
+      step_00000000/       repro_torch.checkpoint leaf store of ``params``
+
+``load`` migrates layouts 1-3 in memory (``_migrate_pre_v4``). Sharding
+an artifact over a device mesh comes with ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch import resolve_device, to_device
+from repro_torch.checkpoint import ckpt as _ckpt
 from repro_torch.core.cim_linear import CIMConfig
 
-#: Artifact layout of the reference this port writes: int4 planes
-#: nibble-packed, a ``w_occ`` occupancy map beside every standard plane.
+#: Artifact layout of the reference this port reads and writes: int4
+#: planes nibble-packed, a ``w_occ`` occupancy map beside every standard
+#: plane. Layout 2 added the optional per-node ``deq_scale`` leaf, layout
+#: 3 the ``backend`` stamp in the header.
 ARTIFACT_LAYOUT_VERSION = 4
 
+#: Version of the ScaleDelta side-artifact format (in-service
+#: recalibration), stamped into ``meta["delta_version"]`` of an artifact
+#: it was applied to; ``load`` refuses a newer one.
+SCALE_DELTA_VERSION = 1
+
+#: What introduced each on-disk format version, named in version errors
+#: so "which side is stale" is answerable from the message.
+_LAYOUT_WRITERS = {1: "the lifecycle API", 2: "self-healing serving",
+                   3: "hardware-style backends",
+                   4: "nibble planes and occupancy maps"}
+_DELTA_WRITERS = {1: "self-healing serving"}
+_FORMAT = "repro.api.DeployArtifact"
+
 _KINDS = ("linear", "conv", "model")
+
+
+class ArtifactVersionError(ValueError):
+    """A DeployArtifact carries a format version this build cannot honor.
+    Carries ``field``/``found``/``supported`` so tooling can triage
+    without parsing the message."""
+
+    def __init__(self, what: str, field: str, found, supported: int, *,
+                 writers: Optional[Dict[int, str]] = None,
+                 relation: str = "<=", detail: str = ""):
+        self.field, self.found, self.supported = field, found, supported
+        writers = writers or {}
+        by = writers.get(found) if isinstance(found, int) else None
+        ours = writers.get(supported)
+        msg = (f"{what} has {field} {found!r}"
+               + (f" (written by {by})" if by else "")
+               + f"; this build expects {field} {relation} {supported}"
+               + (f" (writer: {ours})" if ours else "") + ".")
+        if detail:
+            msg += " " + detail
+        super().__init__(msg)
+
+
+def _dense_int4(cfg: CIMConfig) -> bool:
+    """True when ``cfg``'s int8 digit planes stand for int4 ones: the
+    standard pack's int4 grid (``store_dtype``), or any int4 pack of a
+    backend with its own plane format (binary's sign planes)."""
+    from .backends import has_own_pack
+    return cfg.pack_dtype == "int4" and (has_own_pack(cfg)
+                                         or cfg.cell_bits <= 3)
+
+
+def _mark_int4(params, cfg: CIMConfig):
+    """The params tree with every dense int4 digit plane wrapped in
+    ``checkpoint.Int4``, so it is saved under the logical dtype ``int4``
+    as the reference saves it."""
+    if not _dense_int4(cfg):
+        return params
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (_ckpt.Int4(v) if (k.endswith("_digits")
+                                          and isinstance(v, torch.Tensor)
+                                          and v.dtype == torch.int8)
+                        else walk(v)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return node
+    return walk(params)
+
+
+def _migrate_pre_v4(params, cfg: CIMConfig):
+    """In-memory migration of a layout 1-3 params tree to layout 4: every
+    standard digit-plane leaf (``*_digits``) gains its ``*_occ`` sibling
+    (computed from the planes as stored; multiplicative noise keeps dead
+    cells dead, so variation-baked float planes are exact too), and dense
+    int4 planes nibble-pack where the packed axis is even. Backends with
+    their own plane format (binary) pass through."""
+    from repro_torch.core.nibble import (INT4, can_pack_nibbles,
+                                         occupancy_map, pack_nibbles)
+    from .backends import has_own_pack
+    if has_own_pack(cfg):
+        return params
+    int4 = _dense_int4(cfg)
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if isinstance(v, (dict, list, tuple)):
+                    out[k] = walk(v)
+                    continue
+                out[k] = v
+                if not k.endswith("_digits"):
+                    continue
+                # conv planes are the quartet key with the 6-D (or stacked
+                # 7-D) shape; every other rank is linear
+                conv = k == "w_digits" and v.ndim >= 6
+                occ_key = k[: -len("_digits")] + "_occ"
+                if occ_key not in node:
+                    out[occ_key] = occupancy_map(v, conv=conv)
+                if (int4 and v.dtype == torch.int8
+                        and can_pack_nibbles(v.shape[-2], INT4)):
+                    out[k] = pack_nibbles(v)
+            return out
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return node
+    return walk(params)
 _CIM_LAYER_KEYS = frozenset({"w", "s_w", "s_p", "s_a"})
 _BANK_SCALES = ("s_w", "s_p", "s_a")
 
@@ -171,6 +287,82 @@ class DeployArtifact:
                 f"DeployArtifact.config must name a packed backend, got "
                 f"mode={self.config.mode!r}; use config.replace("
                 "mode='deploy') (model_artifact does this for you)")
+
+    def save(self, path: str) -> str:
+        """Write the artifact, leaves bit for bit. ``artifact.json`` lands
+        last (fsynced, then renamed), so its presence marks a complete
+        artifact; an existing header is removed before the new params
+        land, so an interrupted overwrite never pairs new params with an
+        old header."""
+        os.makedirs(path, exist_ok=True)
+        jpath = os.path.join(path, "artifact.json")
+        if os.path.exists(jpath):
+            os.remove(jpath)
+        _ckpt.save(path, 0, _mark_int4(self.params, self.config))
+        head = {
+            "format": _FORMAT,
+            "layout_version": self.layout_version,
+            "kind": self.kind,
+            "backend": self.config.mode,
+            "config": dataclasses.asdict(self.config),
+            "meta": self.meta,
+        }
+        tmp = jpath + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(head, f, indent=2)
+            f.flush()
+            os.fsync(f.fileno())
+        os.rename(tmp, jpath)
+        return path
+
+    @classmethod
+    def load(cls, path: str, *, mesh=None,
+             device=None) -> "DeployArtifact":
+        """Read an artifact back bit for bit, leaves on ``device`` (``cuda``
+        unless ``"cpu"``); layouts 1-3 are migrated to layout 4 in
+        memory."""
+        if mesh is not None:
+            raise NotImplementedError("loading an artifact onto a device "
+                                      "mesh is not ported yet (ROADMAP "
+                                      "queue 1, item 12)")
+        jpath = os.path.join(path, "artifact.json")
+        if not os.path.exists(jpath):
+            raise FileNotFoundError(
+                f"{path} is not a DeployArtifact (no artifact.json)")
+        with open(jpath) as f:
+            head = json.load(f)
+        version = head.get("layout_version")
+        if version is None or version > ARTIFACT_LAYOUT_VERSION:
+            raise ArtifactVersionError(
+                f"artifact at {path}", "layout_version", version,
+                ARTIFACT_LAYOUT_VERSION, writers=_LAYOUT_WRITERS,
+                detail="Upgrade the library or re-pack the artifact.")
+        meta = dict(head.get("meta", {}))
+        dv = meta.get("delta_version")
+        if dv is not None and dv > SCALE_DELTA_VERSION:
+            raise ArtifactVersionError(
+                f"artifact at {path} (recalibrated)", "delta_version", dv,
+                SCALE_DELTA_VERSION, writers=_DELTA_WRITERS,
+                detail="Upgrade the library or re-fit the ScaleDelta.")
+        try:
+            cfg = CIMConfig(**head["config"])
+        except ValueError as e:
+            if "unknown CIM mode" not in str(e):
+                raise
+            from .backends import registered_backends
+            backend = head.get("backend", head["config"].get("mode"))
+            raise ValueError(
+                f"artifact at {path} was packed for backend {backend!r}, "
+                f"which is not registered in this session (registered: "
+                f"{registered_backends()}). Import or register_backend() "
+                f"the backend that owns this hardware style before "
+                f"loading.") from None
+        params = _ckpt.restore_tree(path, step=0, device=device)
+        if version < 4:
+            params = _migrate_pre_v4(params, cfg)
+            version = ARTIFACT_LAYOUT_VERSION
+        return cls(kind=head["kind"], config=cfg, params=params,
+                   layout_version=version, meta=meta)
 
 
 def model_artifact(params: Dict, cfg: CIMConfig, *,

@@ -1,0 +1,346 @@
+"""Fault-tolerant checkpoints of tensor trees (counterpart of
+``repro.checkpoint.ckpt``), in the reference's on-disk format, so either
+package reads what the other wrote.
+
+Layout: ``<dir>/step_<N:08d>/`` holds ``manifest.json`` and one
+``leaf_<i:05d>.npy`` per leaf. A leaf file is the leaf's raw bytes as a
+1-D uint8 array; the manifest maps each leaf's tree path (dict keys
+joined by "/", list items as ``__<i>``) to its file, shape and logical
+dtype string, and records leafless containers under ``empty``.
+
+Atomicity: leaves and manifest go to ``step_N.tmp/``, and the directory
+is renamed to ``step_N/`` only after the manifest is fsynced, so a crash
+mid-save never hides the newest complete checkpoint.
+
+Logical dtypes are decoded without ``ml_dtypes``: ``bfloat16`` from its
+bits, and ``int4`` (one byte per value, the low nibble in two's
+complement, as ``ml_dtypes`` stores it) into int8 holding [-8, 7], the
+port's dense int4. Dense int4 leaves are written back as ``int4`` when
+wrapped in ``Int4``.
+
+``CheckpointManager(async_save=True)`` snapshots the tree to host memory
+on the caller's thread and writes it on a background thread.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import queue
+import re
+import shutil
+import threading
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+_LIST_KEY = re.compile(r"^__\d+$")
+_SHARDING = ("restoring onto a device mesh is not ported yet (ROADMAP "
+             "queue 1, item 12)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Int4:
+    """A dense int4 leaf, held as an int8 tensor in [-8, 7] (torch has no
+    int4); saved under the logical dtype ``int4``."""
+    data: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# leaf encoding
+# ---------------------------------------------------------------------------
+
+def _encode_leaf(leaf):
+    """(uint8 raw bytes, shape, logical dtype string) of a leaf: a tensor,
+    an ``Int4``, a numpy array or a Python scalar."""
+    if isinstance(leaf, Int4):
+        t = leaf.data.detach().cpu().contiguous()
+        if t.dtype != torch.int8:
+            raise TypeError(f"Int4 holds int8 data, got {t.dtype}")
+        raw = (t.numpy().astype(np.int16) & 0xF).astype(np.uint8)
+        return raw.reshape(-1), list(t.shape), "int4"
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            bits = t.view(torch.int16).numpy()
+            return (np.frombuffer(bits.tobytes(), np.uint8), list(t.shape),
+                    "bfloat16")
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    # tobytes() is C order; ascontiguousarray would lift a 0-d leaf to 1-d
+    return (np.frombuffer(arr.tobytes(), np.uint8), list(arr.shape),
+            str(arr.dtype))
+
+
+def decode_leaf(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
+    """The tensor (on the CPU) that ``_encode_leaf`` gave ``raw`` for: raw
+    little-endian bytes of a logical ``dtype``. ``bfloat16`` keeps its
+    bits; ``int4`` becomes int8 in [-8, 7]."""
+    raw = np.frombuffer(np.asarray(raw).tobytes(), np.uint8)
+    shape = tuple(int(s) for s in shape)
+    if dtype == "bfloat16":
+        bits = torch.from_numpy(raw.view(np.int16).copy())
+        return bits.view(torch.bfloat16).reshape(shape)
+    if dtype == "int4":
+        vals = (((raw & 0xF) ^ 8).astype(np.int16) - 8).astype(np.int8)
+        return torch.from_numpy(vals.reshape(shape))
+    try:
+        np_dtype = np.dtype(dtype)
+    except TypeError:
+        raise ValueError(f"leaf dtype {dtype!r} cannot be decoded without "
+                         "ml_dtypes (decoded: numpy dtypes, bfloat16, "
+                         "int4)") from None
+    return torch.from_numpy(raw.view(np_dtype).reshape(shape).copy())
+
+
+# ---------------------------------------------------------------------------
+# tree paths
+# ---------------------------------------------------------------------------
+
+def _flatten(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            if isinstance(k, str) and _LIST_KEY.match(k):
+                # '__<i>' is the reserved list encoding; a dict using it
+                # would come back from restore_tree as a list
+                raise ValueError(
+                    f"dict key {k!r} at {path or '<root>'} collides with "
+                    "the reserved list encoding '__<index>'; rename it")
+            yield from _flatten(tree[k], f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{path}/__{i}")
+    else:
+        yield path, tree
+
+
+def _empty_containers(tree, path=""):
+    """Paths of leafless containers, which ``_flatten`` does not see."""
+    if isinstance(tree, dict):
+        if not tree:
+            yield path, "dict"
+        for k in sorted(tree):
+            yield from _empty_containers(tree[k],
+                                         f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (tuple, list)):
+        if not tree:
+            yield path, "list"
+        for i, v in enumerate(tree):
+            yield from _empty_containers(v, f"{path}/__{i}")
+
+
+def _unflatten_into(like, flat: Dict[str, torch.Tensor], path=""):
+    if isinstance(like, dict):
+        return {k: _unflatten_into(like[k], flat,
+                                   f"{path}/{k}" if path else str(k))
+                for k in like}
+    if isinstance(like, (tuple, list)):
+        return type(like)(_unflatten_into(v, flat, f"{path}/__{i}")
+                          for i, v in enumerate(like))
+    return flat[path]
+
+
+# ---------------------------------------------------------------------------
+# save / restore
+# ---------------------------------------------------------------------------
+
+def _step_dir(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
+def save(ckpt_dir: str, step: int, tree: Any) -> str:
+    """Write ``tree`` as checkpoint ``step`` atomically; returns its path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = _step_dir(ckpt_dir, step)
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "leaves": {}}
+    for i, (path, leaf) in enumerate(_flatten(tree)):
+        raw, shape, dtype = _encode_leaf(leaf)
+        fname = f"leaf_{i:05d}.npy"
+        np.save(os.path.join(tmp, fname), raw)
+        manifest["leaves"][path] = {"file": fname, "shape": shape,
+                                    "dtype": dtype}
+    empty = dict(_empty_containers(tree))
+    if empty:
+        manifest["empty"] = empty
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def _steps(ckpt_dir: str):
+    """Steps of the ``step_N`` directories (``.tmp`` ones not)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return [int(n[5:]) for n in os.listdir(ckpt_dir)
+            if n.startswith("step_") and not n.endswith(".tmp")]
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The newest complete checkpoint's step: one whose manifest landed."""
+    steps = [s for s in _steps(ckpt_dir) if os.path.exists(
+        os.path.join(_step_dir(ckpt_dir, s), "manifest.json"))]
+    return max(steps) if steps else None
+
+
+def _load_leaves(ckpt_dir: str, step: Optional[int], device: torch.device):
+    """({manifest path: tensor on ``device``}, {path: kind} of empty
+    containers) of ``step``, the newest when it is None."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    path = _step_dir(ckpt_dir, step)
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    flat = {}
+    for p, meta in manifest["leaves"].items():
+        raw = np.load(os.path.join(path, meta["file"]))
+        flat[p] = decode_leaf(raw, meta["dtype"], meta["shape"]).to(device)
+    return flat, manifest.get("empty", {})
+
+
+def restore_tree(ckpt_dir: str, step: Optional[int] = None, *,
+                 device=None) -> Any:
+    """Restore a checkpoint without a template: the nested dict/list
+    structure is rebuilt from the manifest paths (``__<i>`` keys, when
+    exactly 0..n-1, become a list), leafless containers included. Leaves
+    are tensors on ``device`` (``cuda`` unless ``"cpu"``)."""
+    flat, empty = _load_leaves(ckpt_dir, step, resolve_device(device))
+    root: Dict[str, Any] = {}
+    for p, leaf in flat.items():
+        parts = p.split("/")
+        if parts and parts[0] == "":
+            parts = parts[1:]   # '/__0'-style paths: the root is a list
+        if not parts:
+            return leaf         # the tree is this one leaf
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    for p, kind in empty.items():
+        placeholder: Any = {} if kind == "dict" else []
+        if p == "":
+            return placeholder  # the whole tree is one empty container
+        parts = [q for q in p.split("/") if q != ""]
+        node = root
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = placeholder
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.startswith("__") for k in out):
+            try:
+                nums = sorted(int(k[2:]) for k in out)
+            except ValueError:
+                return out
+            if nums == list(range(len(out))):
+                return [out[f"__{i}"] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            shardings: Any = None, *, device=None) -> Any:
+    """Restore into the structure of ``like``, leaves on ``device``
+    (``cuda`` unless ``"cpu"``)."""
+    if shardings is not None:
+        raise NotImplementedError(_SHARDING)
+    flat, _ = _load_leaves(ckpt_dir, step, resolve_device(device))
+    return _unflatten_into(like, flat)
+
+
+def _host_snapshot(tree):
+    """A host copy of every tensor leaf, taken now (later in-place writes
+    to the tree do not reach it)."""
+    if isinstance(tree, dict):
+        return {k: _host_snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_snapshot(v) for v in tree]
+    if isinstance(tree, Int4):
+        return Int4(_host_snapshot(tree.data))
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return np.array(tree)
+
+
+class CheckpointManager:
+    """``keep_n`` retention and optional asynchronous writes."""
+
+    def __init__(self, ckpt_dir: str, keep_n: int = 3,
+                 async_save: bool = True):
+        self.ckpt_dir = ckpt_dir
+        self.keep_n = keep_n
+        self.async_save = async_save
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._worker: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        if async_save:
+            self._start()
+
+    def _start(self):
+        self._worker = threading.Thread(target=self._loop, daemon=True)
+        self._worker.start()
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            step, host_tree = item
+            try:
+                save(self.ckpt_dir, step, host_tree)
+                self._gc()
+            except BaseException as e:   # raised by the next save() / wait()
+                self._error = e
+
+    def _gc(self):
+        for s in sorted(_steps(self.ckpt_dir))[:-self.keep_n]:
+            shutil.rmtree(_step_dir(self.ckpt_dir, s), ignore_errors=True)
+
+    def _raise_pending(self):
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, step: int, tree: Any):
+        """Snapshot ``tree`` to host memory now; write it now, or on the
+        background thread when ``async_save``."""
+        self._raise_pending()
+        host_tree = _host_snapshot(tree)
+        if self.async_save:
+            self._q.put((step, host_tree))
+        else:
+            save(self.ckpt_dir, step, host_tree)
+            self._gc()
+
+    def wait(self):
+        """Drain pending asynchronous writes; raises a write's error."""
+        if self._worker is not None:
+            self._q.put(None)
+            self._worker.join()
+            self._start()
+        self._raise_pending()
+
+    def latest_step(self) -> Optional[int]:
+        return latest_step(self.ckpt_dir)
+
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None, *, device=None) -> Any:
+        return restore(self.ckpt_dir, like, step, shardings, device=device)

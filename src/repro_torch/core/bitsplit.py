@@ -3,8 +3,8 @@
 
 Differential sign-magnitude: w_int = sign(w) * sum_s d_s * 2^(c*s) with
 d_s the s-th base-2^c digit of |w_int|; the digit seen by the MAC is
-sign(w) * d_s. Forward only in this slice (the straight-through gradient
-comes with the training slice).
+sign(w) * d_s. The gradient with respect to w_int is straight through,
+spread over the digits by least norm, so ``recombine(grad) == grad``.
 """
 from __future__ import annotations
 
@@ -17,17 +17,24 @@ def split_digits(w_int: torch.Tensor, weight_bits: int,
                  cell_bits: int) -> torch.Tensor:
     """Signed-magnitude digits of integer-valued ``w_int`` (float dtype
     ok), shape (n_split,) + w_int.shape, digit s with place value
-    2**(cell_bits*s)."""
+    2**(cell_bits*s). The incoming gradient of digit s reaches w_int times
+    place_s / sum(place**2) (the reference's least-norm STE)."""
     if weight_bits == 1:
         return w_int[None]
     s_count = n_splits(weight_bits, cell_bits)
     base = 2 ** cell_bits
-    sign = torch.sign(w_int)
+    w = w_int.detach()
+    sign = torch.sign(w)
     # truncation toward zero, as the reference's astype(int32)
-    mag = torch.abs(w_int).to(torch.int32)
+    mag = torch.abs(w).to(torch.int32)
     digits = [((mag // (base ** s)) % base).to(w_int.dtype) * sign
               for s in range(s_count)]
-    return torch.stack(digits, dim=0)
+    out = torch.stack(digits, dim=0)
+    places = place_values(weight_bits, cell_bits,
+                          device=w_int.device).to(w_int.dtype)
+    corr = w_int - w                       # zero-valued, carries the grad
+    return out + corr[None] * (places / torch.sum(places ** 2)).reshape(
+        (s_count,) + (1,) * w_int.ndim)
 
 
 def place_values(weight_bits: int, cell_bits: int, device=None) -> torch.Tensor:

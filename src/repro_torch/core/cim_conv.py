@@ -1,5 +1,5 @@
 """CIM-oriented convolution (paper §III-C), counterpart of
-``repro.core.cim_conv``, forward only.
+``repro.core.cim_conv``.
 
 Stretched-kernel tiling: each array holds ``c_per_array = floor(rows /
 (kh*kw))`` whole input channels with all their taps. ``emulate`` runs all
@@ -29,12 +29,13 @@ from repro_torch import resolve_device
 from repro_torch.kernels.ref import conv_pads, shift_add
 
 from .bitsplit import split_digits
-from .cim_linear import (CIMConfig, _deq_w, _group_scale, _psum_scale,
-                         _quantize_act, bake_variation, deploy_act_codes)
+from .cim_linear import (CIMConfig, _deprecated, _deq_w, _group_scale,
+                         _psum_scale, _quantize_act, bake_variation,
+                         deploy_act_codes)
 from .granularity import conv_tiling
 from .nibble import (can_pack_nibbles, is_nibble_packed, occupancy_map,
                      pack_nibbles)
-from .quantizer import lsq_fake_quant, qrange
+from .quantizer import lsq_fake_quant, qrange, round_ste
 from .variation import resolve_sigma, variation_noise, variation_wanted
 
 
@@ -82,13 +83,16 @@ def conv_weight_scales_from(w: torch.Tensor, cfg: CIMConfig) -> torch.Tensor:
 
 def _quantize_conv_weight_int(params, cfg: CIMConfig, t, c_per_array, kh, kw,
                               c_in, c_out) -> torch.Tensor:
-    """Integer codes (kh, kw, c_in, c_out) with per-(array, column) scales."""
+    """Integer codes (kh, kw, c_in, c_out) with per-(array, column) scales,
+    LSQ gradients attached."""
     w = params["w"].to(torch.float32)
     s_w = t.broadcast_weight_scale(params["s_w"])            # (kt, C_out)
     tile_of_c = torch.arange(c_in, device=w.device) // c_per_array
     s_full = torch.broadcast_to(s_w[tile_of_c][None, None],
                                 (kh, kw, c_in, c_out))
-    w_hat = lsq_fake_quant(w, s_full, cfg.weight_bits, signed=True)
+    w_hat = lsq_fake_quant(
+        w, s_full, cfg.weight_bits, signed=True,
+        group_size=t.weight_group_size(cfg.weight_granularity))
     return w_hat / torch.clamp_min(s_full, 1e-9)
 
 
@@ -166,11 +170,12 @@ def _forward_conv_emulate(x, params, cfg, stride, padding, variation, sigma,
     psum = _grouped_conv_psum(a_int, digits, t.k_tiles, cpa, stride, padding,
                               noise)
     if cfg.psum_quant or noise is None:
-        # the integer snap, the ADC's first step. On clean planes the MACs
-        # are integer-valued and it only removes the conv algorithm's
-        # float roundoff (cuDNN may pick Winograd or FFT), so emulate
-        # stays bit-exact with the ADC-free kernel when the ADC is off
-        psum = torch.round(psum)
+        # the integer snap, the ADC's first step, straight through. On
+        # clean planes the MACs are integer-valued and it only removes the
+        # conv algorithm's float roundoff (cuDNN may pick Winograd or FFT),
+        # so emulate stays bit-exact with the ADC-free kernel when the ADC
+        # is off; its gradient is the identity, as the reference's
+        psum = round_ste(psum)
     if cfg.psum_quant:
         s_p = t.broadcast_psum_scale(params["s_p"])
         psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True)
@@ -272,3 +277,39 @@ def _calibrate_conv(x, params, cfg: CIMConfig, *, stride: int = 1,
     p["s_p"] = _psum_scale(mean_abs, cfg, t)
     return p
 
+
+def conv_dequant_muls(params, cfg: CIMConfig) -> int:
+    """Paper Fig. 8 x-axis: dequant scale multiplications for this layer."""
+    kh, kw, c_in, c_out = params["w"].shape
+    t, _ = conv_tiling(kh, kw, c_in, c_out, cfg.array_rows, cfg.array_cols,
+                       cfg.weight_bits, cfg.cell_bits)
+    return t.dequant_muls(cfg.weight_granularity, cfg.psum_granularity)
+
+
+# ---------------------------------------------------------------------------
+# deprecated entry points (the reference's pre-``api`` surface)
+# ---------------------------------------------------------------------------
+
+def init_cim_conv(*args, **kw) -> Dict[str, torch.Tensor]:
+    """Deprecated: use ``repro_torch.api.init_conv``."""
+    _deprecated("init_cim_conv", "repro_torch.api.init_conv")
+    return _init_conv(*args, **kw)
+
+
+def cim_conv2d(*args, **kw) -> torch.Tensor:
+    """Deprecated: use ``repro_torch.api.conv2d``."""
+    _deprecated("cim_conv2d", "repro_torch.api.conv2d")
+    return _conv_forward(*args, **kw)
+
+
+def calibrate_cim_conv(*args, **kw) -> Dict[str, torch.Tensor]:
+    """Deprecated: use ``repro_torch.api.calibrate_conv``."""
+    _deprecated("calibrate_cim_conv", "repro_torch.api.calibrate_conv")
+    return _calibrate_conv(*args, **kw)
+
+
+def pack_deploy_conv(*args, **kw) -> Dict[str, torch.Tensor]:
+    """Deprecated: use ``repro_torch.api.pack_conv`` or
+    ``QuantConv2d.pack`` (a saveable ``DeployArtifact``)."""
+    _deprecated("pack_deploy_conv", "repro_torch.api.pack_conv")
+    return _pack_conv(*args, **kw)

@@ -1,12 +1,14 @@
 """CIM-mapped linear layer with column-wise weight and partial-sum
-quantization (counterpart of ``repro.core.cim_linear``), forward only.
+quantization (counterpart of ``repro.core.cim_linear``).
 
 Backends (``CIMConfig.mode``, resolved through ``repro_torch.api.backends``):
 
   off      plain matmul in the compute dtype.
   emulate  LSQ fake-quant of activations and weights, bit-split digits,
            per-array integer partial sums, ADC quantization of each
-           (split, array, column) partial sum, dequant, shift-and-add.
+           (split, array, column) partial sum, dequant, shift-and-add;
+           differentiable, with the reference's LSQ and straight-through
+           gradients (the path QAT trains).
   deploy   the same arithmetic from packed digit planes through the fused
            CIM matmul kernel (``kernels/ops.cim_matmul``).
   ref      deploy forced onto the plain PyTorch version of the kernel.
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Dict
 
 import torch
@@ -42,7 +45,7 @@ from .bitsplit import place_values, split_digits
 from .granularity import ArrayTiling, Granularity
 from .nibble import (INT4, can_pack_nibbles, is_nibble_packed, occupancy_map,
                      pack_nibbles)
-from .quantizer import lsq_fake_quant, qrange
+from .quantizer import lsq_fake_quant, qrange, round_ste
 from .variation import (perturb_digits, perturb_packed, resolve_sigma,
                         variation_wanted)
 
@@ -50,6 +53,13 @@ _BUILTIN_MODES = ("off", "emulate", "deploy", "ref")
 _KNOWN_MODES = set(_BUILTIN_MODES)
 
 _PACK_DTYPES = ("int8", "int4")
+
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"{old} is deprecated; use {new} instead "
+        "(see the migration table in README.md).",
+        DeprecationWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,11 +206,13 @@ def _full_psum_scale(params, t: ArrayTiling) -> torch.Tensor:
 
 
 def _quantize_weight_int(params, cfg: CIMConfig, t: ArrayTiling) -> torch.Tensor:
-    """Integer weight codes (K, N) in float32."""
+    """Integer weight codes (K, N) in float32, LSQ gradients attached."""
     w = params["w"].to(torch.float32)
     s_w = _full_weight_scale(params, t)
     s_full = torch.repeat_interleave(s_w, t.array_rows, dim=0)[: t.k]
-    w_hat = lsq_fake_quant(w, s_full, cfg.weight_bits, signed=True)
+    w_hat = lsq_fake_quant(
+        w, s_full, cfg.weight_bits, signed=True,
+        group_size=t.weight_group_size(cfg.weight_granularity))
     return w_hat / torch.clamp_min(s_full, 1e-9)
 
 
@@ -218,7 +230,7 @@ def _quantize_act(x, params, cfg: CIMConfig):
     a_hat = lsq_fake_quant(x.to(torch.float32), s_a, cfg.act_bits,
                            signed=cfg.act_signed)
     a = a_hat / torch.clamp_min(s_a, 1e-9)
-    return a + (torch.round(a) - a).detach(), s_a
+    return round_ste(a), s_a
 
 
 def deploy_act_codes(x, s_a, cfg: CIMConfig) -> torch.Tensor:
@@ -302,7 +314,8 @@ def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype):
         # integer column MACs, exact in float32 for these code widths
         psum = torch.einsum("...tr,strn->...stn", a_t, d_t)
     if cfg.psum_quant:
-        psum = torch.round(psum)
+        # snap float roundoff to the integer grid, straight through
+        psum = round_ste(psum)
         s_p = _full_psum_scale(params, t)
         psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True)
     y = shift_add(psum, _deq_w(params, cfg, t))
@@ -417,3 +430,32 @@ def _psum_scale(mean_abs: torch.Tensor, cfg: CIMConfig,
     else:
         s = mean_abs
     return (2.0 * s / math.sqrt(float(max(qp_p, 1)))).to(torch.float32) + 1e-9
+
+
+# ---------------------------------------------------------------------------
+# deprecated entry points (the reference's pre-``api`` surface)
+# ---------------------------------------------------------------------------
+
+def init_cim_linear(*args, **kw) -> Dict[str, torch.Tensor]:
+    """Deprecated: use ``repro_torch.api.init_linear``."""
+    _deprecated("init_cim_linear", "repro_torch.api.init_linear")
+    return _init_linear(*args, **kw)
+
+
+def cim_linear(*args, **kw) -> torch.Tensor:
+    """Deprecated: use ``repro_torch.api.linear``."""
+    _deprecated("cim_linear", "repro_torch.api.linear")
+    return _linear_forward(*args, **kw)
+
+
+def calibrate_cim(*args, **kw) -> Dict[str, torch.Tensor]:
+    """Deprecated: use ``repro_torch.api.calibrate_linear``."""
+    _deprecated("calibrate_cim", "repro_torch.api.calibrate_linear")
+    return _calibrate_linear(*args, **kw)
+
+
+def pack_deploy(*args, **kw) -> Dict[str, torch.Tensor]:
+    """Deprecated: use ``repro_torch.api.pack_linear`` or
+    ``QuantLinear.pack`` (a saveable ``DeployArtifact``)."""
+    _deprecated("pack_deploy", "repro_torch.api.pack_linear")
+    return _pack_linear(*args, **kw)

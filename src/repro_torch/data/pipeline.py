@@ -4,8 +4,9 @@ for the same seed).
 
 No CIFAR is available offline: each class is a fixed random
 low-frequency template, and a sample is its template, randomly shifted,
-plus small noise. The CIFAR-shaped requests of ``chip_smoke.py`` and the
-parity tests come from here.
+plus small noise. The CIFAR-shaped requests of ``chip_smoke.py``, the
+QAT harness's batches (``synth_classification_batch``, deterministic in
+(seed, step)) and the parity tests come from here.
 """
 from __future__ import annotations
 
@@ -31,3 +32,12 @@ def make_image_dataset(n_classes: int = 10, hw: int = 32, n: int = 2048,
         x[i] = np.roll(x[i], sh[i], axis=(0, 1))
     x = x + 0.25 * rng.randn(*x.shape).astype(np.float32)
     return np.clip(x, -2, 2), y
+
+
+def synth_classification_batch(x, y, batch: int, step: int, seed: int = 0):
+    """The training batch of ``step``: ``batch`` indices drawn with
+    replacement from a RandomState seeded by (seed, step), as the
+    reference draws them."""
+    rng = np.random.RandomState(seed * 100003 + step)
+    idx = rng.randint(0, x.shape[0], size=batch)
+    return x[idx], y[idx]

@@ -3,10 +3,12 @@
 The JAX package's params, BatchNorm state and packed trees become numpy
 with ``jax.tree.map(np.asarray, tree)`` on its side; ``from_numpy_tree``
 turns such a tree into the port's (torch tensors on a device), and
-``to_numpy_tree`` reverses it. Dense int4 leaves (``ml_dtypes.int4``,
-which ``torch.from_numpy`` refuses) become int8 holding [-8, 7], the
-port's dense int4 storage; nibble-packed uint8 planes pass through
-byte for byte.
+``to_numpy_tree`` reverses it. Each leaf goes through the checkpoint
+loader's decoder (``checkpoint.ckpt.decode_leaf``) on its raw bytes and
+dtype name, so there is one int4 rule: dense int4 leaves
+(``ml_dtypes.int4``, which ``torch.from_numpy`` refuses) become int8
+holding [-8, 7], the port's dense int4 storage, and bfloat16 leaves keep
+their bits. Nibble-packed uint8 planes pass through byte for byte.
 """
 from __future__ import annotations
 
@@ -14,13 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.ckpt import decode_leaf
 
 
 def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
-    a = np.array(a)          # a writable copy: JAX hands out read-only views
-    if a.dtype.name == "int4":
-        a = a.astype(np.int8)
-    return torch.from_numpy(a).to(device)
+    a = np.asarray(a)
+    return decode_leaf(a, a.dtype.name, a.shape).to(device)
 
 
 def from_numpy_tree(tree, device=None):

@@ -42,6 +42,13 @@ def adc_quantize_ref(p: torch.Tensor, s_p: torch.Tensor,
     return torch.clamp(torch.round(p / s_p), qn, qp) * s_p
 
 
+def lsq_fake_quant_ref(x: torch.Tensor, s: torch.Tensor, qn: float,
+                       qp: float) -> torch.Tensor:
+    """LSQ fake-quant forward: clip(round(x / s), qn, qp) * s, s >= 1e-9."""
+    s = torch.clamp_min(s, 1e-9)
+    return torch.clamp(torch.round(x / s), qn, qp) * s
+
+
 def shift_add(psum: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
     """Fused dequant and shift-and-add: (..., S, kt, N) quantized partial
     sums times (S, kt, N) scales, summed in the kernel's order (tile t

@@ -4,7 +4,9 @@
 Every conv but the stem goes through the CIM conv forward
 (``repro_torch.api.conv2d``); the stem conv and the final FC stay full
 precision. Parameters and BatchNorm running statistics are two plain
-dicts laid out like the reference's trees, activations are NHWC.
+dicts laid out like the reference's trees, activations are NHWC. The
+forward writes nothing in place, so ``train=True`` on the emulate backend
+is differentiable with respect to the params (``repro_torch.train.qat``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch import resolve_device, to_device
 from repro_torch.core.cim_conv import _calibrate_conv, _conv_forward, _init_conv
-from repro_torch.core.cim_linear import CIMConfig
+from repro_torch.core.cim_linear import CIMConfig, _deprecated
 from repro_torch.core.variation import Sampler
 
 
@@ -99,6 +101,15 @@ def init(gen: torch.Generator | int, cfg: ResNetConfig, *, device=None):
     params["fc"] = {"w": fc_w.to(dev),
                     "b": torch.zeros(cfg.n_classes, device=dev)}
     return params, state
+
+
+def pack_deploy(params: Dict, cfg: ResNetConfig, *, device=None) -> Dict:
+    """Deprecated: use ``repro_torch.api.pack_model(params, cfg.cim)`` (or
+    ``repro_torch.api.model_artifact`` for a saveable ``DeployArtifact``).
+    Packs every CIM conv; the stem, BN and FC pass through."""
+    _deprecated("models.resnet.pack_deploy", "repro_torch.api.pack_model")
+    from repro_torch.api import pack_model
+    return pack_model(params, cfg.cim, device=device)
 
 
 def conv_layer_names(cfg: ResNetConfig) -> Tuple[Tuple[str, int], ...]:

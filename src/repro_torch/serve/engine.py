@@ -18,6 +18,7 @@ recalibration and the telemetry registry come with ROADMAP queue 1, item
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -34,21 +35,23 @@ _UNPORTED = ("drift_key", "drift_schedule", "health", "fallback_backend",
 
 def engine_from_artifact(artifact, cfg: ModelConfig, *, mesh=None,
                          device=None, **engine_kw) -> "ServingEngine":
-    """A ``ServingEngine`` serving an in-memory model ``DeployArtifact``
-    (``repro_torch.api.model_artifact``) on its packed backend, on
-    ``device`` (``cuda`` unless ``"cpu"``). ``cfg``'s ``cim`` is replaced
-    by the artifact's pinned config, so the engine runs exactly the
-    quantization state that was packed. Column-parallel serving (``mesh``)
-    and artifacts on disk come with ROADMAP queue 1, items 7 and 12."""
+    """A ``ServingEngine`` serving a model ``DeployArtifact`` on its packed
+    backend, on ``device`` (``cuda`` unless ``"cpu"``). ``artifact`` is an
+    artifact (``repro_torch.api.model_artifact``) or the path of one saved
+    by either package, loaded with ``DeployArtifact.load``. ``cfg``'s
+    ``cim`` is replaced by the artifact's pinned config, so the engine runs
+    exactly the quantization state that was packed. Column-parallel
+    serving (``mesh``) comes with ROADMAP queue 1, item 12."""
     from repro_torch.api import DeployArtifact
     from repro_torch.models.registry import get_model
     if mesh is not None:
         raise NotImplementedError("column-parallel serving is not ported yet "
                                   "(ROADMAP queue 1, item 12)")
+    if isinstance(artifact, (str, os.PathLike)):
+        artifact = DeployArtifact.load(os.fspath(artifact), device=device)
     if not isinstance(artifact, DeployArtifact):
-        raise TypeError("engine_from_artifact takes an in-memory "
-                        "DeployArtifact; loading one from disk is not ported "
-                        "yet (ROADMAP queue 1, item 7)")
+        raise TypeError(f"engine_from_artifact takes a DeployArtifact or its "
+                        f"path, got {type(artifact).__name__}")
     if artifact.kind != "model":
         raise ValueError(f"engine_from_artifact needs a 'model' artifact, "
                          f"got kind={artifact.kind!r}")
