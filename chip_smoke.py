@@ -116,7 +116,33 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    0.7 x that of the first 20, held-out accuracy at least 0.20 (chance
    0.10). Prints ms per QAT step (CUDA events, median over steps
    10-300) and the save and load seconds;
-12. a JSON line per kernel, the card's name and power limit, and the
+12. drift, recalibration, the health monitor and the telemetry plane,
+   on phase 10's packs (``tests/test_drift.py``'s schedule, a
+   ``Sampler`` source): (a) a zero schedule serves phase 10's tokens; (b)
+   from t = 300, one prefill and 16 decode steps, each step's drifted
+   deploy logits against drifted emulate's under the same fields, the
+   drifting engine's tokens on int8, int4 and a second run equal to that
+   step-by-step run's, 28 float-plane K1 launches, 9 K6 and no integer
+   K1 per forward (the MoE banks do not drift, as in the reference), the
+   drifted decode step timed (CUDA events, the host clock, the share in
+   ``drift_tree``), and the float-plane K1 held against its plain
+   version and timed at the operands of one drifted prefill and one
+   drifted decode step; (f) the engine's ``metrics()``: JSON, the token
+   counter, the decode histogram's count, Prometheus names only of
+   ``obs.names``; (c) column-only drift at t = 400 recalibrated with 64
+   probes: each drifting linear's output error at one prefill's
+   activations under 0.34 x the drifted one, on scales calibrated on
+   those activations (the same delta on the random init's uncalibrated
+   scales printed beside it); (d) hard drift with the monitor's
+   thresholds at 0: the fallback's steps launch no CIM kernel and give a
+   ``ref``-backend engine's tokens, and ``recalibrate()`` clears it; (e)
+   the ADC collector armed on a clean prefill: logits bit-equal, 0 K6 and
+   604 K1 launches (per expert), deploy's counts equal emulate's exact
+   counters, ``every_n`` 4 folds a quarter of the calls; (g) the
+   ResNet-20 drift sweep (cell and column drift, t 0-512, 4 samples,
+   batch 256, int8): the logit error does not fall with t, 20 float-plane
+   K3 launches per drifted forward;
+13. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
@@ -243,6 +269,8 @@ def main() -> int:
     timings.update(phase6_adc_free(torch, model, errs))
     phase7_binary(torch, model)
     timings.update(phase8_variation(torch, model, errs))
+    resnet20 = {k: model[k] for k in ("cfg", "cim", "state")}
+    resnet20["packed"] = model["packed"]["int8"]      # phase 12's sweep
     del model                          # free the ResNet phases' tensors
     gc.collect()
     torch.cuda.empty_cache()
@@ -253,14 +281,21 @@ def main() -> int:
           f"|kernel - plain| {errs['cim_matmul_experts']!r}", flush=True)
 
     # 10. the MoE serving path at full width
-    timings.update(phase10_moe_serving(torch, errs, moe_config()))
+    mc = moe_config()
+    timings.update(phase10_moe_serving(torch, errs, mc))
     gc.collect()
     torch.cuda.empty_cache()
 
     # 11. the training path: QAT, checkpoint, artifacts on disk, deploy
     phase11_qat(torch, dev, smi)
 
-    # 12. results
+    # 12. drift, recalibration, the health monitor and the telemetry plane
+    timings.update(phase12_drift(torch, errs, mc, resnet20))
+    del mc, resnet20
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -306,6 +341,9 @@ KERNELS = {
                                "src/repro/kernels/cim_matmul.py:160"),
     "cim_matmul_experts": (MMA_ADC_SOURCE,
                            "src/repro/kernels/cim_matmul.py:269"),
+    # K1 on float32 planes that carry drift: every drifted linear of the
+    # MoE transformer, on the FP64 tensor cores
+    "cim_matmul_drift": (CUDA_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
 }
 
 
@@ -1660,9 +1698,9 @@ def _capture_kernel_calls(fn):
 
 
 def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int,
-               counts=None):
-    """(bytes ms, int8 ops ms) of one call, from this run's data (``s_p``
-    None for the ADC-free matmul). The filled rows of an expert's buffer
+               counts=None, ops_per_s: float = INT8_OPS_PER_S):
+    """(bytes ms, ops ms at ``ops_per_s``) of one call, from this run's
+    data (``s_p`` None for the ADC-free matmul). The filled rows of an expert's buffer
     are its ``counts``, or without them its rows that are not all zero;
     the others (empty capacity slots) need no MACs and no code bytes; an
     expert with no filled row needs none of its planes.
@@ -1687,7 +1725,7 @@ def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int,
     nbytes = (int(used.sum()) * per_expert + int(filled.sum()) * kt * rows
               + 4 * e * c * n)
     macs = int((filled * live).sum()) * rows
-    return _bytes_ops_ms(nbytes, macs, INT8_OPS_PER_S)
+    return _bytes_ops_ms(nbytes, macs, ops_per_s)
 
 
 def _time_moe_calls(torch, calls, errs, reps: int):
@@ -1953,6 +1991,9 @@ def phase10_moe_serving(torch, errs, mc):
         t.update(launches=launches["cim_matmul" if k == "cim_matmul_transformer"
                                    else k])
     results["cim_matmul_adc_free"] = k4
+    mc["served"] = dict(model=model, params=params, arts=arts, tokens=tokens,
+                        prompts=prompts, slot_prompts=slot_prompts,
+                        gen=out["int8"]["gen"])
     print(f"phase 10 max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     return results
@@ -2356,6 +2397,613 @@ def phase11_qat(torch, dev, smi) -> None:
           f"{len(got)}); max |deploy - emulate| {worst!r}; nvidia-smi: {smi}",
           flush=True)
     shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: drift, recalibration, the health monitor and the telemetry plane
+# ---------------------------------------------------------------------------
+
+#: the drift of tests/test_drift.py::_sched: read noise, per-cell and
+#: per-column drift, served from request count DRIFT_T0
+DRIFT_SCHED = dict(read_sigma=0.02, read_rate=0.0, cell_rate=2e-4,
+                   col_rate=1e-3)
+DRIFT_T0 = 300
+DRIFT_SEED = 12
+COL_T = 400                       # (c): column-only drift, sigma_col 0.4
+RECAL_PROBES = 64
+RECAL_GATE = 0.34                 # recalibrated error / drifted error, below
+FALLBACK_REQUESTS = ((3, 2), (2, 2))
+ADC_EVERY_N = 4
+SWEEP_DRIFT = dict(cell_rate=2e-4, col_rate=1e-3)
+SWEEP_TS = (0, 64, 128, 256, 512)
+
+
+def _packed_nodes(tree, path=()):
+    """(path, node) of every node of a packed tree that holds
+    ``w_digits``: the nodes ``drift_tree`` perturbs."""
+    if isinstance(tree, dict):
+        if "w_digits" in tree:
+            yield path, tree
+            return
+        for k, v in tree.items():
+            yield from _packed_nodes(v, path + (k,))
+
+
+def _at(tree, path):
+    for part in path:
+        tree = tree[part]
+    return tree
+
+
+def _logical_shape(planes):
+    shape = tuple(planes.shape)
+    if planes.dtype == __import__("torch").uint8:        # nibble pairs
+        shape = shape[:-2] + (2 * shape[-2], shape[-1])
+    return shape
+
+
+class _SlicedSource:
+    """Layer ``i``'s slice of the drift fields of a stacked packed node
+    (logical planes ``full``, a leading layer axis): the emulate forward
+    of layer ``i`` asks for (S, kt, rows, N) fields, and gets the slices
+    of the fields that ``drift_tree`` draws over the whole stacked
+    planes. ``memo`` keeps one step's draws."""
+
+    def __init__(self, source, full, i, memo, key):
+        self.source, self.full, self.i = source, full, i
+        self.memo, self.key = memo, key
+
+    def _get(self, what, draw):
+        k = (self.key, what)
+        if k not in self.memo:
+            self.memo[k] = draw()
+        return self.memo[k][self.i]
+
+    def read(self, shape, t, device=None):
+        return self._get(("read", int(t)),
+                         lambda: self.source.read(self.full, t, device))
+
+    def cell(self, shape, device=None):
+        return self._get(("cell",), lambda: self.source.cell(self.full,
+                                                             device))
+
+    def col(self, shape, device=None):
+        from repro_torch.core.variation import _column_field_shape
+        return self._get(("col",), lambda: self.source.col(
+            _column_field_shape(self.full), device))
+
+
+class _NodeLinears:
+    """Within: every ``apply_linear`` call on a CIM node listed in
+    ``by_weight`` ({(data_ptr, shape) of its weight leaf: value}) calls
+    ``hit(value, kwargs, x)`` first. The model's layers slice stacked
+    nodes with views, so a layer's weight is known by its address."""
+
+    def __init__(self, by_weight, leaf, hit):
+        self.by_weight, self.leaf, self.hit = by_weight, leaf, hit
+        self.hits = 0
+
+    def __enter__(self):
+        import repro_torch.nn.linear as nn_linear
+        self.mod, self.orig = nn_linear, nn_linear._linear_forward
+
+        def fwd(x, params, cim, **kw):
+            w = params.get(self.leaf)
+            v = None if w is None else self.by_weight.get(
+                (w.data_ptr(), tuple(w.shape)))
+            if v is not None:
+                self.hits += 1
+                self.hit(v, kw, x)
+            return self.orig(x, params, cim, **kw)
+        nn_linear._linear_forward = fwd
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._linear_forward = self.orig
+        return False
+
+
+def _by_layer(node_leaf):
+    """{(data_ptr, shape): i} for each layer slice of a stacked leaf (one
+    entry for an unstacked one)."""
+    if node_leaf.ndim in (3, 5, 7):         # stacked: a leading layer axis
+        return {(node_leaf[i].data_ptr(), tuple(node_leaf.shape[1:])): i
+                for i in range(node_leaf.shape[0])}
+    return {(node_leaf.data_ptr(), tuple(node_leaf.shape)): None}
+
+
+def _drifted_emulate(packed, params, source, state, memo):
+    """A ``_NodeLinears`` under which the emulate forward of ``params``
+    evaluates every CIM linear whose packed node drifts under that node's
+    drift fields at ``state`` (the same fields ``drift_tree(packed,
+    source, state)`` draws), and leaves the rest (the MoE banks) clean."""
+    by_w = {}
+    for path, node in _packed_nodes(packed):
+        src = source.for_layer(path)
+        full = _logical_shape(node["w_digits"])
+        for k, i in _by_layer(_at(params, path)["w"]).items():
+            by_w[k] = (src if i is None else
+                       _SlicedSource(src, full, i, memo, path))
+
+    def hit(src, kw, x):
+        kw.update(variation=src, variation_std=state)
+    return _NodeLinears(by_w, "w", hit)
+
+
+def _step_events(torch):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+
+def _time_float_k1(torch, calls, errs, reps: int):
+    """The float-plane K1 calls of one captured forward, each against its
+    plain version and timed, with its FP64 bound, summed over the
+    forward."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cim_matmul import cim_matmul_cuda
+    per_call = []
+    for a, kw in calls:
+        a_t, digits, s_p, deq = a[:4]
+        occ = a[4] if len(a) > 4 else kw.get("occ")
+        check(digits.dtype == torch.float32, "a drifted linear's K1 call did "
+              f"not get float32 planes: {digits.dtype}")
+        mq = dict(psum_bits=kw["psum_bits"],
+                  psum_quant=kw.get("psum_quant", True))
+        per_call.append(_time_calls(torch, {"cim_matmul_drift": (
+            lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ:
+            cim_matmul_cuda(a_t, d, sp, dq, o, **mq),
+            lambda a_t=a_t, d=digits, sp=s_p, dq=deq:
+            ref.cim_matmul_ref(a_t, d, sp, dq, **mq),
+            None, _moe_bound(torch, a_t, digits, occ, s_p, deq, 0,
+                             ops_per_s=FP64_OPS_PER_S))},
+            f"cim_matmul_drift {tuple(a_t.shape)}", errs, reps))
+    return _sum_layers(per_call)["cim_matmul_drift"]
+
+
+def _node_inputs(torch, model, packed, tokens, dcfg):
+    """{(path, layer or None): input} of every drifting CIM linear (a
+    node holding ``w_digits``, sliced per layer) in one prefill forward of
+    ``packed``."""
+    by_w = {}
+    for path, node in _packed_nodes(packed):
+        for k, i in _by_layer(node["w_digits"]).items():
+            by_w[k] = (path, i)
+    inputs = {}
+    with _NodeLinears(by_w, "w_digits",
+                      lambda v, kw, x: inputs.setdefault(v, x)):
+        model.forward(packed, tokens, dcfg)
+    return inputs
+
+
+def _node_slice(tree, path, i):
+    node = _at(tree, path)
+    return node if i is None else {k: v[i] for k, v in node.items()}
+
+
+def _calibrated(torch, model, packed, params, tokens, dcfg, calibrate):
+    """``packed`` with every drifting node's s_a and s_p calibrated on its
+    input in one prefill forward (``calibrate``, from the emulate params
+    ``params`` of the same node); everything else shared."""
+    out = {}
+
+    def copy(tree, path=()):
+        if isinstance(tree, dict):
+            if "w_digits" in tree:
+                return {k: (v.clone() if k in ("s_a", "s_p") else v)
+                        for k, v in tree.items()}
+            return {k: copy(v, path + (k,)) for k, v in tree.items()}
+        return tree
+    out = copy(packed)
+    for (path, i), x in _node_inputs(torch, model, packed, tokens,
+                                     dcfg).items():
+        emu = _node_slice(params, path, i)
+        c = calibrate(x, {k: emu[k] for k in ("w", "s_w", "s_p", "s_a")},
+                      dcfg.cim)
+        node = _at(out, path)
+        for k in ("s_a", "s_p"):
+            if i is None:
+                node[k] = c[k].to(node[k].dtype)
+            else:
+                node[k][i] = c[k].to(node[k].dtype)
+    return out
+
+
+def phase12_drift(torch, errs, mc, resnet20):
+    """Self-healing serving and the telemetry plane on the card, on phase
+    10's moonshot packs: (a) a zero schedule, (b) the drifting engine
+    against drifted emulate, the float-plane K1 held and timed at its
+    path's operands, (c) column drift recalibrated, (d) hard drift and
+    the fallback, (e) the ADC collector armed, (f) the metrics, (g) the
+    ResNet-20 drift sweep."""
+    import math
+
+    from repro_torch.api import linear as api_linear
+    from repro_torch.core.variation import DriftSchedule, Sampler, drift_tree
+    from repro_torch.data.pipeline import make_image_dataset
+    from repro_torch.eval.recalibrate import apply_scale_delta_params
+    from repro_torch.eval.robustness import monte_carlo_resnet
+    from repro_torch.obs import adc
+    from repro_torch.obs import names as M
+    from repro_torch.obs.metrics import _sanitize
+    from repro_torch.serve.engine import ServingEngine, engine_from_artifact
+    from repro_torch.serve.health import DriftMonitor, HealthConfig
+
+    sv = mc.pop("served")
+    model, params, arts, tokens = (sv["model"], sv["params"], sv["arts"],
+                                   sv["tokens"])
+    cfg = mc["cfg"]
+    b, new, max_len = mc["batch"], mc["new_tokens"], mc["max_len"]
+    prompts = sv["prompts"]
+    steps = new + 1                       # one prefill, `new` decode steps
+    n_dense = cfg.moe.n_dense_layers
+    n_moe = cfg.n_layers - n_dense
+    k6_fwd = 3 * n_moe
+    k1_fwd = 7 * n_dense + 7 * n_moe
+    sched = DriftSchedule(**DRIFT_SCHED)
+    source = Sampler(DRIFT_SEED)
+    dcfg = {dt: cfg.replace(cim=a.config) for dt, a in arts.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    def engine(dt, **kw):
+        return engine_from_artifact(arts[dt], cfg, batch_size=b,
+                                    max_len=max_len, **kw)
+
+    # (a) a zero schedule serves phase 10's tokens
+    zero = engine("int8", drift_key=source, drift_schedule=DriftSchedule())
+    check(np.array_equal(zero.generate_batch(prompts, new), sv["gen"]),
+          "12a: a zero drift schedule changed phase 10's tokens")
+    print(f"phase 12a zero drift schedule: generate_batch {b} x "
+          f"{prompts.shape[1]} -> {new} equals phase 10's tokens",
+          flush=True)
+
+    # (b) drifted deploy against drifted emulate, step by step, from t0
+    memo, worst, scale_max, ref_tokens = {}, 0.0, 0.0, []
+    cache_d = model.init_cache(cfg, b, max_len)
+    cache_e = model.init_cache(cfg, b, max_len)
+    tok = tokens
+    for i in range(steps):
+        st = sched.at(DRIFT_T0 + i)
+        lg_d, cache_d = model.decode_step(drift_tree(
+            arts["int8"].params, source, st), cache_d, tok, dcfg["int8"])
+        memo.clear()
+        with _drifted_emulate(arts["int8"].params, params, source, st,
+                              memo) as em:
+            lg_e, cache_e = model.decode_step(params, cache_e, tok, cfg)
+        check(em.hits == k1_fwd, f"12b: drifted emulate step {i} drifted "
+              f"{em.hits} linears, expected {k1_fwd}")
+        scale = float(lg_e.float().abs().max())
+        diff = float((lg_d.float() - lg_e.float()).abs().max())
+        check(lg_d.shape == lg_e.shape and bool(torch.isfinite(lg_d).all())
+              and diff <= 1e-4 * scale, f"12b: drifted deploy vs drifted "
+              f"emulate at step {i} (t {DRIFT_T0 + i}): max diff {diff!r} at "
+              f"max |logit| {scale!r}")
+        worst, scale_max = max(worst, diff), max(scale_max, scale)
+        if i == 0:
+            lg0_drift = lg_d
+        tok = torch.argmax(lg_d[:, -1:].float(), dim=-1).to(torch.int32)
+        ref_tokens.append(tok)
+    memo.clear()
+    del cache_d, cache_e
+    ref_tokens = torch.cat(ref_tokens, dim=1).cpu().numpy()
+
+    # the drifting engine: the main path of this phase, counted
+    runs, launched, engines = {}, {}, {}
+    for dt, tag in (("int8", "int8"), ("int4", "int4"), ("int8", "again")):
+        # the monitor watches and never trips (a trip would serve the
+        # fallback): this run is the drifted path
+        eng = engine(dt, drift_key=source, drift_schedule=sched,
+                     health=DriftMonitor(HealthConfig(
+                         hard_threshold=float("inf"))))
+        eng.t = DRIFT_T0
+        torch.cuda.synchronize()
+        _reset_counters()
+        runs[tag] = eng.generate_batch(prompts, steps)
+        torch.cuda.synchronize()
+        launched[tag] = _read_counters()
+        engines[tag] = eng
+    for tag, (ln, fl) in launched.items():
+        check(fl["cim_matmul"] == k1_fwd * steps
+              and ln["cim_matmul"] == fl["cim_matmul"]
+              and ln["cim_matmul_experts"] == k6_fwd * steps,
+              f"12b {tag}: launches {ln}, on float planes {fl}, in {steps} "
+              f"drifted forwards; expected {k1_fwd} float-plane K1, 0 "
+              f"integer K1 and {k6_fwd} K6 per forward")
+        check(np.array_equal(runs[tag], ref_tokens),
+              f"12b {tag}: the drifting engine's tokens differ from the "
+              "step-by-step drifted deploy's")
+    lg_c, _ = model.decode_step(arts["int8"].params,
+                                model.init_cache(cfg, b, max_len), tokens,
+                                dcfg["int8"])
+    moved = float((lg_c.float() - lg0_drift.float()).abs().max())
+    check(moved > 0, "12b: the drift left the prefill logits clean")
+    del lg_c, lg0_drift
+    print(f"phase 12b drifting engine (Sampler({DRIFT_SEED}), "
+          f"{DRIFT_SCHED}, from t {DRIFT_T0}; one prefill + {new} decode "
+          f"steps): per step, drifted deploy logits vs drifted emulate "
+          f"(same fields, {k1_fwd} drifted linears a forward) max diff "
+          f"{worst!r} at max |logit| {scale_max!r} (the prefill's moved "
+          f"{moved!r} from clean); engine tokens equal the "
+          f"step-by-step run's on int8 and int4, and again on a second "
+          f"engine; launches per run {launched['int8'][0]}, on float planes "
+          f"{launched['int8'][1]} ({k1_fwd} float-plane K1 and {k6_fwd} K6 "
+          f"per forward, 0 integer K1; the MoE banks do not drift, as the "
+          f"reference's drift_tree)", flush=True)
+
+    # the drifted decode step, eager: CUDA events and the host clock, and
+    # the share of it spent drawing the drift (drift_tree)
+    p8 = arts["int8"].params
+    cache = model.init_cache(cfg, b, max_len)
+    _, cache = model.decode_step(p8, cache, tokens, dcfg["int8"])
+    tok = torch.from_numpy(ref_tokens[:, :1]).to(tokens.device)
+    dev_ms, drift_ms, host_ms = [], [], []
+    for i in range(new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = _step_events(torch)
+        ev[0].record()
+        pd = drift_tree(p8, source, sched.at(DRIFT_T0 + 1 + i))
+        ev[1].record()
+        lg, cache = model.decode_step(pd, cache, tok, dcfg["int8"])
+        tok = torch.argmax(lg[:, -1:].float(), dim=-1).to(torch.int32)
+        ev[2].record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        dev_ms.append(ev[0].elapsed_time(ev[2]))
+        drift_ms.append(ev[0].elapsed_time(ev[1]))
+        del pd
+    step_ms, d_ms = float(np.median(dev_ms)), float(np.median(drift_ms))
+    print(f"phase 12b drifted decode step (int8, batch {b}, eager): "
+          f"{step_ms:.2f} ms by CUDA events (median of {new}; min "
+          f"{min(dev_ms):.2f}, max {max(dev_ms):.2f}), {np.median(host_ms):.2f}"
+          f" ms by the host clock; drift_tree {d_ms:.2f} ms of it "
+          f"({d_ms / step_ms:.3f})", flush=True)
+    del cache
+
+    # the float-plane K1 at the operands of one drifted prefill and one
+    # drifted decode step
+    results = {}
+    for dt in ("int8", "int4"):
+        pd = drift_tree(arts[dt].params, source, sched.at(DRIFT_T0))
+        for what, fn in (
+                ("prefill", lambda: model.forward(pd, tokens, dcfg[dt])),
+                ("decode", lambda: model.decode_step(
+                    pd, model.init_cache(cfg, b, max_len), tokens[:, :1],
+                    dcfg[dt]))):
+            calls = _capture_kernel_calls(fn)
+            check(len(calls["cim_matmul_transformer"]) == k1_fwd
+                  and len(calls["cim_matmul_experts"]) == k6_fwd,
+                  f"12b {dt} {what}: captured "
+                  f"{({k: len(v) for k, v in calls.items()})}")
+            tot = _time_float_k1(torch, calls["cim_matmul_transformer"],
+                                 errs, mc["reps"])
+            print(f"phase 12b cim_matmul_drift {dt} {what}: "
+                  f"{_fmt_total(tot, f'{k1_fwd} launches', 'FP64 ops')}",
+                  flush=True)
+            if dt == "int8" and what == "prefill":
+                results["cim_matmul_drift"] = tot
+        del pd
+    results["cim_matmul_drift"]["launches"] = launched["int8"][1][
+        "cim_matmul"]
+    print(f"phase 12b max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (the "
+          f"float-plane K1 writes its planes as float64 per launch)",
+          flush=True)
+
+    # (f) the metrics of the counted int8 engine
+    eng = engines["int8"]
+    m = eng.metrics()
+    text = json.dumps(m)
+    names = {_sanitize(v) for k, v in vars(M).items() if k.isupper()}
+    typed = {ln.split()[2] for ln in eng.registry.to_prometheus().splitlines()
+             if ln.startswith("# TYPE")}
+    snap = m["metrics"]
+    check(snap["counters"][M.TOKENS_GENERATED] == b * steps
+          and m["throughput"]["tokens_generated"] == b * steps,
+          f"12f: token counter {snap['counters'][M.TOKENS_GENERATED]}, "
+          f"{b * steps} tokens emitted")
+    check(snap["histograms"][M.DECODE_STEP_SECONDS]["count"] == new
+          and snap["histograms"][M.PREFILL_SECONDS]["count"] == 1,
+          f"12f: decode histogram {snap['histograms']}, {new} steps")
+    check(typed and typed <= names, f"12f: Prometheus names {typed} not "
+          f"all among {sorted(names)}")
+    print(f"phase 12f metrics(): {len(text)} bytes of JSON; tokens "
+          f"{snap['counters'][M.TOKENS_GENERATED]}, decode steps "
+          f"{snap['histograms'][M.DECODE_STEP_SECONDS]['count']} (p50 "
+          f"{snap['histograms'][M.DECODE_STEP_SECONDS]['p50'] * 1e3:.2f} ms), "
+          f"{m['throughput']['tokens_per_sec']:.1f} tokens/s in decode; "
+          f"health score {m['health']['score']:.3f}, drifted "
+          f"{m['health']['drifted']}; Prometheus metrics {sorted(typed)}",
+          flush=True)
+    del engines, eng
+
+    # (c) column-only drift at t 400, recalibrated in place. The random
+    # init's scales are not calibrated (s_p 8, s_a 1: the 6-bit ADC sees a
+    # few levels), and there the ADC's re-rounding of the drifted partial
+    # sums sets the error floor. The gate is the reference's, which holds
+    # a calibrated linear: each drifting node's s_a and s_p are calibrated
+    # on its input in one prefill (the paper's one-batch calibration,
+    # ``_calibrate_linear``); the planes do not change. The same delta on
+    # the uncalibrated pack is printed beside it.
+    from repro_torch.core.cim_linear import _calibrate_linear
+    csched = DriftSchedule(col_rate=DRIFT_SCHED["col_rate"])
+    csource = Sampler(DRIFT_SEED + 1)
+    st = csched.at(COL_T)
+    uncal = arts["int8"].params
+    cal = _calibrated(torch, model, uncal, params, tokens, dcfg["int8"],
+                      _calibrate_linear)
+    ceng = engine_from_artifact(dataclasses.replace(arts["int8"], params=cal),
+                                cfg, batch_size=b, max_len=max_len,
+                                drift_key=csource, drift_schedule=csched)
+    ceng.t = COL_T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    delta = ceng.recalibrate(probes=RECAL_PROBES)
+    torch.cuda.synchronize()
+    recal_s = time.perf_counter() - t0
+    ratios, lerr = {}, {}
+    for label, pristine, recal_params in (
+            ("calibrated", ceng.params_clean(), ceng.params),
+            ("uncalibrated", uncal, apply_scale_delta_params(uncal, delta))):
+        inputs = _node_inputs(torch, model, pristine, tokens, dcfg["int8"])
+        check(len(inputs) == k1_fwd, f"12c: {len(inputs)} drifting linears "
+              "seen in a prefill")
+        drifted = drift_tree(pristine, csource, st)
+        recal = drift_tree(recal_params, csource, st)
+        ratios[label] = []
+        for (path, i), x in inputs.items():
+            ys = [api_linear(x, _node_slice(tree, path, i),
+                             arts["int8"].config, compute_dtype=torch.float32)
+                  for tree in (pristine, drifted, recal)]
+            e_d = float(torch.linalg.norm((ys[1] - ys[0]).double()))
+            e_r = float(torch.linalg.norm((ys[2] - ys[0]).double()))
+            ratios[label].append(e_r / e_d)
+            if label == "calibrated":
+                check(e_r < RECAL_GATE * e_d, f"12c: {'/'.join(path)}[{i}] "
+                      f"recalibrated error {e_r!r} not under {RECAL_GATE} x "
+                      f"the drifted {e_d!r}")
+        lg0 = model.forward(pristine, tokens, dcfg["int8"]).double()
+        lerr[label] = [float(torch.linalg.norm(
+            model.forward(tree, tokens, dcfg["int8"]).double() - lg0))
+            / float(torch.linalg.norm(lg0)) for tree in (drifted, recal)]
+        del inputs, drifted, recal, lg0
+    print(f"phase 12c column drift (sigma_col {COL_T * csched.col_rate}, t "
+          f"{COL_T}): recalibrate(probes={RECAL_PROBES}) in {recal_s:.3f} s, "
+          f"{len(delta.gains)} nodes; at one prefill's activations, per "
+          f"drifted linear (layer slice), recalibrated / drifted output "
+          f"error " + "; ".join(
+              f"{k} {min(v):.4f}-{max(v):.4f} (model logit error "
+              f"{lerr[k][0]:.6f} drifted, {lerr[k][1]:.6f} recalibrated)"
+              for k, v in ratios.items())
+          + f"; gate {RECAL_GATE} on the calibrated scales", flush=True)
+    del ceng, cal
+
+    # (d) hard drift: the monitor trips, the fallback serves the ref
+    # backend on the pristine planes, recalibrate() clears it
+    heng = engine_from_artifact(
+        arts["int8"], cfg, batch_size=2, max_len=max_len, drift_key=source,
+        drift_schedule=sched, health=DriftMonitor(HealthConfig(
+            warmup=2, soft_threshold=0.0, hard_threshold=0.0)))
+    heng.t = DRIFT_T0
+    heng.generate_batch(prompts[:2], 6)
+    h = heng.health()
+    check(h["fallback_active"] and h["hard_events"] >= 1,
+          f"12d: hard drift did not trip the fallback: {h}")
+    tripped_at = h["drifted_at"]
+    slot_prompts = sv["slot_prompts"][:len(FALLBACK_REQUESTS)]
+    first_span = len(heng.tracer.spans)
+    torch.cuda.synchronize()
+    _reset_counters()
+    fb = _slot_run(heng, slot_prompts, FALLBACK_REQUESTS)
+    torch.cuda.synchronize()
+    fb_launches, _ = _read_counters()
+    check(not any(fb_launches.values()), f"12d: fallback steps launched "
+          f"CIM kernels: {fb_launches}")
+    fb_ms = [1e3 * sp.duration for sp in heng.tracer.spans[first_span:]
+             if sp.name == "serve.decode.step"]
+    ref_eng = ServingEngine(model, cfg.replace(
+        cim=arts["int8"].config.replace(mode="ref")), arts["int8"].params,
+        batch_size=2, max_len=max_len)
+    ref_slots = _slot_run(ref_eng, slot_prompts, FALLBACK_REQUESTS)
+    check(fb == ref_slots and all(fb), f"12d: fallback tokens {fb} against a "
+          f"ref-backend engine's {ref_slots}")
+    heng.recalibrate()
+    h = heng.health()
+    check(not h["fallback_active"] and h["recalibrations"] == 1,
+          f"12d: recalibrate() left {h}")
+    print(f"phase 12d hard drift (HealthConfig warmup 2, thresholds 0): "
+          f"fallback active after step {tripped_at}; the slot engine "
+          f"on the fallback ({len(FALLBACK_REQUESTS)} requests): launches "
+          f"{fb_launches}, tokens equal a ref-backend engine's on the "
+          f"pristine planes; a fallback decode step {np.median(fb_ms):.2f} "
+          f"ms (host clock, median of {len(fb_ms)}); recalibrate() cleared "
+          f"it, recalibrations {h['recalibrations']}", flush=True)
+    del heng, ref_eng
+
+    # (e) the ADC collector armed on one clean prefill
+    p8, c8 = arts["int8"].params, dcfg["int8"]
+    ev = _step_events(torch)
+    ev[0].record()
+    y_off = model.forward(p8, tokens, c8)
+    ev[1].record()
+    torch.cuda.synchronize()
+    off_ms = ev[0].elapsed_time(ev[1])
+    _reset_counters()
+    with adc.sampled(every_n=1):
+        ev = _step_events(torch)
+        ev[0].record()
+        y_on = model.forward(p8, tokens, c8)
+        ev[1].record()
+        s_on = adc.summary()
+        torch.cuda.synchronize()
+        on_ms = ev[0].elapsed_time(ev[1])
+    armed, _ = _read_counters()
+    per_expert = k1_fwd + k6_fwd * cfg.moe.n_experts
+    check(torch.equal(y_on, y_off), "12e: armed deploy logits differ from "
+          "the disarmed ones")
+    check(armed["cim_matmul_experts"] == 0
+          and armed["cim_matmul"] == per_expert
+          and s_on["kernel_invocations"] == per_expert,
+          f"12e: armed launches {armed}, collector {s_on}; expected 0 K6 "
+          f"and {per_expert} K1 (one per expert)")
+    with adc.sampled(every_n=1):
+        model.forward(params, tokens, cfg)
+        s_em = adc.summary()
+    check((s_em["saturated"], s_em["conversions"])
+          == (s_on["saturated"], s_on["conversions"]),
+          f"12e: deploy's ADC counts {s_on} against emulate's exact "
+          f"counters {s_em}")
+    with adc.sampled(every_n=ADC_EVERY_N):
+        model.forward(p8, tokens, c8)
+        s_n = adc.summary()
+    check(s_n["kernel_invocations"] == per_expert
+          and s_n["samples_folded"] == math.ceil(per_expert / ADC_EVERY_N),
+          f"12e: every_n {ADC_EVERY_N} folded {s_n}")
+    print(f"phase 12e ADC collector armed (every_n 1) on a clean prefill: "
+          f"logits bit-equal to disarmed; launches {armed} (per expert, as "
+          f"the reference); deploy (saturated, conversions) "
+          f"({s_on['saturated']}, {s_on['conversions']}) = emulate's exact "
+          f"counters, clip rate {s_on['clip_rate']:.6f}, worst column "
+          f"{s_on['worst_col_rate']:.4f}; every_n {ADC_EVERY_N} folded "
+          f"{s_n['samples_folded']} of {s_n['kernel_invocations']}; armed "
+          f"forward {on_ms:.2f} ms against {off_ms:.2f} disarmed (CUDA "
+          f"events)", flush=True)
+    del y_on, y_off
+
+    # (g) the ResNet-20 drift sweep at full width, int8
+    rcfg = dataclasses.replace(resnet20["cfg"],
+                               cim=resnet20["cim"].replace(mode="deploy"))
+    x, y = make_image_dataset(n_classes=10, hw=32, n=BATCH, seed=3)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    sweep = monte_carlo_resnet(resnet20["packed"], resnet20["state"], rcfg,
+                               x, y, seed=0, n_samples=SWEEP_SAMPLES,
+                               batch=BATCH,
+                               drift_schedule=DriftSchedule(**SWEEP_DRIFT),
+                               drift_ts=SWEEP_TS)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    ln, fl = _read_counters()
+    n_fwd = SWEEP_SAMPLES * len(SWEEP_TS)
+    err = sweep.logit_err
+    check(bool(np.all(np.isfinite(err)))
+          and bool(np.all(np.diff(err, axis=0) >= 0)),
+          f"12g: a sample's logit error falls with t: {err.tolist()}")
+    check(fl["cim_conv"] == 20 * n_fwd and ln["cim_conv"] == 20 * n_fwd + 20
+          and ln["plain_gathers"] == 0,
+          f"12g: launches {ln}, on float planes {fl}; expected 20 "
+          f"float-plane K3 per drifted forward ({n_fwd}) and 20 clean")
+    print(f"phase 12g ResNet-20 drift sweep ({SWEEP_DRIFT}, t {SWEEP_TS}, "
+          f"{SWEEP_SAMPLES} samples x {BATCH} images, int8) in "
+          f"{sweep_s:.2f} s: mean logit error "
+          + ", ".join(f"t {int(t)}: {e:.6f}" for t, e in
+                      zip(sweep.sigmas, err.mean(axis=1)))
+          + f"; launches {ln}, on float planes {fl} (20 float-plane K3 per "
+          f"drifted forward)", flush=True)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s; max memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    return results
 
 
 if __name__ == "__main__":

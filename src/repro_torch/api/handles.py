@@ -29,9 +29,11 @@ from .backends import get_backend, packers_for
 class Variation:
     """One device realization of log-normal cell noise: ``source`` is a
     theta tensor over the logical packed layout or a ``Sampler``, ``std``
-    its sigma (``None`` falls back to ``cfg.variation_std``)."""
+    its sigma (``None`` falls back to ``cfg.variation_std``). With a
+    ``DriftState`` as ``std`` it is one drift realization, and ``source``
+    a drift source (``core.variation.DriftSource``)."""
     source: object = None
-    std: Optional[float] = None
+    std: object = None
 
 
 def _vs(variation: Optional[Variation]):

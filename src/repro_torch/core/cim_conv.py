@@ -15,7 +15,9 @@ apply the activation scale after the shift-and-add and are bit-identical
 within the port, with cell variation too: the noise is drawn over the 6-D
 packed layout (S, k_tiles, kh, kw, c_per_array, C_out) on both paths, and
 under variation the emulate grouped conv runs in float64, as the deploy
-kernel runs its MACs.
+kernel runs its MACs. A ``DriftState`` sigma with a drift source flows the
+same way. When the ``obs.adc`` collector is armed, emulate records its
+exact ADC counters on the detached partial sums.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.kernels.ref import conv_pads, shift_add
+from repro_torch.obs import adc as obs_adc
 
 from .bitsplit import split_digits
 from .cim_linear import (CIMConfig, _deprecated, _deq_w, _group_scale,
@@ -178,6 +181,9 @@ def _forward_conv_emulate(x, params, cfg, stride, padding, variation, sigma,
         psum = round_ste(psum)
     if cfg.psum_quant:
         s_p = t.broadcast_psum_scale(params["s_p"])
+        if obs_adc.enabled() and obs_adc.will_fold():
+            # exact counters on the detached partial sums
+            obs_adc.record(psum, s_p, cfg.psum_bits)
         psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True)
     y = shift_add(psum, _deq_w(params, cfg, t))
     y = y * torch.clamp_min(s_a, 1e-9)

@@ -27,7 +27,11 @@ Cell variation (``core.variation``): a forward takes ``variation`` (a
 theta tensor or a ``Sampler``) and ``variation_std``; the noise lands on
 the logical packed layout (S, k_tiles, rows, N) on both paths. Under
 variation the emulate MACs run in float64, as the deploy kernel and its
-plain version run them, so the two stay bit-identical.
+plain version run them, so the two stay bit-identical. A ``DriftState``
+sigma with a drift source flows the same way.
+
+When the ``obs.adc`` collector is armed, emulate records its exact ADC
+counters on the detached partial sums (QAT's autograd is untouched).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels.ref import shift_add
+from repro_torch.obs import adc as obs_adc
 
 from .bitsplit import place_values, split_digits
 from .granularity import ArrayTiling, Granularity
@@ -317,6 +322,9 @@ def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype):
         # snap float roundoff to the integer grid, straight through
         psum = round_ste(psum)
         s_p = _full_psum_scale(params, t)
+        if obs_adc.enabled() and obs_adc.will_fold():
+            # exact counters on the detached partial sums
+            obs_adc.record(psum, s_p, cfg.psum_bits)
         psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True)
     y = shift_add(psum, _deq_w(params, cfg, t))
     y = y * torch.clamp_min(s_a, 1e-9)

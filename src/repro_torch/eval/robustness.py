@@ -1,12 +1,14 @@
 """Monte-Carlo cell-variation robustness harness (paper §IV-E, Fig. 10),
-counterpart of ``repro.eval.robustness`` for a static sigma grid.
+counterpart of ``repro.eval.robustness``.
 
 The sweep runs on the packed backend the config names (deploy, ref,
 adc_free or binary): the packed planes are built once, and each
 Monte-Carlo sample perturbs them at dispatch with its own ``Sampler``
 (seed, sample index). Sample ``i`` draws the same theta field at every
 sigma (common random numbers), so the sigma-monotonicity of the error
-curve is not drowned by sampling noise.
+curve is not drowned by sampling noise. With a ``DriftSchedule`` the
+grid is the request count ``t`` instead, and sample ``i``'s persistent
+drift fields (cell, column) are the same at every ``t``.
 
 Per-layer attribution re-evaluates each CIM conv on its clean input tap
 with the same per-layer sampler the end-to-end forward uses, so a layer's
@@ -15,7 +17,7 @@ entry reflects the noise its own arrays inject.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +26,7 @@ from repro_torch import resolve_device, to_device
 from repro_torch.api import conv2d, linear
 from repro_torch.api.artifact import _packed_config
 from repro_torch.core.cim_linear import CIMConfig
-from repro_torch.core.variation import Sampler
+from repro_torch.core.variation import DriftSchedule, Sampler
 from repro_torch.models import resnet
 
 
@@ -87,16 +89,26 @@ def monte_carlo_linear_error(packed: Dict[str, torch.Tensor], cfg: CIMConfig,
 
 
 def monte_carlo_resnet(params: Dict, state: Dict, cfg: "resnet.ResNetConfig",
-                       x, y, *, seed: int,
+                       x, y, *, seed,
                        sigmas: Sequence[float] = (0.0, 0.1, 0.2, 0.3, 0.4),
                        n_samples: int = 4, batch: int = 128,
+                       drift_schedule: Optional[DriftSchedule] = None,
+                       drift_ts: Sequence[int] = (0, 64, 128, 256, 512),
                        device=None) -> RobustnessSweep:
     """Sigma-grid Monte-Carlo accuracy and logit-error sweep of a ResNet.
     ``params`` is the ``api.pack_model`` tree for a packed ``cfg.cim.mode``
     (deploy, adc_free, binary), or trainable params for emulate. Sample
-    ``i`` uses ``Sampler(seed, sample=i)`` at every sigma."""
+    ``i`` uses ``Sampler(seed, sample=i)`` at every sigma; ``seed`` may
+    also be a source with the sampler's ``at``/``for_layer`` (a drift
+    source handing in fields drawn elsewhere).
+
+    With ``drift_schedule`` the grid is ``drift_ts`` (request counts,
+    reported in ``RobustnessSweep.sigmas``) and each evaluation perturbs
+    with ``drift_schedule.at(t)``; a schedule with every rate at zero
+    skips the evaluations (each reads the clean accuracy)."""
     dev = resolve_device(device)
     params, state = to_device(params, dev), to_device(state, dev)
+    source = seed if hasattr(seed, "at") else Sampler(seed)
     n = len(x)
     xb_list = [torch.as_tensor(x[i:i + batch], device=dev)
                for i in range(0, n, batch)]
@@ -110,24 +122,31 @@ def monte_carlo_resnet(params: Dict, state: Dict, cfg: "resnet.ResNetConfig",
     acc_clean = sum(int((lg.argmax(-1).cpu().numpy() == yb).sum())
                     for lg, yb in zip(clean, yb_list)) / n
     clean_sq = sum(float((lg.double() ** 2).sum()) for lg in clean)
-    grid = tuple(float(s) for s in sigmas)
+    if drift_schedule is not None:
+        grid = tuple(int(t) for t in drift_ts)
+        clean_at = [drift_schedule.is_static_zero] * len(grid)
+    else:
+        grid = tuple(float(s) for s in sigmas)
+        clean_at = [g <= 0.0 for g in grid]
     acc = np.zeros((len(grid), n_samples))
     err = np.zeros((len(grid), n_samples))
     for i in range(n_samples):
-        sampler = Sampler(seed, sample=i)
-        for si, sigma in enumerate(grid):
-            if sigma <= 0.0:
+        sampler = source.at(i)
+        for si, g in enumerate(grid):
+            if clean_at[si]:
                 acc[si, i] = acc_clean
                 continue
+            std = drift_schedule.at(g) if drift_schedule is not None else g
             correct, diff_sq = 0, 0.0
             for xb, yb, lg_c in zip(xb_list, yb_list, clean):
-                lg = logits(xb, variation=sampler, variation_std=sigma)
+                lg = logits(xb, variation=sampler, variation_std=std)
                 correct += int((lg.argmax(-1).cpu().numpy() == yb).sum())
                 diff_sq += float(((lg - lg_c).double() ** 2).sum())
             acc[si, i] = correct / n
             err[si, i] = np.sqrt(diff_sq) / (np.sqrt(clean_sq) + 1e-12)
-    return RobustnessSweep(sigmas=grid, n_samples=n_samples, acc=acc,
-                           logit_err=err, acc_clean=acc_clean)
+    return RobustnessSweep(sigmas=tuple(float(g) for g in grid),
+                           n_samples=n_samples, acc=acc, logit_err=err,
+                           acc_clean=acc_clean)
 
 
 def per_layer_attribution(params: Dict, state: Dict,

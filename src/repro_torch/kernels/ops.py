@@ -14,19 +14,46 @@ Cell variation (``variation`` = a theta tensor or a ``Sampler``, with
 planes are unpacked first (``groups = kh*kw`` for conv), the noise is
 drawn over the logical packed layout (6-D for conv), and the kernel gets
 float32 logical planes with the clean occupancy map, which multiplicative
-noise leaves valid.
+noise leaves valid. A ``DriftState`` sigma with a drift source flows the
+same way.
+
+Observability (DESIGN.md §12): when the ``obs.adc`` collector is armed,
+``cim_matmul`` and ``cim_conv`` (ADC on, not adc_free) add a per-column
+ADC saturation side-output: the partial sums of the planes the kernel
+multiplies are recomputed by a float32 einsum beside the kernel call
+(the kernel never materializes them) and handed to ``obs.adc.record``.
+The main output is untouched; a disarmed call, or an armed one the
+collector's ``every_n`` will not fold, computes nothing extra. The conv's
+side-output gathers its patches itself and counts them in
+``_record_saturation.cuda_gathers``, apart from
+``ref.extract_conv_patches.cuda_gathers``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.variation import perturb_digits, variation_wanted
+from repro_torch.obs import adc as obs_adc
 
 from . import ref
 from .cim_adc_free import cim_conv_adc_free_cuda, cim_matmul_adc_free_cuda
 from .cim_conv import cim_conv_cuda
 from .cim_matmul import (cim_matmul_cuda, cim_matmul_experts_cuda,
                          logical_digits)
+
+
+def _record_saturation(a2: torch.Tensor, digits: torch.Tensor,
+                       s_p: torch.Tensor, *, psum_bits: int) -> None:
+    """ADC saturation side-output of a fused call (armed only): (M, kt,
+    rows) codes against logical (S, kt, rows, N) planes, the planes the
+    kernel multiplies (cell variation included). The caller has counted
+    the call with ``obs_adc.will_fold()``."""
+    psum = ref.einsum_f32("mtr,strn->mstn", a2.to(torch.float32),
+                          digits.to(torch.float32))
+    obs_adc.record(psum, s_p, psum_bits)
+
+
+_record_saturation.cuda_gathers = 0
 
 
 def cim_matmul(a_t: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
@@ -47,6 +74,10 @@ def cim_matmul(a_t: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
     if variation_wanted(variation, variation_std):
         digits = perturb_digits(logical_digits(digits), variation,
                                 variation_std)
+    if (obs_adc.enabled() and psum_quant and not adc_free
+            and obs_adc.will_fold()):
+        _record_saturation(a2, logical_digits(digits), s_p,
+                           psum_bits=psum_bits)
     if use_kernel and adc_free:
         out = cim_matmul_adc_free_cuda(a2, digits, deq, occ)
     elif use_kernel:
@@ -104,6 +135,15 @@ def cim_conv(a_int: torch.Tensor, digits: torch.Tensor, s_p: torch.Tensor,
             shape=(n_split, k_tiles, kh, kw, c_per_array, c_out))
     geo = dict(kh=kh, kw=kw, stride=stride, padding=padding,
                c_per_array=c_per_array)
+    if (obs_adc.enabled() and psum_quant and not adc_free
+            and obs_adc.will_fold()):
+        k_tiles = digits.shape[1]
+        _record_saturation.cuda_gathers += int(a_int.is_cuda)
+        p_t = ref.gather_conv_patches(a_int, kh, kw, stride, padding,
+                                      k_tiles, c_per_array)
+        _record_saturation(p_t.reshape(-1, k_tiles, p_t.shape[-1]),
+                           logical_digits(digits, groups), s_p,
+                           psum_bits=psum_bits)
     if use_kernel and adc_free:
         return cim_conv_adc_free_cuda(a_int, digits, deq, occ, **geo)
     if use_kernel:

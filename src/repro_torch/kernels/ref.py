@@ -17,7 +17,10 @@ conv kernels their launch arguments, and ``implicit_conv_rows`` mirrors
 their index map (output row -> pixel, logical row -> tap and channel)
 in plain torch.
 ``extract_conv_patches.cuda_gathers`` counts patch gathers run on a CUDA
-tensor, so a run can show that a conv path gathered nothing in torch.
+tensor, so a run can show that a conv path gathered nothing in torch
+(``gather_conv_patches`` is the same gather, uncounted, for the ADC
+collector's side-output, which counts its own). ``einsum_f32`` is an
+einsum in full float32, never TF32.
 """
 from __future__ import annotations
 
@@ -141,6 +144,19 @@ def cim_matmul_adc_free_ref(a_t: torch.Tensor, digits: torch.Tensor,
     return shift_add(torch.round(_psum(a_t, digits)), deq.to(torch.float32))
 
 
+def einsum_f32(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in full float32: on the card with TF32 matmuls off
+    for the call (restored after)."""
+    if not any(o.is_cuda for o in operands):
+        return torch.einsum(eq, *operands)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.einsum(eq, *operands)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def _psum(a_t: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """(M, S, kt, N) float32 partial sums from float64 MACs."""
     return torch.einsum("mtr,strn->mstn", a_t.to(torch.float64),
@@ -250,6 +266,14 @@ def extract_conv_patches(a: torch.Tensor, kh: int, kw: int, stride: int,
     Keeps the input dtype. Counts its calls on a CUDA tensor in
     ``extract_conv_patches.cuda_gathers``."""
     extract_conv_patches.cuda_gathers += int(a.is_cuda)
+    return gather_conv_patches(a, kh, kw, stride, padding, k_tiles,
+                               c_per_array)
+
+
+def gather_conv_patches(a: torch.Tensor, kh: int, kw: int, stride: int,
+                        padding, k_tiles: int,
+                        c_per_array: int) -> torch.Tensor:
+    """``extract_conv_patches`` without its counter."""
     geo = conv_geometry(a.shape, kh, kw, stride, padding, k_tiles,
                         c_per_array)
     b, ho, wo = geo.batch, geo.ho, geo.wo

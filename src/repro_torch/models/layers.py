@@ -339,11 +339,16 @@ def moe_specs(cfg: ModelConfig) -> Dict:
 
 def _batched_experts_ok(p: Dict, nm: str, cfg: ModelConfig) -> bool:
     """The single-launch path: a clean integer (int8 or nibble) deploy bank
-    of one layer (E-leading, rank 5), on the kernel. Every bank size takes
-    it; the reference's 4 MiB gate is a TPU VMEM budget."""
+    of one layer (E-leading, rank 5), on the kernel, with the ADC
+    collector disarmed (armed, every expert runs as its own ``linear``,
+    whose dispatch records the side-output, as the reference does). Every
+    bank size takes it; the reference's 4 MiB gate is a TPU VMEM
+    budget."""
+    from repro_torch.obs import adc as obs_adc
     d = p[f"{nm}_digits"]
     return (cfg.cim.mode == "deploy" and cfg.cim.use_kernel and d.ndim == 5
-            and d.dtype in (torch.int8, torch.uint8))
+            and d.dtype in (torch.int8, torch.uint8)
+            and not obs_adc.enabled())
 
 
 def _bank_scale(full, key: str, bank: torch.Tensor, t) -> torch.Tensor:

@@ -18,7 +18,6 @@ import torch
 from repro_torch import resolve_device, to_device
 from repro_torch.core.cim_conv import _calibrate_conv, _conv_forward, _init_conv
 from repro_torch.core.cim_linear import CIMConfig, _deprecated
-from repro_torch.core.variation import Sampler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +123,12 @@ def conv_layer_names(cfg: ResNetConfig) -> Tuple[Tuple[str, int], ...]:
 
 
 def layer_variation(variation, name: str):
-    """The variation of the CIM conv ``name``: its own sampler
-    (``Sampler.for_layer``), its entry of a {layer name: theta} dict, or
+    """The variation of the CIM conv ``name``: its own sampler or drift
+    source (``for_layer``), its entry of a {layer name: theta} dict, or
     None."""
     if variation is None:
         return None
-    if isinstance(variation, Sampler):
+    if hasattr(variation, "for_layer"):       # a Sampler or a drift source
         return variation.for_layer(name)
     return variation.get(name)
 
@@ -142,12 +141,12 @@ def forward(params: Dict, state: Dict, x, cfg: ResNetConfig, *, train: bool,
     (``api.pack_model``), as ``cfg.cim.mode`` requires. With
     ``return_taps=True`` also returns {layer name: conv input}.
 
-    ``variation`` evaluates one cell-noise realization: a ``Sampler``
-    (each CIM conv draws its own field, ``Sampler.for_layer``) or a dict
-    {layer name: theta over that layer's 6-D logical packed shape}, keyed
-    by ``conv_layer_names`` (the counterpart of the reference's
-    ``variation_keys``). Sigma is ``variation_std``, else
-    ``cfg.cim.variation_std``."""
+    ``variation`` evaluates one cell-noise realization: a ``Sampler`` or
+    a drift source (each CIM conv draws its own field, ``for_layer``) or
+    a dict {layer name: theta over that layer's 6-D logical packed
+    shape}, keyed by ``conv_layer_names`` (the counterpart of the
+    reference's ``variation_keys``). Sigma is ``variation_std`` (a
+    ``DriftState`` for drift), else ``cfg.cim.variation_std``."""
     dev = resolve_device(device)
     params, state = to_device(params, dev), to_device(state, dev)
     x = torch.as_tensor(x, device=dev)

@@ -17,6 +17,11 @@ for every (row, split, tile, column):
   three are equal;
 - bound the sum of the products' magnitudes below 2^53 units of the
   plane's least digit bit, so every partial sum in any order is exact.
+The same holds on the serving launcher's grid, where drift makes the
+planes float32 on every drifted linear (the float-digit matmul's path):
+8-bit codes, 4-bit weights on 2-bit cells (S = 2), rows 128, k_tiles 16
+and 88, under the drift factors of ``tests/test_drift.py``'s schedule at
+t up to 400 and of column-only drift at sigma_col 0.4.
 The plain float-plane conv is also held against the JAX package's Pallas
 conv (interpret mode), theta drawn in JAX and passed in.
 """
@@ -31,7 +36,9 @@ import torch
 
 from repro.core import variation as jvar
 from repro.kernels.cim_conv import cim_conv_pallas
-from repro_torch.core.variation import perturb_digits
+from repro_torch.core.bitsplit import split_digits
+from repro_torch.core.variation import (DriftSchedule, Sampler, drift_tree,
+                                        perturb_digits)
 from repro_torch.kernels import ref
 
 _spec = importlib.util.spec_from_file_location(
@@ -97,6 +104,43 @@ def test_paper_grid_tile_sums_are_exact_in_any_order(sigma, rows, seed):
                          .astype(np.int8))
     theta = rng.standard_normal(d.shape).astype(np.float32)
     _check_exact(a, perturb_digits(d, theta, sigma))
+
+
+#: the drift of tests/test_drift.py::_sched at t 100 and 400, and
+#: column-only drift at sigma_col = 0.4
+SERVING_DRIFTS = {
+    "sched_t100": DriftSchedule(read_sigma=0.02, cell_rate=2e-4,
+                                col_rate=1e-3).at(100),
+    "sched_t400": DriftSchedule(read_sigma=0.02, cell_rate=2e-4,
+                                col_rate=1e-3).at(400),
+    "col_t400": DriftSchedule(col_rate=1e-3).at(400),
+}
+
+
+@pytest.mark.parametrize("drift", sorted(SERVING_DRIFTS))
+@pytest.mark.parametrize("k_tiles", [16, 88])
+@pytest.mark.parametrize("unsigned", [True, False])
+def test_serving_grid_tile_sums_are_exact_in_any_order(drift, k_tiles,
+                                                       unsigned):
+    """The serving launcher's CIM config (chip_smoke.launcher_cim): 4-bit
+    weights split onto 2-bit cells (S = 2), 8-bit codes, 128-row arrays,
+    k_tiles 16 (d_model 2048) and 88 (the dense MLP's down projection,
+    d_ff 11264), the planes drifted as ``drift_tree`` drifts a served
+    node."""
+    rng = np.random.default_rng(k_tiles + len(drift) + unsigned)
+    rows, n = 128, 32
+    lo, hi = (0, 256) if unsigned else (-128, 128)
+    a = torch.from_numpy(rng.integers(lo, hi, (16, k_tiles, rows)).astype(
+        np.uint8 if unsigned else np.int8))
+    w = torch.from_numpy(rng.integers(-8, 8, (k_tiles * rows, n)).astype(
+        np.float32))
+    digits = split_digits(w, 4, 2).reshape(2, k_tiles, rows, n)
+    assert digits.abs().max() <= 3
+    node = {"w_digits": digits.to(torch.int8)}
+    drifted = drift_tree({"wd": node}, Sampler(k_tiles),
+                         SERVING_DRIFTS[drift])["wd"]["w_digits"]
+    assert drifted.dtype == torch.float32
+    _check_exact(a, drifted)
 
 
 @pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES,

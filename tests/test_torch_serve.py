@@ -118,7 +118,10 @@ def test_entry_points_default_to_cuda_and_refuse_unported_keywords(served):
             engine_from_artifact(art, tcfg, batch_size=2, max_len=32)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tapi.model_artifact(art.params, art.config)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ServingEngine(None, tcfg, art.params, health=object(), device=CPU)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        engine_from_artifact(art, tcfg, batch_size=2, max_len=32,
+                             mesh=object(), device=CPU)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ServingEngine(None, tcfg, art.params, mesh=object(), device=CPU)
     with pytest.raises(TypeError):
         ServingEngine(None, tcfg, art.params, bogus=1, device=CPU)
