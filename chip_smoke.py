@@ -115,7 +115,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    the trained params. Gates: the mean loss of the last 20 steps at most
    0.7 x that of the first 20, held-out accuracy at least 0.20 (chance
    0.10). Prints ms per QAT step (CUDA events, median over steps
-   10-300) and the save and load seconds;
+   10-300) and the save and load seconds. The QAT run takes cuDNN's
+   deterministic algorithms, so every run gives the same losses;
 12. drift, recalibration, the health monitor and the telemetry plane,
    on phase 10's packs (``tests/test_drift.py``'s schedule, a
    ``Sampler`` source): (a) a zero schedule serves phase 10's tokens; (b)
@@ -142,7 +143,21 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    ResNet-20 drift sweep (cell and column drift, t 0-512, 4 samples,
    batch 256, int8): the logit error does not fall with t, 20 float-plane
    K3 launches per drifted forward;
-13. a JSON line per kernel, the card's name and power limit, and the
+13. the dense and MLA transformers of the zoo at their published widths,
+   on phase 10's traffic and CIM config, random weights from seed 0,
+   int8 and int4 packs (``ZOO_CASES``): deepseek-v3-671b's three leading
+   dense layers (MLA: q_lora 1536, kv_lora 512, 128 heads; d_ff 18432;
+   ``moe=None``), llama3-8b cut to 4 layers with the bf16 and the int8 KV
+   cache, and qwen3-0.6b uncut (28 layers, qk-norm, tied embeddings).
+   Each: deploy prefill logits against emulate, the engine's and the slot
+   engine's tokens against emulate's per KV cache, 24, 28 and 196 K1
+   launches per forward and no other kernel, prefill and decode times
+   (eager, and a decode step replayed from a CUDA graph against the eager
+   loop's tokens), every K1 call of one prefill forward and one decode
+   step after the prompt held against its plain version and timed beside
+   its bound, the int8 cache's bytes and its tokens' agreement with the
+   bf16 cache's (not a gate), pack seconds and peak memory;
+14. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
@@ -295,7 +310,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 13. results
+    # 13. the dense and MLA transformers of the zoo at published widths
+    timings.update(phase13_zoo(torch, errs))
+
+    # 14. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -344,6 +362,11 @@ KERNELS = {
     # K1 on float32 planes that carry drift: every drifted linear of the
     # MoE transformer, on the FP64 tensor cores
     "cim_matmul_drift": (CUDA_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
+    # K1 at one decode step's operands on the zoo's dense paths: deepseek-v3's
+    # MLA layers (kt up to 144) and llama3-8b (phase 13)
+    "cim_matmul_mla": (MMA_ADC_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
+    "cim_matmul_llama3": (MMA_ADC_SOURCE,
+                          "src/repro/kernels/cim_matmul.py:160"),
 }
 
 
@@ -2291,6 +2314,33 @@ def _trees_bit_equal(torch, got, want, path=""):
     check(bool(torch.equal(got, want)), f"{path}: values differ")
 
 
+def qat_run(torch, qat, data, dev, on_step, deterministic: bool = True):
+    """Phase 11's QAT run on ``data``: ResNet-20 at the paper's widths
+    16/32/64 at 32x32 under ``paper_cim()``, ``QAT_STEPS`` steps at batch
+    ``QAT_BATCH``, lr ``QAT_LR`` cosine, seed 0. Returns ``train_qat``'s
+    result and the wall seconds.
+
+    ``deterministic`` runs it on cuDNN's deterministic conv algorithms.
+    The default ones sum in no fixed order, so the same seed takes another
+    trajectory on every run; at lr 0.05 the harness's LSQ scales grow
+    without bound, in the JAX package's harness too (ROADMAP fault 8), and
+    some trajectories go non-finite. The deterministic algorithms give the
+    same losses on every run."""
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark
+    if deterministic:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    try:
+        out = qat.train_qat(paper_cim(), steps=QAT_STEPS, batch=QAT_BATCH,
+                            lr=QAT_LR, seed=0, data=data, widths=(16, 32, 64),
+                            hw=32, device=dev, on_step=on_step)
+        torch.cuda.synchronize()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    return out, time.perf_counter() - t0
+
+
 def phase11_qat(torch, dev, smi) -> None:
     """train -> checkpoint -> pack -> save -> load -> serve, at full width."""
     import shutil
@@ -2316,12 +2366,7 @@ def phase11_qat(torch, dev, smi) -> None:
             saved.update(params=params, state=state, mom=mom)
             mgr.save(QAT_CKPT_STEP, saved)
 
-    t0 = time.perf_counter()
-    out = qat.train_qat(cim, steps=QAT_STEPS, batch=QAT_BATCH, lr=QAT_LR,
-                        seed=0, data=data, widths=(16, 32, 64), hw=32,
-                        device=dev, on_step=on_step)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    out, wall_s = qat_run(torch, qat, data, dev, on_step)
     step_ms = sorted(events[i - 1].elapsed_time(events[i])
                      for i in range(10, len(events)))
     losses = np.asarray(out["losses"])
@@ -3004,6 +3049,273 @@ def phase12_drift(torch, errs, mc, resnet20):
           f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the dense and MLA transformers of the zoo at published widths
+# ---------------------------------------------------------------------------
+
+#: (results-line entry or None, registry entry, cut, K1 launches per
+#: forward, KV cache dtypes served). deepseek-v3-671b keeps its three
+#: leading dense layers (``moe=None``: d_ff equals dense_d_ff, so the stack
+#: computes exactly those layers; one MoE layer at published widths is
+#: 11.3 G weights, which do not fit one card beside emulate); llama3-8b is
+#: cut to 4 of 32 layers and serves both its KV caches (the int8 one is
+#: the ``flash_kv8`` variant of ``src/repro/launch/perf.py:68``); qwen3-0.6b
+#: runs uncut. K1 per forward: MLA's 5 CIM linears and the MLP's 3 a layer,
+#: GQA's 4 and 3.
+ZOO_CASES = (
+    ("cim_matmul_mla", "deepseek-v3-671b", dict(n_layers=3, moe=None), 8,
+     ("bf16",)),
+    ("cim_matmul_llama3", "llama3-8b", dict(n_layers=4), 7,
+     ("bf16", "int8")),
+    (None, "qwen3-0.6b", {}, 7, ("bf16",)),
+)
+
+
+def zoo_config(arch: str, cut, reduced: bool = False):
+    """Phase 13's model and traffic for ``arch``: the published config with
+    ``cut`` and the serving launcher's CIM config (at ``reduced``, the
+    entry's reduced config with the cut's other fields), phase 10's
+    traffic: 8 prompts of 64 tokens, 16 new tokens, max_len 128; the slot
+    engine at batch 2 on 3 requests."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch, reduced=reduced, cim=launcher_cim())
+    cfg = cfg.replace(**{k: v for k, v in cut.items()
+                         if not (reduced and k == "n_layers")})
+    return dict(cfg=cfg, batch=8, prompt_len=64, new_tokens=16, max_len=128,
+                requests=((5, 4), (3, 2), (4, 3)), reps=10)
+
+
+def _cache_bytes(cache) -> int:
+    return sum(v.numel() * v.element_size() for c in cache.values()
+               for v in c.values())
+
+
+def phase13_zoo(torch, errs, reduced: bool = False):
+    """Each of ``ZOO_CASES`` served through the entry points; returns the
+    results-line sums (one decode step's K1 calls, int8) by entry."""
+    results = {}
+    for entry, arch, cut, k1_layer, kv_dtypes in ZOO_CASES:
+        zc = zoo_config(arch, cut, reduced)
+        t = _zoo_serving(torch, errs, entry or "cim_matmul_" + arch[:5], zc,
+                         k1_layer * zc["cfg"].n_layers, kv_dtypes)
+        if entry is not None:
+            results[entry] = t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def _zoo_serving(torch, errs, name, zc, k1_fwd: int, kv_dtypes):
+    """One zoo model (phase 13): random weights from seed 0 on the card,
+    int8 and int4 packs; deploy prefill logits against emulate; the
+    engine's and the slot engine's greedy tokens against emulate's, per KV
+    cache dtype; the launch counters (``k1_fwd`` K1 per forward, no other
+    kernel); prefill and decode times, eager and replayed from a CUDA
+    graph; every K1 call of one prefill forward and of one decode step
+    (after the prompt) against its plain version, timed beside it and its
+    bound. Returns the int8 decode step's sums with the counted
+    launches."""
+    from repro_torch.api import model_artifact
+    from repro_torch.kernels.relaid import clear_relaid_planes
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import ServingEngine, engine_from_artifact
+
+    cfg = zc["cfg"]
+    model = get_model(cfg)
+    b, tp, new, max_len = (zc["batch"], zc["prompt_len"], zc["new_tokens"],
+                           zc["max_len"])
+    arch = cfg.name
+    errs.setdefault(name, 0.0)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(model.specs(cfg), 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    arts, pack_s = {}, {}
+    for dt in ("int8", "int4"):
+        t0 = time.perf_counter()
+        arts[dt] = model_artifact(params, cfg.cim.replace(pack_dtype=dt),
+                                  meta={"arch": arch})
+        torch.cuda.synchronize()
+        pack_s[dt] = time.perf_counter() - t0
+    planes = {dt: sum(node["w_digits"].numel()
+                      for _, node in _packed_nodes(arts[dt].params))
+              for dt in arts}
+    attn = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora "
+            f"{cfg.mla.kv_lora_rank}, qk_nope {cfg.mla.qk_nope_dim}, qk_rope "
+            f"{cfg.mla.qk_rope_dim}, v_head {cfg.mla.v_head_dim})"
+            if cfg.mla is not None else
+            f"GQA kv {cfg.n_kv_heads}" + (", qk-norm" if cfg.qk_norm else ""))
+    print(f"phase 13 {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, {attn}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.n_layers} layers, tied embeddings "
+          f"{cfg.tie_embeddings}, {cfg.compute_dtype}; init {init_s:.2f} s, "
+          f"pack int8 {pack_s['int8']:.2f} s, int4 {pack_s['int4']:.2f} s; "
+          f"digit planes int8 {planes['int8'] / 1e9:.3f} GB, int4 "
+          f"{planes['int4'] / 1e9:.3f} GB; max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+
+    g = torch.Generator().manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab, (b, tp), generator=g).to(
+        torch.device("cuda"))
+    prompts = tokens.cpu().numpy().astype(np.int32)
+    rng = np.random.default_rng(13)
+    slot_prompts = [rng.integers(0, cfg.vocab, ln).astype(np.int32)
+                    for ln, _ in zc["requests"]]
+
+    # emulate: the reference the deploy path is held against
+    t0 = time.perf_counter()
+    em = model.forward(params, tokens, cfg)
+    em_tok, em_slots = {}, {}
+    for kv in kv_dtypes:
+        kcfg = cfg.replace(kv_cache_dtype=kv)
+        em_tok[kv] = ServingEngine(model, kcfg, params, batch_size=b,
+                                   max_len=max_len).generate_batch(prompts,
+                                                                   new)
+        em_slots[kv] = _slot_run(ServingEngine(model, kcfg, params,
+                                               batch_size=2, max_len=max_len),
+                                 slot_prompts, zc["requests"])
+    torch.cuda.synchronize()
+    em_s = time.perf_counter() - t0
+    del params
+    gc.collect()
+
+    # the main path: only these deploy runs may move the counters
+    _reset_counters()
+    out, invocations = {}, 0
+    for dt in ("int8", "int4"):
+        dcfg = cfg.replace(cim=arts[dt].config)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dp = model.forward(arts[dt].params, tokens, dcfg)
+        end.record()
+        invocations += 1
+        runs = {}
+        for kv in kv_dtypes:
+            kcfg = cfg.replace(kv_cache_dtype=kv)
+            eng = engine_from_artifact(arts[dt], kcfg, batch_size=b,
+                                       max_len=max_len)
+            t0 = time.perf_counter()
+            gen = eng.generate_batch(prompts, new)
+            gen_s = time.perf_counter() - t0
+            slot_eng = engine_from_artifact(arts[dt], kcfg, batch_size=2,
+                                            max_len=max_len)
+            slots = _slot_run(slot_eng, slot_prompts, zc["requests"])
+            invocations += eng.t + slot_eng.t
+            runs[kv] = dict(gen=gen, gen_s=gen_s, slots=slots,
+                            steps=slot_eng.t)
+        torch.cuda.synchronize()
+        out[dt] = dict(logits=dp, fwd_ms=start.elapsed_time(end), runs=runs)
+    launches, _ = _read_counters()
+    check(launches["cim_matmul"] == k1_fwd * invocations,
+          f"{arch}: matmul kernel launched {launches['cim_matmul']} times in "
+          f"{invocations} forwards, expected {k1_fwd} per forward")
+    check(all(v == 0 for k, v in launches.items() if k != "cim_matmul"),
+          f"{arch}: other launches {launches}")
+    scale = float(em.float().abs().max())
+    for dt, r in out.items():
+        y = r["logits"]
+        check(y.shape == (b, tp, cfg.vocab) and bool(torch.isfinite(y).all()),
+              f"{arch} {dt} deploy logits: shape {tuple(y.shape)} or "
+              "non-finite")
+        r["diff"] = float((y.float() - em.float()).abs().max())
+        check(r["diff"] <= 1e-4 * scale, f"{arch} {dt} deploy vs emulate "
+              f"logits: max diff {r['diff']!r} at max |logit| {scale!r}")
+        for kv, run in r["runs"].items():
+            check(run["gen"].shape == (b, new)
+                  and np.array_equal(run["gen"], em_tok[kv]),
+                  f"{arch} {dt} generate_batch tokens ({kv} KV cache) differ "
+                  "from emulate's")
+            check([len(t or ()) for t in run["slots"]]
+                  == [n for _, n in zc["requests"]]
+                  and run["slots"] == em_slots[kv],
+                  f"{arch} {dt} slot engine ({kv} KV cache): {run['slots']} "
+                  f"against emulate {em_slots[kv]}")
+    print(f"phase 13 {arch} main path: {invocations} deploy forwards (int8 "
+          f"and int4: one prefill forward, and per KV cache "
+          f"{'/'.join(kv_dtypes)} generate_batch {b} x {tp} -> {new} and the "
+          f"slot engine on 3 requests at batch 2 in "
+          f"{out['int8']['runs'][kv_dtypes[0]]['steps']} steps); launches "
+          f"{launches} = K1 {k1_fwd} per forward, no other kernel; max "
+          f"|deploy - emulate| int8 {out['int8']['diff']!r}, int4 "
+          f"{out['int4']['diff']!r} (max |logit| {scale!r}); served tokens "
+          f"equal emulate's; emulate reference runs {em_s:.2f} s",
+          flush=True)
+    if "int8" in kv_dtypes:
+        nbytes = {kv: _cache_bytes(model.init_cache(
+            cfg.replace(kv_cache_dtype=kv), b, max_len)) for kv in kv_dtypes}
+        agree = {dt: int((r["runs"]["int8"]["gen"]
+                          == r["runs"]["bf16"]["gen"]).sum())
+                 for dt, r in out.items()}
+        agree["emulate"] = int((em_tok["int8"] == em_tok["bf16"]).sum())
+        print(f"phase 13 {arch} int8 KV cache: {nbytes['int8']} bytes against "
+              f"{nbytes['bf16']} in bf16 ({nbytes['int8'] / nbytes['bf16']:.4f}"
+              f"); greedy tokens equal to the bf16 cache's run: int8 pack "
+              f"{agree['int8']}, int4 pack {agree['int4']}, emulate "
+              f"{agree['emulate']} of {b * new} (not a gate: the int8 cache "
+              f"is another result; on random weights its rounding moves "
+              f"6-bit ADC decisions, in emulate alike)", flush=True)
+
+    # prefill and decode times, outside the counted run
+    result = None
+    for dt in ("int8", "int4"):
+        p, dcfg = arts[dt].params, cfg.replace(cim=arts[dt].config)
+        prefill_ms = _events_ms(torch, lambda: model.forward(p, tokens, dcfg),
+                                reps=3, warmup=1)
+        for kv in kv_dtypes:
+            kcfg = cfg.replace(kv_cache_dtype=kv)
+            same, replay_ms, eager_ms = _graph_decode(
+                torch, model, kcfg, arts[dt], tokens, b, max_len, new - 1)
+            check(same, f"{arch} {dt} ({kv} KV cache): the decode step "
+                  "replayed from a CUDA graph gave other tokens than the "
+                  "eager decode loop")
+            run = out[dt]["runs"][kv]
+            print(f"phase 13 {arch} {dt} ({kv} KV cache): prefill forward "
+                  f"{prefill_ms:.2f} ms (CUDA events, mean of 3; the counted "
+                  f"run's first {out[dt]['fwd_ms']:.2f} ms); decode "
+                  f"{eager_ms:.2f} ms per step eager, {replay_ms:.2f} ms "
+                  f"replayed from a CUDA graph (medians of {new - 1}; "
+                  f"tokens equal the eager loop's); generate_batch "
+                  f"{run['gen_s']:.3f} s = {b * new / run['gen_s']:.1f} "
+                  f"tokens/s", flush=True)
+
+        # K1 at the operands of one prefill forward and of one decode step
+        # after the prompt (MLA's wkv_b then reads 8 x 65 filled cache rows
+        # of 8 x 128)
+        cache = model.init_cache(cfg, b, max_len)
+        _, cache = model.decode_step(p, cache, tokens, dcfg)
+        for what, fn in (
+                ("prefill", lambda: model.forward(p, tokens, dcfg)),
+                ("decode", lambda: model.decode_step(p, cache, tokens[:, :1],
+                                                     dcfg))):
+            calls = _capture_kernel_calls(fn)
+            lst = calls.pop("cim_matmul_transformer")
+            check(len(lst) == k1_fwd and not any(calls.values()),
+                  f"{arch} {dt} {what}: captured {len(lst)} K1 calls, "
+                  f"expected {k1_fwd}, and "
+                  f"{({k: len(v) for k, v in calls.items()})} others")
+            shapes = sorted({(a[0].shape[0], a[0].shape[1], a[1].shape[-1])
+                             for a, _ in lst})
+            tot = _time_moe_calls(torch, {name: lst}, errs, zc["reps"])[name]
+            print(f"phase 13 {name} {dt} {what}: "
+                  f"{_fmt_total(tot, f'{len(lst)} launches')}; (M, kt, N) "
+                  f"{shapes}", flush=True)
+            if dt == "int8" and what == "decode":
+                result = tot
+        del cache
+    result["launches"] = launches["cim_matmul"]
+    print(f"phase 13 {arch}: max |K1 - plain| {errs[name]!r}; max memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    del arts, out, em
+    clear_relaid_planes()
+    return result
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ the CIM quantization applies uniformly; packed MoE expert banks on the
 ``deploy`` backend run all experts of a bank in one launch of the batched
 CIM experts kernel (``kernels.ops.cim_matmul_experts``).
 
-Ported so far: the GQA and MoE paths of the decoder-only transformer with
-the compute-dtype KV cache. MLA attention, the int8 KV cache
-(``_kv_quantize``) and the conv layers come with ROADMAP queue 1, item 10.
+Ported so far: the decoder-only transformer's GQA attention with the
+compute-dtype or the int8 KV cache (``_kv_quantize``), MLA attention
+(DeepSeek-V3, a latent cache), the MLPs and the MoE block. The conv
+layers (``conv_specs``/``apply_conv``) come with ROADMAP queue 1, item 10.
 """
 from __future__ import annotations
 
@@ -60,10 +61,16 @@ def head_norm_specs(cfg: ModelConfig, hd: int) -> Dict:
     return {"scale": ParamSpec((hd,), torch.float32, "ones", (None,))}
 
 
-def apply_head_rmsnorm(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMSNorm over the last axis with a float32 ``scale``, in float32,
+    back to x's dtype."""
     xf = x.to(torch.float32)
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
-    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def apply_head_rmsnorm(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    return _rms(x, p["scale"])
 
 
 # ---------------------------------------------------------------------------
@@ -218,14 +225,13 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                causal: bool = True, x_kv: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA self-attention (or cross-attention over ``x_kv``). With a decode
-    ``cache`` ({"k", "v", "len"}) the new K/V rows are written in place at
-    each row's ``len`` and the query attends over the prefix; the returned
-    cache holds the same K/V tensors and ``len + T``. As the reference's
-    ``dynamic_update_slice``, the write starts at ``len`` clamped to
-    [0, max_len - T], computed on the device, so it never leaves the cache
-    (``decode_step`` raises on an overrun before it gets here, except
-    under a CUDA-graph capture); the attention keeps the unclamped
-    ``len`` as the query offset and ``len + T`` as the valid length."""
+    ``cache`` ({"k", "v", "len"}, or the int8 cache's {"k", "v",
+    "k_scale", "v_scale", "len"}) the new K/V rows are written in place at
+    each row's ``len`` (``_write_at``) and the query attends over the
+    prefix; the returned cache holds the same tensors and ``len + T``.
+    The int8 cache stores ``_kv_quantize``'s codes and per-(token, head)
+    scales, and the attention reads the whole cache dequantized to the
+    compute dtype, as the reference's path without a mesh does."""
     b, t, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     src = x if x_kv is None else x_kv
@@ -244,25 +250,146 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is not None and x_kv is None:
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet (ROADMAP queue 1, "
-                "item 10)")
         idx = cache["len"]                                   # (B,) int32
-        kc, vc = cache["k"], cache["v"]
-        rows = torch.arange(b, device=kc.device)[:, None]
-        start = idx.to(torch.long).clamp(0, kc.shape[1] - t)
-        cols = start[:, None] + torch.arange(t, device=kc.device)[None, :]
-        kc[rows, cols] = k.to(kc.dtype)
-        vc[rows, cols] = v.to(vc.dtype)
-        new_cache = {"k": kc, "v": vc, "len": idx + t}
-        out = attention(q, kc, vc, causal=True, q_offset=idx, kv_len=idx + t,
-                        chunk=cfg.attn_chunk)
+        rows, cols = _write_at(idx, t, cache["k"])
+        if "k_scale" in cache:                               # int8 KV cache
+            (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+            for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
+                              ("v_scale", vs)):
+                cache[name][rows, cols] = new
+            new_cache = {n: cache[n] for n in ("k", "v", "k_scale",
+                                               "v_scale")}
+            k_at = (new_cache["k"].to(torch.float32)
+                    * new_cache["k_scale"][..., None]).to(k.dtype)
+            v_at = (new_cache["v"].to(torch.float32)
+                    * new_cache["v_scale"][..., None]).to(v.dtype)
+        else:
+            cache["k"][rows, cols] = k.to(cache["k"].dtype)
+            cache["v"][rows, cols] = v.to(cache["v"].dtype)
+            new_cache = {"k": cache["k"], "v": cache["v"]}
+            k_at, v_at = new_cache["k"], new_cache["v"]
+        new_cache["len"] = idx + t
+        out = attention(q, k_at, v_at, causal=True, q_offset=idx,
+                        kv_len=idx + t, chunk=cfg.attn_chunk)
     else:
         out = attention(q, k, v, causal=causal and x_kv is None,
                         chunk=cfg.attn_chunk)
     y = apply_linear(p["wo"], out.reshape(b, t, h * hd), cfg.cim,
                      compute_dtype=cdt(cfg))
+    return y, new_cache
+
+
+def _write_at(idx: torch.Tensor, t: int, cache: torch.Tensor):
+    """(rows, cols) indices of T new positions of each batch row in a
+    (B, max_len, ...) cache. As the reference's ``dynamic_update_slice``,
+    the write starts at ``len`` clamped to [0, max_len - T], computed on
+    the device, so it never leaves the cache (``decode_step`` raises on an
+    overrun before it gets here, except under a CUDA-graph capture); the
+    attention keeps the unclamped ``len`` as the query offset and
+    ``len + T`` as the valid length."""
+    dev = cache.device
+    rows = torch.arange(cache.shape[0], device=dev)[:, None]
+    start = idx.to(torch.long).clamp(0, cache.shape[1] - t)
+    return rows, start[:, None] + torch.arange(t, device=dev)[None, :]
+
+
+def _kv_quantize(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of K/V rows (the
+    reference's ``_kv_quantize``): x (B, T, KvH, hd) -> (int8 codes,
+    (B, T, KvH) float32 scales max|x| / 127 + 1e-9); codes round half to
+    even and clip to +-127. The division is IEEE's on either device (a
+    Python-scalar divisor is a multiply by its reciprocal on CUDA), as the
+    reference's code reads; XLA compiles it as a multiply by the float32
+    reciprocal fused with the add, which moves some scales by an ulp."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    s = amax / torch.full_like(amax, 127.0) + 1e-9
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3): low-rank Q/KV compression, latent cache
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ModelConfig) -> Dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dt = pdt(cfg)
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq_a": linear_specs(d, m.q_lora_rank, cim=cfg.cim, in_axis="embed",
+                             out_axis=None, dtype=dt),
+        "q_a_norm": {"scale": ParamSpec((m.q_lora_rank,), torch.float32,
+                                        "ones", (None,))},
+        "wq_b": linear_specs(m.q_lora_rank, h * qk_dim, cim=cfg.cim,
+                             in_axis=None, out_axis="heads", dtype=dt),
+        "wkv_a": linear_specs(d, m.kv_lora_rank + m.qk_rope_dim, cim=cfg.cim,
+                              in_axis="embed", out_axis=None, dtype=dt),
+        "kv_a_norm": {"scale": ParamSpec((m.kv_lora_rank,), torch.float32,
+                                         "ones", (None,))},
+        "wkv_b": linear_specs(m.kv_lora_rank,
+                              h * (m.qk_nope_dim + m.v_head_dim), cim=cfg.cim,
+                              in_axis=None, out_axis="heads", dtype=dt),
+        "wo": linear_specs(h * m.v_head_dim, d, cim=cfg.cim, in_axis="heads",
+                           out_axis="embed", dtype=dt),
+    }
+
+
+def mla_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor, cache: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA self-attention (the reference's ``mla_attend``). Queries through
+    the q low-rank pair (``wq_a``, RMSNorm, ``wq_b``); keys and values
+    from the normed latent ``ckv`` through ``wkv_b``, with a shared
+    rotary key ``k_rope`` (B, T, 1, r) broadcast over the heads. With a
+    decode ``cache`` ({"ckv", "krope", "len"}) the new latent rows are
+    written in place (``_write_at``'s clamp) and ``wkv_b`` runs over the
+    whole latent cache on every step, as the reference does: it is a CIM
+    linear whose partial sums the ADC quantizes per column, so absorbing
+    it into the query would be another result."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    c = cdt(cfg)
+    q = apply_linear(p["wq_b"],
+                     _rms(apply_linear(p["wq_a"], x, cfg.cim,
+                                       compute_dtype=c),
+                          p["q_a_norm"]["scale"]),
+                     cfg.cim, compute_dtype=c).reshape(b, t, h, qk_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = apply_linear(p["wkv_a"], x, cfg.cim, compute_dtype=c)
+    ckv, k_rope = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    ckv = _rms(ckv, p["kv_a_norm"]["scale"])
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+    new_cache, q_offset, kv_len = None, 0, None
+    if cache is not None:
+        idx = cache["len"]
+        rows, cols = _write_at(idx, t, cache["ckv"])
+        cache["ckv"][rows, cols] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][rows, cols] = k_rope.to(cache["krope"].dtype)
+        new_cache = {"ckv": cache["ckv"], "krope": cache["krope"],
+                     "len": idx + t}
+        ckv, k_rope = new_cache["ckv"], new_cache["krope"]
+        q_offset, kv_len = idx, idx + t
+
+    tk = ckv.shape[1]
+    kv = apply_linear(p["wkv_b"], ckv, cfg.cim, compute_dtype=c).reshape(
+        b, tk, h, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    k = torch.cat([k_nope, k_rope.expand(b, tk, h, m.qk_rope_dim)], dim=-1)
+    # the scale in float32, as the reference's jnp.sqrt of a Python float
+    scale = 1.0 / torch.sqrt(torch.full((), float(qk_dim),
+                                        dtype=torch.float32, device=x.device))
+    out = attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+                    q_offset=q_offset, kv_len=kv_len, chunk=cfg.attn_chunk,
+                    scale=scale)
+    y = apply_linear(p["wo"], out.reshape(b, t, h * m.v_head_dim), cfg.cim,
+                     compute_dtype=c)
     return y, new_cache
 
 

@@ -1,7 +1,8 @@
 """Model registry of the port (counterpart of ``repro.models.registry``):
 family name -> (specs, forward, init_cache, decode_step). The
-``transformer`` family is ported; the others come with ROADMAP queue 1,
-item 10."""
+``transformer`` family is ported (GQA and MLA attention, dense and MoE
+blocks, both KV caches); xlstm, zamba2, whisper and llava come with
+ROADMAP queue 1, item 10."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,5 +32,6 @@ def get_model(cfg: ModelConfig) -> ModelFns:
         return _FAMILIES[cfg.family]
     except KeyError:
         raise KeyError(f"model family {cfg.family!r} is not ported yet "
-                       f"(ROADMAP queue 1, item 10); ported: "
+                       f"(ROADMAP queue 1, item 10: mamba2, xlstm, zamba2, "
+                       f"whisper and llava); ported: "
                        f"{sorted(_FAMILIES)}") from None

@@ -1,13 +1,13 @@
 """Decoder-only LM of the port (counterpart of ``repro.models.transformer``):
-the dense GQA family and its MoE variant, one spec/apply pair driven by
-``ModelConfig``.
+the dense GQA family (llama3, granite, qwen3 with qk-norm, olmo with
+non-parametric LN), MLA (deepseek-v3) and the MoE variants (moonshot,
+deepseek), one spec/apply pair driven by ``ModelConfig``.
 
 Parameters are stacked on a leading layer axis, as the reference stacks
 them for ``lax.scan``; the port runs the stack as a Python loop over
 per-layer views, so ``remat`` and ``scan_layers`` have no effect. Decode
-keeps per-layer KV caches in the compute dtype, stacked the same way and
-written in place. MLA attention (deepseek) comes with ROADMAP queue 1,
-item 10.
+keeps per-layer caches (K/V in the compute dtype or int8 with scales;
+MLA's latent cache), stacked the same way and written in place.
 """
 from __future__ import annotations
 
@@ -21,14 +21,8 @@ from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, constrain, stack_specs
 
 from .layers import (apply_mlp, apply_moe, apply_norm, cdt, gqa_attend,
-                     gqa_specs, mlp_specs, moe_specs, norm_specs, pdt)
-
-
-def _no_mla(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue 1, "
-            "item 10)")
+                     gqa_specs, mla_attend, mla_specs, mlp_specs, moe_specs,
+                     norm_specs, pdt)
 
 
 # ---------------------------------------------------------------------------
@@ -37,7 +31,7 @@ def _no_mla(cfg: ModelConfig) -> None:
 
 def _block_specs(cfg: ModelConfig, *, moe: bool, dense_d_ff: int = 0) -> Dict:
     sp = {"ln1": norm_specs(cfg), "ln2": norm_specs(cfg),
-          "attn": gqa_specs(cfg)}
+          "attn": mla_specs(cfg) if cfg.mla is not None else gqa_specs(cfg)}
     if moe:
         sp["moe"] = moe_specs(cfg)
     else:
@@ -46,7 +40,6 @@ def _block_specs(cfg: ModelConfig, *, moe: bool, dense_d_ff: int = 0) -> Dict:
 
 
 def specs(cfg: ModelConfig) -> Dict:
-    _no_mla(cfg)
     sp: Dict = {
         "embed": ParamSpec((cfg.vocab, cfg.d_model), pdt(cfg), "normal:0.02",
                            ("vocab", "embed")),
@@ -77,8 +70,9 @@ def specs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _block(p: Dict, x, cfg: ModelConfig, positions, cache, moe: bool):
-    h, new_cache = gqa_attend(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
-                              positions=positions, cache=cache)
+    attend = mla_attend if cfg.mla is not None else gqa_attend
+    h, new_cache = attend(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
+                          positions=positions, cache=cache)
     x = x + h
     z = apply_norm(p["ln2"], x, cfg)
     x = x + (apply_moe(p["moe"], z, cfg) if moe else
@@ -135,7 +129,6 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence forward: tokens (B, T) -> logits (B, T', vocab);
     extra_embeds (B, Tp, D) are prepended."""
-    _no_mla(cfg)
     x = _embed(params, tokens, cfg, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.moe is not None:
@@ -155,27 +148,41 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Dict:
     """Per-layer decode caches, stacked on a leading layer axis, on
-    ``device`` (``cuda`` unless ``"cpu"``)."""
-    _no_mla(cfg)
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+    ``device`` (``cuda`` unless ``"cpu"``): K/V in the compute dtype, or
+    with ``kv_cache_dtype="int8"`` int8 codes and float32 per-(token,
+    head) scales; MLA's latent ``ckv`` and rotary key ``krope`` in the
+    compute dtype."""
     dev = resolve_device(device)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     def kv(n_layers):
         shape = (n_layers, batch, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=cdt(cfg), device=dev),
-                "v": torch.zeros(shape, dtype=cdt(cfg), device=dev),
-                "len": torch.zeros((n_layers, batch), dtype=torch.int32,
-                                   device=dev)}
+        if cfg.kv_cache_dtype == "int8":
+            c = {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                 "k_scale": zeros(shape[:-1], torch.float32),
+                 "v_scale": zeros(shape[:-1], torch.float32)}
+        else:
+            c = {"k": zeros(shape, cdt(cfg)), "v": zeros(shape, cdt(cfg))}
+        return {**c, "len": zeros((n_layers, batch), torch.int32)}
+
+    def mla(n_layers):
+        m = cfg.mla
+        return {"ckv": zeros((n_layers, batch, max_len, m.kv_lora_rank),
+                             cdt(cfg)),
+                "krope": zeros((n_layers, batch, max_len, 1, m.qk_rope_dim),
+                               cdt(cfg)),
+                "len": zeros((n_layers, batch), torch.int32)}
+    make = mla if cfg.mla is not None else kv
     if cfg.moe is not None:
         n_dense = cfg.moe.n_dense_layers
-        out = {"moe_layers": kv(cfg.n_layers - n_dense)}
+        out = {"moe_layers": make(cfg.n_layers - n_dense)}
         if n_dense:
-            out["dense_layers"] = kv(n_dense)
+            out["dense_layers"] = make(n_dense)
         return out
-    return {"layers": kv(cfg.n_layers)}
+    return {"layers": make(cfg.n_layers)}
 
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
@@ -187,16 +194,16 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     skipped and the step syncs nothing: it can be captured once and
     replayed, and a replay past ``max_len`` writes as the reference's
     ``dynamic_update_slice`` does, at the start clamped to ``max_len - T``
-    in ``layers.gqa_attend``."""
-    _no_mla(cfg)
+    in ``layers._write_at``."""
     first = next(iter(cache.values()))
     t = tokens.shape[1]
+    max_len = first["ckv" if "ckv" in first else "k"].shape[2]
     capturing = (tokens.is_cuda
                  and torch.cuda.is_current_stream_capturing())
-    if not capturing and int(first["len"].max()) + t > first["k"].shape[2]:
+    if not capturing and int(first["len"].max()) + t > max_len:
         raise ValueError(f"decode cache overrun: {t} new positions at length "
                          f"{int(first['len'].max())} exceed max_len "
-                         f"{first['k'].shape[2]}")
+                         f"{max_len}")
     return _decode_step(params, cache, tokens, cfg)
 
 

@@ -3,8 +3,10 @@ card: the CIM matmul/conv kernel with the ADC (int8 tensor cores on
 integer planes, small M and the split tile loop included), the ADC-free
 matmul/conv, both on float32 digit planes that carry cell variation, and
 the MoE experts kernel (every expert of a bank in one launch, with each
-expert's filled-slot ``counts``); and a MoE decode step captured in a
-CUDA graph.
+expert's filled-slot ``counts``); the ADC matmul at the zoo's long down
+projections (kt up to 256, scales staged per step); a MoE decode step
+captured in a CUDA graph; and the reduced zoo entries (MLA, the int8 KV
+cache, qk-norm) deployed against emulate.
 
 Skips where there is no CUDA device. Imports no JAX, so it also runs on
 a machine that has only PyTorch and the CUDA toolkit:
@@ -476,6 +478,49 @@ def test_moe_transformer_deploy_bit_exact_with_emulate_on_the_card(
     assert torch.equal(y_d, y_e)
 
 
+@pytest.mark.parametrize("arch,kv_cache_dtype,k1_fwd", [
+    ("deepseek-v3-671b", "bf16", 16), ("llama3-8b", "int8", 14),
+    ("qwen3-0.6b", "bf16", 14)])
+def test_zoo_transformer_deploy_bit_exact_with_emulate_on_the_card(
+        arch, kv_cache_dtype, k1_fwd):
+    """The reduced zoo entries in bfloat16 with 128-row arrays (deepseek's
+    MLA as its dense layer only, ``moe=None``; llama3 with the int8 KV
+    cache): deploy logits through K1 alone equal emulate's, and so do a
+    few greedy decode steps through the cache."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cim = CIMConfig(enabled=True, mode="emulate", weight_bits=4, cell_bits=2,
+                    act_bits=8, psum_bits=6, array_rows=128, array_cols=128)
+    cfg = get_config(arch, reduced=True, cim=cim).replace(
+        moe=None, kv_cache_dtype=kv_cache_dtype)
+    model = get_model(cfg)
+    params = init_params(model.specs(cfg), 0)
+    tokens = torch.randint(0, cfg.vocab, (4, 40), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    art = api.model_artifact(params, cim)
+    dcfg = cfg.replace(cim=art.config)
+
+    def run(p, c):
+        cache = model.init_cache(c, 4, 48)
+        logits, cache = model.decode_step(p, cache, tokens, c)
+        outs = [logits]
+        for _ in range(4):
+            tok = torch.argmax(logits[:, -1:].float(), -1).to(torch.int32)
+            logits, cache = model.decode_step(p, cache, tok, c)
+            outs.append(logits)
+        return model.forward(p, tokens, c), outs
+    y_e, dec_e = run(params, cfg)
+    before = cim_matmul_cuda.launches
+    y_d, dec_d = run(art.params, dcfg)
+    torch.cuda.synchronize()
+    assert cim_matmul_cuda.launches == before + 6 * k1_fwd
+    assert y_d.dtype == torch.bfloat16 and torch.isfinite(y_d).all()
+    assert torch.equal(y_d, y_e)
+    assert all(torch.equal(d, e) for d, e in zip(dec_d, dec_e))
+
+
 @pytest.mark.parametrize(
     "m,kt,rows,n,unsigned,nibble,sparse,psum_bits,psum_quant",
     chip_smoke.SMALL_M_CASES)
@@ -659,6 +704,56 @@ def test_cim_matmul_adc_divide_paths_bit_exact_with_plain(psum_bits,
     got = cim_matmul_cuda(a, d, s_p, deq, occ, psum_bits=psum_bits)
     want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=psum_bits)
     assert torch.equal(got, want)
+
+
+# K1 at the zoo's long down projections, where each step's tile scales are
+# staged beside its digits (ROADMAP fault 7): M 512 (prefill) and 8
+# (decode) at kt 112 (llama3-8b's wd), 128 (deepseek-v3's MLA wo), 144 (its
+# dense wd) and 256, N 7168 (64-column tiles at M 512) and 4096 (32), and
+# N 576 at kt 56 (MLA's wkv_a); the serving launcher's S = 2 and 6-bit
+# partial sums
+LONG_K_CASES = ([(m, kt, n) for m in (512, 8) for kt in (112, 128, 144, 256)
+                 for n in (7168, 4096)] + [(512, 56, 576), (8, 56, 576)])
+
+
+@pytest.mark.parametrize("m,kt,n", LONG_K_CASES)
+def test_cim_matmul_long_k_plans_and_is_bit_exact_with_plain(m, kt, n):
+    """The launch plans and runs at any kt up to 256, int8 and nibble
+    planes, and equals the plain version bit for bit."""
+    a, d, packed, s_p, deq, occ = _case(m + kt + n, m=m, kt=kt, rows=128,
+                                        n=n, s=2)
+    want = ref.cim_matmul_ref(a, d, s_p, deq, psum_bits=6)
+    for digits in (d, packed):
+        before = cim_matmul_cuda.launches
+        got = cim_matmul_cuda(a, digits, s_p, deq, occ, psum_bits=6)
+        torch.cuda.synchronize()
+        assert cim_matmul_cuda.launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("psum_bits,psum_quant,sp_scale", [
+    (1, True, 1.0), (4, True, 1e31), (6, True, 1.0), (8, False, 1.0)])
+def test_per_step_scales_in_every_adc_mode_bit_exact_with_plain(
+        psum_bits, psum_quant, sp_scale):
+    """Scales staged per step (kt 130: the digit tiles cannot stay
+    resident) under the sign ADC, the IEEE divide (scales of 1e31 mixed
+    with 1.0 in one block), the reciprocal and psum_quant off; and the
+    experts kernel's zero-row value under the sign ADC, computed from the
+    scales in device memory."""
+    a, d, packed, s_p, deq, occ = _case(psum_bits, m=300, kt=130, rows=128,
+                                        n=200, s=2)
+    s_p = s_p * sp_scale
+    if sp_scale > 1:
+        s_p[0, 0, :8] = 1.0
+    kw = dict(psum_bits=psum_bits, psum_quant=psum_quant)
+    want = ref.cim_matmul_ref(a, d, s_p, deq, **kw)
+    assert torch.equal(cim_matmul_cuda(a, packed, s_p, deq, occ, **kw), want)
+    counts = torch.tensor([0, 40, 3], dtype=torch.int32, device="cuda")
+    ea, ed, es, eq = (x[None].expand(3, *x.shape).contiguous()
+                      for x in (a[:40], d, s_p, deq))
+    got = cim_matmul_experts_cuda(ea, ed, es, eq, counts=counts, **kw)
+    assert torch.equal(got, ref.cim_matmul_experts_ref(ea, ed, es, eq,
+                                                       counts=counts, **kw))
 
 
 def _adc_case_id(c):

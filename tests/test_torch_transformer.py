@@ -411,7 +411,7 @@ def test_attention_matches_reference(chunk, causal, decode):
 
 def test_unported_entries_raise():
     with pytest.raises(KeyError, match="item 10"):
-        get_config("deepseek-v3-671b")
+        get_config("xlstm-1.3b")
     _, tcfg = _cfgs()
     with pytest.raises(KeyError, match="item 10"):
         get_model(dataclasses.replace(tcfg, family="xlstm"))

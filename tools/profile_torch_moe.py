@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the port's MoE transformer serving goes, on a card.
+"""Where the time of the port's transformer serving goes, on a card.
 
-Builds the MoE serving path of ``chip_smoke.py`` (moonshot-v1-16b-a3b at
-its published widths, depth cut to 4 layers, the serving launcher's CIM
-config, bfloat16, int8 planes), then profiles one prefill (batch x
-prompt tokens through the cache) and a run of decode steps under
-``torch.profiler``. Prints, for each: the wall time per step, the
-device's busy share (summed kernel and copy time over wall time), the
-number of device kernels launched per step, and the kernels that take
-the most device time.
+Builds a serving path of ``chip_smoke.py``: by default phase 10's MoE
+transformer (moonshot-v1-16b-a3b at its published widths, depth cut to 4
+layers), or with ``--arch`` a zoo entry of phase 13 with its cut
+(deepseek-v3-671b, llama3-8b, qwen3-0.6b; ``--kv-cache-dtype int8`` for
+the int8 KV cache); the serving launcher's CIM config, bfloat16, int8
+planes. Then profiles one prefill (batch x prompt tokens through the
+cache) and a run of decode steps under ``torch.profiler``. Prints, for
+each: the wall time per step, the device's busy share (summed kernel and
+copy time over wall time), the number of device kernels launched per
+step, and the kernels that take the most device time.
 
-    python3 tools/profile_torch_moe.py [--batch 8] [--prompt 64] [--steps 8]
+    python3 tools/profile_torch_moe.py [--arch llama3-8b] [--batch 8]
+        [--prompt 64] [--steps 8] [--kv-cache-dtype bf16|int8]
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -52,6 +55,8 @@ def main() -> int:
     ap.add_argument("--prompt", type=int, default=64)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--arch", default="moonshot-v1-16b-a3b")
+    ap.add_argument("--kv-cache-dtype", default="bf16")
     args = ap.parse_args()
 
     import torch
@@ -62,7 +67,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import moe_config
+    from chip_smoke import MOE_ARCH, ZOO_CASES, moe_config, zoo_config
     from repro_torch.api import model_artifact
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import init_params
@@ -73,7 +78,16 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"device: {smi}; torch {torch.__version__}", flush=True)
 
-    cfg = moe_config()["cfg"]
+    if args.arch == MOE_ARCH:
+        cfg = moe_config()["cfg"]
+    else:
+        cuts = {arch: cut for _, arch, cut, _, _ in ZOO_CASES}
+        if args.arch not in cuts:
+            ap.error(f"--arch: one of {[MOE_ARCH, *cuts]}")
+        cfg = zoo_config(args.arch, cuts[args.arch])["cfg"]
+    cfg = cfg.replace(kv_cache_dtype=args.kv_cache_dtype)
+    print(f"model: {cfg.name}, {cfg.n_layers} layers, KV cache "
+          f"{cfg.kv_cache_dtype}", flush=True)
     model = get_model(cfg)
     art = model_artifact(init_params(model.specs(cfg), 0), cfg.cim)
     params, dcfg = art.params, cfg.replace(cim=art.config)
