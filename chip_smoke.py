@@ -23,8 +23,9 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    1/4/6/8 and psum_quant off, sparse against dense bit for bit; then
    K3 as an implicit GEMM (``IMPLICIT_ADC_CONV_CASES``: psum_bits 1/4/6,
    psum_quant off, int8 and uint8 codes, stride 1/2, 1x1 and 3x3, ragged
-   M, batch 1), each case on int8 and int4 planes with and without the
-   occupancy map, all four equal;
+   M, batch 1, and the zoo's front ends: 1x3 on H = 1 at C_in 80 and 768,
+   14x14 stride 14 on 3 channels with 196-row tiles), each case on int8
+   and int4 planes with and without the occupancy map, all four equal;
    3b. the same case grid through the ADC-free matmul/conv kernels, and
    float32 digit planes carrying cell variation (sigma 0.3) through both
    kernel families; then the tensor-core ADC-free matmul and the
@@ -157,7 +158,26 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    step after the prompt held against its plain version and timed beside
    its bound, the int8 cache's bytes and its tokens' agreement with the
    bf16 cache's (not a gate), pack seconds and peak memory;
-14. a JSON line per kernel, the card's name and power limit, and the
+14. the recurrent and multimodal zoo at published widths
+   (``RECURRENT_ZOO``), on phase 13's traffic and CIM config, random
+   weights from seed 0: zamba2-2.7b cut to 12 Mamba2 layers (the shared
+   attention block applied twice), xlstm-1.3b cut to 8 blocks (7 mLSTM, 1
+   sLSTM), whisper-small uncut with its conv stem on raw log-mel frames
+   (8 x 3000 x 80: both stem convs on K3, the encoder at M 12,000) and
+   llava-next-mistral-7b cut to 4 layers with its 14x14 patch-embed conv
+   on 336 x 336 images (K3 on 196-row tiles, 576 image tokens before the
+   text); int8 packs, and int4 on whisper. Each: the deploy forward with
+   its front-end input against emulate, served tokens against emulate's
+   (``generate_batch``, or whisper's lockstep run with the encoder states
+   in the cache, and the slot engine), the K1 and K3 counters against the
+   spec tree's CIM nodes (zamba2 38 K1, xlstm 38, whisper 2 K3 and 192 K1
+   a forward and 120 K1 a decode step, llava 1 K3 and 28 K1) with no
+   other kernel and no patch gather in torch, a decode step replayed from
+   a CUDA graph with logits, tokens and caches bit-equal to the eager
+   steps, every K1 and K3 call of one forward and one decode step against
+   its plain version, summed and timed beside its bound, peak memory and
+   the phase's seconds;
+15. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
@@ -312,8 +332,13 @@ def main() -> int:
 
     # 13. the dense and MLA transformers of the zoo at published widths
     timings.update(phase13_zoo(torch, errs))
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 14. results
+    # 14. the recurrent and multimodal zoo at published widths
+    timings.update(phase14_recurrent_zoo(torch, errs))
+
+    # 15. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -367,6 +392,11 @@ KERNELS = {
     "cim_matmul_mla": (MMA_ADC_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
     "cim_matmul_llama3": (MMA_ADC_SOURCE,
                           "src/repro/kernels/cim_matmul.py:160"),
+    # K3 over the zoo's front ends (whisper's 1x3 stem convs on raw
+    # log-mel frames, llava's 14x14 patch embed), and K1 at one decode
+    # step's operands on zamba2 and xlstm (phase 14)
+    "cim_conv_frontend": (MMA_ADC_SOURCE, "src/repro/kernels/cim_conv.py:60"),
+    "cim_matmul_ssm": (MMA_ADC_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
 }
 
 
@@ -625,7 +655,8 @@ ADC_FREE_MATMUL_CASES = (
     (4097, 2, 128, 200, False, 1, True), (129, 5, 126, 64, True, 0, False))
 # the implicit-GEMM conv: (batch, H, W, C_in, k, stride, padding, cpa,
 # C_out, nibble, uint8 codes, occ). C_in 3/14/15/16/29/64 at cpa 14 (16-byte
-# aligned pixels at 16 and 64: direct loads; the rest staged), odd and even
+# aligned pixels at 16 and 64: direct loads; 3 on packed segments, as C_in
+# 29 at cpa 128; the rest staged), odd and even
 # H and W at stride 2 under SAME (pads 0 before, 1 after on even sizes) and
 # VALID, 1x1 projections at cpa 128, blocks that straddle images (H'W' well
 # under a 64-row block), M not a multiple of the block
@@ -643,10 +674,13 @@ IMPLICIT_CONV_CASES = (
     (13, 4, 4, 16, 3, 1, "SAME", 14, 16, False, False, True))
 
 
-def implicit_conv_operands(torch, g, b, h, w, c_in, kh, cpa, n, uns):
-    """Codes (b, h, w, c_in) over their whole range, conv planes (S = 3,
-    digits -8..7) with dead output channels and a dead (split, tile), on
-    the CPU: (a, logical (S, kt, rows, n), nibble planes, occ, deq)."""
+def implicit_conv_operands(torch, g, b, h, w, c_in, kh, kw, cpa, n, uns):
+    """Codes (b, h, w, c_in) over their whole range, kh x kw conv planes
+    (S = 3, digits -8..7) with dead output channels and a dead (split,
+    tile), on the CPU: (a, logical (S, kt, rows, n), int4 planes, occ,
+    deq). The int4 planes are nibble pairs on the channel-slice axis, or,
+    at an odd c_per_array (the pack keeps those dense), the logical
+    planes."""
     from repro_torch.core.nibble import occupancy_map, pack_nibbles
     kt = -(-c_in // cpa)
     if uns:
@@ -655,47 +689,67 @@ def implicit_conv_operands(torch, g, b, h, w, c_in, kh, cpa, n, uns):
     else:
         a = torch.randint(-128, 128, (b, h, w, c_in), generator=g,
                           dtype=torch.int8)
-    d6 = torch.randint(-8, 8, (3, kt, kh, kh, cpa, n), generator=g,
+    d6 = torch.randint(-8, 8, (3, kt, kh, kw, cpa, n), generator=g,
                        dtype=torch.int8)
     d6[..., 1:4] = 0                       # dead output channels
     d6[1, 0] = 0                           # a dead (split, tile)
-    rows = kh * kh * cpa
+    rows = kh * kw * cpa
     logical = d6.reshape(3, kt, rows, n)
-    packed = pack_nibbles(d6).reshape(3, kt, rows // 2, n)
+    packed = (pack_nibbles(d6).reshape(3, kt, rows // 2, n) if cpa % 2 == 0
+              else logical)
     deq = torch.randn((3, kt, n), generator=g) * 0.1
     return a, logical, packed, occupancy_map(d6, conv=True), deq
 
 
 # K3, the ADC conv as an implicit GEMM, on the implicit conv's grid and at
-# batch 1 (ResNet-20's first and last stages): (batch, H, W, C_in, k,
+# batch 1 (ResNet-20's first and last stages): (batch, H, W, C_in, kh, kw,
 # stride, padding, cpa, C_out, uint8 codes, psum_bits, psum_quant). Each
 # case runs on int8 and int4 (nibble) planes, with and without the
 # occupancy map: the four results must be equal, and equal to the plain
-# version. The float-plane cases run the same grid with planes carrying
-# cell variation at each sigma of VARIATION_SIGMAS, ADC and ADC-free.
+# version. The last five are the zoo's front ends at their shapes:
+# whisper's 1x3 stem convs on H = 1 (C_in 80 and 768 at cpa 42: tiles of
+# 126 rows, kt 2 and 19; stride 1 and 2, SAME on an even width of 3000,
+# so the stride-2 conv pads (0, 1); staged loads, no window fits), and
+# llava's 14x14 stride-14 VALID patch embed on 3 channels (cpa 1: tiles of
+# 196 rows, over the exact small-sum conversion's 128; packed segments;
+# its int4 pack stays dense, cpa being odd). The float-plane cases
+# (FLOAT_CONV_CASES) run the grid without the front ends' shapes, which no
+# path runs on float planes (cell variation and drift on the zoo wait for
+# ROADMAP items 12 and 6; the patch embed's 196-row tiles are past the
+# float kernel's exactness bound of 128 rows, csrc/cim_matmul.cu), with
+# planes carrying cell variation at each sigma of VARIATION_SIGMAS, ADC
+# and ADC-free.
 IMPLICIT_ADC_CONV_CASES = (
-    (5, 9, 9, 3, 3, 1, "SAME", 14, 16, True, 4, True),
-    (4, 10, 12, 14, 3, 2, "SAME", 14, 20, False, 1, True),
-    (3, 11, 7, 15, 3, 2, "SAME", 14, 32, True, 6, True),
-    (7, 8, 8, 16, 3, 2, "SAME", 14, 32, True, 4, False),
-    (2, 13, 10, 29, 3, 2, "VALID", 14, 64, False, 4, True),
-    (6, 6, 6, 64, 3, 1, "SAME", 14, 64, True, 1, True),
-    (9, 8, 8, 64, 3, 2, "VALID", 14, 70, True, 6, True),
-    (11, 16, 16, 16, 1, 2, "SAME", 128, 32, True, 1, True),
-    (5, 15, 15, 32, 1, 2, "SAME", 128, 64, False, 4, True),
-    (3, 5, 5, 29, 1, 1, "VALID", 128, 9, True, 6, False),
-    (13, 4, 4, 16, 3, 1, "SAME", 14, 16, False, 4, True),
-    (1, 32, 32, 16, 3, 1, "SAME", 14, 16, True, 1, True),
-    (1, 8, 8, 64, 3, 1, "SAME", 14, 64, False, 6, True))
+    (5, 9, 9, 3, 3, 3, 1, "SAME", 14, 16, True, 4, True),
+    (4, 10, 12, 14, 3, 3, 2, "SAME", 14, 20, False, 1, True),
+    (3, 11, 7, 15, 3, 3, 2, "SAME", 14, 32, True, 6, True),
+    (7, 8, 8, 16, 3, 3, 2, "SAME", 14, 32, True, 4, False),
+    (2, 13, 10, 29, 3, 3, 2, "VALID", 14, 64, False, 4, True),
+    (6, 6, 6, 64, 3, 3, 1, "SAME", 14, 64, True, 1, True),
+    (9, 8, 8, 64, 3, 3, 2, "VALID", 14, 70, True, 6, True),
+    (11, 16, 16, 16, 1, 1, 2, "SAME", 128, 32, True, 1, True),
+    (5, 15, 15, 32, 1, 1, 2, "SAME", 128, 64, False, 4, True),
+    (3, 5, 5, 29, 1, 1, 1, "VALID", 128, 9, True, 6, False),
+    (13, 4, 4, 16, 3, 3, 1, "SAME", 14, 16, False, 4, True),
+    (1, 32, 32, 16, 3, 3, 1, "SAME", 14, 16, True, 1, True),
+    (1, 8, 8, 64, 3, 3, 1, "SAME", 14, 64, False, 6, True),
+    # the front ends
+    (2, 1, 3000, 80, 1, 3, 1, "SAME", 42, 96, False, 6, True),
+    (2, 1, 3000, 768, 1, 3, 2, "SAME", 42, 96, False, 6, True),
+    (3, 1, 64, 80, 1, 3, 2, "SAME", 42, 40, True, 4, True),
+    (2, 336, 336, 3, 14, 14, 14, "VALID", 1, 1024, False, 6, True),
+    (3, 28, 42, 3, 14, 14, 14, "VALID", 1, 40, True, 1, True))
+FLOAT_CONV_CASES = IMPLICIT_ADC_CONV_CASES[:-5]
 VARIATION_SIGMAS = (0.1, 0.2, 0.3, 0.4)
 
 
-def implicit_adc_conv_operands(torch, g, b, h, w, c_in, kh, cpa, n, uns):
+def implicit_adc_conv_operands(torch, g, b, h, w, c_in, kh, kw, cpa, n,
+                               uns):
     """``implicit_conv_operands`` and ADC scales over the partial sums'
-    range: (a, logical, nibble planes, occ, s_p, deq), on the CPU."""
+    range: (a, logical, int4 planes, occ, s_p, deq), on the CPU."""
     a, logical, packed, occ, deq = implicit_conv_operands(
-        torch, g, b, h, w, c_in, kh, cpa, n, uns)
-    rows = kh * kh * cpa
+        torch, g, b, h, w, c_in, kh, kw, cpa, n, uns)
+    rows = kh * kw * cpa
     s_p = 0.5 + torch.rand(deq.shape, generator=g) * (255 if uns else 128) * (
         rows ** 0.5)
     return a, logical, packed, occ, s_p, deq
@@ -718,17 +772,17 @@ def phase3_implicit_adc_cases(torch, dev, errs) -> int:
 
     g = torch.Generator().manual_seed(2)
     for case in IMPLICIT_ADC_CONV_CASES:
-        b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
+        b, h, w, c_in, kh, kw, stride, padding, cpa, n, uns, pb, quant = case
         a, logical, packed, occ, s_p, deq = (
             x.to(dev) for x in implicit_adc_conv_operands(
-                torch, g, b, h, w, c_in, kh, cpa, n, uns))
-        geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
+                torch, g, b, h, w, c_in, kh, kw, cpa, n, uns))
+        geo = dict(kh=kh, kw=kw, stride=stride, padding=padding,
                    c_per_array=cpa, psum_bits=pb, psum_quant=quant)
         outs = [cim_conv_cuda(a, planes, s_p, deq, o, **geo)
                 for planes in (logical, packed) for o in (None, occ)]
         want = ref.cim_conv_ref(a, logical, s_p, deq, **geo)
         torch.cuda.synchronize()
-        what = (f"implicit B={b} {h}x{w}x{c_in} {kh}x{kh} stride {stride} "
+        what = (f"implicit B={b} {h}x{w}x{c_in} {kh}x{kw} stride {stride} "
                 f"{padding} cpa={cpa} N={n} uint8={uns} psum_bits={pb} "
                 f"quant={quant}")
         for got in outs:
@@ -748,18 +802,18 @@ def phase3b_float_implicit_cases(torch, dev, errs) -> int:
 
     g = torch.Generator().manual_seed(3)
     n_cases = 0
-    for case in IMPLICIT_ADC_CONV_CASES:
-        b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
+    for case in FLOAT_CONV_CASES:
+        b, h, w, c_in, kh, kw, stride, padding, cpa, n, uns, pb, quant = case
         a, logical, _, occ, s_p, deq = implicit_adc_conv_operands(
-            torch, g, b, h, w, c_in, kh, cpa, n, uns)
-        geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
+            torch, g, b, h, w, c_in, kh, kw, cpa, n, uns)
+        geo = dict(kh=kh, kw=kw, stride=stride, padding=padding,
                    c_per_array=cpa)
         mq = dict(psum_bits=pb, psum_quant=quant)
         for sigma in VARIATION_SIGMAS:
             a_d, noisy, occ_d, s_d, deq_d = (x.to(dev) for x in (
                 a, varied_planes(torch, g, logical, sigma), occ, s_p, deq))
             what = (f"implicit float sigma {sigma} B={b} {h}x{w}x{c_in} "
-                    f"{kh}x{kh} stride {stride} {padding} N={n} uint8={uns}")
+                    f"{kh}x{kw} stride {stride} {padding} N={n} uint8={uns}")
             for name, sparse, dense, want in (
                     ("cim_conv_variation",
                      cim_conv_cuda(a_d, noisy, s_d, deq_d, occ_d, **geo, **mq),
@@ -857,8 +911,8 @@ def phase3b_new_kernel_cases(torch, dev, errs) -> int:
          sparse) in IMPLICIT_CONV_CASES:
         a, logical, packed, occ, deq = (x.to(dev) for x in
                                         implicit_conv_operands(
-                                            torch, g, b, h, w, c_in, kh, cpa,
-                                            n, uns))
+                                            torch, g, b, h, w, c_in, kh, kh,
+                                            cpa, n, uns))
         geo = dict(kh=kh, kw=kh, stride=stride, padding=padding,
                    c_per_array=cpa)
         got = cim_conv_adc_free_cuda(a, packed if nibble else logical, deq,
@@ -1694,13 +1748,15 @@ def _slot_run(engine, prompts, requests):
 #: the kernel wrappers ``kernels.ops`` calls, by their names in the
 #: results line
 _OPS_WRAPPERS = {"cim_matmul_transformer": "cim_matmul_cuda",
+                 "cim_conv_frontend": "cim_conv_cuda",
                  "cim_matmul_experts": "cim_matmul_experts_cuda",
                  "cim_matmul_adc_free": "cim_matmul_adc_free_cuda"}
 
 
 def _capture_kernel_calls(fn):
-    """Run ``fn`` and return the operands of every CIM matmul, experts and
-    ADC-free matmul kernel call it made through ``kernels.ops``."""
+    """Run ``fn`` and return the operands of every CIM matmul, CIM conv,
+    experts and ADC-free matmul kernel call it made through
+    ``kernels.ops``."""
     import repro_torch.kernels.ops as kops
     calls = {name: [] for name in _OPS_WRAPPERS}
     orig = {name: getattr(kops, w) for name, w in _OPS_WRAPPERS.items()}
@@ -1751,17 +1807,33 @@ def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int,
     return _bytes_ops_ms(nbytes, macs, ops_per_s)
 
 
-def _time_moe_calls(torch, calls, errs, reps: int):
-    """Each captured call timed (CUDA events) beside its plain version and
-    its bound, summed per kernel over the captured run."""
+def _time_captured_calls(torch, calls, errs, reps: int):
+    """Each captured call (``_capture_kernel_calls``: K1, K3, K6 or the
+    ADC-free matmul) timed beside its plain version and its bound, summed
+    per kernel over the captured run."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cim_adc_free import cim_matmul_adc_free_cuda
+    from repro_torch.kernels.cim_conv import cim_conv_cuda
     from repro_torch.kernels.cim_matmul import (cim_matmul_cuda,
                                                 cim_matmul_experts_cuda,
                                                 logical_digits)
     per_call = []
     for name, lst in calls.items():
         for a, kw in lst:
+            if "kh" in kw:                       # K3
+                a_t, digits, s_p, deq = a[:4]
+                occ = a[4] if len(a) > 4 else kw.get("occ")
+                ckw = {k: v for k, v in kw.items() if k != "occ"}
+                logical = logical_digits(digits, kw["kh"] * kw["kw"])
+                kern = (lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ,
+                        ckw=ckw: cim_conv_cuda(a_t, d, sp, dq, o, **ckw))
+                plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq, ckw=ckw:
+                         ref.cim_conv_ref(a_t, d, sp, dq, **ckw))
+                per_call.append(_time_calls(
+                    torch, {name: (kern, plain, None, _conv_bound(
+                        torch, a_t, digits, occ, s_p, deq, ckw))},
+                    f"{name} {tuple(a_t.shape)}", errs, reps))
+                continue
             if name == "cim_matmul_adc_free":
                 a_t, digits, deq = a[:3]
                 occ = a[3] if len(a) > 3 else kw.get("occ")
@@ -1798,8 +1870,12 @@ def _time_moe_calls(torch, calls, errs, reps: int):
             else:
                 kern = (lambda a_t=a_t, d=digits, sp=s_p, dq=deq, o=occ:
                         cim_matmul_cuda(a_t, d, sp, dq, o, **mq))
-                plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq:
-                         ref.cim_matmul_ref(a_t, d, sp, dq, **mq))
+                # in blocks of 1024 rows, each output row being its own
+                # codes' (the float64 partial sums of a whole llava d_ff
+                # linear at 2560 rows would take 19 GB)
+                plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq: torch.cat(
+                    [ref.cim_matmul_ref(a_t[i:i + 1024], d, sp, dq, **mq)
+                     for i in range(0, a_t.shape[0], 1024)]))
                 bound = _moe_bound(torch, a_t, digits, occ, s_p, deq, 0)
             per_call.append(_time_calls(
                 torch, {name: (kern, plain, None, bound)},
@@ -1969,12 +2045,14 @@ def phase10_moe_serving(torch, errs, mc):
               f"step (median of {new - 1}; min {min(steps[1:]):.2f}, max "
               f"{max(steps[1:]):.2f}); generate_batch {out[dt]['gen_s']:.3f} "
               f"s = {b * new / out[dt]['gen_s']:.1f} tokens/s", flush=True)
-        same, replay_ms, eager_ms = _graph_decode(torch, model, cfg, arts[dt],
-                                                  tokens, b, max_len, new - 1)
-        check(same, f"{dt}: the decode step replayed from a CUDA graph gave "
-              "other tokens than the eager decode loop")
+        same, replay_ms, eager_ms = _graph_decode(
+            torch, model, dcfg, p, lambda: model.init_cache(cfg, b, max_len),
+            tokens, new - 1)
+        check(same, f"{dt}: the decode step replayed from a CUDA graph "
+              "differs from the eager steps (logits, tokens or caches)")
         print(f"phase 10 {dt}: one decode step captured in a CUDA graph, "
-              f"replayed {new - 1} times: tokens equal the eager loop's; "
+              f"replayed {new - 1} times: the first step's logits, the "
+              f"tokens and the caches bit-equal to the eager steps'; "
               f"{replay_ms:.2f} ms per step by replay (median; eager "
               f"{eager_ms:.2f} ms in the same loop)", flush=True)
     past = _graph_decode_overrun(torch, model, cfg, arts["int8"], tokens, b,
@@ -2003,7 +2081,7 @@ def phase10_moe_serving(torch, errs, mc):
                   f"{dt} {what}: captured "
                   f"{({k: len(v) for k, v in calls.items()})}, or an experts "
                   "call without counts")
-            tot = _time_moe_calls(torch, calls, errs, mc["reps"])
+            tot = _time_captured_calls(torch, calls, errs, mc["reps"])
             for k, t in tot.items():
                 print(f"phase 10 {k} {dt} {what}: "
                       f"{_fmt_total(t, f'{len(calls[k])} launches')}",
@@ -2048,63 +2126,78 @@ class _CountsSeen:
         return False
 
 
-def _graph_decode(torch, model, cfg, art, tokens, b, max_len, steps):
-    """One deploy decode step captured in a CUDA graph after the prompt and
-    replayed ``steps`` times, each replay's token fed to the next (the
-    caches' lengths copied back between replays): (its tokens equal the
-    eager decode loop's, median ms per replayed step, median ms per eager
-    step), both by CUDA events around each step."""
-    p, dcfg = art.params, cfg.replace(cim=art.config)
+def _graph_decode(torch, model, dcfg, params, new_cache, tokens, steps):
+    """A deploy decode step of any family captured in a CUDA graph after
+    the prompt and replayed ``steps`` times (each replay's token fed to
+    the next; lengths the step returns copied back into the cache), against
+    the same steps run eagerly from the same prompt: (the first step's
+    logits, every step's tokens and the final caches all bit-equal, median
+    ms per replayed step, median ms per eager step). ``new_cache()`` makes
+    a fresh cache (whisper's with its encoder states). The warm-up's
+    writes to the recurrent states are undone before the capture."""
+    from repro_torch import tree_leaves, tree_map
+
+    def copy_back(dst, src):
+        """src's leaves into dst's where they are other tensors (a step
+        returns its caches as they are, and new lengths)."""
+        tree_map(lambda d, s: d is s or d.copy_(s), dst, src)
+
+    def argmax(logits):
+        return torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
 
     def prompt():
-        cache = model.init_cache(cfg, b, max_len)
-        logits, cache = model.decode_step(p, cache, tokens, dcfg)
-        return (torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32),
-                cache)
+        cache = new_cache()
+        logits, cache = model.decode_step(params, cache, tokens, dcfg)
+        return argmax(logits), cache
 
-    def timed(step):
+    def timed(fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = step()
+        out = fn()
         end.record()
         return out, (start, end)
 
     tok, cache = prompt()
-    eager, ev_e = [], []
+    eager, ev_e, first = [], [], None
     for _ in range(steps):
-        def step(tok=tok, cache=cache):
-            logits, cache = model.decode_step(p, cache, tok, dcfg)
-            return (torch.argmax(logits[:, -1:].float(), dim=-1)
-                    .to(torch.int32), cache)
-        (tok, cache), ev = timed(step)
+        (logits, cache), ev = timed(
+            lambda tok=tok, cache=cache: model.decode_step(params, cache, tok,
+                                                           dcfg))
+        if first is None:
+            first = logits.clone()
+        tok = argmax(logits)
         eager.append(tok)
         ev_e.append(ev)
+    eager_cache = cache
 
     tok, cache = prompt()
     static = tok.clone()
+    snap = tree_map(lambda t: t.clone(), cache)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):          # warm-up outside the capture
-        lens = {k: v["len"].clone() for k, v in cache.items()}
-        model.decode_step(p, cache, static, dcfg)
-        for k, v in cache.items():
-            v["len"].copy_(lens[k])
+        model.decode_step(params, cache, static, dcfg)
+        copy_back(cache, snap)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        logits, out_cache = model.decode_step(p, cache, static, dcfg)
-        nxt = torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
-    replayed, ev_g = [], []
+        logits, out_cache = model.decode_step(params, cache, static, dcfg)
+        nxt = argmax(logits)
+    replayed, ev_g, first_g = [], [], None
     for _ in range(steps):
         _, ev = timed(graph.replay)
-        for k, v in cache.items():
-            v["len"].copy_(out_cache[k]["len"])
+        if first_g is None:
+            first_g = logits.clone()
+        copy_back(cache, out_cache)
         static.copy_(nxt)
         replayed.append(nxt.clone())
         ev_g.append(ev)
     torch.cuda.synchronize()
-    same = all(torch.equal(x, y) for x, y in zip(replayed, eager))
+    same = (torch.equal(first, first_g)
+            and all(torch.equal(x, y) for x, y in zip(replayed, eager))
+            and all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(cache), tree_leaves(eager_cache))))
     ms = [float(np.median([s.elapsed_time(e) for s, e in evs]))
           for evs in (ev_g, ev_e)]
     del graph
@@ -2244,7 +2337,7 @@ def phase10_adc_free(torch, errs, mc, model, params, arts, tokens,
                   f"adc_free {dt} {what}: captured {len(lst)} ADC-free "
                   f"matmul calls, expected {k4_fwd}, and "
                   f"{({k: len(v) for k, v in calls.items()})} others")
-            tot = _time_moe_calls(torch, {"cim_matmul_adc_free": lst}, errs,
+            tot = _time_captured_calls(torch, {"cim_matmul_adc_free": lst}, errs,
                                   mc["reps"])["cim_matmul_adc_free"]
             every, once = _relayout_ms(torch, lst)
             print(f"phase 10 cim_matmul_adc_free {dt} {what}: "
@@ -3074,11 +3167,11 @@ ZOO_CASES = (
 
 
 def zoo_config(arch: str, cut, reduced: bool = False):
-    """Phase 13's model and traffic for ``arch``: the published config with
-    ``cut`` and the serving launcher's CIM config (at ``reduced``, the
-    entry's reduced config with the cut's other fields), phase 10's
-    traffic: 8 prompts of 64 tokens, 16 new tokens, max_len 128; the slot
-    engine at batch 2 on 3 requests."""
+    """The model and traffic of phases 13 and 14 for ``arch``: the
+    published config with ``cut`` and the serving launcher's CIM config (at
+    ``reduced``, the entry's reduced config with the cut's fields other
+    than ``n_layers``), phase 10's traffic: 8 prompts of 64 tokens, 16 new
+    tokens, max_len 128; the slot engine at batch 2 on 3 requests."""
     from repro_torch.configs.registry import get_config
     cfg = get_config(arch, reduced=reduced, cim=launcher_cim())
     cfg = cfg.replace(**{k: v for k, v in cut.items()
@@ -3098,37 +3191,52 @@ def phase13_zoo(torch, errs, reduced: bool = False):
     results = {}
     for entry, arch, cut, k1_layer, kv_dtypes in ZOO_CASES:
         zc = zoo_config(arch, cut, reduced)
-        t = _zoo_serving(torch, errs, entry or "cim_matmul_" + arch[:5], zc,
-                         k1_layer * zc["cfg"].n_layers, kv_dtypes)
+        k1 = k1_layer * zc["cfg"].n_layers
+        r = _zoo_serving(torch, errs, zc, entry or "cim_matmul_" + arch[:5],
+                         ((k1, 0), k1), kv_dtypes=kv_dtypes)
         if entry is not None:
-            results[entry] = t
+            results[entry] = dict(r["cim_matmul"]["decode"],
+                                  launches=r["launches"]["cim_matmul"])
         gc.collect()
         torch.cuda.empty_cache()
     return results
 
 
-def _zoo_serving(torch, errs, name, zc, k1_fwd: int, kv_dtypes):
-    """One zoo model (phase 13): random weights from seed 0 on the card,
-    int8 and int4 packs; deploy prefill logits against emulate; the
-    engine's and the slot engine's greedy tokens against emulate's, per KV
-    cache dtype; the launch counters (``k1_fwd`` K1 per forward, no other
-    kernel); prefill and decode times, eager and replayed from a CUDA
-    graph; every K1 call of one prefill forward and of one decode step
-    (after the prompt) against its plain version, timed beside it and its
-    bound. Returns the int8 decode step's sums with the counted
-    launches."""
+def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
+                 kv_dtypes=("bf16",), frontend_batch_size=None, phase=13):
+    """One zoo model (phases 13 and 14): random weights from seed 0 on the
+    card, packed at ``dtypes``; the deploy forward (with the front-end
+    input, over ``frontend_batch_size`` prompts where the family has one)
+    against emulate; the served tokens against emulate's per KV cache
+    dtype: ``generate_batch`` (whisper: a lockstep run through the
+    engine's prefill and decode-step functions, its encoder states in the
+    cache, as the reference's example serves it) and the slot engine; the
+    launch counters against ``counts`` = ((K1, K3) per forward, K1 per
+    decode invocation), no other kernel and no patch gather in torch;
+    prefill and decode times, eager and replayed from a CUDA graph (the
+    replay bit-equal to the eager steps); every K1 (``k1_name``) and K3
+    (``cim_conv_frontend``) call of one prefill forward and of one decode
+    step after the prompt against its plain version, timed beside it and
+    its bound; peak memory. Returns the int8 pack's sums,
+    {"cim_matmul" or "cim_conv": {"prefill" or "decode": sums}}, and the
+    counted ``launches``."""
     from repro_torch.api import model_artifact
     from repro_torch.kernels.relaid import clear_relaid_planes
+    from repro_torch.models import whisper
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import init_params
-    from repro_torch.serve.engine import ServingEngine, engine_from_artifact
+    from repro_torch.serve.engine import (ServingEngine, engine_from_artifact,
+                                          make_decode_step, make_prefill)
 
+    t_model = time.perf_counter()
     cfg = zc["cfg"]
     model = get_model(cfg)
     b, tp, new, max_len = (zc["batch"], zc["prompt_len"], zc["new_tokens"],
                            zc["max_len"])
-    arch = cfg.name
-    errs.setdefault(name, 0.0)
+    arch, fam, tag = cfg.name, cfg.family, f"phase {phase}"
+    (k1_fwd, k3_fwd), k1_step = counts
+    for k in (k1_name, "cim_conv_frontend"):
+        errs.setdefault(k, 0.0)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3136,7 +3244,7 @@ def _zoo_serving(torch, errs, name, zc, k1_fwd: int, kv_dtypes):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     arts, pack_s = {}, {}
-    for dt in ("int8", "int4"):
+    for dt in dtypes:
         t0 = time.perf_counter()
         arts[dt] = model_artifact(params, cfg.cim.replace(pack_dtype=dt),
                                   meta={"arch": arch})
@@ -3145,41 +3253,99 @@ def _zoo_serving(torch, errs, name, zc, k1_fwd: int, kv_dtypes):
     planes = {dt: sum(node["w_digits"].numel()
                       for _, node in _packed_nodes(arts[dt].params))
               for dt in arts}
+
+    g = torch.Generator().manual_seed(phase)
+    tokens = torch.randint(0, cfg.vocab, (b, tp), generator=g).to(
+        torch.device("cuda"))
+    prompts = tokens.cpu().numpy().astype(np.int32)
+    rng = np.random.default_rng(phase)
+    slot_prompts = [rng.integers(0, cfg.vocab, ln).astype(np.int32)
+                    for ln, _ in zc["requests"]]
+    # the forward with the front-end input: whisper's over every prompt (its
+    # decoder then serves them), llava's over the first fb
+    fb = frontend_batch_size or b
+    extra = frontend_batch(torch, cfg, fb)
+    f_tokens = tokens[:fb]
+
     attn = (f"MLA (q_lora {cfg.mla.q_lora_rank}, kv_lora "
             f"{cfg.mla.kv_lora_rank}, qk_nope {cfg.mla.qk_nope_dim}, qk_rope "
             f"{cfg.mla.qk_rope_dim}, v_head {cfg.mla.v_head_dim})"
             if cfg.mla is not None else
             f"GQA kv {cfg.n_kv_heads}" + (", qk-norm" if cfg.qk_norm else ""))
-    print(f"phase 13 {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads of "
+    layers = {k: getattr(cfg, k) for k in ("n_layers", "enc_layers")
+              if getattr(cfg, k)}
+    print(f"{tag} {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads of "
           f"{cfg.resolved_head_dim}, {attn}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}, {cfg.n_layers} layers, tied embeddings "
-          f"{cfg.tie_embeddings}, {cfg.compute_dtype}; init {init_s:.2f} s, "
-          f"pack int8 {pack_s['int8']:.2f} s, int4 {pack_s['int4']:.2f} s; "
-          f"digit planes int8 {planes['int8'] / 1e9:.3f} GB, int4 "
-          f"{planes['int4'] / 1e9:.3f} GB; max memory allocated "
+          f"{cfg.vocab}, layers {layers}"
+          + (f", ssm {dataclasses.asdict(cfg.ssm)}" if cfg.ssm else "")
+          + (f", front end {tuple(extra.shape)}" if extra is not None
+             else "")
+          + f", tied embeddings {cfg.tie_embeddings}, {cfg.compute_dtype}; "
+          f"K1 {k1_fwd} and K3 {k3_fwd} per forward, K1 {k1_step} per "
+          f"decode step; init {init_s:.2f} s, pack "
+          + ", ".join(f"{dt} {s:.2f} s" for dt, s in pack_s.items())
+          + "; digit planes "
+          + ", ".join(f"{dt} {n / 1e9:.3f} GB" for dt, n in planes.items())
+          + f"; max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
 
-    g = torch.Generator().manual_seed(13)
-    tokens = torch.randint(0, cfg.vocab, (b, tp), generator=g).to(
-        torch.device("cuda"))
-    prompts = tokens.cpu().numpy().astype(np.int32)
-    rng = np.random.default_rng(13)
-    slot_prompts = [rng.integers(0, cfg.vocab, ln).astype(np.int32)
-                    for ln, _ in zc["requests"]]
+    def fwd(p, c):
+        return model.forward(p, f_tokens, c, extra)
+
+    def encoded(p, c):
+        """whisper's encoder states for the served prompts, else None."""
+        return whisper.encode(p, extra, c) if fam == "whisper" else None
+
+    def new_cache(kcfg, enc, bs=b):
+        cache = model.init_cache(kcfg, bs, max_len)
+        if enc is not None:
+            cache["enc_out"] = enc[:bs]
+        return cache
+
+    def lockstep(p, c, enc):
+        """The engine's prefill and decode-step functions over the prompts,
+        the encoder states in the cache (whisper): (B, new) tokens."""
+        logits, cache = make_prefill(model, c)(p, new_cache(c, enc), tokens)
+        tok = torch.argmax(logits[:, -1:].float(), dim=-1).to(torch.int32)
+        step = make_decode_step(model, c)
+        outs = [tok]
+        for _ in range(new - 1):
+            tok, cache = step(p, cache, tok, None)
+            outs.append(tok)
+        return torch.cat(outs, dim=1).cpu().numpy()
+
+    def serve(p, kcfg, art):
+        """Emulate on ``p`` (``art`` None) or deploy on ``art``: the greedy
+        tokens of the prompts and of the slot engine, the decode
+        invocations, the seconds of the batch run."""
+        c = kcfg if art is None else kcfg.replace(cim=art.config)
+
+        def engine(bs):
+            return (ServingEngine(model, kcfg, p, batch_size=bs,
+                                  max_len=max_len) if art is None else
+                    engine_from_artifact(art, kcfg, batch_size=bs,
+                                         max_len=max_len))
+        enc = encoded(p, c)
+        t0 = time.perf_counter()
+        if fam == "whisper":
+            gen, inv = lockstep(p, c, enc), new
+        else:
+            eng = engine(b)
+            gen, inv = eng.generate_batch(prompts, new), eng.t
+        gen_s = time.perf_counter() - t0
+        slot = engine(2)
+        if enc is not None:
+            slot.cache["enc_out"] = enc[:2]
+        slots = _slot_run(slot, slot_prompts, zc["requests"])
+        return dict(gen=gen, gen_s=gen_s, slots=slots, inv=inv + slot.t,
+                    steps=slot.t)
 
     # emulate: the reference the deploy path is held against
     t0 = time.perf_counter()
-    em = model.forward(params, tokens, cfg)
-    em_tok, em_slots = {}, {}
-    for kv in kv_dtypes:
-        kcfg = cfg.replace(kv_cache_dtype=kv)
-        em_tok[kv] = ServingEngine(model, kcfg, params, batch_size=b,
-                                   max_len=max_len).generate_batch(prompts,
-                                                                   new)
-        em_slots[kv] = _slot_run(ServingEngine(model, kcfg, params,
-                                               batch_size=2, max_len=max_len),
-                                 slot_prompts, zc["requests"])
+    em = fwd(params, cfg)
+    em_runs = {kv: serve(params, cfg.replace(kv_cache_dtype=kv), None)
+               for kv in kv_dtypes}
     torch.cuda.synchronize()
     em_s = time.perf_counter() - t0
     del params
@@ -3187,41 +3353,40 @@ def _zoo_serving(torch, errs, name, zc, k1_fwd: int, kv_dtypes):
 
     # the main path: only these deploy runs may move the counters
     _reset_counters()
-    out, invocations = {}, 0
-    for dt in ("int8", "int4"):
+    out, k1_expect, k3_expect, invocations = {}, 0, 0, 0
+    for dt in dtypes:
         dcfg = cfg.replace(cim=arts[dt].config)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        dp = model.forward(arts[dt].params, tokens, dcfg)
+        dp = fwd(arts[dt].params, dcfg)
         end.record()
-        invocations += 1
+        k1_expect, k3_expect = k1_expect + k1_fwd, k3_expect + k3_fwd
         runs = {}
         for kv in kv_dtypes:
-            kcfg = cfg.replace(kv_cache_dtype=kv)
-            eng = engine_from_artifact(arts[dt], kcfg, batch_size=b,
-                                       max_len=max_len)
-            t0 = time.perf_counter()
-            gen = eng.generate_batch(prompts, new)
-            gen_s = time.perf_counter() - t0
-            slot_eng = engine_from_artifact(arts[dt], kcfg, batch_size=2,
-                                            max_len=max_len)
-            slots = _slot_run(slot_eng, slot_prompts, zc["requests"])
-            invocations += eng.t + slot_eng.t
-            runs[kv] = dict(gen=gen, gen_s=gen_s, slots=slots,
-                            steps=slot_eng.t)
+            runs[kv] = serve(arts[dt].params, cfg.replace(kv_cache_dtype=kv),
+                             arts[dt])
+            invocations += runs[kv]["inv"]
+            k1_expect += k1_step * runs[kv]["inv"]
+            if fam == "whisper":                 # the encoder alone
+                k1_expect += k1_fwd - k1_step
+                k3_expect += k3_fwd
         torch.cuda.synchronize()
         out[dt] = dict(logits=dp, fwd_ms=start.elapsed_time(end), runs=runs)
     launches, _ = _read_counters()
-    check(launches["cim_matmul"] == k1_fwd * invocations,
-          f"{arch}: matmul kernel launched {launches['cim_matmul']} times in "
-          f"{invocations} forwards, expected {k1_fwd} per forward")
-    check(all(v == 0 for k, v in launches.items() if k != "cim_matmul"),
-          f"{arch}: other launches {launches}")
+    check(launches["cim_matmul"] == k1_expect
+          and launches["cim_conv"] == k3_expect,
+          f"{arch}: K1 launched {launches['cim_matmul']} times and K3 "
+          f"{launches['cim_conv']}, expected {k1_expect} and {k3_expect}")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("cim_matmul", "cim_conv")),
+          f"{arch}: other launches or torch patch gathers {launches}")
     scale = float(em.float().abs().max())
+    t_out = tp + (cfg.n_frontend_tokens if fam == "llava" else 0)
     for dt, r in out.items():
         y = r["logits"]
-        check(y.shape == (b, tp, cfg.vocab) and bool(torch.isfinite(y).all()),
+        check(y.shape == (fb, t_out, cfg.vocab)
+              and bool(torch.isfinite(y).all()),
               f"{arch} {dt} deploy logits: shape {tuple(y.shape)} or "
               "non-finite")
         r["diff"] = float((y.float() - em.float()).abs().max())
@@ -3229,32 +3394,40 @@ def _zoo_serving(torch, errs, name, zc, k1_fwd: int, kv_dtypes):
               f"logits: max diff {r['diff']!r} at max |logit| {scale!r}")
         for kv, run in r["runs"].items():
             check(run["gen"].shape == (b, new)
-                  and np.array_equal(run["gen"], em_tok[kv]),
-                  f"{arch} {dt} generate_batch tokens ({kv} KV cache) differ "
-                  "from emulate's")
+                  and np.array_equal(run["gen"], em_runs[kv]["gen"]),
+                  f"{arch} {dt} served tokens ({kv} KV cache) differ from "
+                  "emulate's")
             check([len(t or ()) for t in run["slots"]]
                   == [n for _, n in zc["requests"]]
-                  and run["slots"] == em_slots[kv],
+                  and run["slots"] == em_runs[kv]["slots"],
                   f"{arch} {dt} slot engine ({kv} KV cache): {run['slots']} "
-                  f"against emulate {em_slots[kv]}")
-    print(f"phase 13 {arch} main path: {invocations} deploy forwards (int8 "
-          f"and int4: one prefill forward, and per KV cache "
-          f"{'/'.join(kv_dtypes)} generate_batch {b} x {tp} -> {new} and the "
-          f"slot engine on 3 requests at batch 2 in "
-          f"{out['int8']['runs'][kv_dtypes[0]]['steps']} steps); launches "
-          f"{launches} = K1 {k1_fwd} per forward, no other kernel; max "
-          f"|deploy - emulate| int8 {out['int8']['diff']!r}, int4 "
-          f"{out['int4']['diff']!r} (max |logit| {scale!r}); served tokens "
-          f"equal emulate's; emulate reference runs {em_s:.2f} s",
-          flush=True)
+                  f"against emulate {em_runs[kv]['slots']}")
+    steps = out[dtypes[0]]["runs"][kv_dtypes[0]]["steps"]
+    print(f"{tag} {arch} main path: deploy forwards {len(dtypes)}, decode "
+          f"invocations {invocations} ({'/'.join(dtypes)}: one forward over "
+          f"{fb} x {tp} tokens"
+          + (" with the front-end input" if extra is not None else "")
+          + f"; per KV cache {'/'.join(kv_dtypes)} "
+          + ("a lockstep run" if fam == "whisper" else "generate_batch")
+          + f" {b} x {tp} -> {new} and the slot engine on 3 requests at "
+          f"batch 2 in {steps} steps); launches {launches} = K1 {k1_fwd} and "
+          f"K3 {k3_fwd} per forward, K1 {k1_step} per decode invocation"
+          + (f" (and the encoder alone per run: K1 {k1_fwd - k1_step}, K3 "
+             f"{k3_fwd})" if fam == "whisper" else "")
+          + ", no other kernel, no patch gather in torch; max |deploy - "
+          "emulate| "
+          + ", ".join(f"{dt} {r['diff']!r}" for dt, r in out.items())
+          + f" (max |logit| {scale!r}); served tokens equal emulate's; "
+          f"emulate reference runs {em_s:.2f} s", flush=True)
     if "int8" in kv_dtypes:
         nbytes = {kv: _cache_bytes(model.init_cache(
             cfg.replace(kv_cache_dtype=kv), b, max_len)) for kv in kv_dtypes}
         agree = {dt: int((r["runs"]["int8"]["gen"]
                           == r["runs"]["bf16"]["gen"]).sum())
                  for dt, r in out.items()}
-        agree["emulate"] = int((em_tok["int8"] == em_tok["bf16"]).sum())
-        print(f"phase 13 {arch} int8 KV cache: {nbytes['int8']} bytes against "
+        agree["emulate"] = int((em_runs["int8"]["gen"]
+                                == em_runs["bf16"]["gen"]).sum())
+        print(f"{tag} {arch} int8 KV cache: {nbytes['int8']} bytes against "
               f"{nbytes['bf16']} in bf16 ({nbytes['int8'] / nbytes['bf16']:.4f}"
               f"); greedy tokens equal to the bf16 cache's run: int8 pack "
               f"{agree['int8']}, int4 pack {agree['int4']}, emulate "
@@ -3262,60 +3435,202 @@ def _zoo_serving(torch, errs, name, zc, k1_fwd: int, kv_dtypes):
               f"is another result; on random weights its rounding moves "
               f"6-bit ADC decisions, in emulate alike)", flush=True)
 
-    # prefill and decode times, outside the counted run
-    result = None
-    for dt in ("int8", "int4"):
+    # times, the graph-replayed decode step, the kernels at the path's
+    # operands: outside the counted run
+    sums = {"cim_matmul": {}, "cim_conv": {}}
+    for dt in dtypes:
         p, dcfg = arts[dt].params, cfg.replace(cim=arts[dt].config)
-        prefill_ms = _events_ms(torch, lambda: model.forward(p, tokens, dcfg),
-                                reps=3, warmup=1)
+        enc = encoded(p, dcfg)
+        prefill_ms = _events_ms(torch, lambda: fwd(p, dcfg), reps=3,
+                                warmup=1)
         for kv in kv_dtypes:
             kcfg = cfg.replace(kv_cache_dtype=kv)
             same, replay_ms, eager_ms = _graph_decode(
-                torch, model, kcfg, arts[dt], tokens, b, max_len, new - 1)
+                torch, model, kcfg.replace(cim=arts[dt].config), p,
+                lambda kcfg=kcfg: new_cache(kcfg, enc), tokens, new - 1)
             check(same, f"{arch} {dt} ({kv} KV cache): the decode step "
-                  "replayed from a CUDA graph gave other tokens than the "
-                  "eager decode loop")
+                  "replayed from a CUDA graph differs from the eager steps "
+                  "(logits, tokens or caches)")
             run = out[dt]["runs"][kv]
-            print(f"phase 13 {arch} {dt} ({kv} KV cache): prefill forward "
+            print(f"{tag} {arch} {dt} ({kv} KV cache): prefill forward "
                   f"{prefill_ms:.2f} ms (CUDA events, mean of 3; the counted "
                   f"run's first {out[dt]['fwd_ms']:.2f} ms); decode "
                   f"{eager_ms:.2f} ms per step eager, {replay_ms:.2f} ms "
-                  f"replayed from a CUDA graph (medians of {new - 1}; "
-                  f"tokens equal the eager loop's); generate_batch "
-                  f"{run['gen_s']:.3f} s = {b * new / run['gen_s']:.1f} "
-                  f"tokens/s", flush=True)
+                  f"replayed from a CUDA graph (medians of {new - 1}; the "
+                  f"first step's logits, the tokens and the caches "
+                  f"bit-equal to the eager steps'); "
+                  + ("lockstep" if fam == "whisper" else "generate_batch")
+                  + f" {run['gen_s']:.3f} s = "
+                  f"{b * new / run['gen_s']:.1f} tokens/s", flush=True)
 
-        # K1 at the operands of one prefill forward and of one decode step
-        # after the prompt (MLA's wkv_b then reads 8 x 65 filled cache rows
-        # of 8 x 128)
-        cache = model.init_cache(cfg, b, max_len)
-        _, cache = model.decode_step(p, cache, tokens, dcfg)
+        # K1 and K3 at the operands of one prefill forward and of one
+        # decode step after the prompt (MLA's wkv_b then reads 8 x 65
+        # filled cache rows of 8 x 128)
+        _, cache = model.decode_step(p, new_cache(cfg, enc), tokens, dcfg)
         for what, fn in (
-                ("prefill", lambda: model.forward(p, tokens, dcfg)),
+                ("prefill", lambda: fwd(p, dcfg)),
                 ("decode", lambda: model.decode_step(p, cache, tokens[:, :1],
                                                      dcfg))):
             calls = _capture_kernel_calls(fn)
-            lst = calls.pop("cim_matmul_transformer")
-            check(len(lst) == k1_fwd and not any(calls.values()),
-                  f"{arch} {dt} {what}: captured {len(lst)} K1 calls, "
-                  f"expected {k1_fwd}, and "
-                  f"{({k: len(v) for k, v in calls.items()})} others")
-            shapes = sorted({(a[0].shape[0], a[0].shape[1], a[1].shape[-1])
-                             for a, _ in lst})
-            tot = _time_moe_calls(torch, {name: lst}, errs, zc["reps"])[name]
-            print(f"phase 13 {name} {dt} {what}: "
-                  f"{_fmt_total(tot, f'{len(lst)} launches')}; (M, kt, N) "
-                  f"{shapes}", flush=True)
-            if dt == "int8" and what == "decode":
-                result = tot
+            k1 = calls.pop("cim_matmul_transformer")
+            k3 = calls.pop("cim_conv_frontend")
+            n1, n3 = (k1_fwd, k3_fwd) if what == "prefill" else (k1_step, 0)
+            check(len(k1) == n1 and len(k3) == n3
+                  and not any(calls.values()),
+                  f"{arch} {dt} {what}: captured {len(k1)} K1 and {len(k3)} "
+                  f"K3 calls, expected {n1} and {n3}; others "
+                  f"{({k: len(v) for k, v in calls.items()})}")
+            for key, kname, lst in (("cim_matmul", k1_name, k1),
+                                    ("cim_conv", "cim_conv_frontend", k3)):
+                if not lst:
+                    continue
+                tot = _time_captured_calls(torch, {kname: lst}, errs,
+                                           zc["reps"])[kname]
+                shapes = sorted({(tuple(a[0].shape), a[1].shape[-1])
+                                 for a, _ in lst})
+                print(f"{tag} {kname} {arch} {dt} {what}: "
+                      f"{_fmt_total(tot, f'{len(lst)} launches')}; (codes, "
+                      f"N) {shapes}", flush=True)
+                if dt == "int8":
+                    sums[key][what] = tot
         del cache
-    result["launches"] = launches["cim_matmul"]
-    print(f"phase 13 {arch}: max |K1 - plain| {errs[name]!r}; max memory "
-          f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
-          flush=True)
+    print(f"{tag} {arch}: max |kernel - plain| K1 {errs[k1_name]!r}, K3 "
+          f"{errs['cim_conv_frontend']!r}; max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"{time.perf_counter() - t_model:.1f} s", flush=True)
     del arts, out, em
     clear_relaid_planes()
-    return result
+    return dict(sums, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent and multimodal zoo
+# ---------------------------------------------------------------------------
+
+#: phase 14's models at their published widths: (arch, config fields and
+#: depth cut, pack dtypes, batch of the forward with the front-end input).
+#: zamba2-2.7b is cut from 54 to 12 Mamba2 layers (two groups of 6: the
+#: shared block applied twice), xlstm-1.3b from 48 to 8 blocks (one 7:1
+#: period), llava-next-mistral-7b from 32 to 4 layers; whisper-small runs
+#: uncut. Whisper takes its conv stem on raw log-mel frames (80 mel bins,
+#: 3000 frames), llava its patch-embed conv on 336 x 336 images (patch 14:
+#: 576 patches of 1024). int4 on whisper too, where nibble planes reach K3
+#: (c_per_array 42 is even). llava's forward with images runs at batch 4
+#: (4 x 640 rows): at 8 x 640 emulate's float32 partial sums of one
+#: d_ff linear are 18.8 GB a tensor, and its straight-through rounding
+#: holds three of them (past the card's 80 GB); its text serving keeps
+#: batch 8.
+RECURRENT_ZOO = (
+    ("zamba2-2.7b", dict(n_layers=12), ("int8",), None),
+    ("xlstm-1.3b", dict(n_layers=8), ("int8",), None),
+    ("whisper-small", dict(conv_frontend=True, frontend_dim=80),
+     ("int8", "int4"), None),
+    ("llava-next-mistral-7b", dict(conv_frontend=True, patch_size=14,
+                                   n_layers=4), ("int8",), 4),
+)
+
+
+def _spec_cim_counts(specs):
+    """{top-level key: (CIM linears, CIM convs)} of a deploy spec tree: a
+    ``w_digits`` of rank 4 is a linear, rank 6 a conv, a leading axis
+    more a stack of them."""
+    def walk(tree):
+        if not isinstance(tree, dict):
+            return 0, 0
+        if "w_digits" in tree:
+            shape = tuple(tree["w_digits"].shape)
+            n = shape[0] if len(shape) in (5, 7) else 1
+            return (n, 0) if len(shape) in (4, 5) else (0, n)
+        k1 = k3 = 0
+        for v in tree.values():
+            a, b = walk(v)
+            k1, k3 = k1 + a, k3 + b
+        return k1, k3
+    return {k: walk(v) for k, v in specs.items()}
+
+
+def recurrent_zoo_counts(cfg):
+    """(K1, K3) of one forward with the front-end input and K1 of one
+    decode invocation, from the CIM nodes of ``cfg``'s deploy spec tree:
+    zamba2's shared block once per group of ``attn_every`` layers,
+    whisper's decoder layers per decode step, llava's patch embed in the
+    forward only."""
+    from repro_torch.models.registry import get_model
+    dcfg = cfg.replace(cim=cfg.cim.replace(mode="deploy"))
+    c = _spec_cim_counts(get_model(dcfg).specs(dcfg))
+    if cfg.family == "zamba2":
+        k1 = c["mamba_layers"][0] + c["shared_attn"][0] * (
+            cfg.n_layers // cfg.attn_every)
+        return (k1, 0), k1
+    if cfg.family == "whisper":
+        dec = c["dec_layers"][0]
+        return (c["enc_layers"][0] + dec, c["frontend"][1]), dec
+    k1, k3 = (sum(v[i] for v in c.values()) for i in (0, 1))
+    return (k1, k3), k1
+
+
+def frontend_batch(torch, cfg, b):
+    """The front-end input of ``cfg`` on the card (whisper's log-mel
+    frames, llava's images; ``frontend_input_shape``), standard normal x
+    0.1 from generator seed 14, or None."""
+    from repro_torch.models.registry import frontend_input_shape
+    shape = frontend_input_shape(cfg, b)
+    if shape is None:
+        return None
+    g = torch.Generator().manual_seed(14)
+    return (torch.randn(shape, generator=g) * 0.1).to(torch.device("cuda"))
+
+
+def _conv_bound(torch, a, digits, occ, s_p, deq, kw):
+    """(bytes ms, ops ms) of one K3 call from this run's data: the codes,
+    planes, map and scales read once, the float32 output written once;
+    the int8 MACs of the live planes over the real input rows."""
+    from repro_torch.kernels import ref
+    geo = ref.conv_geometry(a.shape, kw["kh"], kw["kw"], kw["stride"],
+                            kw["padding"], digits.shape[1],
+                            kw["c_per_array"])
+    op = dict(occ=occ, c_per_array=kw["c_per_array"], deq=deq, a_int=a,
+              kh=kw["kh"], kw=kw["kw"])
+    nbytes = (a.numel() + digits.numel() * digits.element_size()
+              + (occ.numel() if occ is not None else 0)
+              + 4 * (s_p.numel() + deq.numel()) + 4 * geo.m * deq.shape[-1])
+    return _bytes_ops_ms(nbytes, _needed_macs(op, geo.m), INT8_OPS_PER_S)
+
+
+def phase14_recurrent_zoo(torch, errs, reduced: bool = False):
+    """Each of ``RECURRENT_ZOO`` served through the entry points (phase
+    13's ``_zoo_serving``, the launch counts from the spec trees); returns
+    the results-line entries: K3 over the front ends' convs
+    (``cim_conv_frontend``: one whisper and one llava prefill forward) and
+    K1 at one decode step's operands on zamba2 and xlstm
+    (``cim_matmul_ssm``), with the main path's launches."""
+    t_phase = time.perf_counter()
+    per = {"cim_conv_frontend": [], "cim_matmul_ssm": []}
+    launches = dict.fromkeys(per, 0)
+    for arch, cut, dtypes, fb in RECURRENT_ZOO:
+        zc = zoo_config(arch, cut, reduced)
+        fam = zc["cfg"].family
+        frontend = fam in ("whisper", "llava")
+        r = _zoo_serving(
+            torch, errs, zc, "cim_matmul_" + fam if frontend else
+            "cim_matmul_ssm", recurrent_zoo_counts(zc["cfg"]), dtypes=dtypes,
+            frontend_batch_size=fb, phase=14)
+        if frontend:
+            per["cim_conv_frontend"].append(r["cim_conv"]["prefill"])
+            launches["cim_conv_frontend"] += r["launches"]["cim_conv"]
+        else:
+            per["cim_matmul_ssm"].append(r["cim_matmul"]["decode"])
+            launches["cim_matmul_ssm"] += r["launches"]["cim_matmul"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {}
+    for k, lst in per.items():
+        out[k] = dict(_sum_layers([{k: t} for t in lst])[k],
+                      launches=launches[k])
+        what = f"{launches[k]} launches on the main path"
+        print(f"phase 14 {k}: {_fmt_total(out[k], what)}", flush=True)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 if __name__ == "__main__":

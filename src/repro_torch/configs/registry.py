@@ -1,6 +1,7 @@
 """Architecture registry (counterpart of ``repro.configs.registry``):
---arch <id> -> ModelConfig, full or reduced, for the entries ported so
-far: the decoder-only transformers (GQA, MLA, MoE)."""
+--arch <id> -> ModelConfig, full or reduced, for every entry of the
+reference's registry: the decoder-only transformers (GQA, MLA, MoE), the
+recurrent xlstm and zamba2, and the multimodal whisper and llava."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,10 @@ ARCHS: Dict[str, str] = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "granite-8b": "repro_torch.configs.granite_8b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 
@@ -25,10 +30,8 @@ def get_config(arch: str, *, reduced: bool = False,
     """The ModelConfig of ``arch`` (its ``reduced()`` smoke-test variant
     when asked), with ``cim`` in place of the default CIM config."""
     if arch not in ARCHS:
-        raise KeyError(
-            f"architecture {arch!r} is not ported yet (ROADMAP queue 1, "
-            f"item 10: the conv front ends, mamba2, xlstm, zamba2, whisper "
-            f"and llava); ported: {sorted(ARCHS)}")
+        raise KeyError(f"unknown architecture {arch!r}; known: "
+                       f"{sorted(ARCHS)}")
     mod = importlib.import_module(ARCHS[arch])
     cfg = mod.reduced() if reduced else mod.config()
     if cim is not None:

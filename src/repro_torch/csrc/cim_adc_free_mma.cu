@@ -38,11 +38,13 @@ int column_tile(int n, long long m) {
 }
 
 // Row blocks and digit buffers: streaming_buffers (cim_mma.cuh).
-template <int BN, bool kUnsignedA, bool kImplicit, bool kDirect>
+template <int BN, bool kUnsignedA, bool kImplicit, bool kDirect,
+          bool kPacked>
 cudaError_t launch(const Ops& o, Geo g, cudaStream_t stream) {
   const long long smem = streaming_buffers<BN, kImplicit, kDirect>(g);
   if (smem < 0) return cudaErrorInvalidValue;
-  return run<BN, kUnsignedA, kImplicit, kDirect, false>(o, g, smem, stream);
+  return run<BN, kUnsignedA, kImplicit, kDirect, false, kPacked>(o, g, smem,
+                                                                 stream);
 }
 
 template <bool kImplicit>
@@ -50,8 +52,9 @@ int dispatch(const Ops& o, Geo g, int a_unsigned, void* stream) {
   if (!prepare<kImplicit>(g, o.a)) return (int)cudaErrorInvalidValue;
   auto* st = static_cast<cudaStream_t>(stream);
 #define CIM_LAUNCH(BN, U)                                              \
-  (g.direct ? launch<BN, U, kImplicit, true>(o, g, st)                 \
-            : launch<BN, U, kImplicit, false>(o, g, st))
+  (g.direct   ? launch<BN, U, kImplicit, true, false>(o, g, st)      \
+   : g.packed ? launch<BN, U, kImplicit, false, kImplicit>(o, g, st) \
+              : launch<BN, U, kImplicit, false, false>(o, g, st))
   const int bn = column_tile(g.N, g.M);
   cudaError_t e;
   if (bn == 16)

@@ -100,7 +100,8 @@ void split_plan(Geo& g, int bn) {
 // once. A block of one row block double-buffers them (resident tiles
 // would all arrive before its first MAC); else one buffer. The conv's:
 // streaming_buffers (cim_mma.cuh), as the ADC-free conv's.
-template <int BN, bool kUnsignedA, bool kImplicit, bool kDirect>
+template <int BN, bool kUnsignedA, bool kImplicit, bool kDirect,
+          bool kPacked>
 cudaError_t launch(const Ops& o, Geo g, cudaStream_t stream) {
   long long smem;
   if (kImplicit) {
@@ -124,8 +125,8 @@ cudaError_t launch(const Ops& o, Geo g, cudaStream_t stream) {
     smem = choose_buffers<BN, kImplicit, kDirect>(g, cand, 7);
   }
   if (smem < 0) return cudaErrorInvalidValue;
-  cudaError_t e = run<BN, kUnsignedA, kImplicit, kDirect, true>(o, g, smem,
-                                                                stream);
+  cudaError_t e = run<BN, kUnsignedA, kImplicit, kDirect, true, kPacked>(
+      o, g, smem, stream);
   if (e != cudaSuccess || g.nsplit <= 1) return e;
   const long long mn = g.M * g.N;
   cim_ordered_sum_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
@@ -151,9 +152,10 @@ int dispatch(const Ops& o, Geo g, int a_unsigned, bool split, void* stream) {
   const int bn = column_tile(g);
   if (split) split_plan(g, bn);
   auto* st = static_cast<cudaStream_t>(stream);
-#define CIM_LAUNCH(BN, U)                                          \
-  (g.direct ? launch<BN, U, kImplicit, true>(o, g, st)             \
-            : launch<BN, U, kImplicit, false>(o, g, st))
+#define CIM_LAUNCH(BN, U)                                              \
+  (g.direct   ? launch<BN, U, kImplicit, true, false>(o, g, st)      \
+   : g.packed ? launch<BN, U, kImplicit, false, kImplicit>(o, g, st) \
+              : launch<BN, U, kImplicit, false, false>(o, g, st))
   cudaError_t e;
   if (bn == 16)
     e = a_unsigned ? CIM_LAUNCH(16, true) : CIM_LAUNCH(16, false);

@@ -6,13 +6,16 @@ the CIM quantization applies uniformly; packed MoE expert banks on the
 ``deploy`` backend run all experts of a bank in one launch of the batched
 CIM experts kernel (``kernels.ops.cim_matmul_experts``).
 
-Ported so far: the decoder-only transformer's GQA attention with the
-compute-dtype or the int8 KV cache (``_kv_quantize``), MLA attention
-(DeepSeek-V3, a latent cache), the MLPs and the MoE block. The conv
-layers (``conv_specs``/``apply_conv``) come with ROADMAP queue 1, item 10.
+GQA attention runs with the compute-dtype or the int8 KV cache
+(``_kv_quantize``), and as cross-attention over ``x_kv``; MLA attention
+(DeepSeek-V3) keeps a latent cache. ``conv_specs``/``apply_conv`` are the
+CIM-aware conv layer of the zoo's front ends (whisper's stem, llava's
+patch embed): on ``deploy`` one launch of the implicit-GEMM conv kernel
+(``kernels.cim_conv``) per conv.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,6 +34,88 @@ def cdt(cfg: ModelConfig) -> torch.dtype:
 
 def pdt(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# conv (CIM-aware entry point, as nn.linear.apply_linear)
+# ---------------------------------------------------------------------------
+
+def conv_specs(kh: int, kw: int, c_in: int, c_out: int, *,
+               cim=None, out_axis: Optional[str] = None,
+               dtype=torch.float32) -> Dict[str, ParamSpec]:
+    """ParamSpecs of a CIM conv layer: the HWIO weight and the paper's
+    scales. On a packed backend the weight exists only as the 6-D digit
+    planes (S, k_tiles, kh, kw, cpa stored, C_out) the fused conv kernel
+    reads, in the backend's plane geometry; the standard pack stores int4
+    planes nibble-packed on the channel-slice axis and carries a ``w_occ``
+    map. ``out_axis`` lands on the planes' last (C_out) axis."""
+    from repro_torch.api.backends import (conv_plane_tiling, has_own_pack,
+                                          is_packed, plane_bits)
+    from repro_torch.core.granularity import Granularity, conv_tiling
+    from repro_torch.core.nibble import stored_rows
+
+    if is_packed(cim):
+        t, cpa = conv_plane_tiling(cim, kh, kw, c_in, c_out)
+        own_pack = has_own_pack(cim)
+        if own_pack:
+            cpa_s, store = cpa, cim.store_dtype()
+        else:
+            cpa_s, store = stored_rows(cpa, cim.store_dtype())
+        specs = {"w_digits": ParamSpec(
+            (t.n_split, t.k_tiles, kh, kw, cpa_s, c_out), store, "zeros",
+            (None, None, None, None, None, out_axis))}
+        if not own_pack:
+            specs["w_occ"] = ParamSpec((t.n_split, t.k_tiles, c_out),
+                                       torch.uint8, "zeros",
+                                       (None, None, out_axis))
+    else:
+        # He init over the whole receptive field (kh*kw*c_in), as
+        # api.init_conv; the "fan_in" init would see c_in alone
+        std = math.sqrt(2.0 / (kh * kw * c_in))
+
+        def he(g, s, d, dev):
+            return (torch.randn(tuple(s), generator=g, dtype=torch.float32,
+                                device=dev) * std).to(d)
+        specs = {"w": ParamSpec((kh, kw, c_in, c_out), dtype, he,
+                                (None, None, None, out_axis))}
+    if cim is not None and cim.enabled:
+        if is_packed(cim) and plane_bits(cim) != (cim.weight_bits,
+                                                  cim.cell_bits):
+            # plane-geometry backends (binary) store full column scales
+            t, _ = conv_plane_tiling(cim, kh, kw, c_in, c_out)
+            wg = t.weight_scale_shape(Granularity.COLUMN)
+            pg = t.psum_scale_shape(Granularity.COLUMN)
+        else:
+            t, _ = conv_tiling(kh, kw, c_in, c_out, cim.array_rows,
+                               cim.array_cols, cim.weight_bits,
+                               cim.cell_bits)
+            wg = t.weight_scale_shape(cim.weight_granularity)
+            pg = t.psum_scale_shape(cim.psum_granularity)
+        specs["s_w"] = ParamSpec(wg, torch.float32, "const:0.05",
+                                 (None, out_axis if wg[1] == c_out else None))
+        specs["s_p"] = ParamSpec(pg, torch.float32, "const:8.0",
+                                 (None, None,
+                                  out_axis if pg[2] == c_out else None))
+        specs["s_a"] = ParamSpec((1,), torch.float32, "ones", (None,))
+    return specs
+
+
+def apply_conv(params: Dict, x: torch.Tensor, cim=None, *, stride: int = 1,
+               padding="SAME", compute_dtype=torch.bfloat16, variation=None,
+               variation_std=None) -> torch.Tensor:
+    """NHWC conv: the plain conv in ``compute_dtype`` (XLA's SAME/VALID
+    pads, ``kernels.ref.conv_pads``) without CIM, else the CIM conv of
+    ``cim.mode``'s backend (``api.conv2d``: emulate's grouped conv, or the
+    fused conv kernel on ``deploy``). ``variation``/``variation_std``
+    evaluate one cell-noise realization."""
+    if cim is None or not cim.enabled:
+        from repro_torch.core.cim_conv import _forward_conv_off
+        return _forward_conv_off(x, params, cim, stride, padding, None, None,
+                                 compute_dtype)
+    from repro_torch.api import conv2d
+    return conv2d(x, params, cim, stride=stride, padding=padding,
+                  variation=variation, variation_std=variation_std,
+                  compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------

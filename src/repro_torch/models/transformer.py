@@ -81,9 +81,12 @@ def _block(p: Dict, x, cfg: ModelConfig, positions, cache, moe: bool):
 
 
 def _layer(tree, i: int):
-    """Layer ``i``'s slice (views) of a stacked tree."""
+    """Layer ``i``'s slice (views) of a stacked tree (tuples and lists of
+    stacks come back as tuples)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_layer(v, i) for v in tree)
     return tree[i]
 
 
@@ -195,16 +198,23 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     replayed, and a replay past ``max_len`` writes as the reference's
     ``dynamic_update_slice`` does, at the start clamped to ``max_len - T``
     in ``layers._write_at``."""
-    first = next(iter(cache.values()))
-    t = tokens.shape[1]
-    max_len = first["ckv" if "ckv" in first else "k"].shape[2]
-    capturing = (tokens.is_cuda
-                 and torch.cuda.is_current_stream_capturing())
-    if not capturing and int(first["len"].max()) + t > max_len:
-        raise ValueError(f"decode cache overrun: {t} new positions at length "
-                         f"{int(first['len'].max())} exceed max_len "
-                         f"{max_len}")
+    check_overrun(next(iter(cache.values())), tokens)
     return _decode_step(params, cache, tokens, cfg)
+
+
+def check_overrun(stack: Dict, tokens: torch.Tensor) -> None:
+    """Raise when T = tokens.shape[1] new positions would overrun a stacked
+    attention cache ({"k" or "ckv", "len"}, (layers, B, max_len, ...)).
+    Skipped under a CUDA-graph capture, where reading the lengths back
+    would end it."""
+    t = tokens.shape[1]
+    max_len = stack["ckv" if "ckv" in stack else "k"].shape[2]
+    if tokens.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    if stack["len"].numel() and int(stack["len"].max()) + t > max_len:
+        raise ValueError(f"decode cache overrun: {t} new positions at length "
+                         f"{int(stack['len'].max())} exceed max_len "
+                         f"{max_len}")
 
 
 def _decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,

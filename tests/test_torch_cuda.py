@@ -218,8 +218,8 @@ def test_adc_free_tensor_core_matmul_bit_exact_with_plain(m, kt, rows, n,
 def _implicit_case(seed, *, b, h, w, c_in, kh, cpa, n, unsigned):
     """(a, logical, nibble planes, deq, occ) on the card."""
     a, logical, packed, occ, deq = chip_smoke.implicit_conv_operands(
-        torch, torch.Generator().manual_seed(seed), b, h, w, c_in, kh, cpa, n,
-        unsigned)
+        torch, torch.Generator().manual_seed(seed), b, h, w, c_in, kh, kh,
+        cpa, n, unsigned)
     return [x.cuda() for x in (a, logical, packed, deq, occ)]
 
 
@@ -521,6 +521,82 @@ def test_zoo_transformer_deploy_bit_exact_with_emulate_on_the_card(
     assert all(torch.equal(d, e) for d, e in zip(dec_d, dec_e))
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b",
+                                  "whisper-small", "llava-next-mistral-7b"])
+def test_recurrent_and_multimodal_deploy_bit_exact_with_emulate_on_the_card(
+        arch):
+    """The reduced recurrent and multimodal entries in bfloat16 with
+    128-row arrays: the forward with the front-end input (whisper's log-mel
+    frames through its stem, llava's images through the patch embed, with
+    patch 14 on 28 x 28 images: 196-row tiles) and a few decode steps
+    through the cache (whisper's with the encoder states) on deploy equal
+    emulate's; K1 and K3 launch as many times as the spec tree's CIM
+    nodes say, with no patch gather in torch; for zamba2 and xlstm, whose
+    steps write their states in place, a decode step replayed from a CUDA
+    graph equals the eager step, logits and caches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import whisper
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cim = CIMConfig(enabled=True, mode="emulate", weight_bits=4, cell_bits=2,
+                    act_bits=8, psum_bits=6, array_rows=128, array_cols=128)
+    cfg = get_config(arch, reduced=True, cim=cim)
+    if cfg.family == "llava":
+        cfg = cfg.replace(patch_size=14, n_frontend_tokens=4)
+    model = get_model(cfg)
+    params = init_params(model.specs(cfg), 0)
+    gen = torch.Generator("cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (4, 20), device="cuda",
+                           generator=gen)
+    extra = chip_smoke.frontend_batch(torch, cfg, 4)
+    art = api.model_artifact(params, cim)
+    dcfg = cfg.replace(cim=art.config)
+    (k1_fwd, k3_fwd), k1_step = chip_smoke.recurrent_zoo_counts(cfg)
+
+    def run(p, c):
+        cache = model.init_cache(c, 4, 32)
+        if cfg.family == "whisper":
+            cache["enc_out"] = whisper.encode(p, extra, c)
+        logits, cache = model.decode_step(p, cache, tokens, c)
+        outs = [logits]
+        for _ in range(3):
+            tok = torch.argmax(logits[:, -1:].float(), -1).to(torch.int32)
+            logits, cache = model.decode_step(p, cache, tok, c)
+            outs.append(logits)
+        return model.forward(p, tokens, c, extra), outs, cache
+    y_e, dec_e, _ = run(params, cfg)
+    before = (cim_matmul_cuda.launches, cim_conv_cuda.launches,
+              ref.extract_conv_patches.cuda_gathers)
+    y_d, dec_d, cache = run(art.params, dcfg)
+    torch.cuda.synchronize()
+    enc = (k1_fwd - k1_step, k3_fwd) if cfg.family == "whisper" else (0, 0)
+    assert (cim_matmul_cuda.launches, cim_conv_cuda.launches,
+            ref.extract_conv_patches.cuda_gathers) == (
+                before[0] + k1_fwd + 4 * k1_step + enc[0],
+                before[1] + k3_fwd + enc[1], before[2])
+    assert torch.isfinite(y_d).all()
+    assert torch.equal(y_d, y_e)
+    assert all(torch.equal(d, e) for d, e in zip(dec_d, dec_e))
+    if cfg.family not in ("zamba2", "xlstm"):
+        return
+    from repro_torch import tree_leaves, tree_map
+    tok = torch.argmax(dec_d[-1][:, -1:].float(), -1).to(torch.int32)
+    snap = tree_map(lambda t: t.clone(), cache)
+    eager, eager_cache = model.decode_step(art.params, cache, tok, dcfg)
+    eager_cache = tree_map(lambda t: t.clone(), eager_cache)
+    tree_map(lambda d, s: d.copy_(s), cache, snap)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, out_cache = model.decode_step(art.params, cache, tok, dcfg)
+    graph.replay()
+    tree_map(lambda d, s: d is s or d.copy_(s), cache, out_cache)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, eager)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(cache),
+                                                  tree_leaves(eager_cache)))
+
+
 @pytest.mark.parametrize(
     "m,kt,rows,n,unsigned,nibble,sparse,psum_bits,psum_quant",
     chip_smoke.SMALL_M_CASES)
@@ -757,22 +833,25 @@ def test_per_step_scales_in_every_adc_mode_bit_exact_with_plain(
 
 
 def _adc_case_id(c):
-    return "x".join(map(str, c[:5])) + f"-s{c[5]}-n{c[8]}-b{c[10]}"
+    kw = "" if c[5] == c[4] else f"-kw{c[5]}"
+    return "x".join(map(str, c[:5])) + f"{kw}-s{c[6]}-n{c[9]}-b{c[11]}"
 
 
 @pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES,
                          ids=_adc_case_id)
 def test_implicit_adc_conv_bit_exact_with_plain(case):
     """K3 as an implicit GEMM with the ADC epilogue, on chip_smoke.py's
-    phase-3 grid: int8 and int4 planes, with and without the occupancy
-    map, all four equal to the plain conv (sparse equals dense under the
-    sign ADC too); no matmul launch and no patch gather in torch."""
-    b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
+    phase-3 grid, the zoo's front ends included (whisper's 1x3 stem convs
+    on H = 1, llava's 14x14 patch embed on 196-row tiles): int8 and int4
+    planes, with and without the occupancy map, all four equal to the
+    plain conv (sparse equals dense under the sign ADC too); no matmul
+    launch and no patch gather in torch."""
+    b, h, w, c_in, kh, kw, stride, padding, cpa, n, uns, pb, quant = case
     a, logical, packed, occ, s_p, deq = (
         x.cuda() for x in chip_smoke.implicit_adc_conv_operands(
-            torch, torch.Generator().manual_seed(sum(case[:6]) + n), b, h, w,
-            c_in, kh, cpa, n, uns))
-    geo = dict(kh=kh, kw=kh, stride=stride, padding=padding, c_per_array=cpa,
+            torch, torch.Generator().manual_seed(sum(case[:5]) + stride + n),
+            b, h, w, c_in, kh, kw, cpa, n, uns))
+    geo = dict(kh=kh, kw=kw, stride=stride, padding=padding, c_per_array=cpa,
                psum_bits=pb, psum_quant=quant)
     before = (cim_conv_cuda.launches, cim_matmul_cuda.launches,
               ref.extract_conv_patches.cuda_gathers)
@@ -788,20 +867,20 @@ def test_implicit_adc_conv_bit_exact_with_plain(case):
 
 
 @pytest.mark.parametrize("sigma", chip_smoke.VARIATION_SIGMAS)
-@pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES,
+@pytest.mark.parametrize("case", chip_smoke.FLOAT_CONV_CASES,
                          ids=_adc_case_id)
 def test_float_plane_implicit_convs_bit_exact_with_plain(case, sigma):
     """The float-plane convs (cell variation at sigma 0.1-0.4) as implicit
     GEMMs on the FP64 tensor cores, with the ADC and ADC-free, against
     their plain versions; sparse equals dense; counted as float-plane
     launches, no matmul launch, no patch gather in torch."""
-    b, h, w, c_in, kh, stride, padding, cpa, n, uns, pb, quant = case
-    g = torch.Generator().manual_seed(sum(case[:6]) + n)
+    b, h, w, c_in, kh, kw, stride, padding, cpa, n, uns, pb, quant = case
+    g = torch.Generator().manual_seed(sum(case[:5]) + stride + n)
     a, logical, _, occ, s_p, deq = chip_smoke.implicit_adc_conv_operands(
-        torch, g, b, h, w, c_in, kh, cpa, n, uns)
+        torch, g, b, h, w, c_in, kh, kw, cpa, n, uns)
     a, noisy, occ, s_p, deq = (x.cuda() for x in (
         a, chip_smoke.varied_planes(torch, g, logical, sigma), occ, s_p, deq))
-    geo = dict(kh=kh, kw=kh, stride=stride, padding=padding, c_per_array=cpa)
+    geo = dict(kh=kh, kw=kw, stride=stride, padding=padding, c_per_array=cpa)
     mq = dict(psum_bits=pb, psum_quant=quant)
     before = (cim_conv_cuda.float_launches,
               cim_conv_adc_free_cuda.float_launches,
@@ -833,7 +912,7 @@ def test_float_plane_conv_adc_divide_paths_bit_exact_with_plain(psum_bits,
     version's bits."""
     g = torch.Generator().manual_seed(psum_bits)
     a, logical, _, occ, s_p, deq = chip_smoke.implicit_adc_conv_operands(
-        torch, g, 4, 8, 8, 16, 3, 14, 24, True)
+        torch, g, 4, 8, 8, 16, 3, 3, 14, 24, True)
     s_p = s_p * sp_scale
     if sp_scale > 1:
         s_p[0, 0, :8] = 1.0            # one block mixes the two ranges
@@ -874,8 +953,8 @@ def test_k3_and_k5_share_the_relaid_planes_and_the_window_mode():
     relaid.clear_relaid_planes()
     a, logical, _, occ, s_p, deq = (
         x.cuda() for x in chip_smoke.implicit_adc_conv_operands(
-            torch, torch.Generator().manual_seed(31), 3, 8, 8, 32, 3, 14, 24,
-            True))
+            torch, torch.Generator().manual_seed(31), 3, 8, 8, 32, 3, 3, 14,
+            24, True))
     geo = dict(kh=3, kw=3, stride=1, padding="SAME", c_per_array=14)
     assert torch.equal(cim_conv_cuda(a, logical, s_p, deq, occ, psum_bits=4,
                                      **geo),

@@ -143,16 +143,16 @@ def test_serving_grid_tile_sums_are_exact_in_any_order(drift, k_tiles,
     _check_exact(a, drifted)
 
 
-@pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES,
+@pytest.mark.parametrize("case", chip_smoke.FLOAT_CONV_CASES,
                          ids=lambda c: "x".join(map(str, c[:5])))
 def test_card_implicit_grid_tile_sums_are_exact_in_any_order(case):
     """The float-plane implicit convs of chip_smoke.py (phase 3b) and
     tests/test_torch_cuda.py: 8-bit codes, digits -8..7, every sigma."""
-    b, h, w, c_in, kh, stride, padding, cpa, n, uns, _, _ = case
-    g = torch.Generator().manual_seed(sum(case[:6]) + n)
+    b, h, w, c_in, kh, kw, stride, padding, cpa, n, uns, _, _ = case
+    g = torch.Generator().manual_seed(sum(case[:5]) + stride + n)
     a, logical, _, _, _, _ = chip_smoke.implicit_adc_conv_operands(
-        torch, g, b, h, w, c_in, kh, cpa, n, uns)
-    a_t = ref.extract_conv_patches(a, kh, kh, stride, padding,
+        torch, g, b, h, w, c_in, kh, kw, cpa, n, uns)
+    a_t = ref.extract_conv_patches(a, kh, kw, stride, padding,
                                    logical.shape[1], cpa)
     a_t = a_t.reshape(-1, logical.shape[1], logical.shape[2])
     for sigma in SIGMAS:

@@ -410,8 +410,11 @@ def test_attention_matches_reference(chunk, causal, decode):
 
 
 def test_unported_entries_raise():
-    with pytest.raises(KeyError, match="item 10"):
-        get_config("xlstm-1.3b")
+    """Every entry of the reference's registry resolves; an unknown
+    architecture and an unknown family still raise ``KeyError``."""
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("mamba-3b")
     _, tcfg = _cfgs()
-    with pytest.raises(KeyError, match="item 10"):
-        get_model(dataclasses.replace(tcfg, family="xlstm"))
+    with pytest.raises(KeyError, match="unknown model family"):
+        get_model(dataclasses.replace(tcfg, family="mamba"))
+    assert get_model(get_config("xlstm-1.3b")).specs is not None
