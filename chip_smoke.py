@@ -177,7 +177,34 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    steps, every K1 and K3 call of one forward and one decode step against
    its plain version, summed and timed beside its bound, peak memory and
    the phase's seconds;
-15. a JSON line per kernel, the card's name and power limit, and the
+15. the recurrent and multimodal zoo on a drifting chip (``DRIFT_ZOO``):
+   phase 14's four configurations at their cuts and published widths
+   (zamba2 at 12 layers, xlstm at 8 blocks, whisper uncut on 8 x 3000 x
+   80 log-mel frames, llava at 4 layers, its forward with images at batch
+   2), int8 packs, phase 12's schedule (``DRIFT_SCHED``, a
+   ``Sampler(DRIFT_SEED)`` source) from t = 300. Each: the forward with
+   the front-end input and one prefill + 15 decode steps drifted, deploy
+   against emulate under the same fields (the conv front ends too); the
+   drifting engine's ``generate_batch`` (whisper's encoder states in its
+   cache) against that step-by-step run, the health monitor armed;
+   whisper's drifting slot engine against its schedule replayed on
+   drifted emulate, and ``generate_batch`` without encoder states
+   refused; the counted run (the forward and the engine) all on float
+   planes: zamba2 38 K1, xlstm 38, whisper 2 K3 + 192 K1 a forward and
+   120 K1 an invocation, llava 1 K3 + 28 K1, no integer K1/K3 and no
+   patch gather in torch; the drifted decode step eager (with its
+   ``drift_tree``) and one realization's step replayed from a CUDA graph
+   (bit-equal to eager); every float K1 and K3 call of one drifted
+   forward and one drifted decode step against its plain version, timed
+   by graph replay beside its FP64 bound (whisper's 126-row stems,
+   llava's 196-row patch embed: the launch checks the tile sums exact
+   first). Then whisper packed with baked cell variation (``model_artifact``
+   with a ``Sampler`` at sigma 0.3): deploy against emulate under the
+   same sources; and the serving launcher, ``repro_torch.launch.serve``'s
+   ``main`` on zamba2 at its cut with ``--cim deploy``, the drift flags,
+   ``--health`` and ``--metrics-out``: exit 0, its tok/s, a metrics JSON
+   naming only ``obs.names`` metrics; the phase's seconds and peak memory;
+16. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
@@ -188,8 +215,9 @@ events.
 
 Tolerances: each kernel and its plain version add the same float32 terms
 in the same order with the same roundings (float-digit partial sums are
-exact in float64 on both sides on these grids,
-``tests/test_torch_float_digits.py``), so they are expected to agree bit
+exact in float64 on both sides: each float launch checks the bound
+first, ``tests/test_torch_float_digits.py`` proves it), so they are
+expected to agree bit
 for bit; the gate is rtol 1e-5 / atol 1e-4, the reference's own
 kernel-vs-oracle tolerance. Deploy against emulate is gated at 1e-4 as in
 ``tests/test_cim_conv_deploy.py`` (the transformer's logits at 1e-4 of
@@ -337,8 +365,13 @@ def main() -> int:
 
     # 14. the recurrent and multimodal zoo at published widths
     timings.update(phase14_recurrent_zoo(torch, errs))
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 15. results
+    # 15. the recurrent and multimodal zoo on a drifting chip
+    timings.update(phase15_zoo_drift(torch, errs))
+
+    # 16. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -397,6 +430,15 @@ KERNELS = {
     # step's operands on zamba2 and xlstm (phase 14)
     "cim_conv_frontend": (MMA_ADC_SOURCE, "src/repro/kernels/cim_conv.py:60"),
     "cim_matmul_ssm": (MMA_ADC_SOURCE, "src/repro/kernels/cim_matmul.py:160"),
+    # K1 and K3 on float32 planes on the drifted recurrent and multimodal
+    # zoo (phase 15): K1 at one drifted decode step's operands on zamba2,
+    # xlstm, whisper and llava; K3 over whisper's two stem convs and
+    # llava's patch embed in one drifted forward each (126- and 196-row
+    # tiles), on the FP64 tensor cores
+    "cim_matmul_zoo_drift": (CUDA_SOURCE,
+                             "src/repro/kernels/cim_matmul.py:160"),
+    "cim_conv_frontend_float": (CUDA_SOURCE,
+                                "src/repro/kernels/cim_conv.py:60"),
 }
 
 
@@ -713,12 +755,11 @@ def implicit_conv_operands(torch, g, b, h, w, c_in, kh, kw, cpa, n, uns):
 # llava's 14x14 stride-14 VALID patch embed on 3 channels (cpa 1: tiles of
 # 196 rows, over the exact small-sum conversion's 128; packed segments;
 # its int4 pack stays dense, cpa being odd). The float-plane cases
-# (FLOAT_CONV_CASES) run the grid without the front ends' shapes, which no
-# path runs on float planes (cell variation and drift on the zoo wait for
-# ROADMAP items 12 and 6; the patch embed's 196-row tiles are past the
-# float kernel's exactness bound of 128 rows, csrc/cim_matmul.cu), with
-# planes carrying cell variation at each sigma of VARIATION_SIGMAS, ADC
-# and ADC-free.
+# (FLOAT_CONV_CASES, the whole grid: drifted and varied whisper and llava
+# run their stems on float planes) carry cell variation at each sigma of
+# VARIATION_SIGMAS, ADC and ADC-free; the 126- and 196-row tiles are exact
+# by the bound the wrappers check before each float launch
+# (kernels/cim_matmul.py::float_sums_exact, csrc/cim_matmul.cu).
 IMPLICIT_ADC_CONV_CASES = (
     (5, 9, 9, 3, 3, 3, 1, "SAME", 14, 16, True, 4, True),
     (4, 10, 12, 14, 3, 3, 2, "SAME", 14, 20, False, 1, True),
@@ -739,7 +780,7 @@ IMPLICIT_ADC_CONV_CASES = (
     (3, 1, 64, 80, 1, 3, 2, "SAME", 42, 40, True, 4, True),
     (2, 336, 336, 3, 14, 14, 14, "VALID", 1, 1024, False, 6, True),
     (3, 28, 42, 3, 14, 14, 14, "VALID", 1, 40, True, 1, True))
-FLOAT_CONV_CASES = IMPLICIT_ADC_CONV_CASES[:-5]
+FLOAT_CONV_CASES = IMPLICIT_ADC_CONV_CASES
 VARIATION_SIGMAS = (0.1, 0.2, 0.3, 0.4)
 
 
@@ -1711,14 +1752,12 @@ def phase9_experts_cases(torch, dev, errs) -> int:
 
 
 def launcher_cim(**kw):
-    """The serving launcher's CIM config (``src/repro/launch/serve.py``):
-    4-bit weights on 2-bit cells (S = 2), 8-bit signed activations, 6-bit
-    partial sums, 128x128 arrays, column-wise scales."""
-    from repro_torch.core.cim_linear import CIMConfig
-    return CIMConfig(enabled=True, mode="emulate", weight_bits=4, cell_bits=2,
-                     act_bits=8, psum_bits=6, array_rows=128, array_cols=128,
-                     weight_granularity="column", psum_granularity="column",
-                     **kw)
+    """The serving launcher's CIM config (``repro_torch.launch.serve``, as
+    ``src/repro/launch/serve.py``): 4-bit weights on 2-bit cells (S = 2),
+    8-bit signed activations, 6-bit partial sums, 128x128 arrays,
+    column-wise scales; ``kw`` replaces fields."""
+    from repro_torch.launch.serve import launcher_cim as serving_cim
+    return serving_cim().replace(**kw)
 
 
 def moe_config(reduced: bool = False):
@@ -1807,10 +1846,12 @@ def _moe_bound(torch, a_t, digits, occ, s_p, deq, m_axis: int,
     return _bytes_ops_ms(nbytes, macs, ops_per_s)
 
 
-def _time_captured_calls(torch, calls, errs, reps: int):
+def _time_captured_calls(torch, calls, errs, reps: int,
+                         ops_per_s: float = INT8_OPS_PER_S):
     """Each captured call (``_capture_kernel_calls``: K1, K3, K6 or the
-    ADC-free matmul) timed beside its plain version and its bound, summed
-    per kernel over the captured run."""
+    ADC-free matmul) timed beside its plain version and its bound (the
+    MACs at ``ops_per_s``: the FP64 rate for float32 planes), summed per
+    kernel over the captured run."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cim_adc_free import cim_matmul_adc_free_cuda
     from repro_torch.kernels.cim_conv import cim_conv_cuda
@@ -1831,7 +1872,7 @@ def _time_captured_calls(torch, calls, errs, reps: int):
                          ref.cim_conv_ref(a_t, d, sp, dq, **ckw))
                 per_call.append(_time_calls(
                     torch, {name: (kern, plain, None, _conv_bound(
-                        torch, a_t, digits, occ, s_p, deq, ckw))},
+                        torch, a_t, digits, occ, s_p, deq, ckw, ops_per_s))},
                     f"{name} {tuple(a_t.shape)}", errs, reps))
                 continue
             if name == "cim_matmul_adc_free":
@@ -1876,7 +1917,8 @@ def _time_captured_calls(torch, calls, errs, reps: int):
                 plain = (lambda a_t=a_t, d=logical, sp=s_p, dq=deq: torch.cat(
                     [ref.cim_matmul_ref(a_t[i:i + 1024], d, sp, dq, **mq)
                      for i in range(0, a_t.shape[0], 1024)]))
-                bound = _moe_bound(torch, a_t, digits, occ, s_p, deq, 0)
+                bound = _moe_bound(torch, a_t, digits, occ, s_p, deq, 0,
+                                   ops_per_s=ops_per_s)
             per_call.append(_time_calls(
                 torch, {name: (kern, plain, None, bound)},
                 f"{name} {tuple(a_t.shape)}", errs, reps))
@@ -2611,20 +2653,19 @@ class _SlicedSource:
             _column_field_shape(self.full), device))
 
 
-class _NodeLinears:
-    """Within: every ``apply_linear`` call on a CIM node listed in
-    ``by_weight`` ({(data_ptr, shape) of its weight leaf: value}) calls
-    ``hit(value, kwargs, x)`` first. The model's layers slice stacked
-    nodes with views, so a layer's weight is known by its address."""
+class _NodeCalls:
+    """Within: every CIM forward on a node listed in ``by_weight``
+    ({(data_ptr, shape) of its weight leaf: value}) calls ``hit(value,
+    kwargs, x)`` first: the linears (``nn.linear._linear_forward``) and
+    the convs (``api.conv2d``, which ``models.layers.apply_conv`` calls).
+    The model's layers slice stacked nodes with views, so a layer's
+    weight is known by its address."""
 
     def __init__(self, by_weight, leaf, hit):
         self.by_weight, self.leaf, self.hit = by_weight, leaf, hit
         self.hits = 0
 
-    def __enter__(self):
-        import repro_torch.nn.linear as nn_linear
-        self.mod, self.orig = nn_linear, nn_linear._linear_forward
-
+    def _wrap(self, orig):
         def fwd(x, params, cim, **kw):
             w = params.get(self.leaf)
             v = None if w is None else self.by_weight.get(
@@ -2632,12 +2673,22 @@ class _NodeLinears:
             if v is not None:
                 self.hits += 1
                 self.hit(v, kw, x)
-            return self.orig(x, params, cim, **kw)
-        nn_linear._linear_forward = fwd
+            return orig(x, params, cim, **kw)
+        return fwd
+
+    def __enter__(self):
+        import repro_torch.api as api
+        import repro_torch.nn.linear as nn_linear
+        self.saved = ((nn_linear, "_linear_forward",
+                       nn_linear._linear_forward),
+                      (api, "conv2d", api.conv2d))
+        for mod, name, orig in self.saved:
+            setattr(mod, name, self._wrap(orig))
         return self
 
     def __exit__(self, *exc):
-        self.mod._linear_forward = self.orig
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
         return False
 
 
@@ -2651,10 +2702,11 @@ def _by_layer(node_leaf):
 
 
 def _drifted_emulate(packed, params, source, state, memo):
-    """A ``_NodeLinears`` under which the emulate forward of ``params``
-    evaluates every CIM linear whose packed node drifts under that node's
-    drift fields at ``state`` (the same fields ``drift_tree(packed,
-    source, state)`` draws), and leaves the rest (the MoE banks) clean."""
+    """A ``_NodeCalls`` under which the emulate forward of ``params``
+    evaluates every CIM linear and conv whose packed node drifts under
+    that node's drift fields at ``state`` (the same fields
+    ``drift_tree(packed, source, state)`` draws), and leaves the rest (the
+    MoE banks) clean."""
     by_w = {}
     for path, node in _packed_nodes(packed):
         src = source.for_layer(path)
@@ -2665,7 +2717,7 @@ def _drifted_emulate(packed, params, source, state, memo):
 
     def hit(src, kw, x):
         kw.update(variation=src, variation_std=state)
-    return _NodeLinears(by_w, "w", hit)
+    return _NodeCalls(by_w, "w", hit)
 
 
 def _step_events(torch):
@@ -2706,8 +2758,8 @@ def _node_inputs(torch, model, packed, tokens, dcfg):
         for k, i in _by_layer(node["w_digits"]).items():
             by_w[k] = (path, i)
     inputs = {}
-    with _NodeLinears(by_w, "w_digits",
-                      lambda v, kw, x: inputs.setdefault(v, x)):
+    with _NodeCalls(by_w, "w_digits",
+                    lambda v, kw, x: inputs.setdefault(v, x)):
         model.forward(packed, tokens, dcfg)
     return inputs
 
@@ -3581,10 +3633,12 @@ def frontend_batch(torch, cfg, b):
     return (torch.randn(shape, generator=g) * 0.1).to(torch.device("cuda"))
 
 
-def _conv_bound(torch, a, digits, occ, s_p, deq, kw):
+def _conv_bound(torch, a, digits, occ, s_p, deq, kw,
+                ops_per_s: float = INT8_OPS_PER_S):
     """(bytes ms, ops ms) of one K3 call from this run's data: the codes,
     planes, map and scales read once, the float32 output written once;
-    the int8 MACs of the live planes over the real input rows."""
+    the MACs of the live planes over the real input rows at ``ops_per_s``
+    (int8, or FP64 for float32 planes)."""
     from repro_torch.kernels import ref
     geo = ref.conv_geometry(a.shape, kw["kh"], kw["kw"], kw["stride"],
                             kw["padding"], digits.shape[1],
@@ -3594,7 +3648,7 @@ def _conv_bound(torch, a, digits, occ, s_p, deq, kw):
     nbytes = (a.numel() + digits.numel() * digits.element_size()
               + (occ.numel() if occ is not None else 0)
               + 4 * (s_p.numel() + deq.numel()) + 4 * geo.m * deq.shape[-1])
-    return _bytes_ops_ms(nbytes, _needed_macs(op, geo.m), INT8_OPS_PER_S)
+    return _bytes_ops_ms(nbytes, _needed_macs(op, geo.m), ops_per_s)
 
 
 def phase14_recurrent_zoo(torch, errs, reduced: bool = False):
@@ -3630,6 +3684,491 @@ def phase14_recurrent_zoo(torch, errs, reduced: bool = False):
         what = f"{launches[k]} launches on the main path"
         print(f"phase 14 {k}: {_fmt_total(out[k], what)}", flush=True)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the zoo on a drifting chip
+# ---------------------------------------------------------------------------
+
+#: phase 15's models: phase 14's configurations at their cuts (``arch``,
+#: config fields and depth cut), with the batch of the forward that takes
+#: the front-end input: llava's images at batch 2 (phase 14's 4 halved:
+#: under drift emulate's partial sums are float64, twice phase 14's
+#: float32 ones, 9.4 GB a tensor of one d_ff linear at 2 x 640 rows).
+DRIFT_ZOO = tuple((arch, cut, 2 if fb else None)
+                  for arch, cut, _, fb in RECURRENT_ZOO)
+#: the baked-variation artifact: whisper (conv and stacked nodes) at this
+#: sigma of VARIATION_SIGMAS, from this source seed
+VARIED_ARCH, VARIED_SIGMA, VARIED_SEED = "whisper-small", 0.3, 15
+#: the launcher's run: zamba2 at phase 14's cut, phase 12's drift from t0
+LAUNCH_ARCH = "zamba2-2.7b"
+ZOO_DRIFT_REPS = 4
+
+
+def _slot_replay(invoke, b, prompts, requests):
+    """The slot engine's schedule (``ServingEngine._admit``/``step``)
+    replayed on ``invoke`` (tokens (b, 1) int32 numpy -> next tokens
+    numpy, one model invocation each): prompts admitted into free slots in
+    order and prefilled one token at a time with the other slots' last
+    tokens, then decode steps over every slot. Returns each request's
+    tokens in request order."""
+    queue = [(r, p, n) for r, (p, (_, n)) in enumerate(zip(prompts,
+                                                          requests))]
+    slots, last, done = [None] * b, np.zeros((b, 1), np.int32), {}
+    while True:
+        for i in range(b):
+            if slots[i] is None and queue:
+                rid, prompt, n = queue.pop(0)
+                slots[i] = (rid, n, [])
+                for tok in prompt:
+                    x = last.copy()
+                    x[i, 0] = tok
+                    last[i, 0] = invoke(x)[i, 0]
+        if all(sl is None for sl in slots):
+            return [done[r] for r in range(len(prompts))]
+        nxt = invoke(last)
+        for i, sl in enumerate(slots):
+            if sl is None:
+                continue
+            sl[2].append(int(nxt[i, 0]))
+            last[i, 0] = nxt[i, 0]
+            if len(sl[2]) >= sl[1]:
+                done[sl[0]] = sl[2]
+                slots[i] = None
+
+
+def _varied_emulate(packed, params, source, sigma):
+    """A ``_NodeCalls`` under which the emulate forward of ``params``
+    evaluates every CIM linear and conv under the cell variation that
+    ``api.pack_model(..., variation=source, variation_std=sigma)`` baked
+    into ``packed``: the node at ``path`` from ``source.for_layer(path)``,
+    layer ``i`` of a stacked node from the ``i``-th of its ``split``."""
+    by_w = {}
+    for path, _ in _packed_nodes(packed):
+        src = source.for_layer(path)
+        layers = _by_layer(_at(params, path)["w"])
+        split = (src.split(len(layers)) if None not in layers.values()
+                 else None)
+        for k, i in layers.items():
+            by_w[k] = src if i is None else split[i]
+
+    def hit(src, kw, x):
+        kw.update(variation=src, variation_std=sigma)
+    return _NodeCalls(by_w, "w", hit)
+
+
+class _CutConfigs:
+    """Within: ``configs.registry.get_config`` gives ``arch``'s published
+    config with ``cut`` (the serving launcher has no depth flag)."""
+
+    def __init__(self, arch, cut):
+        self.arch, self.cut = arch, cut
+
+    def __enter__(self):
+        import repro_torch.configs.registry as registry
+        self.mod, self.orig = registry, registry.get_config
+
+        def get_config(name, *a, **kw):
+            cfg = self.orig(name, *a, **kw)
+            return cfg.replace(**self.cut) if name == self.arch else cfg
+        registry.get_config = get_config
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.get_config = self.orig
+        return False
+
+
+def _zoo_drift(torch, errs, arch, cut, fb, reduced):
+    """One family of phase 15 on a drifting chip; returns {"k1": decode
+    step sums, "k3": forward sums or None, "launches": (float K1, float
+    K3)} of the counted run."""
+    from repro_torch.api import model_artifact
+    from repro_torch.core.variation import DriftSchedule, Sampler, drift_tree
+    from repro_torch.models import whisper
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.serve.engine import engine_from_artifact
+    from repro_torch.serve.health import DriftMonitor, HealthConfig
+
+    t_model = time.perf_counter()
+    zc = zoo_config(arch, cut, reduced)
+    cfg = zc["cfg"]
+    fam = cfg.family
+    model = get_model(cfg)
+    b, tp, new, max_len = (zc["batch"], zc["prompt_len"], zc["new_tokens"],
+                           zc["max_len"])
+    (k1_fwd, k3_fwd), k1_step = recurrent_zoo_counts(cfg)
+    sched, source = DriftSchedule(**DRIFT_SCHED), Sampler(DRIFT_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model.specs(cfg), 0)
+    art = model_artifact(params, cfg.cim, meta={"arch": arch})
+    dcfg = cfg.replace(cim=art.config)
+    packed = art.params
+    g = torch.Generator().manual_seed(15)
+    tokens = torch.randint(0, cfg.vocab, (b, tp), generator=g).to(
+        torch.device("cuda"))
+    prompts = tokens.cpu().numpy().astype(np.int32)
+    fb = fb or b
+    extra = frontend_batch(torch, cfg, fb)
+    f_tokens = tokens[:fb]
+    enc_d = whisper.encode(packed, extra, dcfg) if fam == "whisper" else None
+    enc_e = whisper.encode(params, extra, cfg) if fam == "whisper" else None
+    memo = {}
+
+    def new_cache(enc):
+        cache = model.init_cache(cfg, b, max_len)
+        if enc is not None:
+            cache["enc_out"] = enc
+        return cache
+
+    def gate(lg_d, lg_e, what):
+        scale = float(lg_e.float().abs().max())
+        diff = float((lg_d.float() - lg_e.float()).abs().max())
+        check(lg_d.shape == lg_e.shape and bool(torch.isfinite(lg_d).all())
+              and diff <= 1e-4 * scale, f"15 {arch}: drifted deploy vs "
+              f"drifted emulate {what}: max diff {diff!r} at max |logit| "
+              f"{scale!r}")
+        return diff, scale
+
+    # (a) the forward with the front-end input, drifted at t0, against
+    # emulate under the same fields (the convs' too)
+    st = sched.at(DRIFT_T0)
+    lg_d = model.forward(drift_tree(packed, source, st), f_tokens, dcfg,
+                         extra)
+    with _drifted_emulate(packed, params, source, st, memo) as em:
+        lg_e = model.forward(params, f_tokens, cfg, extra)
+    check(em.hits == k1_fwd + k3_fwd, f"15 {arch}: drifted emulate forward "
+          f"drifted {em.hits} CIM calls, expected {k1_fwd} + {k3_fwd}")
+    worst, scale_max = gate(lg_d, lg_e, "forward")
+    del lg_d, lg_e
+    memo.clear()
+
+    # (b) one prefill and `new - 1` decode steps from t0, step by step,
+    # drifted deploy against drifted emulate; the deploy tokens are the
+    # engine's reference
+    cache_d, cache_e, tok, ref_tokens = new_cache(enc_d), new_cache(enc_e), \
+        tokens, []
+    for i in range(new):
+        st = sched.at(DRIFT_T0 + i)
+        lg_d, cache_d = model.decode_step(drift_tree(packed, source, st),
+                                          cache_d, tok, dcfg)
+        with _drifted_emulate(packed, params, source, st, memo) as em:
+            lg_e, cache_e = model.decode_step(params, cache_e, tok, cfg)
+        memo.clear()
+        check(em.hits == k1_step, f"15 {arch}: drifted emulate step {i} "
+              f"drifted {em.hits} CIM calls, expected {k1_step}")
+        d, sc = gate(lg_d, lg_e, f"step {i} (t {DRIFT_T0 + i})")
+        worst, scale_max = max(worst, d), max(scale_max, sc)
+        tok = torch.argmax(lg_d[:, -1:].float(), dim=-1).to(torch.int32)
+        ref_tokens.append(tok)
+    ref_tokens = torch.cat(ref_tokens, dim=1).cpu().numpy()
+    del cache_d, cache_e
+
+    # (c) the counted main path: the drifted forward with the front-end
+    # input and the drifting engine (the repaired generate_batch: whisper's
+    # encoder states in its cache), watched by a monitor that never trips
+    eng = engine_from_artifact(art, cfg, batch_size=b, max_len=max_len,
+                               drift_key=source, drift_schedule=sched,
+                               health=DriftMonitor(HealthConfig(
+                                   hard_threshold=float("inf"))))
+    eng.t = DRIFT_T0
+    if enc_d is not None:
+        eng.cache["enc_out"] = enc_d
+    torch.cuda.synchronize()
+    _reset_counters()
+    model.forward(drift_tree(packed, source, sched.at(DRIFT_T0)), f_tokens,
+                  dcfg, extra)
+    t0 = time.perf_counter()
+    gen = eng.generate_batch(prompts, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launched, floats = _read_counters()
+    inv = eng.t - DRIFT_T0
+    check(np.array_equal(gen, ref_tokens), f"15 {arch}: the drifting "
+          f"engine's tokens {gen.tolist()} differ from the step-by-step "
+          f"run's {ref_tokens.tolist()}")
+    k1_want, k3_want = k1_fwd + k1_step * inv, k3_fwd
+    check(floats["cim_matmul"] == launched["cim_matmul"] == k1_want
+          and floats["cim_conv"] == launched["cim_conv"] == k3_want
+          and not any(v for k, v in launched.items()
+                      if k not in ("cim_matmul", "cim_conv")),
+          f"15 {arch}: launches {launched}, on float planes {floats}; "
+          f"expected {k1_want} float-plane K1 ({k1_fwd} + {k1_step} per "
+          f"invocation x {inv}) and {k3_want} float-plane K3, no integer "
+          "launch, no patch gather in torch")
+    h = eng.health()
+    print(f"phase 15 {arch} (fields Sampler({DRIFT_SEED}), from t "
+          f"{DRIFT_T0}): drifted deploy vs drifted emulate under the same "
+          f"fields, the forward over {fb} x {tp} tokens"
+          + (f" with the front-end input {tuple(extra.shape)}"
+             if extra is not None else "")
+          + f" and one prefill + {new - 1} decode steps of {b} x {tp}: max "
+          f"diff {worst!r} at max |logit| {scale_max!r}; generate_batch "
+          f"tokens equal the step-by-step run's ({gen_s:.3f} s, "
+          f"{b * new / gen_s:.1f} tokens/s, health score "
+          f"{h.get('score', 0.0):.3f}, fallback {h['fallback_active']}); "
+          f"launches {launched}, all float-plane ({k1_fwd} K1 + {k3_fwd} K3 "
+          f"the forward, {k1_step} K1 per invocation x {inv})", flush=True)
+    del eng
+
+    if fam == "whisper":
+        # the slot engine against the same schedule replayed on drifted
+        # emulate, encoder states in both caches
+        slot = engine_from_artifact(art, cfg, batch_size=2, max_len=max_len,
+                                    drift_key=source, drift_schedule=sched)
+        slot.t = DRIFT_T0
+        slot.cache["enc_out"] = enc_d[:2]
+        rng = np.random.default_rng(15)
+        slot_prompts = [rng.integers(0, cfg.vocab, ln).astype(np.int32)
+                        for ln, _ in zc["requests"]]
+        got = _slot_run(slot, slot_prompts, zc["requests"])
+        cache = model.init_cache(cfg, 2, max_len)
+        cache["enc_out"] = enc_e[:2]
+        clock = [DRIFT_T0]
+
+        def invoke(x):
+            st = sched.at(clock[0])
+            clock[0] += 1
+            with _drifted_emulate(packed, params, source, st, memo):
+                lg, new_cache_ = model.decode_step(
+                    params, cache, torch.from_numpy(x).cuda(), cfg)
+            memo.clear()
+            cache.update(new_cache_)
+            return torch.argmax(lg[:, -1].float(), dim=-1).to(
+                torch.int32)[:, None].cpu().numpy()
+        want = _slot_replay(invoke, 2, slot_prompts, zc["requests"])
+        check(got == want and clock[0] == slot.t, f"15 {arch}: the drifting "
+              f"slot engine {got} (t {slot.t}) against its schedule on "
+              f"drifted emulate {want} (t {clock[0]})")
+        # generate_batch without encoder states refuses
+        blank = engine_from_artifact(art, cfg, batch_size=b, max_len=max_len)
+        try:
+            blank.generate_batch(prompts, 2)
+            check(False, "15 whisper: generate_batch served without "
+                  "encoder states")
+        except ValueError as e:
+            check("enc_out" in str(e), f"15 whisper: {e}")
+        print(f"phase 15 {arch}: the drifting slot engine (3 requests at "
+              f"batch 2, {slot.t - DRIFT_T0} invocations) equals its "
+              f"schedule replayed on drifted emulate; generate_batch "
+              f"without encoder states raises", flush=True)
+        del slot, blank, cache
+
+    # (d) the drifted decode step after the prompt: eager, each step drawing
+    # its own realization (drift_tree and the step, CUDA events), and one
+    # realization's step replayed from a CUDA graph against the same steps
+    # run eagerly (a step's fields come from freshly seeded generators and
+    # its new planes are checked on the host before their first launch, so
+    # drift_tree stays outside the graph)
+    pd = drift_tree(packed, source, sched.at(DRIFT_T0))
+    same, replay_ms, plain_step_ms = _graph_decode(
+        torch, model, dcfg, pd, lambda: new_cache(enc_d), tokens, new - 1)
+    check(same, f"15 {arch}: the drifted decode step replayed from a CUDA "
+          "graph differs from the eager steps (logits, tokens or caches)")
+    _, cache = model.decode_step(pd, new_cache(enc_d), tokens, dcfg)
+    tok = torch.from_numpy(ref_tokens[:, :1]).to(tokens.device)
+    dev_ms, drift_ms = [], []
+    for i in range(new - 1):
+        ev = _step_events(torch)
+        ev[0].record()
+        pi = drift_tree(packed, source, sched.at(DRIFT_T0 + 1 + i))
+        ev[1].record()
+        lg, cache = model.decode_step(pi, cache, tok, dcfg)
+        tok = torch.argmax(lg[:, -1:].float(), dim=-1).to(torch.int32)
+        ev[2].record()
+        torch.cuda.synchronize()
+        dev_ms.append(ev[0].elapsed_time(ev[2]))
+        drift_ms.append(ev[0].elapsed_time(ev[1]))
+        del pi
+    step_ms = float(np.median(dev_ms))
+    print(f"phase 15 {arch} drifted decode step (batch {b}): eager "
+          f"{step_ms:.2f} ms (CUDA events, median of {new - 1}; drift_tree "
+          f"{float(np.median(drift_ms)):.2f} ms of it), one realization's "
+          f"step {plain_step_ms:.2f} ms eager and {replay_ms:.2f} ms replayed "
+          f"from a CUDA graph (its logits, tokens and caches bit-equal to "
+          f"the eager steps')", flush=True)
+    del cache
+
+    # (e) every float K1 and K3 call of one drifted forward (the front-end
+    # input) and of one drifted decode step after the prompt, against the
+    # plain versions, timed beside the FP64 bound
+    _, cache = model.decode_step(pd, new_cache(enc_d), tokens, dcfg)
+    sums = {}
+    for what, fn in (
+            ("forward", lambda: model.forward(pd, f_tokens, dcfg, extra)),
+            ("decode", lambda: model.decode_step(pd, cache, tokens[:, :1],
+                                                 dcfg))):
+        calls = _capture_kernel_calls(fn)
+        k1 = calls.pop("cim_matmul_transformer")
+        k3 = calls.pop("cim_conv_frontend")
+        n1, n3 = (k1_fwd, k3_fwd) if what == "forward" else (k1_step, 0)
+        check(len(k1) == n1 and len(k3) == n3 and not any(calls.values())
+              and all(a[1].dtype == torch.float32 for a, _ in k1 + k3),
+              f"15 {arch} {what}: captured {len(k1)} K1 and {len(k3)} K3 "
+              f"calls, expected {n1} and {n3} on float32 planes")
+        for key, kname, lst in (("k1", "cim_matmul_zoo_drift", k1),
+                                ("k3", "cim_conv_frontend_float", k3)):
+            if not lst:
+                continue
+            errs.setdefault(kname, 0.0)
+            tot = _time_captured_calls(torch, {kname: lst}, errs,
+                                       ZOO_DRIFT_REPS, FP64_OPS_PER_S)[kname]
+            rows = sorted({a[1].shape[2] for a, _ in lst})
+            print(f"phase 15 {kname} {arch} {what}: "
+                  f"{_fmt_total(tot, f'{len(lst)} launches', 'FP64 ops')}; "
+                  f"tile rows {rows}", flush=True)
+            sums.setdefault(key, {})[what] = tot
+    del pd, cache
+    print(f"phase 15 {arch}: max |kernel - plain| float K1 "
+          f"{errs['cim_matmul_zoo_drift']!r}, float K3 "
+          f"{errs.get('cim_conv_frontend_float', 0.0)!r}; max memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"{time.perf_counter() - t_model:.1f} s", flush=True)
+    out = {"k1": sums["k1"]["decode"], "k3": sums.get("k3", {}).get("forward"),
+           "launches": (floats["cim_matmul"], floats["cim_conv"]),
+           "step_ms": (step_ms, replay_ms)}
+    if arch == VARIED_ARCH:
+        out["varied"] = (params, extra, f_tokens, cfg, model)
+    else:
+        del params
+    return out
+
+
+def _zoo_varied(torch, params, extra, tokens, cfg, model):
+    """A baked-variation artifact (``model_artifact`` with a ``Sampler``
+    and a sigma of VARIATION_SIGMAS): its deploy forward against emulate
+    under the same per-node sources, every K1 and K3 on float planes."""
+    from repro_torch.api import model_artifact
+    from repro_torch.core.variation import Sampler
+    source = Sampler(VARIED_SEED)
+    t0 = time.perf_counter()
+    art = model_artifact(params, cfg.cim, variation=source,
+                         variation_std=VARIED_SIGMA)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    nodes = list(_packed_nodes(art.params))
+    check(all(n["w_digits"].dtype == torch.float32 for _, n in nodes),
+          "15 varied: a baked node kept integer planes")
+    (k1_fwd, k3_fwd), _ = recurrent_zoo_counts(cfg)
+    _reset_counters()
+    lg_d = model.forward(art.params, tokens, cfg.replace(cim=art.config),
+                         extra)
+    torch.cuda.synchronize()
+    launched, floats = _read_counters()
+    with _varied_emulate(art.params, params, source, VARIED_SIGMA) as em:
+        lg_e = model.forward(params, tokens, cfg, extra)
+    check(em.hits == k1_fwd + k3_fwd, f"15 varied: emulate varied {em.hits} "
+          f"CIM calls, expected {k1_fwd} + {k3_fwd}")
+    scale = float(lg_e.float().abs().max())
+    diff = float((lg_d.float() - lg_e.float()).abs().max())
+    check(bool(torch.isfinite(lg_d).all()) and diff <= 1e-4 * scale,
+          f"15 varied: deploy vs emulate max diff {diff!r} at max |logit| "
+          f"{scale!r}")
+    check(floats["cim_matmul"] == k1_fwd and floats["cim_conv"] == k3_fwd,
+          f"15 varied: launches {launched}, on float planes {floats}")
+    print(f"phase 15 baked variation ({cfg.name}, model_artifact with "
+          f"Sampler({VARIED_SEED}) at sigma {VARIED_SIGMA}, {len(nodes)} "
+          f"nodes baked in {pack_s:.2f} s): deploy vs emulate under the same "
+          f"sources max diff {diff!r} at max |logit| {scale!r}; launches "
+          f"{launched}, on float planes {floats}", flush=True)
+
+
+def _zoo_launcher(torch, reduced):
+    """``python -m repro_torch.launch.serve`` on the card, in process:
+    LAUNCH_ARCH at its phase 14 cut, deploy, phase 12's drift from t0,
+    the health monitor and the metrics JSON."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import names as M
+    cut = dict(next(c for a, c, *_ in RECURRENT_ZOO if a == LAUNCH_ARCH))
+    out_dir = ROOT / "build" / "chip_smoke_launch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "metrics.json"
+    argv = ["--arch", LAUNCH_ARCH, "--cim", "deploy", "--batch", "8",
+            "--prompt-len", "64", "--new-tokens", "16",
+            "--drift-col-rate", str(DRIFT_SCHED["col_rate"]),
+            "--drift-cell-rate", str(DRIFT_SCHED["cell_rate"]),
+            "--drift-read-sigma", str(DRIFT_SCHED["read_sigma"]),
+            "--drift-t0", str(DRIFT_T0), "--health", "--report-every", "8",
+            "--metrics-out", str(path)]
+    if reduced:
+        argv += ["--reduced"]
+        cut.pop("n_layers", None)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _CutConfigs(LAUNCH_ARCH, cut), contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    check(rc == 0, f"15 launcher: exit {rc}")
+    m = json.loads(path.read_text())
+    names = {v for k, v in vars(M).items() if k.isupper()}
+    seen = {n for kind in ("counters", "gauges", "histograms")
+            for n in m["metrics"][kind]}
+    check(seen and seen <= names, f"15 launcher: metrics {sorted(seen)} not "
+          f"all among obs.names")
+    check(m["health"]["drifting"] and m["throughput"]["tokens_generated"]
+          == 8 * 16, f"15 launcher: metrics {m['health']}, "
+          f"{m['throughput']}")
+    rate = next(ln for ln in lines if "tok/s" in ln)
+    print(f"phase 15 launcher (main({' '.join(argv)}) at {cut}): exit 0 in "
+          f"{wall:.1f} s with the build of its pack; {rate}; metrics JSON "
+          f"parses, names {sorted(seen)}, all of obs.names; "
+          + " | ".join(ln for ln in lines if "tok/s" not in ln
+                       and not ln.startswith("[serve] health")), flush=True)
+
+
+def phase15_zoo_drift(torch, errs, reduced: bool = False):
+    """The recurrent and multimodal zoo on a drifting chip (``DRIFT_ZOO``,
+    phase 14's configurations and cuts; phase 12's schedule from t0):
+    drifted deploy against drifted emulate under the same fields, the
+    drifting engine against a step-by-step run (whisper also the slot
+    engine against its schedule replayed), the float-plane K1 and K3
+    counts from the spec trees, every float K1/K3 call of one drifted
+    forward and decode step against its plain version and timed; a
+    baked-variation artifact against emulate; one launcher run. Returns
+    the results-line entries ``cim_matmul_zoo_drift`` (one drifted decode
+    step's float K1 summed over the four families) and
+    ``cim_conv_frontend_float`` (the float K3 of whisper's and llava's
+    drifted forwards)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    k1s, k3s, launches, varied = [], [], [0, 0], None
+    for arch, cut, fb in DRIFT_ZOO:
+        r = _zoo_drift(torch, errs, arch, cut, fb, reduced)
+        k1s.append(r["k1"])
+        if r["k3"] is not None:
+            k3s.append(r["k3"])
+        launches[0] += r["launches"][0]
+        launches[1] += r["launches"][1]
+        if "varied" in r:
+            varied = r["varied"]
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    _zoo_varied(torch, *varied)
+    del varied
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zoo_launcher(torch, reduced)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for name, lst, n in (("cim_matmul_zoo_drift", k1s, launches[0]),
+                         ("cim_conv_frontend_float", k3s, launches[1])):
+        out[name] = dict(_sum_layers([{name: t} for t in lst])[name],
+                         launches=n)
+        what = f"{n} launches on the main path"
+        print(f"phase 15 {name}: "
+              f"{_fmt_total(out[name], what, 'FP64 ops')}", flush=True)
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s; max memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
     return out
 
 

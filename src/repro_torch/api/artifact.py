@@ -8,7 +8,13 @@ time. MoE expert banks -- flat ``nm``/``nm_s_w``/``nm_s_p``/``nm_s_a``
 keys with leading (layer, expert) axes -- pack per expert into
 ``nm_digits`` planes with ``nm_occ``, ``nm_k_logical`` and per-expert
 scales. Every other node (embeddings, norms, routers, full-precision
-stems, BatchNorm) passes through.
+stems, BatchNorm) passes through. With a variation source and a sigma
+(``variation``, ``variation_std``: the reference's ``variation_key``,
+``variation_std``) one device realization is baked into float32 planes,
+each node from its own source (``variation.for_layer(path)``), a stacked
+node's layers and a bank's experts from ``split`` (the reference's
+``jax.random.split`` of the node's key); those planes serve through the
+float-digit kernels as drifted planes do.
 
 ``DeployArtifact`` is the unit a server loads: the packed tree, the
 ``CIMConfig`` pinned to a packed backend, the layout version and ``meta``
@@ -173,26 +179,34 @@ def _packed_config(cfg: CIMConfig) -> CIMConfig:
     return cfg.replace(mode="deploy")
 
 
-def _pack_each(pack, layer: Dict, cfg: CIMConfig, lead: int) -> Dict:
+def _pack_each(pack, layer: Dict, cfg: CIMConfig, lead: int, variation=None,
+               variation_std=None) -> Dict:
     """Pack a node whose leaves carry ``lead`` leading axes (stacked layers,
-    experts) one slice at a time, and stack the results back."""
+    experts) one slice at a time, and stack the results back; with a
+    variation source, slice ``i`` (row-major over the leading axes) bakes
+    the ``i``-th of ``variation.split(n)``."""
     shape = tuple(layer["w"].shape[:lead])
     flat = {k: v.reshape((-1,) + tuple(v.shape[lead:]))
             for k, v in layer.items()}
-    outs = [pack({k: v[i] for k, v in flat.items()}, cfg)
-            for i in range(flat["w"].shape[0])]
+    n = flat["w"].shape[0]
+    sources = [None] * n if variation is None else variation.split(n)
+    outs = [pack({k: v[i] for k, v in flat.items()}, cfg,
+                 variation=sources[i], variation_std=variation_std)
+            for i in range(n)]
     return {k: torch.stack([o[k] for o in outs]).reshape(
                 shape + tuple(outs[0][k].shape))
             for k in outs[0]}
 
 
-def _pack_bank(node: Dict, nm: str, cfg: CIMConfig, pack_lin) -> Dict:
+def _pack_bank(node: Dict, nm: str, cfg: CIMConfig, pack_lin,
+               variation=None, variation_std=None) -> Dict:
     """Pack one expert bank per expert (and per layer when stacked). The
     outputs keep the flat-key convention, so the router and shared-expert
     siblings stay untouched in the same node."""
     bank = {"w": node[nm].to(torch.float32),
             **{s: node[f"{nm}_{s}"] for s in _BANK_SCALES}}
-    packed = _pack_each(pack_lin, bank, cfg, bank["w"].ndim - 2)
+    packed = _pack_each(pack_lin, bank, cfg, bank["w"].ndim - 2, variation,
+                        variation_std)
     out = {f"{nm}_digits": packed["w_digits"],
            f"{nm}_k_logical": packed["k_logical"],
            **{f"{nm}_{s}": packed[s] for s in _BANK_SCALES}}
@@ -201,14 +215,25 @@ def _pack_bank(node: Dict, nm: str, cfg: CIMConfig, pack_lin) -> Dict:
     return out
 
 
-def pack_model(params: Dict, cfg: CIMConfig, *, device=None) -> Dict:
+def pack_model(params: Dict, cfg: CIMConfig, *, variation=None,
+               variation_std=None, device=None) -> Dict:
     """Walk a model param tree on ``device`` (``cuda`` unless ``"cpu"`` is
     passed), packing every CIM layer and expert bank for deployment with
     ``cfg``'s backend packers. Sequences come back as lists, as in the
-    reference. Byte-identical with the reference's ``pack_model``."""
+    reference. Byte-identical with the reference's ``pack_model``.
+
+    ``variation`` (a variation source, ``core.variation.Sampler``) with a
+    sigma ``variation_std`` bakes ONE device realization into float32
+    planes: the node at ``path`` draws from ``variation.for_layer(path)``,
+    an expert bank ``nm`` from ``for_layer(path + (nm,))``, and a stacked
+    node or a bank slice ``i`` from the ``i``-th of that source's
+    ``split``, as the reference folds and splits its ``variation_key``."""
     from .backends import packers_for
     pack_lin, pack_cv = packers_for(_packed_config(cfg))
     params = to_device(params, resolve_device(device))
+
+    def source(path):
+        return None if variation is None else variation.for_layer(path)
 
     def walk(node, path):
         if _is_cim_layer(node):
@@ -216,20 +241,22 @@ def pack_model(params: Dict, cfg: CIMConfig, *, device=None) -> Dict:
             layer = {k: node[k] for k in _CIM_LAYER_KEYS}
             extras = {k: v for k, v in node.items()
                       if k not in _CIM_LAYER_KEYS}
+            kw = dict(variation=source(path), variation_std=variation_std)
             if w.ndim == 2:
-                return {**extras, **pack_lin(layer, cfg)}
+                return {**extras, **pack_lin(layer, cfg, **kw)}
             if w.ndim == 4:
-                return {**extras, **pack_cv(layer, cfg)}
+                return {**extras, **pack_cv(layer, cfg, **kw)}
             if w.ndim in (3, 5):        # stacked layers: one at a time
                 pack = pack_lin if w.ndim == 3 else pack_cv
-                return {**extras, **_pack_each(pack, layer, cfg, 1)}
+                return {**extras, **_pack_each(pack, layer, cfg, 1, **kw)}
             raise ValueError(f"CIM layer at {'/'.join(path)} has "
                              f"unsupported weight rank {w.ndim}")
         if isinstance(node, dict):
             out: Dict = {}
             consumed = set()
             for nm in _bank_names(node):
-                out.update(_pack_bank(node, nm, cfg, pack_lin))
+                out.update(_pack_bank(node, nm, cfg, pack_lin,
+                                      source(path + (nm,)), variation_std))
                 consumed |= {nm, *(f"{nm}_{s}" for s in _BANK_SCALES)}
             for k, v in node.items():
                 if k not in consumed:
@@ -366,11 +393,14 @@ class DeployArtifact:
 
 
 def model_artifact(params: Dict, cfg: CIMConfig, *,
-                   meta: Optional[Dict[str, Any]] = None,
-                   device=None) -> DeployArtifact:
-    """``pack_model`` wrapped into a model ``DeployArtifact``; the shardable
-    column axis of every packed node goes into ``meta["col_shard"]``."""
-    packed = pack_model(params, cfg, device=device)
+                   meta: Optional[Dict[str, Any]] = None, variation=None,
+                   variation_std=None, device=None) -> DeployArtifact:
+    """``pack_model`` wrapped into a model ``DeployArtifact`` (with
+    ``variation``/``variation_std``, one baked device realization); the
+    shardable column axis of every packed node goes into
+    ``meta["col_shard"]``."""
+    packed = pack_model(params, cfg, variation=variation,
+                        variation_std=variation_std, device=device)
     m = {**(meta or {}), "col_shard": col_shard_axes(packed)}
     return DeployArtifact(kind="model", config=_packed_config(cfg),
                           params=packed, meta=m)

@@ -16,10 +16,16 @@ of two forms (a *variation*):
 
 * a **theta tensor** (or numpy array) over the logical shape, e.g. drawn
   by the JAX package and handed over for a parity test;
-* a ``Sampler``: (seed, Monte-Carlo sample index, layer name). It draws theta with ``torch.randn`` from a ``torch.Generator``
-  seeded by a hash of (seed, sample, layer), on the planes' device. Theta
-  does not depend on sigma, so sample ``i`` sees the same field at every
-  sigma (common random numbers).
+* a **variation source** (``VariationSource``): the port's ``Sampler``,
+  (seed, Monte-Carlo sample index, layer name), draws theta with
+  ``torch.randn`` from a ``torch.Generator`` seeded by a hash of (seed,
+  sample, layer), on the planes' device. Theta does not depend on sigma,
+  so sample ``i`` sees the same field at every sigma (common random
+  numbers). A parity test's source hands in the JAX package's draws.
+  ``for_layer(path)`` gives a packed-tree node its own source (the
+  reference's ``path_fold_key``), ``split(n)`` one source per layer of a
+  stacked node or per expert of a bank (the reference's
+  ``jax.random.split``): ``api.pack_model`` bakes variation so.
 
 The factor is ``exp(sigma * theta)`` in float32, as in the reference.
 
@@ -80,6 +86,13 @@ class Sampler:
         """Standard-normal float32 field over ``shape`` on ``device``."""
         return self._normal(self.generator_seed(), shape, device)
 
+    def split(self, n: int) -> list:
+        """``n`` independent samplers, one per layer of a stacked node or
+        expert of a bank (the counterpart of ``jax.random.split(key,
+        n)``)."""
+        return [dataclasses.replace(self, layer=f"{self.layer}/{i}")
+                for i in range(int(n))]
+
     # -- the drift source protocol (``DriftSource``) -------------------------
 
     def read(self, shape: Sequence[int], t: int, device=None) -> torch.Tensor:
@@ -107,6 +120,23 @@ class Sampler:
         gen.manual_seed(seed)
         return torch.randn(tuple(shape), generator=gen, device=device,
                            dtype=torch.float32)
+
+
+class VariationSource(Protocol):
+    """Where cell-variation theta comes from, one field per packed-tree
+    node. ``Sampler`` implements it; a parity test implements it with the
+    JAX package's own draws."""
+
+    def for_layer(self, name) -> "VariationSource":
+        """The source of the layer ``name`` or of the packed-tree node at
+        the path ``name`` (a tuple)."""
+
+    def split(self, n: int) -> list:
+        """``n`` independent sources (the layers of a stacked node, the
+        experts of a bank)."""
+
+    def theta(self, shape: Sequence[int], device=None) -> torch.Tensor:
+        """A standard-normal float32 field over ``shape``."""
 
 
 class DriftSource(Protocol):
@@ -238,14 +268,16 @@ def variation_wanted(variation, sigma) -> bool:
 def variation_noise(variation, shape: Sequence[int], sigma,
                     device=None) -> torch.Tensor:
     """Multiplicative log-normal factor ``exp(sigma * theta)`` over
-    ``shape``, float32. A theta tensor is reshaped to ``shape`` (its
-    element count must match: a conv field may come 6-D or flattened).
+    ``shape``, float32, theta from a variation source (its
+    ``theta(shape, device)``) or a tensor. A theta tensor is reshaped to
+    ``shape`` (its element count must match: a conv field may come 6-D or
+    flattened).
     When ``sigma`` is a ``DriftState``, ``variation`` is a drift source
     and the factor is ``drift_field``'s, which broadcasts against
     ``shape``."""
     if isinstance(sigma, DriftState):
         return drift_field(variation, shape, sigma, device)
-    if isinstance(variation, Sampler):
+    if hasattr(variation, "theta"):                 # a variation source
         theta = variation.theta(shape, device)
     else:
         if not isinstance(variation, torch.Tensor):
@@ -335,16 +367,30 @@ def drift_tree(params, source, state: DriftState):
     their whole shape. As in the reference, only ``w_digits`` nodes
     drift: the MoE banks (``wg_digits``, ``wu_digits``, ``wd_digits``)
     pass through. A schedule with every rate at zero returns ``params``
-    itself."""
+    itself. On the card the new planes are checked against the
+    float-digit kernel's exactness bound with one host read for the whole
+    tree (``kernels.cim_matmul.check_float_planes``), so their launches
+    need not each read their planes back."""
     if is_static_zero(state):
         return params
+    planes = []
 
     def walk(node, path):
         if isinstance(node, dict):
             if "w_digits" in node:
-                return perturb_packed(node, source.for_layer(path), state)
+                out = perturb_packed(node, source.for_layer(path), state)
+                planes.append(out["w_digits"])
+                return out
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
         return node
-    return walk(params, ())
+    out = walk(params, ())
+    # walk's closure holds the list and walk itself (a cycle the collector
+    # frees late): empty it, or the realization's planes outlive the call
+    drifted = planes[:]
+    planes.clear()
+    if any(p.is_cuda for p in drifted):
+        from repro_torch.kernels.cim_matmul import check_float_planes
+        check_float_planes(drifted)
+    return out

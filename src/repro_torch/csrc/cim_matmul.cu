@@ -35,14 +35,21 @@
 // float32 digit 24, so a product at most 32), and a tile's float64 sum is
 // the plain version's float64 einsum bit for bit wherever every partial
 // sum on the way is exact, whatever order the MMA adds its products in.
-// That holds on the variation grid: the planes are d * exp(sigma * theta)
-// (core/variation.py) with sigma <= 0.4, so the exponents of a column's
-// nonzero digits lie within a few bits of each other, and rows <= 128 add
-// 7 bits: the sum needs well under 53 bits (tests/test_torch_float_digits.py
-// sums such tiles in row order, in the MMA's k4-chunked order and exactly,
-// and finds all three equal on the grid of chip_smoke.py and
-// tests/test_torch_cuda.py). Outside such planes no bit-exactness is
-// claimed. The float64 sum is rounded once to float32 (__double2float_rn)
+// The wrappers show that before each launch, from the planes, for any
+// tile height (repro_torch/kernels/cim_matmul.py::float_sums_exact): in a
+// tile column whose least nonzero digit magnitude is lo, every digit is a
+// multiple of lo's last bit u > lo * 2^-24, so each partial sum is an
+// integer multiple of u below rows * A * hi / u (A the codes' bound, 255
+// or 128; hi the largest magnitude), exact in float64 when rows * A * hi
+// <= 2^29 * lo. Cell variation and drift (d * exp(field), a few units of
+// sigma apart within a column; the column drift is one factor a column)
+// leave hi / lo far inside the 2^29 / (196 * 255) = 10,741 of llava's
+// 196-row patch-embed tiles; a launch on planes that fail it raises
+// instead of running (tests/test_torch_float_digits.py proves the bound
+// and sums such tiles in row order, in the MMA's k16-chunked order and
+// exactly, on the grids of chip_smoke.py and tests/test_torch_cuda.py,
+// 126- and 196-row tiles and drifted planes among them). The float64 sum
+// is rounded once to float32 (__double2float_rn)
 // -- what the plain version's einsum does -- then, but with psum_quant
 // off, rounded to the integer grid with rintf. The ADC divide is the IEEE
 // quotient: from the column's correctly rounded reciprocal by Markstein's

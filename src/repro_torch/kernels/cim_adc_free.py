@@ -36,8 +36,8 @@ import torch
 
 from . import _build, ref
 from .cim_conv import check_planes, implicit_conv
-from .cim_matmul import (float_workspace, kernel_operands, logical_digits,
-                         raise_on_error)
+from .cim_matmul import (check_float_exact, float_workspace,
+                         kernel_operands, logical_digits, raise_on_error)
 from .relaid import check_capture, relaid_planes
 
 _MMA = "cim_adc_free_mma"
@@ -65,6 +65,8 @@ def cim_matmul_adc_free_cuda(a_t: torch.Tensor, digits: torch.Tensor,
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream(a_t.device).cuda_stream
         if floats:
+            check_float_exact("cim_matmul_adc_free_cuda", digits,
+                              op.a_unsigned)
             work = float_workspace(lib, a_t.device, op.k_tiles, op.n_split,
                                    op.n, 1, op.rows)
             rc = lib.cim_matmul_adc_free_launch(

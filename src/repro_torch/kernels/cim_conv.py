@@ -16,9 +16,13 @@ is made. ``implicit_conv`` dispatches on the planes' dtype and the ADC:
   (``kernels/relaid.py``; the same layout, so a pack run on deploy and on
   adc_free is relaid once); a launch inside a CUDA-graph capture raises
   if it would relay kept planes (run the call once before capturing it);
-- float32 planes (cell variation) run the FP64 tensor-core kernel of
-  ``csrc/cim_matmul.cu`` (``cim_conv_float_implicit_launch``, ADC or
+- float32 planes (cell variation, drift) run the FP64 tensor-core kernel
+  of ``csrc/cim_matmul.cu`` (``cim_conv_float_implicit_launch``, ADC or
   ADC-free); they are drawn fresh for each sample and staged per launch.
+  Before the launch ``cim_matmul.check_float_exact`` shows from the
+  planes that every tile's float64 sum is exact in any order (whatever
+  the tile's rows: the whisper stems' 126, llava's patch embed's 196),
+  and raises with the conv's shape where it cannot.
 A refused launch raises; nothing falls back to a torch gather.
 
 ``cim_conv_cuda`` is K3: a CUDA tensor launches the kernel or raises; a
@@ -33,7 +37,8 @@ import ctypes
 import torch
 
 from . import _build, ref
-from .cim_matmul import float_workspace, logical_digits, raise_on_error
+from .cim_matmul import (check_float_exact, float_workspace,
+                         logical_digits, raise_on_error)
 from .relaid import check_capture, relaid_planes
 
 
@@ -134,6 +139,11 @@ def implicit_conv(name: str, a_int: torch.Tensor, digits: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if digits.dtype == torch.float32:
+            check_float_exact(
+                name, digits, bool(a_unsigned),
+                f"conv {geo.kh}x{geo.kw} stride {geo.stride} on codes "
+                f"{tuple(a_int.shape)}, {geo.c_per_array} channels per "
+                f"array: tiles of {geo.kh * geo.kw * geo.c_per_array} rows")
             lib = _build.load("cim_matmul")
             work = float_workspace(lib, dev, k_tiles, n_split, n,
                                    geo.kh * geo.kw, geo.c_per_array)

@@ -18,7 +18,10 @@ Dispatch on the planes' dtype, for CUDA tensors:
   ``csrc/cim_matmul.cu`` (``cim_matmul_launch``), which first writes the
   planes as float64 into a workspace made per launch (they are drawn
   fresh for each Monte-Carlo sample); the experts kernel does not take
-  them.
+  them. The kernel equals its plain version bit for bit where each
+  tile's float64 sum is exact in any order; ``check_float_exact`` shows
+  that from the planes before a launch and raises where it cannot
+  (``check_float_planes`` does it for a whole drift realization at once).
 A refused launch raises. A CPU tensor runs the plain version
 (``ref.cim_matmul_ref``, ``ref.cim_matmul_experts_ref``).
 
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import torch
 
@@ -150,6 +154,120 @@ def float_workspace(lib, device, k_tiles: int, n_split: int, n: int,
                        dtype=torch.uint8, device=device)
 
 
+#: bits of a float64 significand left over by a float32 digit's 24
+EXACT_BITS = 53 - 24
+
+#: planes shown exact: {id(base tensor): {key: planes' _version}}, the key
+#: (offset, shape, codes unsigned) of a launch's view, or ("whole", codes
+#: unsigned) of a whole packed node checked by ``check_float_planes``
+_EXACT: dict = {}
+
+
+def _lead(planes: torch.Tensor) -> int:
+    """Leading layer axes of packed planes: (S, kt, rows..., N) linear 4-D
+    or conv 6-D, one more for their stacked forms (5-D, 7-D)."""
+    return 1 if planes.ndim in (5, 7) else 0
+
+
+def float_sums_exact(digits: torch.Tensor, a_unsigned: bool) -> torch.Tensor:
+    """(lead?, S, k_tiles, N) bool: whether every float64 sum of a tile
+    column of float32 ``digits`` ((S, k_tiles, rows, N) as a launch takes
+    them, or a whole packed node: the conv's 6-D planes, a stacked node's
+    leading layer axis) against integer codes (uint8 when ``a_unsigned``,
+    else int8) is exact, whatever order the sum takes.
+
+    A column whose least nonzero digit magnitude is ``lo`` holds only
+    multiples of u, the last bit of ``lo``, and u > lo * 2^-24. A partial
+    sum of products of codes (at most A = 255 or 128 in magnitude) and
+    digits at most ``hi`` is then an integer multiple of u below rows * A
+    * hi / u < rows * A * hi * 2^24 / lo, so it is exact in float64 when
+    rows * A * hi <= 2^29 * lo. The products themselves are exact (8 bits
+    of code by 24 of digit), so the kernel's MMA order and the plain
+    version's einsum reach the same float64 sum, which both round once to
+    float32. Dead columns pass; a non-finite digit fails."""
+    lead = _lead(digits)
+    shape = tuple(digits.shape)
+    digits = digits.reshape(shape[:lead + 2] + (-1, shape[-1]))
+    bound = float(digits.shape[-2] * (255 if a_unsigned else 128))
+    mag = digits.abs()
+    hi = mag.amax(dim=-2).to(torch.float64)
+    inf = torch.tensor(float("inf"), dtype=mag.dtype, device=mag.device)
+    lo = torch.where(mag > 0, mag, inf).amin(dim=-2).to(torch.float64)
+    return torch.isfinite(hi) & (hi * bound <= lo * 2.0 ** EXACT_BITS)
+
+
+def _keep_exact(base: torch.Tensor, key, version: int) -> None:
+    if id(base) not in _EXACT:
+        _EXACT[id(base)] = {}
+        weakref.finalize(base, _EXACT.pop, id(base), None)
+    _EXACT[id(base)][key] = version
+
+
+def _one_layer_of(digits: torch.Tensor, base: torch.Tensor) -> bool:
+    """Whether the launch's (S, kt, rows, N) ``digits`` are ``base`` (a
+    whole packed node) or one layer of it, as the models take them: its
+    tile columns are then columns of ``base``."""
+    lead = _lead(base)
+    layer = base[0] if lead else base
+    return (digits.is_contiguous() and base.is_contiguous()
+            and tuple(digits.shape[:2]) == tuple(layer.shape[:2])
+            and digits.shape[-1] == layer.shape[-1]
+            and digits.numel() == layer.numel()
+            and (digits.storage_offset() - base.storage_offset())
+            % layer.numel() == 0)
+
+
+def check_float_planes(planes) -> None:
+    """Check whole packed nodes' float32 planes (a drift realization's,
+    ``core.variation.drift_tree``) with one host read for all of them:
+    each tensor that passes ``float_sums_exact`` for both code types is
+    kept as shown, so launches on it or on one of its layers skip the
+    check. The others are left to their launches, which raise."""
+    planes = [p for p in planes if p.dtype == torch.float32]
+    if not planes:
+        return
+    # uint8 codes' bound (255) is the stricter: passing it passes int8's
+    oks = torch.stack([float_sums_exact(p, True).all() for p in planes])
+    for p, ok in zip(planes, oks.tolist()):
+        if ok and p._base is None:
+            for unsigned in (True, False):
+                _keep_exact(p, ("whole", unsigned), p._version)
+
+
+def check_float_exact(name: str, digits: torch.Tensor, a_unsigned: bool,
+                      what: str = "") -> None:
+    """Raise unless ``float_sums_exact`` holds on every column of the
+    float32 planes of a launch of the FP64 kernels (``what`` describes the
+    call in the message). The result is kept per plane tensor (its base,
+    offset, shape and ``_version``), so planes reused across launches are
+    checked once, and planes of a node ``check_float_planes`` showed are
+    not checked again; the check reads the planes back on the host, so a
+    launch under CUDA-graph capture must find its planes checked already
+    (run the call once before capturing it)."""
+    base = digits if digits._base is None else digits._base
+    kept = _EXACT.get(id(base), {})
+    key = (digits.storage_offset(), tuple(digits.shape), bool(a_unsigned))
+    if kept.get(key) == digits._version or (
+            kept.get(("whole", bool(a_unsigned))) == base._version
+            and _one_layer_of(digits, base)):
+        return
+    shape = f"planes {tuple(digits.shape)}" + (f", {what}" if what else "")
+    if digits.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: float32 {shape} not checked for exact "
+                           "tile sums before a CUDA-graph capture; launch "
+                           "once on these planes before capturing")
+    ok = float_sums_exact(digits, a_unsigned)
+    if not bool(ok.all()):
+        bad = int((~ok).sum())
+        raise ValueError(
+            f"{name}: the float-digit kernel cannot show exact tile sums on "
+            f"float32 {shape} with {'uint8' if a_unsigned else 'int8'} "
+            f"codes: {bad} of {ok.numel()} tile columns span more than "
+            f"2^{EXACT_BITS} / (rows x code bound) between their largest "
+            "and least nonzero digit magnitudes")
+    _keep_exact(base, key, digits._version)
+
+
 def _relaid_workspace(lib, op: KernelOperands):
     """The relaid-plane workspace of a tensor-core launch on ``op``:
     (workspace, layout id, the id kept before)."""
@@ -189,6 +307,7 @@ def cim_matmul_cuda(a_t: torch.Tensor, digits: torch.Tensor,
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream(a_t.device).cuda_stream
         if floats:
+            check_float_exact("cim_matmul_cuda", digits, op.a_unsigned)
             work = float_workspace(lib, a_t.device, op.k_tiles, op.n_split,
                                    op.n, 1, op.rows)
             rc = lib.cim_matmul_launch(*ptrs, work.data_ptr(), work.numel(),

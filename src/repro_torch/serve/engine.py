@@ -4,7 +4,12 @@ zoo's cache API.
 
 ``generate_batch`` is lockstep batched generation: one prefill of the
 whole prompt batch through the cached forward, then one decode step per
-new token. The slot engine (``submit``/``step``) admits a queued request
+new token. An encoder-decoder (whisper) decodes against the encoder
+states the caller put in ``engine.cache["enc_out"]`` (``whisper.encode``
+of its log-mel frames), the slot engine's contract: ``generate_batch``
+carries them into its fresh cache and raises where the caller put none
+(the reference's re-inits them to zeros, ROADMAP fault 13). The slot
+engine (``submit``/``step``) admits a queued request
 into a free slot by prefilling its prompt one token at a time through
 the batched decode step, as the reference does: every slot's cache
 advances with it. Decoding is greedy (``argmax``, ties to the lower
@@ -207,6 +212,10 @@ class ServingEngine:
         self.temperature = temperature
         self.cache = model.init_cache(cfg, batch_size, max_len,
                                       device=self.device)
+        # the blank encoder states of an encoder-decoder's cache, and their
+        # version: generate_batch serves only states the caller put there
+        blank = self.cache.get("enc_out")
+        self._blank_enc = (blank, None if blank is None else blank._version)
         self.drift_key = drift_key
         self.drift_schedule = drift_schedule
         self.monitor = health
@@ -456,17 +465,40 @@ class ServingEngine:
 
     # -- the lockstep batched API ----------------------------------------------
 
+    def _encoder_states(self) -> torch.Tensor:
+        """The encoder states the caller put in ``cache["enc_out"]`` (B,
+        frames, d_model); raises where it holds the blank ones
+        ``init_cache`` made (neither replaced nor written in place)."""
+        enc = self.cache["enc_out"]
+        blank, version = self._blank_enc
+        if enc is blank and enc._version == version:
+            raise ValueError(
+                f"generate_batch: {self.cfg.family} decodes against encoder "
+                "states, and engine.cache['enc_out'] holds none; put "
+                "whisper.encode(params, frames, cfg) of the requests' "
+                "log-mel frames there first")
+        if enc.shape[0] != self.B:
+            raise ValueError(f"generate_batch: engine.cache['enc_out'] holds "
+                             f"states of {enc.shape[0]} requests, the "
+                             f"engine serves {self.B}")
+        return enc
+
     def generate_batch(self, prompts: np.ndarray,
                        max_new_tokens: int) -> np.ndarray:
         """Lockstep batched generation: prompts (B, Tp) -> (B, Tnew). The
         first new token is the prefill's argmax; the rest follow the
         engine's decoding rule. The prefill runs on the (drifted) packed
-        planes; decode steps take the fallback while it is active."""
+        planes; decode steps take the fallback while it is active. An
+        encoder-decoder decodes against the states in
+        ``engine.cache["enc_out"]``, which the caller puts there."""
         if prompts.shape[0] != self.B:
             raise ValueError(f"generate_batch takes {self.B} prompts, got "
                              f"{prompts.shape[0]}")
+        enc = self._encoder_states() if "enc_out" in self.cache else None
         cache = self.model.init_cache(self.cfg, self.B, self.max_len,
                                       device=self.device)
+        if enc is not None:
+            cache["enc_out"] = enc
         with self.tracer.span("serve.prefill", tokens=int(prompts.shape[1]),
                               batch=self.B):
             logits, cache = self._prefill_fn(self.params, cache,

@@ -1,5 +1,5 @@
-"""A drift source for the port's parity tests that hands in the JAX
-package's own draws.
+"""A drift and variation source for the port's parity tests that hands
+in the JAX package's own draws.
 
 The port's drift model takes its standard-normal fields from a drift
 source (``repro_torch.core.variation.DriftSource``). This one draws them
@@ -8,7 +8,12 @@ the read field from ``fold_in(fold_in(key, _READ_TAG), t)``, the cell and
 column fields from ``fold_in(key, _CELL_TAG)`` and ``fold_in(key,
 _COL_TAG)``; a tree node's key is ``path_fold_key(key, path)``, a
 Monte-Carlo sample's ``fold_in(key, sample)``, and a ResNet layer's its
-entry of ``resnet.variation_keys``.
+entry of ``resnet.variation_keys``. As a variation source (the port's
+``core.variation.VariationSource``) it gives theta as
+``jax.random.normal(key, shape)``, the field the reference's
+``perturb_packed`` draws from a baked node's key, and ``split(n)`` the
+sources of ``jax.random.split(key, n)``: what ``repro.api.pack_model``
+hands a stacked node's layers and a bank's experts.
 """
 from functools import partial
 
@@ -62,6 +67,14 @@ class JaxDriftSource:
         if self._by_name is None:
             self._by_name = self.layer_keys(self.key)
         return JaxDriftSource(self._by_name[name], self.layer_keys)
+
+    def split(self, n):
+        return [JaxDriftSource(k, self.layer_keys)
+                for k in jax.random.split(self.key, int(n))]
+
+    def theta(self, shape, device=None):
+        return torch.from_numpy(np.array(_normal(self.key, tuple(shape)))).to(
+            "cpu" if device is None else device)
 
     def read(self, shape, t, device=None):
         return _draw(self.key, jvar._READ_TAG, int(t), shape, device)

@@ -971,3 +971,106 @@ def test_k3_and_k5_share_the_relaid_planes_and_the_window_mode():
                                          2, 14), 3, 16)
     assert not window_mode(ref.conv_geometry((64, 8, 8, 256), 3, 3, 1,
                                              "SAME", 19, 14), 3, 256)
+
+
+def _unshowable_planes(logical):
+    """float32 planes whose first column spans 2^40 between its largest
+    and least nonzero digit: past what the float-digit kernel can show
+    exact (``float_sums_exact``)."""
+    planes = logical.to(torch.float32).clone()
+    planes[0, 0, :, 0] = 1.0
+    planes[0, 0, 0, 0] = 2.0 ** 40
+    return planes
+
+
+def test_float_launches_raise_where_exactness_cannot_be_shown():
+    """A float-plane launch whose tile sums the bound cannot show exact
+    raises with the planes' shape in the message (the conv also with its
+    geometry), and launches nothing; on the same planes with the column
+    back in range it runs and equals its plain version."""
+    g = torch.Generator().manual_seed(41)
+    a, logical, _, occ, s_p, deq = chip_smoke.implicit_adc_conv_operands(
+        torch, g, 2, 28, 42, 3, 14, 14, 1, 40, True)
+    a, logical, s_p, deq = (x.cuda() for x in (a, logical, s_p, deq))
+    geo = dict(kh=14, kw=14, stride=14, padding="VALID", c_per_array=1)
+    bad = _unshowable_planes(logical)
+    before = (cim_conv_cuda.launches, cim_conv_adc_free_cuda.launches,
+              cim_matmul_cuda.launches, cim_matmul_adc_free_cuda.launches)
+    with pytest.raises(ValueError, match=r"planes \(3, 3, 196, 40\).*14x14"):
+        cim_conv_cuda(a, bad, s_p, deq, psum_bits=6, **geo)
+    with pytest.raises(ValueError, match="cannot show exact"):
+        cim_conv_adc_free_cuda(a, bad, deq, **geo)
+    a_t = torch.randint(0, 256, (8, 3, 196), generator=g,
+                        dtype=torch.uint8).cuda()
+    with pytest.raises(ValueError, match=r"planes \(3, 3, 196, 40\)"):
+        cim_matmul_cuda(a_t, bad, s_p, deq, psum_bits=6)
+    with pytest.raises(ValueError, match="cannot show exact"):
+        cim_matmul_adc_free_cuda(a_t, bad, deq)
+    assert (cim_conv_cuda.launches, cim_conv_adc_free_cuda.launches,
+            cim_matmul_cuda.launches,
+            cim_matmul_adc_free_cuda.launches) == before
+    good = chip_smoke.varied_planes(torch, g, logical.cpu(), 0.4).cuda()
+    assert torch.equal(cim_conv_cuda(a, good, s_p, deq, psum_bits=6, **geo),
+                       ref.cim_conv_ref(a, good, s_p, deq, psum_bits=6,
+                                        **geo))
+    assert torch.equal(cim_matmul_cuda(a_t, good, s_p, deq, psum_bits=6),
+                       ref.cim_matmul_ref(a_t, good, s_p, deq, psum_bits=6))
+
+
+def test_float_launch_captures_after_its_planes_were_checked():
+    """The exactness check reads the planes back on the host, once per
+    plane tensor: a float-plane conv captured in a CUDA graph after one
+    eager launch replays to the eager result; planes never launched
+    before refuse the capture."""
+    g = torch.Generator().manual_seed(42)
+    a, logical, _, occ, s_p, deq = (
+        x.cuda() for x in chip_smoke.implicit_adc_conv_operands(
+            torch, g, 3, 1, 64, 80, 1, 3, 42, 40, True))
+    noisy = chip_smoke.varied_planes(torch, g, logical.cpu(), 0.3).cuda()
+    geo = dict(kh=1, kw=3, stride=2, padding="SAME", c_per_array=42,
+               psum_bits=4)
+    want = cim_conv_cuda(a, noisy, s_p, deq, occ, **geo)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            out = cim_conv_cuda(a, noisy, s_p, deq, occ, **geo)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    fresh = noisy.clone()
+    graph2 = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.stream(side):
+            with torch.cuda.graph(graph2):
+                cim_conv_cuda(a, fresh, s_p, deq, occ, **geo)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("t", [100, 300, 400])
+@pytest.mark.parametrize("case", chip_smoke.IMPLICIT_ADC_CONV_CASES[-5:],
+                         ids=_adc_case_id)
+def test_front_end_convs_on_drifted_planes_bit_exact_with_plain(case, t):
+    """The zoo's front-end convs (whisper's 126-row stems, llava's 196-row
+    patch embed) on planes drifted as ``drift_tree`` drifts a served conv
+    node (phase 12's schedule at t), with the ADC and ADC-free, against
+    their plain versions."""
+    from repro_torch.core.variation import DriftSchedule, drift_tree
+    b, h, w, c_in, kh, kw, stride, padding, cpa, n, uns, pb, quant = case
+    g = torch.Generator().manual_seed(sum(case[:5]) + t)
+    a, logical, _, occ, s_p, deq = chip_smoke.implicit_adc_conv_operands(
+        torch, g, b, h, w, c_in, kh, kw, cpa, n, uns)
+    s, kt, rows, _ = logical.shape
+    node = {"w_digits": logical.reshape(s, kt, kh, kw, cpa, n)}
+    sched = DriftSchedule(**chip_smoke.DRIFT_SCHED)
+    drifted = drift_tree({"conv": node}, Sampler(t), sched.at(t))
+    planes = drifted["conv"]["w_digits"].reshape(s, kt, rows, n)
+    a, planes, occ, s_p, deq = (x.cuda() for x in (a, planes, occ, s_p, deq))
+    geo = dict(kh=kh, kw=kw, stride=stride, padding=padding, c_per_array=cpa)
+    mq = dict(psum_bits=pb, psum_quant=quant)
+    assert torch.equal(cim_conv_cuda(a, planes, s_p, deq, occ, **geo, **mq),
+                       ref.cim_conv_ref(a, planes, s_p, deq, **geo, **mq))
+    assert torch.equal(cim_conv_adc_free_cuda(a, planes, deq, occ, **geo),
+                       ref.cim_conv_adc_free_ref(a, planes, deq, **geo))

@@ -40,6 +40,7 @@ from repro_torch.core.bitsplit import split_digits
 from repro_torch.core.variation import (DriftSchedule, Sampler, drift_tree,
                                         perturb_digits)
 from repro_torch.kernels import ref
+from repro_torch.kernels.cim_matmul import EXACT_BITS, float_sums_exact
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -143,11 +144,21 @@ def test_serving_grid_tile_sums_are_exact_in_any_order(drift, k_tiles,
     _check_exact(a, drifted)
 
 
+#: the zoo's front ends in chip_smoke's conv grid (whisper's 126-row stems,
+#: llava's 196-row patch embed): their tile sums are summed on the first
+#: FRONT_M output pixels and FRONT_N columns (a front end's grid case has
+#: up to 6,000 pixels and 1,024 columns; the ranges set the bits a sum
+#: needs, and the bound is checked on every column)
+FRONT_ENDS = chip_smoke.IMPLICIT_ADC_CONV_CASES[-5:]
+FRONT_M, FRONT_N = 128, 96
+
+
 @pytest.mark.parametrize("case", chip_smoke.FLOAT_CONV_CASES,
                          ids=lambda c: "x".join(map(str, c[:5])))
 def test_card_implicit_grid_tile_sums_are_exact_in_any_order(case):
     """The float-plane implicit convs of chip_smoke.py (phase 3b) and
-    tests/test_torch_cuda.py: 8-bit codes, digits -8..7, every sigma."""
+    tests/test_torch_cuda.py: 8-bit codes, digits -8..7, every sigma; the
+    launch's bound (``float_sums_exact``) holds on every column."""
     b, h, w, c_in, kh, kw, stride, padding, cpa, n, uns, _, _ = case
     g = torch.Generator().manual_seed(sum(case[:5]) + stride + n)
     a, logical, _, _, _, _ = chip_smoke.implicit_adc_conv_operands(
@@ -156,7 +167,12 @@ def test_card_implicit_grid_tile_sums_are_exact_in_any_order(case):
                                    logical.shape[1], cpa)
     a_t = a_t.reshape(-1, logical.shape[1], logical.shape[2])
     for sigma in SIGMAS:
-        _check_exact(a_t, chip_smoke.varied_planes(torch, g, logical, sigma))
+        planes = chip_smoke.varied_planes(torch, g, logical, sigma)
+        assert bool(float_sums_exact(planes, uns).all())
+        if case in FRONT_ENDS:
+            _check_exact(a_t[:FRONT_M], planes[..., :FRONT_N].contiguous())
+        else:
+            _check_exact(a_t, planes)
 
 
 @pytest.mark.parametrize("case", chip_smoke.MATMUL_CASES,
@@ -224,3 +240,103 @@ def test_plain_float_conv_matches_pallas_conv(sigma, kh, stride, psum_bits):
                            torch.from_numpy(deq), **geo)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+#: the zoo's front-end convs: (kh, kw, C_in, c_per_array) at the serving
+#: launcher's 128-row arrays: whisper's 1x3 stems (tiles of 126 rows, kt 2
+#: and 19 at C_in 80 and 768) and llava's 14x14 patch embed on 3 channels
+#: (tiles of 196 rows, kt 3)
+FRONT_END_CONVS = {"whisper_conv1": (1, 3, 80, 42),
+                   "whisper_conv2": (1, 3, 768, 42),
+                   "llava_patch": (14, 14, 3, 1)}
+
+
+@pytest.mark.parametrize("drift", sorted(SERVING_DRIFTS))
+@pytest.mark.parametrize("conv", sorted(FRONT_END_CONVS))
+@pytest.mark.parametrize("unsigned", [True, False])
+def test_front_end_drifted_tile_sums_are_exact_in_any_order(drift, conv,
+                                                            unsigned):
+    """The serving launcher's CIM config (4-bit weights on 2-bit cells, S =
+    2, 8-bit codes) on the front ends' conv planes, drifted as
+    ``drift_tree`` drifts a served 6-D conv node (its column field one
+    factor per (split, tile, column)): the bound holds on every column,
+    and the tile sums of 126 and 196 rows are exact in any order."""
+    kh, kw, c_in, cpa = FRONT_END_CONVS[conv]
+    kt, rows, n = -(-c_in // cpa), kh * kw * cpa, 32
+    rng = np.random.default_rng(kt + rows + len(drift) + unsigned)
+    w = rng.integers(-8, 8, (kt * rows, n)).astype(np.float32)
+    d6 = split_digits(torch.from_numpy(w), 4, 2).reshape(2, kt, kh, kw, cpa,
+                                                         n)
+    node = {"w_digits": d6.to(torch.int8)}
+    drifted = drift_tree({"conv": node}, Sampler(rows),
+                         SERVING_DRIFTS[drift])["conv"]["w_digits"]
+    assert drifted.dtype == torch.float32 and drifted.ndim == 6
+    planes = drifted.reshape(2, kt, rows, n)
+    assert bool(float_sums_exact(planes, unsigned).all())
+    lo, hi = (0, 256) if unsigned else (-128, 128)
+    a = torch.from_numpy(rng.integers(lo, hi, (64, kt, rows)).astype(
+        np.uint8 if unsigned else np.int8))
+    _check_exact(a, planes)
+
+
+def test_the_bound_refuses_what_it_cannot_show():
+    """``float_sums_exact`` per tile column: a column spanning 2^60
+    between its largest and least nonzero digit fails, and there the
+    float64 sum in row order really is inexact; a column at the bound
+    (rows x 255 x hi <= 2^29 x lo, 196 rows) passes and sums exactly; a
+    dead column passes; a non-finite digit fails; int8 codes (bound 128)
+    allow a wider span than uint8 ones (255)."""
+    rows = 196
+    planes = torch.ones((1, 1, rows, 5), dtype=torch.float32)
+    planes[0, 0, 0, 0] = 2.0 ** 60
+    at_bound = 2.0 ** EXACT_BITS // (rows * 255)
+    planes[0, 0, 0, 1] = at_bound
+    planes[0, 0, :, 2] = 0.0
+    planes[0, 0, 5, 3] = float("inf")
+    planes[0, 0, 0, 4] = 2.0 ** EXACT_BITS // (rows * 128)
+    ok = float_sums_exact(planes, True)[0, 0]
+    assert ok.tolist() == [False, True, True, False, False]
+    assert float_sums_exact(planes, False)[0, 0].tolist() == [
+        False, True, True, False, True]
+    codes = np.full(rows, 255, np.int64)
+    col = planes[0, 0, :, 0].double().numpy()
+    row_order = 0.0
+    for r in range(rows):
+        row_order += float(codes[r] * col[r])
+    exact = 255 * 2 ** 60 + 255 * (rows - 1)
+    assert int(row_order) != exact
+    _check_exact(torch.from_numpy(codes.astype(np.uint8))[None, None],
+                 planes[:, :, :, 1:2].contiguous())
+
+
+def test_whole_nodes_checked_once_cover_their_layers(monkeypatch):
+    """``check_float_planes`` (``drift_tree`` calls it on the card) checks a
+    realization's whole nodes in one pass: a launch on a stacked node's
+    layer or on a conv node's 4-D view then reads nothing back; a node it
+    cannot show is not kept, and its launch's check raises; a write to
+    the planes makes them new."""
+    from repro_torch.kernels import cim_matmul as km
+    seen = []
+    orig = km.float_sums_exact
+    monkeypatch.setattr(km, "float_sums_exact", lambda d, u: (
+        seen.append(tuple(d.shape)), orig(d, u))[1])
+    rng = np.random.default_rng(5)
+    stacked = perturb_digits(torch.from_numpy(rng.integers(
+        -3, 4, (3, 2, 2, 16, 8)).astype(np.int8)), torch.from_numpy(
+        rng.standard_normal((3, 2, 2, 16, 8)).astype(np.float32)), 0.4)
+    conv = perturb_digits(torch.from_numpy(rng.integers(
+        -3, 4, (2, 2, 3, 3, 14, 8)).astype(np.int8)), torch.from_numpy(
+        rng.standard_normal((2, 2, 3, 3, 14, 8)).astype(np.float32)), 0.4)
+    bad = torch.ones((2, 2, 16, 8))
+    bad[0, 0, 0, 0] = 2.0 ** 40
+    km.check_float_planes([stacked, conv, bad])
+    assert len(seen) == 3
+    for i in range(3):
+        km.check_float_exact("k1", stacked[i], i % 2 == 0)
+    km.check_float_exact("k3", conv.reshape(2, 2, 126, 8), True)
+    assert len(seen) == 3
+    with pytest.raises(ValueError, match=r"planes \(2, 2, 16, 8\)"):
+        km.check_float_exact("k1", bad, True)
+    stacked[0, 0, 0, 0, 0] += 1.0                  # written: checked anew
+    km.check_float_exact("k1", stacked[0], True)
+    assert len(seen) == 5
