@@ -204,7 +204,34 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    ``main`` on zamba2 at its cut with ``--cim deploy``, the drift flags,
    ``--health`` and ``--metrics-out``: exit 0, its tok/s, a metrics JSON
    naming only ``obs.names`` metrics; the phase's seconds and peak memory;
-16. a JSON line per kernel, the card's name and power limit, and the
+16. the LM training path (``phase16_lm_training``): (a) qwen3-0.6b
+   uncut (28 layers, d 1024, GQA kv 8, qk-norm, tied embeddings of
+   151,936) trained by the port's launcher,
+   ``repro_torch.launch.train.main``, under its CIM config (``--cim
+   emulate``: 4-bit weights on 2-bit cells, 6-bit partial sums, 128x128
+   arrays, column-wise LSQ and straight-through gradients) at batch 8 x
+   256, AdamW, lr 3e-4, 40 steps, a checkpoint every 10, on deterministic
+   algorithms (``_Deterministic``: the scatter-add backwards summed in a
+   fixed order); gates: exit 0, every loss and grad norm finite, the
+   mean loss of the last 10 steps at most 0.7 x that of the first 5;
+   prints ms per step (CUDA events, median over steps 6-40), tokens/s
+   and peak memory; (b) the same command with ``--crash-at 25`` in a
+   fresh directory raises ``InjectedFailure``, the relaunch resumes from
+   step 20 and ends at 40 with (a)'s params (rtol 1e-5, atol 1e-6;
+   bit-equal expected); (c) the trained params packed int8 and served (8
+   stream prompts of 64 tokens, 16 new, ``generate_batch``): deploy
+   prefill logits against emulate at 1e-4 of their largest magnitude,
+   tokens identical, 196 K1 launches per forward and no other kernel;
+   the share of the served tokens that follow the stream's transition
+   table is printed; (e) ``compressed_psum_tree`` on the trained model's
+   gradient in a one-rank NCCL group equal to the same function on the
+   CPU bit for bit; (d) moonshot-v1-16b-a3b at published width cut to 2
+   layers (one dense, one MoE of 64 experts top-6 + 2 shared), emulate,
+   5 AdamW steps at batch 8 x 128: losses and grad norms finite, and on
+   the last batch and on a 4-token probe every expert the router gave
+   tokens has nonzero gradients on its weights and column scales and
+   every other expert zero ones; the phase's seconds;
+17. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
@@ -370,8 +397,13 @@ def main() -> int:
 
     # 15. the recurrent and multimodal zoo on a drifting chip
     timings.update(phase15_zoo_drift(torch, errs))
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 16. results
+    # 16. the LM training path
+    phase16_lm_training(torch, smi)
+
+    # 17. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -4170,6 +4202,506 @@ def phase15_zoo_drift(torch, errs, reduced: bool = False):
           f"allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the LM training path
+# ---------------------------------------------------------------------------
+
+#: (a)-(c): qwen3-0.6b uncut, trained by the launcher under its CIM config
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_RUN = dict(batch=8, seq=256, lr=3e-4, steps=40, ckpt_every=10,
+                 crash_at=25)
+TRAIN_LOSS_RATIO = 0.7            # last-10 mean over first-5 mean, at most
+FT_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_fault_tolerance.py:72-76
+#: (d): moonshot at published width, cut to one dense and one MoE layer
+ROUTE_ARCH = "moonshot-v1-16b-a3b"
+ROUTE_RUN = dict(n_layers=2, batch=8, seq=128, steps=5, lr=3e-4)
+ROUTE_PROBE = (1, 4)              # (batch, tokens): most experts get none
+
+
+def train_cim():
+    """The training launcher's CIM config (``--cim emulate`` with its
+    defaults): 4-bit weights on 2-bit cells, 6-bit partial sums, 128x128
+    arrays, column-wise scales."""
+    from repro_torch.core.cim_linear import CIMConfig
+    return CIMConfig(enabled=True, mode="emulate", weight_bits=4,
+                     cell_bits=2, psum_bits=6, array_rows=128,
+                     array_cols=128)
+
+
+class _Deterministic:
+    """Within: deterministic algorithms (the float32 atomics of the
+    embedding's scatter-add backward and of the gathers' backward replaced
+    by sorted sums), cuDNN's deterministic convs, and cuBLAS's fixed
+    workspace, so a train step is a function of its inputs bit for bit;
+    restored after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import os
+        t = self.torch
+        fill = t.utils.deterministic
+        self.saved = (t.are_deterministic_algorithms_enabled(),
+                      t.is_deterministic_algorithms_warn_only_enabled(),
+                      fill.fill_uninitialized_memory,
+                      t.backends.cudnn.deterministic,
+                      t.backends.cudnn.benchmark,
+                      os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        t.use_deterministic_algorithms(True)
+        # every result is written before it is read: no NaN fill of each
+        # new tensor (a third of a step's device time)
+        fill.fill_uninitialized_memory = False
+        t.backends.cudnn.deterministic, t.backends.cudnn.benchmark = (
+            True, False)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        t = self.torch
+        on, warn, fill, det, bench, ws = self.saved
+        t.use_deterministic_algorithms(on, warn_only=warn)
+        t.utils.deterministic.fill_uninitialized_memory = fill
+        t.backends.cudnn.deterministic, t.backends.cudnn.benchmark = (
+            det, bench)
+        if ws is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ws
+        return False
+
+
+class _FinalParams:
+    """Within: the params of each state ``FaultTolerantLoop.run`` returns
+    are kept in ``params`` (the launcher keeps its state to itself)."""
+
+    def __enter__(self):
+        from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+        self.cls, self.orig, self.params = (FaultTolerantLoop,
+                                            FaultTolerantLoop.run, [])
+
+        def run(loop, *a, **kw):
+            state = self.orig(loop, *a, **kw)
+            self.params.append(state.params)
+            return state
+        FaultTolerantLoop.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.orig
+        return False
+
+
+def _train_launch(torch, argv, hist=None):
+    """``repro_torch.launch.train.main(argv)`` in process, deterministic,
+    its ``[train]`` lines captured: (exit code, lines, the final params).
+    ``hist`` collects (step, loss, grad norm, a CUDA event recorded after
+    the step)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    def on_metrics(step, m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        hist.append((step, float(m["loss"]), float(m["grad_norm"]), ev))
+
+    buf = io.StringIO()
+    try:
+        with _Deterministic(torch), contextlib.redirect_stdout(buf), \
+                _FinalParams() as final:
+            rc = train.main(argv, on_metrics=None if hist is None
+                            else on_metrics)
+    finally:
+        lines = buf.getvalue().splitlines()
+    return rc, lines, final.params[-1]
+
+
+def _tree_compare(torch, got, want, tol, path=""):
+    """(largest |got - want|, every leaf bit-equal) over two trees of
+    tensors; fails where a leaf differs beyond ``tol``."""
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and set(got) == set(want),
+              f"{path or '<root>'}: keys differ")
+        worst, equal = 0.0, True
+        for k in want:
+            w, e = _tree_compare(torch, got[k], want[k], tol, f"{path}/{k}")
+            worst, equal = max(worst, w), equal and e
+        return worst, equal
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{path}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} "
+          f"{want.dtype}")
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    err = float((g - w).abs().max()) if w.numel() else 0.0
+    check(bool(torch.allclose(g, w, **tol)), f"{path}: max |diff| {err!r} "
+          f"beyond rtol {tol['rtol']} / atol {tol['atol']}")
+    return err, bool(torch.equal(got, want))
+
+
+def _stream_share(torch, cfg, served, seed, step, batch, prompt_len):
+    """(share of the served tokens that are among the stream's 4
+    candidates of their state, share inside the 64-token sub-vocabulary):
+    the prompts are batch ``step`` of the stream, whose table and states
+    the continuation is walked on."""
+    from repro_torch.data.pipeline import ORDER_STATES, markov_draws, \
+        markov_walk
+    d = markov_draws(seed, step, batch, prompt_len, cfg.vocab)
+    _, state = markov_walk(d["table"], d["start"], d["choice"])
+    hits = 0
+    served = torch.as_tensor(np.asarray(served), dtype=torch.long)
+    for tok in served.T:
+        hits += int((d["table"][state % ORDER_STATES] == tok[:, None]
+                     ).any(dim=1).sum())
+        state = (state * 31 + tok) % ORDER_STATES
+    return (hits / served.numel(),
+            float((served < min(64, cfg.vocab)).float().mean()))
+
+
+def _trained_serving(torch, dev, cfg, params, seed, step, smi):
+    """(c): the trained params packed int8 and served through
+    ``generate_batch``: the deploy prefill against emulate, the tokens
+    against emulate's, 196 K1 a forward and no other kernel."""
+    from repro_torch.api import model_artifact
+    from repro_torch.data.pipeline import make_lm_pipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import ServingEngine, engine_from_artifact
+
+    model = get_model(cfg)
+    b, tp, new, max_len = 8, 64, 16, 128
+    prompts = next(make_lm_pipeline(vocab=cfg.vocab, seq_len=tp - 1,
+                                    global_batch=b, seed=seed,
+                                    start_step=step))["tokens"]
+    tokens = torch.as_tensor(prompts).to(dev)
+    k1_fwd = recurrent_zoo_counts(cfg)[0][0]
+    t0 = time.perf_counter()
+    art = model_artifact(params, cfg.cim.replace(pack_dtype="int8"),
+                         meta={"arch": cfg.name})
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    dcfg = cfg.replace(cim=art.config)
+    with torch.no_grad():
+        em = model.forward(params, tokens, cfg)
+        em_tok = ServingEngine(model, cfg, params, batch_size=b,
+                               max_len=max_len).generate_batch(prompts, new)
+        _reset_counters()
+        dp = model.forward(art.params, tokens, dcfg)
+        eng = engine_from_artifact(art, cfg, batch_size=b, max_len=max_len)
+        dp_tok = eng.generate_batch(prompts, new)
+        torch.cuda.synchronize()
+    counted, floats = _read_counters()
+    check(dp.shape == em.shape and bool(torch.isfinite(dp).all()),
+          f"16c deploy logits {tuple(dp.shape)} or non-finite")
+    diff = float((dp.float() - em.float()).abs().max())
+    scale = float(em.float().abs().max())
+    check(diff <= 1e-4 * scale, f"16c deploy vs emulate of the trained "
+          f"params: max |diff| {diff!r} over largest {scale!r}")
+    check(np.array_equal(np.asarray(dp_tok), np.asarray(em_tok)),
+          "16c served tokens differ between deploy and emulate")
+    want = {"cim_matmul": k1_fwd * (1 + eng.t), "cim_conv": 0,
+            "cim_matmul_adc_free": 0, "cim_conv_adc_free": 0,
+            "cim_matmul_experts": 0, "plain_gathers": 0}
+    check(counted == want and not any(floats.values()),
+          f"16c launches {counted} (float {floats}), expected {want}")
+    follow, inside = _stream_share(torch, cfg, dp_tok, seed, step, b, tp)
+    print(f"phase 16c the trained {cfg.name} packed int8 in {pack_s:.2f} s, "
+          f"served {b} prompts of {tp} (stream batch {step}) + {new} new "
+          f"tokens through generate_batch: max |deploy - emulate| prefill "
+          f"{diff!r} (largest {scale:.4f}); tokens equal emulate's; "
+          f"launches {counted} ({k1_fwd} K1 x {1 + eng.t} forwards: one "
+          f"prefill, {eng.t} engine invocations); of the served tokens "
+          f"{follow:.4f} follow the stream's transition table (chance about "
+          f"4/64) and {inside:.4f} lie in its 64-token sub-vocabulary; "
+          f"sample {np.asarray(dp_tok)[0].tolist()}; nvidia-smi: {smi}",
+          flush=True)
+
+
+class _Routes:
+    """Within: each MoE ``route`` call of the port records its experts'
+    filled slots (``layers.expert_counts``)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.mod, self.orig, self.counts = layers, layers.route, []
+
+        def route(logits, cfg):
+            out = self.orig(logits, cfg)
+            self.counts.append(layers.expert_counts(
+                out[2], cfg.moe.n_experts, out[3]).cpu())
+            return out
+        layers.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+        return False
+
+
+def _routing_gradients(torch, grads, counts, tag):
+    """Every expert with filled slots has nonzero gradients on its weights
+    and column scales in each bank; every other expert zero ones.
+    Returns (routed, unrouted) expert counts."""
+    moe = grads["moe_layers"]["moe"]
+    routed = counts > 0
+    for nm in ("wg", "wu", "wd"):
+        for key in (nm, f"{nm}_s_w", f"{nm}_s_p"):
+            g = moe[key][0]                      # the one MoE layer
+            live = g.reshape(g.shape[0], -1).abs().amax(dim=1).cpu() > 0
+            check(bool((live == routed).all()), f"16d {tag} {key}: experts "
+                  f"with a nonzero gradient {live.nonzero().flatten()}, with "
+                  f"routed tokens {routed.nonzero().flatten()}")
+    return int(routed.sum()), int((~routed).sum())
+
+
+def _moe_training(torch, dev, smi, reduced):
+    """(d): moonshot at published width cut to ROUTE_RUN's 2 layers, trained
+    ROUTE_RUN steps under emulate; the routing gradients of the last
+    batch, and of a ROUTE_PROBE batch that leaves most experts empty."""
+    from repro_torch import tree_leaves
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import make_lm_pipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.train.trainer import (lm_loss_fn, loss_and_grads,
+                                           make_train_step)
+
+    r = ROUTE_RUN
+    cfg = get_config(ROUTE_ARCH, reduced=reduced, cim=train_cim())
+    if not reduced:
+        cfg = cfg.replace(n_layers=r["n_layers"])
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model.specs(cfg), 0, device=dev)
+    n = sum(p.numel() for p in tree_leaves(params))
+    init_state, step = make_train_step(model, cfg, RunConfig(
+        lr=r["lr"], total_steps=r["steps"], warmup_steps=1))
+    opt = init_state(params)
+    pipe = make_lm_pipeline(vocab=cfg.vocab, seq_len=r["seq"],
+                            global_batch=r["batch"])
+    losses, norms, ms = [], [], []
+    for _ in range(r["steps"]):
+        batch = {"tokens": torch.as_tensor(next(pipe)["tokens"]).to(dev)}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    check(bool(np.all(np.isfinite(losses + norms))),
+          f"16d losses {losses} or grad norms {norms} not finite")
+    del opt
+    gc.collect()
+    loss_fn = lm_loss_fn(model, cfg)
+    seen = []
+    g = torch.Generator().manual_seed(16)
+    probe = {"tokens": torch.randint(0, cfg.vocab, ROUTE_PROBE,
+                                     generator=g).to(dev)}
+    for tag, b in (("last batch", batch), ("probe", probe)):
+        with _Routes() as routes:
+            _, grads = loss_and_grads(loss_fn, params, b)
+        torch.cuda.synchronize()
+        # under remat the forward's route runs again in the backward
+        check(all(torch.equal(c, routes.counts[0]) for c in routes.counts),
+              f"16d {tag}: the recomputed routing differs")
+        seen.append(_routing_gradients(torch, grads, routes.counts[0], tag))
+        del grads
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mo = cfg.moe
+    print(f"phase 16d {cfg.name} cut to {cfg.n_layers} layers ("
+          f"{mo.n_dense_layers} dense with d_ff {mo.dense_d_ff}, "
+          f"{cfg.n_layers - mo.n_dense_layers} MoE: {mo.n_experts} experts "
+          f"top-{mo.top_k} of d_ff {mo.d_ff} + {mo.n_shared} shared; d "
+          f"{cfg.d_model}, vocab {cfg.vocab}; {n / 1e9:.3f} B params), "
+          f"emulate, AdamW: {r['steps']} steps at batch {r['batch']} x "
+          f"{r['seq']}: ms per step (CUDA events) "
+          + ", ".join(f"{t:.1f}" for t in ms)
+          + f"; losses {[round(v, 4) for v in losses]}, grad norms "
+          f"{[round(v, 4) for v in norms]}; routing gradients: last batch "
+          f"{seen[0][0]} experts routed (nonzero on weights, s_w, s_p), "
+          f"{seen[0][1]} not (zero); probe {ROUTE_PROBE[0]} x "
+          f"{ROUTE_PROBE[1]} tokens {seen[1][0]} routed, {seen[1][1]} with "
+          f"none (zero); max memory allocated {peak:.2f} GiB; nvidia-smi: "
+          f"{smi}", flush=True)
+
+
+
+def _compressed_sync(torch, dev, cfg, params, seed, step, smi):
+    """(e): ``compressed_psum_tree`` on the gradient of the trained params
+    at the run's last batch, in a one-rank NCCL group on the card, against
+    the same function on the CPU (no group), bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch import tree_leaves, tree_map
+    from repro_torch.data.pipeline import make_lm_pipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.grad_compress import (compressed_psum_tree,
+                                                 init_error_feedback)
+    from repro_torch.train.trainer import lm_loss_fn, loss_and_grads
+
+    batch = next(make_lm_pipeline(vocab=cfg.vocab, seq_len=TRAIN_RUN["seq"],
+                                  global_batch=TRAIN_RUN["batch"], seed=seed,
+                                  start_step=step - 1))
+    with _Deterministic(torch):
+        _, grads = loss_and_grads(lm_loss_fn(get_model(cfg), cfg), params,
+                                  {"tokens": torch.as_tensor(
+                                      batch["tokens"]).to(dev)})
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        ef = init_error_feedback(grads)
+        compressed_psum_tree(grads, ef, dist.group.WORLD)      # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        synced, new_ef = compressed_psum_tree(grads, ef, dist.group.WORLD)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    want_s, want_ef = compressed_psum_tree(
+        *(tree_map(lambda v: v.cpu(), t) for t in (grads, ef)))
+    cpu_s = time.perf_counter() - t0
+    for name, got, want in (("synced", synced, want_s),
+                            ("error feedback", new_ef, want_ef)):
+        bad = [i for i, (a, b) in enumerate(zip(tree_leaves(got),
+                                                tree_leaves(want)))
+               if not torch.equal(a.cpu(), b)]
+        check(not bad, f"16e {name}: {len(bad)} leaves differ from the CPU's")
+    n = sum(v.numel() for v in tree_leaves(grads))
+    print(f"phase 16e compressed_psum_tree on the trained model's gradient "
+          f"({n / 1e9:.3f} G values, {len(list(tree_leaves(grads)))} leaves) "
+          f"in a "
+          f"one-rank NCCL group: {ms:.3f} ms on the card (CUDA events), the "
+          f"synced gradient and the error feedback bit-equal to the CPU's "
+          f"({cpu_s:.2f} s there); nvidia-smi: {smi}", flush=True)
+
+
+
+def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
+    """The LM training path: (a) qwen3-0.6b trained uncut by the launcher,
+    (b) crashed and resumed, (c) packed and served on K1, (d) moonshot's
+    routing gradients at published width, (e) the compressed gradient sync
+    on the card against the CPU. ``reduced`` and ``dev`` rehearse it on the
+    reduced configs (the CPU: ``dev`` "cpu")."""
+    import shutil
+
+    from repro_torch import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime.fault_tolerance import InjectedFailure
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda") if dev is None else dev
+    r = TRAIN_RUN
+    work = ROOT / "build" / "chip_smoke_lm"
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--cim", "emulate", "--batch",
+            str(r["batch"]), "--seq", str(r["seq"]), "--lr", str(r["lr"]),
+            "--steps", str(r["steps"]), "--ckpt-every", str(r["ckpt_every"]),
+            "--log-every", "1", "--seed", "0", "--device", str(dev)]
+    if reduced:
+        argv += ["--reduced"]
+    cfg = get_config(TRAIN_ARCH, reduced=reduced, cim=train_cim())
+
+    # (a) the uninterrupted run
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    t0 = time.perf_counter()
+    rc, lines, trained = _train_launch(
+        torch, argv + ["--ckpt-dir", str(work / "a")], hist)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(rc == 0, f"16a launcher exit {rc}")
+    steps = [h[0] for h in hist]
+    check(steps == list(range(1, r["steps"] + 1)), f"16a logged steps "
+          f"{steps}")
+    losses = np.array([h[1] for h in hist])
+    norms = np.array([h[2] for h in hist])
+    check(bool(np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))),
+          "16a a loss or grad norm is not finite")
+    first, last = float(losses[:5].mean()), float(losses[-10:].mean())
+    gaps = [hist[i - 1][3].elapsed_time(hist[i][3])
+            for i in range(5, len(hist))]
+    step_ms = sorted(gaps)
+    med = step_ms[len(step_ms) // 2]
+    n = sum(p.numel() for p in tree_leaves(trained))
+    print(f"phase 16a {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"GQA kv {cfg.n_kv_heads}, qk-norm {cfg.qk_norm}, tied embeddings "
+          f"of {cfg.vocab}; {n / 1e9:.3f} B params) trained by "
+          f"launch.train.main({' '.join(argv)}): exit 0 in {wall:.1f} s; "
+          f"ms per step (CUDA events, steps 6-{r['steps']}) median "
+          f"{med:.2f}, min {step_ms[0]:.2f}, max {step_ms[-1]:.2f} (by step: "
+          + " ".join(f"{t:.0f}" for t in gaps) + "); "
+          f"{r['batch'] * r['seq'] / (med / 1e3):.0f} tokens/s; max memory "
+          f"allocated {peak:.2f} GiB; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, mean first 5 {first:.4f}, last 10 {last:.4f} "
+          f"(ratio {last / first:.4f}); grad norm {norms[0]:.3f} -> "
+          f"{norms[-1]:.3f}; nvidia-smi: {smi}", flush=True)
+    print("phase 16a " + " | ".join(
+        ln for ln in lines if not ln.startswith("[train] step")
+        or int(ln.split()[2]) % 10 == 0 or int(ln.split()[2]) == 1),
+        flush=True)
+    check(last <= TRAIN_LOSS_RATIO * first, f"16a loss fell to "
+          f"{last / first:.4f} x, expected at most {TRAIN_LOSS_RATIO}")
+    shutil.rmtree(work / "a", ignore_errors=True)
+
+    # (b) crashed at crash_at, relaunched
+    b_argv = argv + ["--ckpt-dir", str(work / "b")]
+    t0 = time.perf_counter()
+    try:
+        _train_launch(torch, b_argv + ["--crash-at", str(r["crash_at"])])
+        check(False, "16b --crash-at: no InjectedFailure")
+    except InjectedFailure:
+        pass
+    crash_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc, lines, resumed_params = _train_launch(torch, b_argv)
+    resume_s = time.perf_counter() - t0
+    resumed = r["crash_at"] // r["ckpt_every"] * r["ckpt_every"]
+    check(rc == 0 and f"[train] resumed from step {resumed}" in lines
+          and lines[-1].startswith(f"[train] done at step {r['steps']}"),
+          f"16b relaunch: exit {rc}, lines {lines[:1] + lines[-1:]}")
+    worst, equal = _tree_compare(torch, resumed_params, trained, FT_TOL)
+    del resumed_params
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 16b --crash-at {r['crash_at']}: InjectedFailure after "
+          f"{crash_s:.1f} s; the relaunch resumed from step {resumed} and "
+          f"ended at {r['steps']} in {resume_s:.1f} s; its params against "
+          f"(a)'s: max |diff| {worst!r} (rtol {FT_TOL['rtol']}, atol "
+          f"{FT_TOL['atol']}), bit-equal {equal}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) packed and served on K1
+    _trained_serving(torch, dev, cfg, trained, 0, r["steps"], smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the compressed gradient sync on the card against the CPU
+    _compressed_sync(torch, dev, cfg, trained, 0, r["steps"], smi)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) moonshot's routing gradients at published width
+    _moe_training(torch, dev, smi, reduced)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; nvidia-smi: "
+          f"{smi}", flush=True)
 
 
 if __name__ == "__main__":

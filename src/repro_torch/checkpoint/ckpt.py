@@ -65,15 +65,19 @@ def _encode_leaf(leaf):
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            bits = t.view(torch.int16).numpy()
-            return (np.frombuffer(bits.tobytes(), np.uint8), list(t.shape),
-                    "bfloat16")
+            return _raw(t.view(torch.int16).numpy()), list(t.shape), "bfloat16"
         arr = t.numpy()
     else:
         arr = np.asarray(leaf)
-    # tobytes() is C order; ascontiguousarray would lift a 0-d leaf to 1-d
-    return (np.frombuffer(arr.tobytes(), np.uint8), list(arr.shape),
-            str(arr.dtype))
+    return _raw(arr), list(arr.shape), str(arr.dtype)
+
+
+def _raw(arr: np.ndarray) -> np.ndarray:
+    """The C-order bytes of ``arr`` as a 1-D uint8 array: a view where
+    ``arr`` is C-contiguous (no copy of a large leaf), else a copy."""
+    if arr.flags.c_contiguous:
+        return arr.reshape(-1).view(np.uint8)
+    return np.frombuffer(arr.tobytes(), np.uint8)
 
 
 def decode_leaf(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
@@ -268,7 +272,9 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
 
 def _host_snapshot(tree):
     """A host copy of every tensor leaf, taken now (later in-place writes
-    to the tree do not reach it)."""
+    to the tree do not reach it). A card's leaves are copied into pinned
+    host memory (the allocator keeps it for the next snapshot), several
+    times faster than into fresh pageable memory."""
     if isinstance(tree, dict):
         return {k: _host_snapshot(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -276,6 +282,9 @@ def _host_snapshot(tree):
     if isinstance(tree, Int4):
         return Int4(_host_snapshot(tree.data))
     if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            host = torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True)
+            return host.copy_(tree.detach())
         return tree.detach().to("cpu", copy=True)
     return np.array(tree)
 

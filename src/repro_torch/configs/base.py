@@ -1,14 +1,28 @@
-"""Model configuration schema (counterpart of ``repro.configs.base``).
+"""Model, shape and run configuration schema (counterpart of
+``repro.configs.base``).
 
 The same frozen dataclasses, field for field, with the port's own
 ``CIMConfig``. ``compute_dtype``/``param_dtype`` stay strings
 (``"bfloat16"`` or ``"float32"``); ``models.layers.cdt``/``pdt`` map them
-to torch dtypes. ``remat`` and ``scan_layers`` are carried for parity and
-have no effect in the port: stacked layers run as a Python loop.
+to torch dtypes. ``scan_layers`` is carried for parity and has no effect
+in the port: stacked layers run as a Python loop. ``remat`` recomputes
+each transformer block in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does;
+the other families keep every activation.
+
+``RunConfig`` carries the reference's training knobs. ``fsdp=True`` is
+refused by ``train.trainer.make_train_step`` (sharding is ROADMAP queue 1,
+item 12); ``accum_unroll`` has no effect (the port's accumulation is a
+Python loop, unrolled by nature); ``grad_compress`` and
+``async_checkpoint`` are carried and, as in the reference, read by no
+trainer: ``train.grad_compress`` is called by a data-parallel caller, and
+``FaultTolerantLoop`` takes ``async_save`` itself.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Optional
 
 from repro_torch.core.cim_linear import CIMConfig
@@ -91,3 +105,48 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    kind: str                    # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", "train", 4096, 256),
+    "prefill_32k": Shape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": Shape("decode_32k", "decode", 32768, 128),
+    "long_500k": Shape("long_500k", "decode", 524288, 1),
+}
+
+
+def default_checkpoint_dir() -> str:
+    """``repro_ckpt`` under the temporary directory (``$TMPDIR``, else
+    ``/tmp``: the reference's ``/tmp/repro_ckpt``)."""
+    return os.path.join(tempfile.gettempdir(), "repro_ckpt")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training/serving runtime knobs (distribution + optimization)."""
+    microbatch: int = 0          # per-device microbatch (0 = auto/no accum)
+    accum_steps: int = 1         # gradient accumulation steps
+    accum_unroll: bool = False   # no effect: the accumulation is a loop
+    fsdp: bool = False           # refused: sharding is item 12
+    optimizer: str = "adamw"     # adamw | adafactor | sgdm
+    opt_state_dtype: str = "float32"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_compress: bool = False  # int8 reduce-scatter/all-gather w/ error fb
+    label_smoothing: float = 0.0
+    seed: int = 0
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=default_checkpoint_dir)
+    checkpoint_every: int = 200
+    async_checkpoint: bool = True

@@ -1,15 +1,16 @@
 """Architecture registry (counterpart of ``repro.configs.registry``):
 --arch <id> -> ModelConfig, full or reduced, for every entry of the
 reference's registry: the decoder-only transformers (GQA, MLA, MoE), the
-recurrent xlstm and zamba2, and the multimodal whisper and llava."""
+recurrent xlstm and zamba2, and the multimodal whisper and llava; and
+each (arch, shape) cell's applicability."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List, Tuple
 
 from repro_torch.core.cim_linear import CIMConfig
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig
 
 ARCHS: Dict[str, str] = {
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
@@ -37,3 +38,19 @@ def get_config(arch: str, *, reduced: bool = False,
     if cim is not None:
         cfg = cfg.replace(cim=cim)
     return cfg
+
+
+def cell_status(arch: str, shape_name: str) -> Tuple[bool, str]:
+    """(runnable, reason) of the cell (``arch``, ``shape_name``): long_500k
+    runs only on sub-quadratic families."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "skip: quadratic softmax attention at 524288"
+    return True, "ok"
+
+
+def all_cells() -> List[Tuple[str, str, bool, str]]:
+    """(arch, shape, runnable, reason) of every registry entry and shape."""
+    return [(arch, sname, *cell_status(arch, sname))
+            for arch in ARCHS for sname in SHAPES]

@@ -55,14 +55,52 @@ def lsq_fake_quant_ref(x: torch.Tensor, s: torch.Tensor, qn: float,
 def shift_add(psum: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
     """Fused dequant and shift-and-add: (..., S, kt, N) quantized partial
     sums times (S, kt, N) scales, summed in the kernel's order (tile t
-    outer, split s inner) into a float32 (..., N) output."""
+    outer, split s inner) into a float32 (..., N) output. Differentiable
+    (``_ShiftAdd``)."""
+    return _ShiftAdd.apply(psum, deq)
+
+
+def _shift_add_loop(psum: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:
+    """``shift_add``'s forward: every term's product in one pass, laid out
+    (kt, S, ..., N), then the ordered adds over contiguous terms."""
     n_split, k_tiles, n = deq.shape
-    out = torch.zeros(tuple(psum.shape[:-3]) + (n,), dtype=torch.float32,
-                      device=psum.device)
+    lead = tuple(psum.shape[:-3])
+    terms = torch.empty((k_tiles, n_split) + lead + (n,),
+                        dtype=torch.promote_types(psum.dtype, deq.dtype),
+                        device=psum.device)
+    torch.mul(psum.movedim(-2, 0).movedim(-2, 1),
+              deq.transpose(0, 1).reshape(
+                  (k_tiles, n_split) + (1,) * len(lead) + (n,)), out=terms)
+    out = torch.zeros(lead + (n,), dtype=torch.float32, device=psum.device)
     for t in range(k_tiles):
         for s in range(n_split):
-            out = out + psum[..., s, t, :] * deq[s, t]
+            out = out + terms[t, s]
     return out
+
+
+class _ShiftAdd(torch.autograd.Function):
+    """``shift_add`` with its gradients in one pass per operand: the
+    partial sums' bit for bit as autograd gives them through the ordered
+    loop of per-(split, tile) slices, the scales' summed over the rows at
+    once. Autograd through the loop puts each slice's gradient into a
+    zero tensor of the whole partial-sum shape and adds them up, S * kt
+    passes over it: most of a train step's backward at kt 8-24."""
+
+    @staticmethod
+    def forward(ctx, psum, deq):
+        ctx.save_for_backward(psum, deq)
+        return _shift_add_loop(psum, deq)
+
+    @staticmethod
+    def backward(ctx, dout):
+        psum, deq = ctx.saved_tensors
+        dpsum = ddeq = None
+        if ctx.needs_input_grad[0]:
+            dpsum = dout[..., None, None, :] * deq
+        if ctx.needs_input_grad[1]:
+            ddeq = (dout[..., None, None, :] * psum).sum(
+                dim=tuple(range(psum.ndim - 3)))
+        return dpsum, ddeq
 
 
 def shift_add_terms(psum: torch.Tensor, deq: torch.Tensor) -> torch.Tensor:

@@ -1,2 +1,3 @@
 """Launchers of the port (counterpart of ``repro.launch``): the serving
-driver, ``python -m repro_torch.launch.serve``."""
+launcher ``python -m repro_torch.launch.serve`` and the training launcher
+``python -m repro_torch.launch.train``."""

@@ -637,14 +637,17 @@ def _expert_matmul(p: Dict, nm: str, x: torch.Tensor, cfg: ModelConfig,
             return _batched_expert_matmul(p, nm, x, cfg, counts)
         return _per_expert_matmul(p, nm, x, cfg)
     # unpacked tree on a packed backend: emulate (the same quantization
-    # arithmetic; only the storage layout differs)
+    # arithmetic; only the storage layout differs). One unbind per operand:
+    # its backward stacks the experts' gradients once, where a slice per
+    # expert would put each into a zero tensor of the whole bank
     ecfg = (cfg.cim if not is_packed(cfg.cim)
             else cfg.cim.replace(mode="emulate"))
+    keys = ("w", "s_w", "s_p", "s_a")
+    banks = [torch.unbind(p[nm if k == "w" else f"{nm}_{k}"]) for k in keys]
     return torch.stack([
-        linear(x[e], {"w": p[nm][e].to(torch.float32),
-                      **{s: p[f"{nm}_{s}"][e] for s in ("s_w", "s_p", "s_a")}},
-               ecfg, compute_dtype=c)
-        for e in range(x.shape[0])])
+        linear(x_e, {k: (b[e].to(torch.float32) if k == "w" else b[e])
+                     for k, b in zip(keys, banks)}, ecfg, compute_dtype=c)
+        for e, x_e in enumerate(torch.unbind(x))])
 
 
 def route(logits: torch.Tensor, cfg: ModelConfig):

@@ -5,15 +5,21 @@ deepseek), one spec/apply pair driven by ``ModelConfig``.
 
 Parameters are stacked on a leading layer axis, as the reference stacks
 them for ``lax.scan``; the port runs the stack as a Python loop over
-per-layer views, so ``remat`` and ``scan_layers`` have no effect. Decode
-keeps per-layer caches (K/V in the compute dtype or int8 with scales;
-MLA's latent cache), stacked the same way and written in place.
+per-layer views, so ``scan_layers`` has no effect. Under ``remat`` a
+forward whose residual stream autograd records keeps only each block's
+input and recomputes the block in the backward
+(``torch.utils.checkpoint``), the reference's ``jax.checkpoint`` policy,
+so a train step at published width holds one block's activations at a
+time. Decode keeps per-layer caches (K/V in the compute dtype or int8
+with scales; MLA's latent cache), stacked the same way and written in
+place.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -90,21 +96,47 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _layers(tree, n: int):
+    """The ``n`` layer slices of a stacked tree, as ``_layer`` gives them,
+    through one ``torch.unbind`` per leaf: its backward stacks the
+    layers' gradients once, where a slice per layer would put each
+    layer's gradient into a zero tensor of the whole stack."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        per = [_layers(v, n) for v in tree]
+        return [tuple(p[i] for p in per) for i in range(n)]
+    return torch.unbind(tree)
+
+
 def _first_leaf(tree):
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
     return tree
 
 
+def _remat_block(p: Dict, x, cfg: ModelConfig, positions, moe: bool):
+    return _block(p, x, cfg, positions, None, moe)[0]
+
+
 def _run_stack(layer_params, x, cfg, positions, caches, moe: bool):
     """A homogeneous stack of blocks, one layer after the other. Each
     layer's cache slice is written in place; the returned caches hold the
-    same K/V tensors and the advanced lengths."""
+    same K/V tensors and the advanced lengths. Without caches, under
+    ``cfg.remat`` and with autograd recording the residual stream (a train
+    step), each block is recomputed in the backward."""
     n = _first_leaf(layer_params).shape[0]
+    remat = cfg.remat and caches is None and x.requires_grad
     lens = []
-    for i in range(n):
+    for i, p_i in enumerate(_layers(layer_params, n)):
+        if remat:
+            # a block draws no random numbers: no RNG state to replay
+            x = checkpoint(_remat_block, p_i, x, cfg, positions, moe,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
         c_i = None if caches is None else _layer(caches, i)
-        x, nc = _block(_layer(layer_params, i), x, cfg, positions, c_i, moe)
+        x, nc = _block(p_i, x, cfg, positions, c_i, moe)
         if nc is not None:
             lens.append(nc["len"])
     if caches is None:

@@ -1,5 +1,8 @@
-"""Training of the port (counterpart of ``repro.train``): the ResNet QAT
-harness. The LM train step comes later (ROADMAP)."""
+"""Training of the port (counterpart of ``repro.train``): the LM train
+step (``trainer``), int8 gradient compression (``grad_compress``) and the
+ResNet QAT harness (``qat``)."""
 from .qat import evaluate, make_cim, qat_step, resnet_cfg, train_qat
+from .trainer import lm_loss_fn, make_train_step
 
-__all__ = ["evaluate", "make_cim", "qat_step", "resnet_cfg", "train_qat"]
+__all__ = ["evaluate", "lm_loss_fn", "make_cim", "make_train_step",
+           "qat_step", "resnet_cfg", "train_qat"]
