@@ -77,18 +77,18 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    counts and a per-expert loop on codes zeroed past them;
 10. the MoE serving path: moonshot-v1-16b-a3b at its published widths
    (d_model 2048, 16 heads of 128, 64 experts top-6 of d_ff 1408, 2
-   shared, vocab 163840), depth cut from 48 to 4 layers (1 dense + 3
-   MoE), random weights from seed 0, packed with the serving launcher's
+   shared, vocab 163840), depth cut from 48 to 3 layers (1 dense + 2
+   MoE; cut from 4 to make room for phase 17), random weights from seed 0, packed with the serving launcher's
    CIM config (4-bit weights on 2-bit cells, 8-bit activations, 6-bit
    partial sums, 128x128 arrays, column-wise scales) at int8 and int4,
    served in bfloat16: one prefill forward (batch 8 x 64 tokens) on
    deploy against emulate, ``generate_batch`` of 16 new tokens and the
    slot engine on 3 requests at batch 2, deploy tokens against emulate
-   tokens; the launch counters (9 experts-kernel and 28 matmul-kernel
+   tokens; the launch counters (6 experts-kernel and 21 matmul-kernel
    launches per forward), every experts launch given the counts its MoE
    block computed on the device; the same packs on the ``adc_free`` backend,
    one prefill forward each against emulate with ``psum_quant=False``,
-   the ADC-free matmul on every CIM linear (K4's path: 28 + 9 x 64
+   the ADC-free matmul on every CIM linear (K4's path: 21 + 6 x 64
    launches per forward), then timed at the operands of one prefill
    forward and one decode step against its plain version, its bound and
    one float32 ``torch.matmul`` with the split-folded weight, with the
@@ -124,7 +124,7 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    from t = 300, one prefill and 16 decode steps, each step's drifted
    deploy logits against drifted emulate's under the same fields, the
    drifting engine's tokens on int8, int4 and a second run equal to that
-   step-by-step run's, 28 float-plane K1 launches, 9 K6 and no integer
+   step-by-step run's, 21 float-plane K1 launches, 6 K6 and no integer
    K1 per forward (the MoE banks do not drift, as in the reference), the
    drifted decode step timed (CUDA events, the host clock, the share in
    ``drift_tree``), and the float-plane K1 held against its plain
@@ -139,7 +139,7 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    thresholds at 0: the fallback's steps launch no CIM kernel and give a
    ``ref``-backend engine's tokens, and ``recalibrate()`` clears it; (e)
    the ADC collector armed on a clean prefill: logits bit-equal, 0 K6 and
-   604 K1 launches (per expert), deploy's counts equal emulate's exact
+   405 K1 launches (per expert), deploy's counts equal emulate's exact
    counters, ``every_n`` 4 folds a quarter of the calls; (g) the
    ResNet-20 drift sweep (cell and column drift, t 0-512, 4 samples,
    batch 256, int8): the logit error does not fall with t, 20 float-plane
@@ -149,9 +149,10 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    int8 and int4 packs (``ZOO_CASES``): deepseek-v3-671b's three leading
    dense layers (MLA: q_lora 1536, kv_lora 512, 128 heads; d_ff 18432;
    ``moe=None``), llama3-8b cut to 4 layers with the bf16 and the int8 KV
-   cache, and qwen3-0.6b uncut (28 layers, qk-norm, tied embeddings).
+   cache, and qwen3-0.6b cut to 8 of its 28 layers (qk-norm, tied
+   embeddings; cut to make room for phase 17).
    Each: deploy prefill logits against emulate, the engine's and the slot
-   engine's tokens against emulate's per KV cache, 24, 28 and 196 K1
+   engine's tokens against emulate's per KV cache, 24, 28 and 56 K1
    launches per forward and no other kernel, prefill and decode times
    (eager, and a decode step replayed from a CUDA graph against the eager
    loop's tokens), every K1 call of one prefill forward and one decode
@@ -162,7 +163,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    (``RECURRENT_ZOO``), on phase 13's traffic and CIM config, random
    weights from seed 0: zamba2-2.7b cut to 12 Mamba2 layers (the shared
    attention block applied twice), xlstm-1.3b cut to 8 blocks (7 mLSTM, 1
-   sLSTM), whisper-small uncut with its conv stem on raw log-mel frames
+   sLSTM), whisper-small cut to 4 encoder and 4 decoder layers of 12
+   (cut to make room for phase 17) with its conv stem on raw log-mel frames
    (8 x 3000 x 80: both stem convs on K3, the encoder at M 12,000) and
    llava-next-mistral-7b cut to 4 layers with its 14x14 patch-embed conv
    on 336 x 336 images (K3 on 196-row tiles, 576 image tokens before the
@@ -170,8 +172,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    its front-end input against emulate, served tokens against emulate's
    (``generate_batch``, or whisper's lockstep run with the encoder states
    in the cache, and the slot engine), the K1 and K3 counters against the
-   spec tree's CIM nodes (zamba2 38 K1, xlstm 38, whisper 2 K3 and 192 K1
-   a forward and 120 K1 a decode step, llava 1 K3 and 28 K1) with no
+   spec tree's CIM nodes (zamba2 38 K1, xlstm 38, whisper 2 K3 and 64 K1
+   a forward and 40 K1 a decode step, llava 1 K3 and 28 K1) with no
    other kernel and no patch gather in torch, a decode step replayed from
    a CUDA graph with logits, tokens and caches bit-equal to the eager
    steps, every K1 and K3 call of one forward and one decode step against
@@ -179,8 +181,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    the phase's seconds;
 15. the recurrent and multimodal zoo on a drifting chip (``DRIFT_ZOO``):
    phase 14's four configurations at their cuts and published widths
-   (zamba2 at 12 layers, xlstm at 8 blocks, whisper uncut on 8 x 3000 x
-   80 log-mel frames, llava at 4 layers, its forward with images at batch
+   (zamba2 at 12 layers, xlstm at 8 blocks, whisper at 4 + 4 layers on 8
+   x 3000 x 80 log-mel frames, llava at 4 layers, its forward with images at batch
    2), int8 packs, phase 12's schedule (``DRIFT_SCHED``, a
    ``Sampler(DRIFT_SEED)`` source) from t = 300. Each: the forward with
    the front-end input and one prefill + 15 decode steps drifted, deploy
@@ -190,8 +192,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    whisper's drifting slot engine against its schedule replayed on
    drifted emulate, and ``generate_batch`` without encoder states
    refused; the counted run (the forward and the engine) all on float
-   planes: zamba2 38 K1, xlstm 38, whisper 2 K3 + 192 K1 a forward and
-   120 K1 an invocation, llava 1 K3 + 28 K1, no integer K1/K3 and no
+   planes: zamba2 38 K1, xlstm 38, whisper 2 K3 + 64 K1 a forward and
+   40 K1 an invocation, llava 1 K3 + 28 K1, no integer K1/K3 and no
    patch gather in torch; the drifted decode step eager (with its
    ``drift_tree``) and one realization's step replayed from a CUDA graph
    (bit-equal to eager); every float K1 and K3 call of one drifted
@@ -210,14 +212,15 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    ``repro_torch.launch.train.main``, under its CIM config (``--cim
    emulate``: 4-bit weights on 2-bit cells, 6-bit partial sums, 128x128
    arrays, column-wise LSQ and straight-through gradients) at batch 8 x
-   256, AdamW, lr 3e-4, 40 steps, a checkpoint every 10, on deterministic
+   256, AdamW, lr 3e-4, 20 steps (cut from 40 to make room for phase
+   17), a checkpoint every 10, on deterministic
    algorithms (``_Deterministic``: the scatter-add backwards summed in a
    fixed order); gates: exit 0, every loss and grad norm finite, the
    mean loss of the last 10 steps at most 0.7 x that of the first 5;
-   prints ms per step (CUDA events, median over steps 6-40), tokens/s
-   and peak memory; (b) the same command with ``--crash-at 25`` in a
+   prints ms per step (CUDA events, median over steps 6-20), tokens/s
+   and peak memory; (b) the same command with ``--crash-at 11`` in a
    fresh directory raises ``InjectedFailure``, the relaunch resumes from
-   step 20 and ends at 40 with (a)'s params (rtol 1e-5, atol 1e-6;
+   step 10 and ends at 20 with (a)'s params (rtol 1e-5, atol 1e-6;
    bit-equal expected); (c) the trained params packed int8 and served (8
    stream prompts of 64 tokens, 16 new, ``generate_batch``): deploy
    prefill logits against emulate at 1e-4 of their largest magnitude,
@@ -231,7 +234,37 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    the last batch and on a 4-token probe every expert the router gave
    tokens has nonzero gradients on its weights and column scales and
    every other expert zero ones; the phase's seconds;
-17. a JSON line per kernel, the card's name and power limit, and the
+17. column-parallel serving over a ``("model",)`` mesh of 4 ranks
+   (``phase17_column_parallel``): ``torch.multiprocessing`` spawns them on
+   a free port after the parent has freed its CUDA memory; each joins a
+   gloo group on the one card (``launch.mesh.init_rank``, ``make_mesh``),
+   loads the libraries phase 2 built, and the join has a time limit (a
+   rank that raises or hangs fails the phase). Each rank runs the kernels
+   on its own columns and all-gathers the outputs through gloo. (a)
+   phase 11's ResNet-20 artifacts (int8, int4) loaded with
+   ``DeployArtifact.load(path, mesh=)`` at batch 256: deploy int8 and
+   int4, adc_free, cell variation at sigma 0.3 (the field drawn over the
+   full planes before the shard) and one drifted realization at t = 256
+   on phase 12(g)'s schedule, each bit-equal on every rank to the
+   parent's single-device logits, with 20 K3 (K5 for adc_free; on float
+   planes for the last two) launches per rank per forward, each on C_out
+   / 4 columns, no K1 and no patch gather in torch; (b) phase 13's int8
+   llama3-8b pack at 4 layers (published widths, bf16 KV cache, 8 prompts
+   of 64 tokens, 16 new), saved by phase 13 and served by each rank
+   through ``engine_from_artifact(path, cfg, mesh=)``: prefill logits
+   bit-equal to the single device's, ``generate_batch`` tokens equal to
+   phase 13's on every rank, 28 K1 launches per rank per forward (every
+   linear sharded) and no other kernel, the ADC collector's totals over
+   one armed prefill summed over the mesh equal to the single device's;
+   rank 0 prints the eager decode step (CUDA events), the share of it in
+   the all-gathers (host clock), its K1 calls of a decode step timed by
+   graph replay beside their bound at the shard's shapes, and each rank's
+   peak memory; (c) ``repro_torch.launch.serve`` on qwen3-0.6b uncut
+   (``--cim deploy --batch 8 --prompt-len 64 --new-tokens 16``) with
+   ``--mesh 4 --dist-backend gloo`` (in a process of its own) and with
+   ``--mesh 1`` (in this one): both exit 0 with the same tokens, and
+   rank 0's tok/s; the phase's seconds;
+18. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
@@ -377,7 +410,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. the training path: QAT, checkpoint, artifacts on disk, deploy
-    phase11_qat(torch, dev, smi)
+    qat = phase11_qat(torch, dev, smi)
 
     # 12. drift, recalibration, the health monitor and the telemetry plane
     timings.update(phase12_drift(torch, errs, mc, resnet20))
@@ -403,7 +436,12 @@ def main() -> int:
     # 16. the LM training path
     phase16_lm_training(torch, smi)
 
-    # 17. results
+    # 17. column-parallel serving over a mesh of ranks sharing the card
+    phase17_column_parallel(torch, smi, qat)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -1794,12 +1832,12 @@ def launcher_cim(**kw):
 
 def moe_config(reduced: bool = False):
     """The MoE phase's model and traffic: the published config with its
-    depth cut to 4 layers (1 dense + 3 MoE), batch 8 x 64-token prompts,
+    depth cut to 3 layers (1 dense + 2 MoE), batch 8 x 64-token prompts,
     16 new tokens; the slot engine at batch 2."""
     from repro_torch.configs.registry import get_config
     cfg = get_config(MOE_ARCH, reduced=reduced, cim=launcher_cim())
     if not reduced:
-        cfg = cfg.replace(n_layers=4)
+        cfg = cfg.replace(n_layers=3)
     return dict(cfg=cfg, batch=8, prompt_len=64, new_tokens=16, max_len=128,
                 requests=((5, 4), (3, 2), (4, 3)), reps=10)
 
@@ -2508,8 +2546,10 @@ def qat_run(torch, qat, data, dev, on_step, deterministic: bool = True):
     return out, time.perf_counter() - t0
 
 
-def phase11_qat(torch, dev, smi) -> None:
-    """train -> checkpoint -> pack -> save -> load -> serve, at full width."""
+def phase11_qat(torch, dev, smi):
+    """train -> checkpoint -> pack -> save -> load -> serve, at full width.
+    Returns what phase 17 serves column-parallel: the saved artifacts'
+    paths, the config, the BN state and the images (on the host)."""
     import shutil
     from repro_torch.api import DeployArtifact, model_artifact
     from repro_torch.checkpoint import CheckpointManager
@@ -2608,7 +2648,15 @@ def phase11_qat(torch, dev, smi) -> None:
           f"artifacts at batch {BATCH}: launches {counted} (cim_conv 20 x "
           f"{len(got)}); max |deploy - emulate| {worst!r}; nvidia-smi: {smi}",
           flush=True)
-    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(work / "ckpt", ignore_errors=True)
+    return dict(paths={dt: str(work / f"artifact_{dt}") for dt in loaded},
+                cfg=cfg, state=_host(state), xb=xb.cpu())
+
+
+def _host(tree):
+    from repro_torch import tree_map
+    return tree_map(lambda v: v.detach().cpu() if hasattr(v, "detach")
+                    else v, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -3239,14 +3287,14 @@ def phase12_drift(torch, errs, mc, resnet20):
 #: 11.3 G weights, which do not fit one card beside emulate); llama3-8b is
 #: cut to 4 of 32 layers and serves both its KV caches (the int8 one is
 #: the ``flash_kv8`` variant of ``src/repro/launch/perf.py:68``); qwen3-0.6b
-#: runs uncut. K1 per forward: MLA's 5 CIM linears and the MLP's 3 a layer,
+#: is cut to 8 of 28 layers (phase 17 serves it uncut). K1 per forward: MLA's 5 CIM linears and the MLP's 3 a layer,
 #: GQA's 4 and 3.
 ZOO_CASES = (
     ("cim_matmul_mla", "deepseek-v3-671b", dict(n_layers=3, moe=None), 8,
      ("bf16",)),
     ("cim_matmul_llama3", "llama3-8b", dict(n_layers=4), 7,
      ("bf16", "int8")),
-    (None, "qwen3-0.6b", {}, 7, ("bf16",)),
+    (None, "qwen3-0.6b", dict(n_layers=8), 7, ("bf16",)),
 )
 
 
@@ -3254,12 +3302,12 @@ def zoo_config(arch: str, cut, reduced: bool = False):
     """The model and traffic of phases 13 and 14 for ``arch``: the
     published config with ``cut`` and the serving launcher's CIM config (at
     ``reduced``, the entry's reduced config with the cut's fields other
-    than ``n_layers``), phase 10's traffic: 8 prompts of 64 tokens, 16 new
+    than the depths), phase 10's traffic: 8 prompts of 64 tokens, 16 new
     tokens, max_len 128; the slot engine at batch 2 on 3 requests."""
     from repro_torch.configs.registry import get_config
     cfg = get_config(arch, reduced=reduced, cim=launcher_cim())
     cfg = cfg.replace(**{k: v for k, v in cut.items()
-                         if not (reduced and k == "n_layers")})
+                         if not (reduced and k in ("n_layers", "enc_layers"))})
     return dict(cfg=cfg, batch=8, prompt_len=64, new_tokens=16, max_len=128,
                 requests=((5, 4), (3, 2), (4, 3)), reps=10)
 
@@ -3277,7 +3325,9 @@ def phase13_zoo(torch, errs, reduced: bool = False):
         zc = zoo_config(arch, cut, reduced)
         k1 = k1_layer * zc["cfg"].n_layers
         r = _zoo_serving(torch, errs, zc, entry or "cim_matmul_" + arch[:5],
-                         ((k1, 0), k1), kv_dtypes=kv_dtypes)
+                         ((k1, 0), k1), kv_dtypes=kv_dtypes,
+                         keep=(MESH_WORK / "llama3" if arch == MESH_LM_ARCH
+                               and not reduced else None))
         if entry is not None:
             results[entry] = dict(r["cim_matmul"]["decode"],
                                   launches=r["launches"]["cim_matmul"])
@@ -3287,7 +3337,8 @@ def phase13_zoo(torch, errs, reduced: bool = False):
 
 
 def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
-                 kv_dtypes=("bf16",), frontend_batch_size=None, phase=13):
+                 kv_dtypes=("bf16",), frontend_batch_size=None, phase=13,
+                 keep=None):
     """One zoo model (phases 13 and 14): random weights from seed 0 on the
     card, packed at ``dtypes``; the deploy forward (with the front-end
     input, over ``frontend_batch_size`` prompts where the family has one)
@@ -3303,7 +3354,10 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
     step after the prompt against its plain version, timed beside it and
     its bound; peak memory. Returns the int8 pack's sums,
     {"cim_matmul" or "cim_conv": {"prefill" or "decode": sums}}, and the
-    counted ``launches``."""
+    counted ``launches``. With ``keep`` (a directory), the int8 pack is
+    saved there with what phase 17 holds its column-parallel run against:
+    the prompts, the counted deploy forward's logits, the served tokens
+    (bf16 cache) and the ADC collector's totals over one armed forward."""
     from repro_torch.api import model_artifact
     from repro_torch.kernels.relaid import clear_relaid_planes
     from repro_torch.models import whisper
@@ -3486,6 +3540,9 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
                   and run["slots"] == em_runs[kv]["slots"],
                   f"{arch} {dt} slot engine ({kv} KV cache): {run['slots']} "
                   f"against emulate {em_runs[kv]['slots']}")
+    if keep is not None:
+        _keep_for_mesh(torch, keep, cfg, arts["int8"], fwd, prompts,
+                       out["int8"])
     steps = out[dtypes[0]]["runs"][kv_dtypes[0]]["steps"]
     print(f"{tag} {arch} main path: deploy forwards {len(dtypes)}, decode "
           f"invocations {invocations} ({'/'.join(dtypes)}: one forward over "
@@ -3587,6 +3644,27 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
     return dict(sums, launches=launches)
 
 
+def _keep_for_mesh(torch, keep, cfg, art, fwd, prompts, run):
+    """Save ``art`` and phase 17's single-device references under
+    ``keep`` (outside the counted run)."""
+    from repro_torch.obs import adc
+    keep = Path(keep)
+    keep.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    art.save(str(keep / "artifact"))
+    save_s = time.perf_counter() - t0
+    dcfg = cfg.replace(cim=art.config)
+    with adc.sampled():
+        fwd(art.params, dcfg)
+        totals = adc.totals()
+    torch.save(dict(cfg=cfg, prompts=prompts, logits=run["logits"].cpu(),
+                    tokens=run["runs"]["bf16"]["gen"], adc=totals),
+               keep / "ref.pt")
+    print(f"phase 13 {cfg.name} int8 pack saved for phase 17 in "
+          f"{save_s:.2f} s; ADC collector over one armed forward: "
+          f"{totals[0]} of {totals[1]} conversions clipped", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 14: the recurrent and multimodal zoo
 # ---------------------------------------------------------------------------
@@ -3595,8 +3673,8 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
 #: depth cut, pack dtypes, batch of the forward with the front-end input).
 #: zamba2-2.7b is cut from 54 to 12 Mamba2 layers (two groups of 6: the
 #: shared block applied twice), xlstm-1.3b from 48 to 8 blocks (one 7:1
-#: period), llava-next-mistral-7b from 32 to 4 layers; whisper-small runs
-#: uncut. Whisper takes its conv stem on raw log-mel frames (80 mel bins,
+#: period), llava-next-mistral-7b from 32 to 4 layers, whisper-small from
+#: 12 + 12 to 4 + 4 encoder and decoder layers. Whisper takes its conv stem on raw log-mel frames (80 mel bins,
 #: 3000 frames), llava its patch-embed conv on 336 x 336 images (patch 14:
 #: 576 patches of 1024). int4 on whisper too, where nibble planes reach K3
 #: (c_per_array 42 is even). llava's forward with images runs at batch 4
@@ -3607,8 +3685,8 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
 RECURRENT_ZOO = (
     ("zamba2-2.7b", dict(n_layers=12), ("int8",), None),
     ("xlstm-1.3b", dict(n_layers=8), ("int8",), None),
-    ("whisper-small", dict(conv_frontend=True, frontend_dim=80),
-     ("int8", "int4"), None),
+    ("whisper-small", dict(conv_frontend=True, frontend_dim=80, n_layers=4,
+                           enc_layers=4), ("int8", "int4"), None),
     ("llava-next-mistral-7b", dict(conv_frontend=True, patch_size=14,
                                    n_layers=4), ("int8",), 4),
 )
@@ -4210,8 +4288,8 @@ def phase15_zoo_drift(torch, errs, reduced: bool = False):
 
 #: (a)-(c): qwen3-0.6b uncut, trained by the launcher under its CIM config
 TRAIN_ARCH = "qwen3-0.6b"
-TRAIN_RUN = dict(batch=8, seq=256, lr=3e-4, steps=40, ckpt_every=10,
-                 crash_at=25)
+TRAIN_RUN = dict(batch=8, seq=256, lr=3e-4, steps=20, ckpt_every=10,
+                 crash_at=11)
 TRAIN_LOSS_RATIO = 0.7            # last-10 mean over first-5 mean, at most
 FT_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_fault_tolerance.py:72-76
 #: (d): moonshot at published width, cut to one dense and one MoE layer
@@ -4702,6 +4780,371 @@ def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
     torch.cuda.empty_cache()
     print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; nvidia-smi: "
           f"{smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: column-parallel serving over a rank mesh
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_JOIN_S = 400                 # the ranks' join limit, and their group's
+MESH_WORK = ROOT / "build" / "chip_smoke_mesh"
+MESH_LM_ARCH = "llama3-8b"        # phase 13's cut and traffic
+MESH_LAUNCH_ARCH = "qwen3-0.6b"   # uncut: spawned ranks see no in-process cut
+MESH_DRIFT_T = 256                # phase 12g's schedule, one realization
+MESH_DECODE_REPS = 7
+#: (a)'s runs on phase 11's artifacts: (name, pack dtype, backend, forward
+#: keywords, drifted, counter, on float planes)
+MESH_RESNET_RUNS = (
+    ("deploy int8", "int8", "deploy", {}, False, "cim_conv", False),
+    ("deploy int4", "int4", "deploy", {}, False, "cim_conv", False),
+    ("adc_free int8", "int8", "adc_free", {}, False, "cim_conv_adc_free",
+     False),
+    (f"sigma {SIGMA} int8", "int8", "deploy", {"sigma": SIGMA}, False,
+     "cim_conv", True),
+    (f"drift t {MESH_DRIFT_T} int8", "int8", "deploy", {}, True, "cim_conv",
+     True),
+)
+
+
+def _mesh_resnet_forward(torch, art, run, state, xb, cfg):
+    """One of ``MESH_RESNET_RUNS`` on ``art`` (single-device or sharded:
+    the session mesh decides)."""
+    from repro_torch.core.variation import DriftSchedule, Sampler, drift_tree
+    from repro_torch.models import resnet
+    _, _, mode, kw, drifted, _, _ = run
+    c = dataclasses.replace(cfg, cim=art.config.replace(mode=mode))
+    p = (drift_tree(art.params, Sampler(DRIFT_SEED),
+                    DriftSchedule(**SWEEP_DRIFT).at(MESH_DRIFT_T))
+         if drifted else art.params)
+    fkw = ({} if "sigma" not in kw else
+           dict(variation=Sampler(0), variation_std=kw["sigma"]))
+    return resnet.forward(p, state, xb, c, train=False, **fkw)[0]
+
+
+def _phase17_references(torch, qat, work):
+    """(a)'s single-device logits of phase 11's artifacts, saved beside
+    what the ranks need to run them."""
+    from repro_torch import to_device
+    from repro_torch.api import DeployArtifact
+    dev = torch.device("cuda")
+    state, xb = to_device(qat["state"], dev), qat["xb"].to(dev)
+    arts = {dt: DeployArtifact.load(p) for dt, p in qat["paths"].items()}
+    logits = {run[0]: _mesh_resnet_forward(torch, arts[run[1]], run, state,
+                                           xb, qat["cfg"]).cpu()
+              for run in MESH_RESNET_RUNS}
+    torch.save(dict(qat, logits=logits), work / "resnet.pt")
+
+
+def _conv_widths():
+    """Record the column count of every K3 / K5 launch: (widths, undo)."""
+    import repro_torch.kernels.ops as kops
+    widths = []
+    orig = {w: getattr(kops, w) for w in ("cim_conv_cuda",
+                                          "cim_conv_adc_free_cuda")}
+
+    def rec(f):
+        def wrapped(a, digits, *rest, **kw):
+            widths.append(int(digits.shape[-1]))
+            return f(a, digits, *rest, **kw)
+        return wrapped
+    for w, f in orig.items():
+        setattr(kops, w, rec(f))
+    return widths, lambda: [setattr(kops, w, f) for w, f in orig.items()]
+
+
+def _mesh_resnet(torch, mesh, work):
+    """(a) on this rank: phase 11's artifacts loaded with ``mesh=``, run
+    under it as the session mesh."""
+    from repro_torch import to_device
+    from repro_torch.api import DeployArtifact
+    from repro_torch.nn.module import session_mesh
+    ref = torch.load(work / "resnet.pt", weights_only=False)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    state, xb = to_device(ref["state"], dev), ref["xb"].to(dev)
+    arts = {dt: DeployArtifact.load(p, mesh=mesh, device="cuda")
+            for dt, p in ref["paths"].items()}
+    c_out = sorted(n["w_digits"].shape[-1]
+                   for _, n in _packed_nodes(arts["int8"].params))
+    out = {}
+    for run in MESH_RESNET_RUNS:
+        name, dt, _, _, _, counter, floats = run
+        torch.cuda.synchronize()
+        _reset_counters()
+        widths, undo = _conv_widths()
+        try:
+            with session_mesh(mesh):
+                y = _mesh_resnet_forward(torch, arts[dt], run, state, xb,
+                                         ref["cfg"])
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        launches, on_float = _read_counters()
+        want = ref["logits"][name]
+        out[name] = dict(
+            equal=bool(torch.equal(y.cpu(), want)),
+            diff=float((y.cpu().float() - want.float()).abs().max()),
+            launches=launches, floats=on_float,
+            widths_ok=sorted(widths) == sorted(n // MESH_RANKS
+                                               for n in c_out),
+            gate=(launches[counter] == len(c_out)
+                  and on_float[counter] == (len(c_out) if floats else 0)
+                  and all(v == 0 for k, v in launches.items()
+                          if k != counter)))
+    return out
+
+
+def _mesh_llama3(torch, mesh, work, rank):
+    """(b) on this rank: phase 13's int8 llama3 pack served through
+    ``engine_from_artifact(path, cfg, mesh=)``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import colshard
+    from repro_torch.models.registry import get_model
+    from repro_torch.obs import adc
+    from repro_torch.serve.engine import engine_from_artifact
+    ref = torch.load(work / "llama3" / "ref.pt", weights_only=False)
+    cfg, prompts = ref["cfg"], ref["prompts"]
+    b, tp = prompts.shape
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    eng = engine_from_artifact(str(work / "llama3" / "artifact"), cfg,
+                               mesh=mesh, batch_size=b, max_len=128)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    p, dcfg = eng.params, eng.cfg
+    tokens = torch.from_numpy(prompts).cuda()
+    nodes = [n["w_digits"] for _, n in _packed_nodes(p)]
+    sharded = (sum(colshard.is_col_sharded(d) for d in nodes), len(nodes))
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    logits = model.forward(p, tokens, dcfg)
+    torch.cuda.synchronize()
+    launches, on_float = _read_counters()
+    y = logits.cpu()
+    gen = eng.generate_batch(prompts, ref["tokens"].shape[1])
+    with adc.sampled():
+        model.forward(p, tokens, dcfg)
+        totals = adc.totals()
+
+    # the eager decode step after the prompt, and its all-gathers' share
+    _, cache = model.decode_step(p, model.init_cache(dcfg, b, 128), tokens,
+                                 dcfg)
+    tok = tokens[:, :1]
+    step_ms, shares = [], []
+    for _ in range(MESH_DECODE_REPS):
+        torch.cuda.synchronize()
+        g0, t0 = colshard.gather_cols.seconds, time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, cache = model.decode_step(p, cache, tok, dcfg)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms.append(start.elapsed_time(end))
+        shares.append((colshard.gather_cols.seconds - g0) / wall)
+    calls = _capture_kernel_calls(
+        lambda: model.decode_step(p, cache, tok, dcfg))
+    k1 = calls.pop("cim_matmul_transformer")
+    others = sum(len(v) for v in calls.values())
+    k1_sum = None
+    if rank == 0:          # the other ranks wait: one rank on the card
+        errs = {"cim_matmul_llama3_shard": 0.0}
+        k1_sum = _time_captured_calls(
+            torch, {"cim_matmul_llama3_shard": k1}, errs, reps=10)[
+                "cim_matmul_llama3_shard"]
+        k1_sum["max_abs_err"] = errs["cim_matmul_llama3_shard"]
+    dist.barrier()
+    order = np.argsort(step_ms)
+    mid = int(order[len(order) // 2])
+    return dict(
+        load_s=load_s, sharded_nodes=sharded, launches=launches,
+        floats=on_float, equal=bool(torch.equal(y, ref["logits"])),
+        diff=float((y.float() - ref["logits"].float()).abs().max()),
+        tokens=gen.tolist(), tokens_equal=bool(np.array_equal(
+            gen, ref["tokens"])), adc=list(totals), adc_single=list(ref["adc"]),
+        step_ms=step_ms[mid], gather_share=shares[mid], k1_calls=len(k1),
+        k1_shapes=sorted({(tuple(a[0].shape), int(a[1].shape[-1]))
+                          for a, _ in k1}), other_calls=others,
+        k1_timed=k1_sum)
+
+
+def _phase17_rank(rank, world, port, work):
+    """One rank of phase 17: gloo on the shared card, a ("model",) mesh,
+    (a) and (b); results to ``work/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh as lm
+    work = Path(work)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = lm.init_rank(rank, world, port, backend="gloo", device="cuda",
+                       timeout_s=MESH_JOIN_S)
+    try:
+        mesh = lm.make_mesh(world, device=dev, backend="gloo")
+        t0 = time.perf_counter()
+        res = {"resnet": _mesh_resnet(torch, mesh, work)}
+        res["resnet_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["llama3"] = _mesh_llama3(torch, mesh, work, rank)
+        res["llama3_s"] = time.perf_counter() - t0
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        (work / f"rank{rank}.json").write_text(json.dumps(res, default=str))
+    finally:
+        dist.destroy_process_group()
+
+
+MESH_LAUNCH_FLAGS = ("--arch", MESH_LAUNCH_ARCH, "--cim", "deploy",
+                     "--batch", "8", "--prompt-len", "64", "--new-tokens",
+                     "16")
+
+
+def _mesh_launch(flags):
+    """``repro_torch.launch.serve`` on ``MESH_LAUNCH_ARCH``: with ``--mesh
+    N`` in a process of its own (its rank 0 prints there), with ``--mesh
+    1`` in this one. (exit code, its ``[serve]`` lines, seconds)."""
+    import contextlib
+    import io
+    import os
+    t0 = time.perf_counter()
+    if "--mesh" in flags and flags[flags.index("--mesh") + 1] != "1":
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve",
+             *MESH_LAUNCH_FLAGS, *flags], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=MESH_JOIN_S)
+        if proc.returncode:
+            print(proc.stderr[-3000:], file=sys.stderr)
+        rc, out = proc.returncode, proc.stdout
+    else:
+        from repro_torch.launch import serve
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = serve.main([*MESH_LAUNCH_FLAGS, *flags])
+        out = buf.getvalue()
+    lines = [ln for ln in out.splitlines() if ln.startswith("[serve]")]
+    return rc, lines, time.perf_counter() - t0
+
+
+def phase17_column_parallel(torch, smi, qat):
+    """Column-parallel serving over a mesh of ``MESH_RANKS`` gloo ranks
+    sharing the card: (a) phase 11's ResNet-20 artifacts, (b) phase 13's
+    int8 llama3 pack, each rank on its columns and bit-equal to the
+    single device; (c) the serving launcher with ``--mesh 4``."""
+    import shutil
+
+    from repro_torch.launch import mesh as lm
+    t_phase = time.perf_counter()
+    work = MESH_WORK
+    check((work / "llama3" / "ref.pt").exists(), "phase 17: phase 13 saved "
+          "no llama3 pack")
+    _phase17_references(torch, qat, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        lm.spawn(_phase17_rank, MESH_RANKS,
+                 (MESH_RANKS, lm.free_port(), str(work)),
+                 timeout_s=MESH_JOIN_S)
+    except Exception as e:           # a rank raised, or the ranks hung
+        check(False, f"phase 17 ranks: {type(e).__name__}: {e}")
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(MESH_RANKS)]
+
+    # (a) ResNet-20
+    for run in MESH_RESNET_RUNS:
+        name = run[0]
+        for r, rr in enumerate(res):
+            got = rr["resnet"][name]
+            check(got["equal"], f"17a {name} rank {r}: logits differ from "
+                  f"the single device's by {got['diff']!r}")
+            check(got["gate"] and got["widths_ok"], f"17a {name} rank {r}: "
+                  f"launches {got['launches']}, on float planes "
+                  f"{got['floats']}, widths ok {got['widths_ok']}")
+    a0 = res[0]["resnet"]
+    print(f"phase 17a ResNet-20 at batch {BATCH} on {MESH_RANKS} gloo ranks "
+          f"sharing the card (phase 11's artifacts loaded with mesh=): "
+          + "; ".join(f"{name} bit-equal to the single device on every "
+                      f"rank, per rank {a0[name]['launches'][run[5]]} "
+                      f"{'float-plane ' if run[6] else ''}{run[5]} launches "
+                      f"on C_out/{MESH_RANKS} columns"
+                      for run in MESH_RESNET_RUNS for name in (run[0],))
+          + f"; no K1 and no patch gather in torch; {res[0]['resnet_s']:.1f}"
+          f" s on rank 0", flush=True)
+
+    # (b) llama3-8b
+    ref = torch.load(work / "llama3" / "ref.pt", weights_only=False)
+    k1_fwd = 7 * ref["cfg"].n_layers
+    for r, rr in enumerate(res):
+        got = rr["llama3"]
+        check(got["equal"], f"17b rank {r}: prefill logits differ from the "
+              f"single device's by {got['diff']!r}")
+        check(got["tokens_equal"] and got["tokens"] == res[0]["llama3"][
+            "tokens"], f"17b rank {r}: tokens differ from phase 13's or "
+              "rank 0's")
+        check(got["launches"]["cim_matmul"] == k1_fwd
+              and all(v == 0 for k, v in got["launches"].items()
+                      if k != "cim_matmul")
+              and got["k1_calls"] == k1_fwd and got["other_calls"] == 0,
+              f"17b rank {r}: launches {got['launches']}, decode-step K1 "
+              f"calls {got['k1_calls']}, others {got['other_calls']}; "
+              f"expected {k1_fwd} K1 and nothing else")
+        check(got["adc"] == got["adc_single"], f"17b rank {r}: ADC totals "
+              f"over the mesh {got['adc']} against the single device's "
+              f"{got['adc_single']}")
+        n_sharded, n_nodes = got["sharded_nodes"]
+        check(n_sharded == n_nodes, f"17b rank {r}: {n_sharded} of "
+              f"{n_nodes} packed nodes sharded (every linear divides by "
+              f"{MESH_RANKS})")
+    b0 = res[0]["llama3"]
+    t = b0["k1_timed"]
+    print(f"phase 17b {MESH_LM_ARCH} ({ref['cfg'].n_layers} layers, "
+          f"published widths, int8, bf16 KV cache, {ref['prompts'].shape[0]} "
+          f"prompts of {ref['prompts'].shape[1]} tokens, "
+          f"{ref['tokens'].shape[1]} new) on {MESH_RANKS} gloo ranks: "
+          f"engine_from_artifact(path, cfg, mesh=) loaded in "
+          f"{b0['load_s']:.2f} s (all {b0['sharded_nodes'][1]} stacked "
+          f"nodes sharded); "
+          f"prefill logits bit-equal to the single device on every rank; "
+          f"generate_batch tokens equal phase 13's on every rank; per rank "
+          f"{b0['launches']['cim_matmul']} K1 a forward and no other "
+          f"kernel; ADC totals over the mesh {b0['adc']} = the single "
+          f"device's; decode step eager {b0['step_ms']:.2f} ms (CUDA events, "
+          f"median of {MESH_DECODE_REPS}), all-gather share "
+          f"{b0['gather_share']:.3f} (host clock); rank 0's {b0['k1_calls']}"
+          f" K1 calls of a decode step at the shard's shapes "
+          f"{b0['k1_shapes']}: {_fmt_total(t, 'graph replay')}; max "
+          f"|kernel - plain| {t['max_abs_err']!r}; peak memory per rank "
+          + ", ".join(f"{rr['peak_gib']:.2f}" for rr in res)
+          + f" GiB; the ranks took {ranks_s:.1f} s; nvidia-smi: {smi}",
+          flush=True)
+
+    # (c) the launcher
+    rc4, lines4, s4 = _mesh_launch(["--mesh", str(MESH_RANKS),
+                                    "--dist-backend", "gloo"])
+    rc1, lines1, s1 = _mesh_launch(["--mesh", "1"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    cont = [[ln for ln in lines if "sample continuation" in ln]
+            for lines in (lines4, lines1)]
+    check(rc4 == 0 and rc1 == 0, f"17c launcher exits {rc4} (--mesh "
+          f"{MESH_RANKS}) and {rc1} (--mesh 1)")
+    check(len(cont[0]) == 1 and cont[0] == cont[1], f"17c tokens: "
+          f"{cont[0]} against {cont[1]}")
+    gen4 = [ln for ln in lines4 if "generated" in ln]
+    print(f"phase 17c launch.serve --arch {MESH_LAUNCH_ARCH} --cim deploy "
+          f"--batch 8 --prompt-len 64 --new-tokens 16: --mesh "
+          f"{MESH_RANKS} --dist-backend gloo exit 0 in {s4:.1f} s ("
+          f"{gen4[0] if gen4 else ''}), --mesh 1 exit 0 in {s1:.1f} s; "
+          f"the same tokens {cont[0][0].split(':', 1)[1].strip()}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(Path(qat["paths"]["int8"]).parent, ignore_errors=True)
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; "
+          f"nvidia-smi: {smi}", flush=True)
 
 
 if __name__ == "__main__":

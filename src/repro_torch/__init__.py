@@ -56,10 +56,13 @@ def tree_leaves(tree):
 
 def to_device(tree, device: torch.device):
     """Move every tensor leaf of a nested dict/list tree to ``device`` (a
-    no-op for tensors already there); other leaves pass through. Numpy
-    trees from the JAX package go through ``repro_torch.interop``."""
-    return tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor)
-                    else v, tree)
+    no-op for tensors already there); other leaves pass through, and so
+    do column-sharded leaves, which stay on the rank they were placed on
+    (``core.colshard``). Numpy trees from the JAX package go through
+    ``repro_torch.interop``."""
+    from repro_torch.core.colshard import is_col_sharded
+    return tree_map(lambda v: v.to(device) if (
+        isinstance(v, torch.Tensor) and not is_col_sharded(v)) else v, tree)
 
 
 __all__ = ["resolve_device", "to_device", "tree_leaves", "tree_map"]

@@ -28,8 +28,17 @@ package serves on the other, bit for bit::
                            complete artifact)
       step_00000000/       repro_torch.checkpoint leaf store of ``params``
 
-``load`` migrates layouts 1-3 in memory (``_migrate_pre_v4``). Sharding
-an artifact over a device mesh comes with ROADMAP queue 1, item 12.
+``load`` migrates layouts 1-3 in memory (``_migrate_pre_v4``).
+
+Column-parallel serving (DESIGN.md §10): ``shard(mesh)`` and
+``load(path, mesh=)`` place every CIM node whose columns divide the
+mesh's ``"model"`` ranks column-sharded: its digit planes and every leaf
+carrying its bank's column axis become ``core.colshard`` sharded leaves
+holding this rank's columns; ragged nodes and every other leaf stay whole
+on every rank (the kernel dispatch pads and splits ragged nodes per
+call). ``save`` of a sharded artifact gathers its leaves (every rank
+calls it) and the mesh's rank 0 writes the same files as the unsharded
+save.
 """
 from __future__ import annotations
 
@@ -40,8 +49,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch import resolve_device, to_device
+from repro_torch import resolve_device, to_device, tree_leaves
 from repro_torch.checkpoint import ckpt as _ckpt
+from repro_torch.core import colshard
 from repro_torch.core.cim_linear import CIMConfig
 
 #: Artifact layout of the reference this port reads and writes: int4
@@ -320,7 +330,17 @@ class DeployArtifact:
         last (fsynced, then renamed), so its presence marks a complete
         artifact; an existing header is removed before the new params
         land, so an interrupted overwrite never pairs new params with an
-        old header."""
+        old header. A column-sharded artifact is gathered first (a
+        collective: every rank calls ``save``), rank 0 writes, and every
+        rank returns once the files are complete."""
+        if any(colshard.is_col_sharded(v) for v in tree_leaves(self.params)):
+            import torch.distributed as dist
+            full = dataclasses.replace(self, params=colshard.full_tree(
+                self.params))
+            if dist.get_rank() == 0:
+                full.save(path)
+            dist.barrier()
+            return path
         os.makedirs(path, exist_ok=True)
         jpath = os.path.join(path, "artifact.json")
         if os.path.exists(jpath):
@@ -343,15 +363,13 @@ class DeployArtifact:
         return path
 
     @classmethod
-    def load(cls, path: str, *, mesh=None,
+    def load(cls, path: str, *, mesh=None, mesh_axis: str = "model",
              device=None) -> "DeployArtifact":
         """Read an artifact back bit for bit, leaves on ``device`` (``cuda``
         unless ``"cpu"``); layouts 1-3 are migrated to layout 4 in
-        memory."""
-        if mesh is not None:
-            raise NotImplementedError("loading an artifact onto a device "
-                                      "mesh is not ported yet (ROADMAP "
-                                      "queue 1, item 12)")
+        memory. With ``mesh``, the leaves are read on the host and placed
+        as ``shard`` places them: only this rank's columns of a sharded
+        node reach ``device``."""
         jpath = os.path.join(path, "artifact.json")
         if not os.path.exists(jpath):
             raise FileNotFoundError(
@@ -384,12 +402,75 @@ class DeployArtifact:
                 f"{registered_backends()}). Import or register_backend() "
                 f"the backend that owns this hardware style before "
                 f"loading.") from None
-        params = _ckpt.restore_tree(path, step=0, device=device)
+        params = _ckpt.restore_tree(
+            path, step=0, device="cpu" if mesh is not None else device)
         if version < 4:
             params = _migrate_pre_v4(params, cfg)
             version = ARTIFACT_LAYOUT_VERSION
-        return cls(kind=head["kind"], config=cfg, params=params,
-                   layout_version=version, meta=meta)
+        art = cls(kind=head["kind"], config=cfg, params=params,
+                  layout_version=version, meta=meta)
+        if mesh is not None:
+            art = art.shard(mesh, mesh_axis=mesh_axis, device=device)
+        return art
+
+    def shard(self, mesh, *, mesh_axis: str = "model",
+              device=None) -> "DeployArtifact":
+        """Place the packed params on this rank of ``mesh`` (on ``device``,
+        ``cuda`` unless ``"cpu"``): each CIM node whose columns divide the
+        ranks along ``mesh_axis`` holds its digit planes and column-length
+        leaves as sharded leaves of this rank's columns (the layout the
+        column-parallel dispatch reads in place); ragged nodes and every
+        other leaf whole. A mesh of one rank places everything whole."""
+        colshard.check_mesh(mesh, mesh_axis)
+        dev = resolve_device(device)
+        n_dev = colshard.mesh_shards(mesh, mesh_axis)
+
+        def place(node):
+            if isinstance(node, dict):
+                if n_dev > 1 and any(k.endswith("_digits") for k in node):
+                    return _shard_node(node, mesh, mesh_axis, n_dev, dev,
+                                       place)
+                return {k: place(v) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [place(v) for v in node]
+            return _on(node, dev)
+        return dataclasses.replace(self, params=place(self.params))
+
+
+def _on(leaf, dev):
+    return leaf.to(dev) if isinstance(leaf, torch.Tensor) else leaf
+
+
+def _shard_node(node: Dict, mesh, mesh_axis: str, n_dev: int, dev,
+                place) -> Dict:
+    """Place one packed CIM node: a leaf carrying its bank's column axis
+    (last dim == the planes' column count) is sharded when the columns
+    divide ``n_dev``; everything else stays whole. A quartet node has one
+    bank (``w_digits`` owning the unprefixed scales); an MoE node several
+    (``wg_digits`` owning ``wg_s_w``, ...). Sub-dict siblings (router,
+    shared experts) recurse through ``place``."""
+    banks = {k[: -len("_digits")]: int(node[k].shape[-1])
+             for k in node if k.endswith("_digits")}
+
+    def bank_cols(k):
+        for nm, n in banks.items():
+            if k == f"{nm}_digits" or (nm != "w" and k.startswith(f"{nm}_")):
+                return n
+        return banks.get("w")   # quartet: unprefixed scale keys
+
+    out = {}
+    for k, v in node.items():
+        if isinstance(v, (dict, list, tuple)):
+            out[k] = place(v)
+            continue
+        n = bank_cols(k)
+        if (n is not None and isinstance(v, torch.Tensor) and v.ndim >= 1
+                and v.shape[-1] == n and n % n_dev == 0):
+            out[k] = colshard.shard_leaf(v, mesh, mesh_axis, device=dev)
+        else:
+            out[k] = _on(v, dev)
+    return out
+
 
 
 def model_artifact(params: Dict, cfg: CIMConfig, *,

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.api.backends import (Backend, conv_plane_tiling,
                                       plane_tiling, register_backend)
+from repro_torch.core.colshard import col_apply
 from repro_torch.core.cim_linear import (CIMConfig, _tile_inputs,
                                          bake_variation, deploy_act_codes)
 from repro_torch.core.quantizer import qrange
@@ -136,14 +137,16 @@ def binary_calibrate_psum_scale(packed: Dict[str, torch.Tensor],
 
 def _deq(params, t) -> torch.Tensor:
     """(1, kt, N): alpha at place value 2^0, times an optional gain."""
-    deq = t.broadcast_weight_scale(params["s_w"])[None]
-    if "deq_scale" in params:
-        deq = deq * params["deq_scale"]
-    return deq
+    def deq_of(s_w, gain):
+        deq = s_w[None]
+        return deq if gain is None else deq * gain
+    return col_apply(deq_of, t.broadcast_weight_scale(params["s_w"]),
+                     params.get("deq_scale"))
 
 
 def _linear_binary(x, params, cfg, variation, sigma, compute_dtype):
     from repro_torch.kernels import ops as kops
+    from repro_torch.nn.module import current_mesh
     digits = params["w_digits"]                           # (1, kt, rows, N)
     s_a = params["s_a"]
     t = plane_tiling(cfg, x.shape[-1], digits.shape[-1])
@@ -155,7 +158,8 @@ def _linear_binary(x, params, cfg, variation, sigma, compute_dtype):
     y = kops.cim_matmul(a_t, digits, t.broadcast_psum_scale(params["s_p"]),
                         _deq(params, t), psum_bits=cfg.psum_bits,
                         psum_quant=cfg.psum_quant, use_kernel=cfg.use_kernel,
-                        variation=variation, variation_std=sigma)
+                        variation=variation, variation_std=sigma,
+                        mesh=current_mesh())
     y = y * torch.clamp_min(s_a, 1e-9)
     return y.to(compute_dtype)
 
@@ -163,6 +167,7 @@ def _linear_binary(x, params, cfg, variation, sigma, compute_dtype):
 def _conv_binary(x, params, cfg, stride, padding, variation, sigma,
                  compute_dtype):
     from repro_torch.kernels import ops as kops
+    from repro_torch.nn.module import current_mesh
     d6 = params["w_digits"]                  # (1, kt, kh, kw, cpa, C_out)
     s1, k_tiles, kh, kw, cpa, c_out = d6.shape
     t, cpa2 = conv_plane_tiling(cfg, kh, kw, x.shape[-1], c_out)
@@ -173,12 +178,14 @@ def _conv_binary(x, params, cfg, stride, padding, variation, sigma,
             f"c_per_array)={(t.k_tiles, cpa2)}, packed {(k_tiles, cpa)}")
     s_a = params["s_a"]
     y = kops.cim_conv(deploy_act_codes(x, s_a, cfg),
-                      d6.reshape(s1, k_tiles, kh * kw * cpa, c_out),
+                      col_apply(lambda d: d.reshape(s1, k_tiles, kh * kw * cpa,
+                                                    d.shape[-1]), d6),
                       t.broadcast_psum_scale(params["s_p"]), _deq(params, t),
                       kh=kh, kw=kw, stride=stride, padding=padding,
                       c_per_array=cpa, psum_bits=cfg.psum_bits,
                       psum_quant=cfg.psum_quant, use_kernel=cfg.use_kernel,
-                      variation=variation, variation_std=sigma)
+                      variation=variation, variation_std=sigma,
+                      mesh=current_mesh())
     y = y * torch.clamp_min(s_a, 1e-9)
     return y.to(compute_dtype)
 

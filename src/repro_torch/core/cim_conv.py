@@ -32,6 +32,7 @@ from repro_torch.kernels.ref import conv_pads, shift_add
 from repro_torch.obs import adc as obs_adc
 
 from .bitsplit import split_digits
+from .colshard import col_apply
 from .cim_linear import (CIMConfig, _deprecated, _deq_w, _group_scale,
                          _psum_scale, _quantize_act, bake_variation,
                          deploy_act_codes)
@@ -202,7 +203,9 @@ def conv_deploy_operands(x, params, cfg: CIMConfig) -> Dict:
     d6 = params["w_digits"]              # (S, kt, kh, kw, cpa, C_out)
     n_split, k_tiles, kh, kw, cpa_stored, c_out = d6.shape
     c_per_array = 2 * cpa_stored if is_nibble_packed(d6) else cpa_stored
-    digits = d6.reshape(n_split, k_tiles, kh * kw * cpa_stored, c_out)
+    digits = col_apply(lambda d: d.reshape(n_split, k_tiles,
+                                           kh * kw * cpa_stored, d.shape[-1]),
+                       d6)
     t, cpa = conv_tiling(kh, kw, x.shape[-1], c_out, cfg.array_rows,
                          cfg.array_cols, cfg.weight_bits, cfg.cell_bits)
     if (t.k_tiles, cpa) != (k_tiles, c_per_array):
@@ -224,6 +227,7 @@ def _forward_conv_deploy(x, params, cfg: CIMConfig, stride, padding,
     (``kernels/ops.cim_conv``), which perturbs the planes under variation.
     ``adc_free=True`` runs the same planes on the ADC-free conv kernel."""
     from repro_torch.kernels import ops as kops
+    from repro_torch.nn.module import current_mesh
     op = conv_deploy_operands(x, params, cfg)
     y = kops.cim_conv(op["a_int"], op["digits"], op["s_p"], op["deq"],
                       kh=op["kh"], kw=op["kw"], stride=stride,
@@ -231,7 +235,7 @@ def _forward_conv_deploy(x, params, cfg: CIMConfig, stride, padding,
                       psum_bits=cfg.psum_bits, psum_quant=cfg.psum_quant,
                       use_kernel=cfg.use_kernel, occ=op["occ"],
                       variation=variation, variation_std=sigma,
-                      adc_free=adc_free)
+                      adc_free=adc_free, mesh=current_mesh())
     y = y * torch.clamp_min(params["s_a"], 1e-9)
     return y.to(compute_dtype)
 

@@ -47,6 +47,7 @@ from repro_torch.kernels.ref import shift_add
 from repro_torch.obs import adc as obs_adc
 
 from .bitsplit import place_values, split_digits
+from .colshard import col_apply
 from .granularity import ArrayTiling, Granularity
 from .nibble import (INT4, can_pack_nibbles, is_nibble_packed, occupancy_map,
                      pack_nibbles)
@@ -273,10 +274,12 @@ def _deq_w(params, cfg: CIMConfig, t: ArrayTiling) -> torch.Tensor:
     2^(c*s) * s_w, times the optional recalibration gain ``deq_scale``."""
     s_w = _full_weight_scale(params, t)
     places = place_values(cfg.weight_bits, cfg.cell_bits, device=s_w.device)
-    deq = places[:, None, None] * s_w[None]
-    if "deq_scale" in params:
-        deq = deq * params["deq_scale"]
-    return deq
+
+    def deq_of(s_w, gain):
+        deq = places[:, None, None] * s_w[None]
+        return deq if gain is None else deq * gain
+    # column-sharded leaves: computed on this rank's columns
+    return col_apply(deq_of, s_w, params.get("deq_scale"))
 
 
 # ---------------------------------------------------------------------------
@@ -333,11 +336,13 @@ def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype):
 
 def _forward_deploy(x, params, cfg, variation, sigma, compute_dtype,
                     adc_free: bool = False):
-    """Inference from packed digit planes (``_pack_linear``) through the
-    single-device ``kernels.ops.cim_matmul``, which perturbs the planes
-    under variation. ``adc_free=True`` runs the same planes on the ADC-free
-    kernel (the ``adc_free`` backend)."""
+    """Inference from packed digit planes (``_pack_linear``) through
+    ``kernels.ops.cim_matmul``, which perturbs the planes under variation
+    and, under a session mesh, runs column-parallel. ``adc_free=True``
+    runs the same planes on the ADC-free kernel (the ``adc_free``
+    backend)."""
     from repro_torch.kernels import ops as kops
+    from repro_torch.nn.module import current_mesh
     digits = params["w_digits"]
     s_a = params["s_a"]
     a_int = deploy_act_codes(x, s_a, cfg)
@@ -354,7 +359,7 @@ def _forward_deploy(x, params, cfg, variation, sigma, compute_dtype,
                         psum_bits=cfg.psum_bits, psum_quant=cfg.psum_quant,
                         use_kernel=cfg.use_kernel, occ=params.get("w_occ"),
                         variation=variation, variation_std=sigma,
-                        adc_free=adc_free)
+                        adc_free=adc_free, mesh=current_mesh())
     y = y * torch.clamp_min(s_a, 1e-9)
     return y.to(compute_dtype)
 

@@ -39,16 +39,25 @@ variation is a **drift source** (``DriftSource``): the port's
 source hands in fields drawn by the JAX package). ``drift_tree`` draws
 one chip realization of a whole packed model tree, each node from its
 own source (``source.for_layer(path)``).
+
+Column-parallel serving (DESIGN.md §10): on a column-sharded node
+(``core.colshard``) every rank draws the field over the full unpadded
+logical planes from the same source and keeps its own columns
+(``perturb_cols``), so a sharded realization is the single-device one,
+split.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from typing import Dict, Optional, Protocol, Sequence
 
 import numpy as np
 import torch
 
+from .colshard import (col_apply, is_col_sharded, localize, range_of,
+                       wrap)
 from .nibble import is_nibble_packed, unpack_nibbles
 
 
@@ -291,13 +300,35 @@ def variation_noise(variation, shape: Sequence[int], sigma,
     return torch.exp(sig * theta)
 
 
+def perturb_cols(local: torch.Tensor, cols, variation, sigma, *,
+                 shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``perturb_digits`` of one rank's columns (``cols``, a
+    ``core.colshard.ColRange``) of logical planes: the field is drawn over
+    the full unpadded logical planes, as on one device, and the rank
+    keeps its columns, so every rank's share equals the single-device
+    planes' columns bit for bit."""
+    d = local.to(torch.float32)
+    full = tuple(d.shape[:-1]) + (cols.n,)
+    noise = variation_noise(variation, shape or full, sigma, device=d.device)
+    if noise.numel() != math.prod(full):  # a drift field's column form
+        full = _column_field_shape(full)
+    return d * localize(noise.reshape(full), cols, 1.0)
+
+
 def perturb_digits(digits: torch.Tensor, variation, sigma, *,
                    shape: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Perturb logical digit planes; returns float32 (noisy conductances
     are not integers, so they are never cast back). ``shape`` is the
     layout the noise is drawn over when it differs from ``digits.shape``
     with the same element count (the 6-D conv layout of flattened
-    planes)."""
+    planes). Column-sharded planes perturb their local columns
+    (``perturb_cols``) and stay sharded."""
+    if is_col_sharded(digits):
+        cols = range_of(digits)
+        if not variation_wanted(variation, sigma):
+            return wrap(digits.to_local().to(torch.float32), cols)
+        return wrap(perturb_cols(digits.to_local(), cols, variation, sigma,
+                                 shape=shape), cols)
     d = digits.to(torch.float32)
     if not variation_wanted(variation, sigma):
         return d
@@ -336,7 +367,7 @@ def perturb_packed(packed: Dict[str, torch.Tensor], variation, sigma, *,
     out = dict(packed)
     d = packed["w_digits"]
     if is_nibble_packed(d):
-        d = unpack_nibbles(d)
+        d = col_apply(unpack_nibbles, d)
     out["w_digits"] = perturb_digits(d, variation, sigma)
     return out
 
@@ -388,7 +419,7 @@ def drift_tree(params, source, state: DriftState):
     out = walk(params, ())
     # walk's closure holds the list and walk itself (a cycle the collector
     # frees late): empty it, or the realization's planes outlive the call
-    drifted = planes[:]
+    drifted = [p.to_local() if is_col_sharded(p) else p for p in planes]
     planes.clear()
     if any(p.is_cuda for p in drifted):
         from repro_torch.kernels.cim_matmul import check_float_planes

@@ -41,6 +41,7 @@ from repro_torch.api.artifact import (ARTIFACT_LAYOUT_VERSION,
                                       _LAYOUT_WRITERS, ArtifactVersionError,
                                       DeployArtifact)
 from repro_torch.checkpoint import ckpt as _ckpt
+from repro_torch.core import colshard
 from repro_torch.core.nibble import is_nibble_packed, unpack_nibbles
 from repro_torch.kernels.ref import einsum_f32
 
@@ -203,7 +204,10 @@ def fit_scale_delta(reference, observed, *,
             if "w_digits" in ref:
                 name = "/".join(path)
                 node_codes = codes.get(name) if codes else None
-                g = node_gain(ref["w_digits"], obs["w_digits"], gen=gen,
+                # a column-sharded node's planes are gathered (every rank
+                # fits the same full-width gain)
+                g = node_gain(colshard.full_leaf(ref["w_digits"]),
+                              colshard.full_leaf(obs["w_digits"]), gen=gen,
                               probes=probes, codes=node_codes)
                 gains[name] = g.cpu()
                 return
@@ -236,8 +240,13 @@ def _reduce_to(g: torch.Tensor, shape) -> torch.Tensor:
 
 
 def _placed_like(arr: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """``arr`` on ``ref``'s device. Column-sharded placement comes with
-    ROADMAP queue 1, item 12."""
+    """``arr`` on ``ref``'s device with ``ref``'s column placement (both
+    end in the column axis): on a column-sharded node this rank keeps, and
+    later multiplies, only its own columns of a full-width gain."""
+    if colshard.is_col_sharded(ref):
+        return colshard.shard_leaf(arr, ref.device_mesh,
+                                   colshard.range_of(ref).axis,
+                                   device=ref.to_local().device)
     return arr.to(ref.device)
 
 
@@ -254,7 +263,9 @@ def apply_scale_delta_params(params, delta: ScaleDelta):
                 out = dict(node)
                 s_p = node["s_p"]
                 g_sp = _placed_like(_reduce_to(g, s_p.shape), s_p)
-                out["s_p"] = (s_p.to(torch.float32) * g_sp).to(s_p.dtype)
+                out["s_p"] = colshard.col_apply(
+                    lambda s, gs: (s.to(torch.float32) * gs).to(s.dtype),
+                    s_p, g_sp)
                 out["deq_scale"] = _placed_like(1.0 / g, node["w_digits"])
                 return out
             if "w_digits" in node:

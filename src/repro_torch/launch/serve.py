@@ -7,8 +7,17 @@ batched generation with the serving engine, on the card.
 It takes the reference launcher's flags and defaults and adds
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions,
 for tests). Without a card and without ``--device cpu`` it raises, as
-``repro_torch.resolve_device`` does. ``--mesh N`` with N > 1 raises:
-column-parallel serving is ROADMAP queue 1, item 12.
+``repro_torch.resolve_device`` does.
+
+``--mesh N`` with N > 1 serves column-parallel: the launcher spawns N
+ranks (``launch.mesh.spawn``, a free localhost port), each joins a
+process group on ``--dist-backend`` (``nccl``, the default, puts one rank
+on each card and raises with fewer cards than ranks; ``gloo`` runs ranks
+on the CPU with ``--device cpu``, or ranks that share one card), builds
+a ``("model",)`` mesh of N and serves the artifact column-sharded over
+it (``engine_from_artifact(..., mesh=)``). Every rank generates the same
+tokens; rank 0 prints the ``[serve]`` lines and writes
+``--metrics-out``. ``--mesh 1`` serves in this process, unsharded.
 
 ``--artifact PATH`` serves a saved ``DeployArtifact``, written by either
 package, instead of packing weights initialised from ``--seed``.
@@ -62,8 +71,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--cim", default="off",
                     choices=["off", "emulate", "deploy"])
     ap.add_argument("--mesh", type=int, default=1,
-                    help="devices along the 'model' axis; N > 1 is not "
-                         "ported (ROADMAP queue 1, item 12) and raises")
+                    help="ranks along the 'model' axis: N > 1 spawns N "
+                         "ranks that serve the packed planes column-sharded")
+    ap.add_argument("--dist-backend", default="nccl", choices=["nccl", "gloo"],
+                    help="collective backend of --mesh N: nccl (one card "
+                         "per rank) or gloo (CPU ranks, or ranks sharing "
+                         "one card)")
     ap.add_argument("--artifact", default=None,
                     help="path to a packed model DeployArtifact (saved by "
                          "either package) to serve on its pinned backend")
@@ -111,15 +124,52 @@ def launcher_cim():
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-
+    if args.mesh > 1:
+        return _spawn_ranks(args, argv)
     from repro_torch import resolve_device
+    return _run(args, resolve_device(args.device), None)
+
+
+def _spawn_ranks(args, argv) -> int:
+    """``--mesh N``: check the flags, then serve on N spawned ranks."""
+    import sys
+
+    from repro_torch.launch import mesh as lm
+    if args.artifact is None and args.cim != "deploy":
+        raise SystemExit("--mesh shards packed digit planes; use it with "
+                         "--cim deploy or --artifact")
+    import torch
+    try:
+        lm.check_backend(args.dist_backend, torch.device(args.device),
+                         args.mesh)
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+    lm.spawn(_rank_main, args.mesh,
+             (list(sys.argv[1:] if argv is None else argv), lm.free_port()),
+             timeout_s=None)
+    return 0
+
+
+def _rank_main(rank: int, argv, port: int) -> None:
+    """One rank of ``--mesh N``: join the group, build the mesh, serve."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lm
+    args = _parser().parse_args(argv)
+    device = lm.init_rank(rank, args.mesh, port, backend=args.dist_backend,
+                          device=args.device)
+    try:
+        mesh = lm.make_mesh(args.mesh, device=device,
+                            backend=args.dist_backend)
+        _run(args, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> int:
     from repro_torch.core.variation import DriftSchedule, Sampler
     from repro_torch.serve.health import DriftMonitor
 
-    if args.mesh > 1:
-        raise SystemExit(f"--mesh {args.mesh}: column-parallel serving is "
-                         "not ported yet (ROADMAP queue 1, item 12)")
-    device = resolve_device(args.device)
     drift_kw = {}
     drifting = (args.drift_col_rate or args.drift_cell_rate
                 or args.drift_read_sigma)
@@ -139,15 +189,16 @@ def main(argv=None) -> int:
     if args.adc_sample:
         adc.enable(every_n=args.adc_sample)
     try:
-        return _serve(args, device, drift_kw, bool(drifting))
+        return _serve(args, device, drift_kw, bool(drifting), mesh)
     finally:
         if args.adc_sample:
             adc.disable()
 
 
-def _serve(args, device, drift_kw, drifting: bool) -> int:
-    """Build the engine, generate, print the ``[serve]`` lines and write
-    the metrics."""
+def _serve(args, device, drift_kw, drifting: bool, mesh) -> int:
+    """Build the engine (column-sharded over ``mesh`` when given),
+    generate, print the ``[serve]`` lines and write the metrics (rank 0
+    of a mesh)."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -161,7 +212,7 @@ def _serve(args, device, drift_kw, drifting: bool) -> int:
                   temperature=args.temperature, seed=args.seed,
                   device=device, **drift_kw)
     if args.artifact is not None:
-        engine = engine_from_artifact(args.artifact, cfg, **common)
+        engine = engine_from_artifact(args.artifact, cfg, mesh=mesh, **common)
     elif args.cim == "deploy":
         # random-init emulate params packed into an in-memory artifact: the
         # same packed bytes and engine path a saved artifact takes
@@ -171,7 +222,7 @@ def _serve(args, device, drift_kw, drifting: bool) -> int:
         artifact = model_artifact(params, cim, meta={"arch": args.arch},
                                   device=device)
         del params
-        engine = engine_from_artifact(artifact, cfg, **common)
+        engine = engine_from_artifact(artifact, cfg, mesh=mesh, **common)
     else:
         if drifting:
             raise SystemExit("drift flags act on packed digit planes; use "
@@ -194,8 +245,12 @@ def _serve(args, device, drift_kw, drifting: bool) -> int:
     t0 = time.time()
     out = engine.generate_batch(prompts, args.new_tokens)
     dt = time.time() - t0
+    # every rank folds the metrics (the ADC totals sum over the mesh)
+    metrics = engine.metrics() if args.metrics_out else None
+    if mesh is not None and mesh.get_rank() != 0:
+        return 0
     n_new = out.shape[0] * out.shape[1]
-    print(f"[serve] arch={args.arch} mesh=1 generated {out.shape} "
+    print(f"[serve] arch={args.arch} mesh={args.mesh} generated {out.shape} "
           f"tokens in {dt:.2f}s ({n_new / dt:.1f} tok/s)")
     print(f"[serve] sample continuation: {out[0][:16].tolist()}")
     h = engine.health()
@@ -206,7 +261,7 @@ def _serve(args, device, drift_kw, drifting: bool) -> int:
         print(f"[serve] health: {h}")
     if args.metrics_out:
         with open(args.metrics_out, "w", encoding="utf-8") as f:
-            json.dump(engine.metrics(), f, indent=2, default=str)
+            json.dump(metrics, f, indent=2, default=str)
         print(f"[serve] metrics -> {args.metrics_out}")
     return 0
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.colshard import col_apply
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, constrain
 
@@ -335,6 +336,7 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is not None and x_kv is None:
+        _refuse_flash_decode(cfg)
         idx = cache["len"]                                   # (B,) int32
         rows, cols = _write_at(idx, t, cache["k"])
         if "k_scale" in cache:                               # int8 KV cache
@@ -549,18 +551,36 @@ def moe_specs(cfg: ModelConfig) -> Dict:
     return sp
 
 
+def _refuse_flash_decode(cfg: ModelConfig) -> None:
+    """The reference's sequence-parallel flash decode (``cfg.flash_decode``
+    under a mesh) is not ported: raise rather than serve another path."""
+    if not cfg.flash_decode:
+        return
+    from repro_torch.kernels import ops as kops
+    from repro_torch.nn.module import current_mesh
+    if kops.col_shards(current_mesh()) > 1:
+        raise NotImplementedError(
+            "flash_decode under a mesh (sequence-parallel decode attention) "
+            "is not ported yet (ROADMAP queue 1, item 12b)")
+
+
 def _batched_experts_ok(p: Dict, nm: str, cfg: ModelConfig) -> bool:
     """The single-launch path: a clean integer (int8 or nibble) deploy bank
     of one layer (E-leading, rank 5), on the kernel, with the ADC
     collector disarmed (armed, every expert runs as its own ``linear``,
-    whose dispatch records the side-output, as the reference does). Every
+    whose dispatch records the side-output, as the reference does) and no
+    column-parallel session mesh (under one, every expert runs as its own
+    ``linear`` through the sharded dispatch, as the reference does). Every
     bank size takes it; the reference's 4 MiB gate is a TPU VMEM
     budget."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.nn.module import current_mesh
     from repro_torch.obs import adc as obs_adc
     d = p[f"{nm}_digits"]
     return (cfg.cim.mode == "deploy" and cfg.cim.use_kernel and d.ndim == 5
             and d.dtype in (torch.int8, torch.uint8)
-            and not obs_adc.enabled())
+            and not obs_adc.enabled()
+            and kops.col_shards(current_mesh()) == 1)
 
 
 def _bank_scale(full, key: str, bank: torch.Tensor, t) -> torch.Tensor:
@@ -612,11 +632,15 @@ def _per_expert_matmul(p: Dict, nm: str, x: torch.Tensor,
     float (variation-baked) planes, and the plain version."""
     from repro_torch.api import linear
     outs = []
+
+    def expert(leaf, e):            # a column-sharded bank keeps its shards
+        return col_apply(lambda v: v[e], leaf)
     for e in range(x.shape[0]):
-        node = {"w_digits": p[f"{nm}_digits"][e],
-                **{s: p[f"{nm}_{s}"][e] for s in ("s_w", "s_p", "s_a")}}
+        node = {"w_digits": expert(p[f"{nm}_digits"], e),
+                **{s: expert(p[f"{nm}_{s}"], e)
+                   for s in ("s_w", "s_p", "s_a")}}
         if f"{nm}_occ" in p:
-            node["w_occ"] = p[f"{nm}_occ"][e]
+            node["w_occ"] = expert(p[f"{nm}_occ"], e)
         outs.append(linear(x[e], node, cfg.cim, compute_dtype=cdt(cfg)))
     return torch.stack(outs)
 
@@ -699,8 +723,19 @@ def expert_counts(slot: torch.Tensor, n_experts: int,
 
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The MoE block. The port has no mesh, so this is the reference's jit
-    path (``_apply_moe_jit``) always."""
+    """The MoE block: the reference's jit path (``_apply_moe_jit``). Packed
+    banks take it under a mesh too (their parallelism is the column
+    sharding inside the kernel dispatch); the reference's expert-parallel
+    path over raw banks is not ported and raises."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.nn.module import current_mesh
+    shards = kops.col_shards(current_mesh())
+    if (cfg.moe_impl != "jit" and shards > 1
+            and not any(k.endswith("_digits") for k in p)
+            and cfg.moe.n_experts % shards == 0):
+        raise NotImplementedError(
+            "the expert-parallel MoE (moe_impl != 'jit' on raw banks under "
+            "a mesh) is not ported yet (ROADMAP queue 1, item 12b)")
     return _apply_moe_jit(p, x, cfg)
 
 

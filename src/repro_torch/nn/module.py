@@ -5,17 +5,23 @@ Models are pairs of plain functions: ``specs(cfg)`` gives a nested dict of
 inputs, cfg)`` runs the model on a dict of tensors with the same nesting.
 Parameters are materialized only by ``init_params``.
 
-The port has no mesh: the logical axes are carried for parity and
-``constrain`` is the identity. torch cannot reproduce ``jax.random``
+The logical axes map onto mesh axes through a rules table
+(``resolve_pspec``, ``logical_to_mesh``). The process's session mesh
+(``set_activation_rules``, ``session_mesh``, ``current_mesh``) is what
+the column-parallel CIM dispatch reads (``kernels.ops``): in the port a
+``torch.distributed`` ``DeviceMesh`` of one process per rank. ``constrain``
+stays the identity: activations are never sharded, every rank holds them
+whole. torch cannot reproduce ``jax.random``
 draws, so the port's ``init_params`` agrees with the reference only in
 distribution; parity tests carry JAX-initialized params across as numpy
 (``repro_torch.interop``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -99,8 +105,77 @@ def init_params(specs, seed: int, *, device=None):
     return build(specs)
 
 
+def resolve_pspec(logical: Optional[Tuple[Optional[str], ...]],
+                  rules: Dict[str, Any]) -> Tuple:
+    """Map logical axis names to mesh axes (the reference's
+    ``PartitionSpec`` as a tuple), dropping duplicates (a mesh axis may
+    appear at most once) and trailing ``None``s."""
+    if logical is None:
+        return ()
+    used = set()
+    out = []
+    for ax in logical:
+        target = rules.get(ax) if ax is not None else None
+        if target is None:
+            out.append(None)
+            continue
+        taxes = tuple(target) if isinstance(target, (tuple, list)) else (target,)
+        taxes = tuple(t for t in taxes if t not in used)
+        used.update(taxes)
+        out.append(taxes if len(taxes) > 1 else (taxes[0] if taxes else None))
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def logical_to_mesh(specs, rules: Dict[str, Any]):
+    """Tree of resolved mesh-axis tuples from the logical annotations."""
+    def build(tree):
+        if isinstance(tree, ParamSpec):
+            return resolve_pspec(tree.pspec, rules)
+        return {k: build(v) for k, v in tree.items()}
+    return build(specs)
+
+
+# ---------------------------------------------------------------------------
+# the session mesh: the launcher installs it; the column-parallel CIM
+# dispatch reads it, and a model runs unchanged without one
+# ---------------------------------------------------------------------------
+_ACTIVATION_RULES: Dict[str, Any] = {}
+_CURRENT_MESH = None
+
+
+def set_activation_rules(rules: Optional[Dict[str, Any]], mesh=None) -> None:
+    """Install ``rules`` and ``mesh`` (a ``DeviceMesh`` or None) for the
+    process's lifetime (what a serving rank does)."""
+    global _ACTIVATION_RULES, _CURRENT_MESH
+    _ACTIVATION_RULES = dict(rules) if rules else {}
+    _CURRENT_MESH = mesh
+
+
+def current_mesh():
+    return _CURRENT_MESH
+
+
+def current_rules() -> Dict[str, Any]:
+    return dict(_ACTIVATION_RULES)
+
+
+@contextlib.contextmanager
+def session_mesh(mesh, rules: Optional[Dict[str, Any]] = None):
+    """Install ``mesh`` (and ``rules``, else the current ones) on entry and
+    restore the previous mesh and rules on exit."""
+    prev_rules, prev_mesh = dict(_ACTIVATION_RULES), _CURRENT_MESH
+    set_activation_rules(rules if rules is not None else prev_rules, mesh)
+    try:
+        yield mesh
+    finally:
+        set_activation_rules(prev_rules, prev_mesh)
+
+
 def constrain(x, logical):
-    """Sharding hint of the reference; the port has no mesh."""
+    """Sharding hint of the reference: the identity (activations are whole
+    on every rank)."""
     return x
 
 

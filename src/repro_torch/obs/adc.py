@@ -26,6 +26,12 @@ calls that will not be folded skip the side computation. ``disable()``
 stops recording at once; calls recorded while armed are still folded.
 Arming is refused inside a CUDA-graph capture: a captured side-output
 would replay without being recorded.
+
+Under a column-parallel session mesh each rank records the columns it
+serves (``kernels.ops``), and ``totals()`` and ``summary()`` sum the
+saturated and converted counts over the mesh's ``"model"`` axis (the
+worst column rate is the largest over it): collectives, so every rank
+calls them together. The sums equal the single device's counts.
 """
 from __future__ import annotations
 
@@ -117,18 +123,42 @@ def sync() -> None:
               conv_per_col=conv_per_col)
 
 
+def _over_mesh() -> Tuple[int, int, float]:
+    """(saturated, conversions, worst column rate) folded so far, summed
+    (the rate: the largest) over the session mesh's column axis."""
+    from repro_torch.core.colshard import mesh_shards
+    from repro_torch.nn.module import current_mesh
+    st = _STATE
+    sat, conv, worst = st.saturated_total, st.conversions_total, \
+        st.worst_col_rate
+    mesh = current_mesh()
+    if mesh_shards(mesh, "model") <= 1:
+        return sat, conv, worst
+    import torch.distributed as dist
+    group = mesh.get_group("model")
+    dev = (torch.device("cpu") if dist.get_backend(group) == "gloo"
+           else torch.device("cuda", torch.cuda.current_device()))
+    counts = torch.tensor([sat, conv], dtype=torch.int64, device=dev)
+    rate = torch.tensor([worst], dtype=torch.float64, device=dev)
+    dist.all_reduce(counts, group=group)
+    dist.all_reduce(rate, op=dist.ReduceOp.MAX, group=group)
+    return int(counts[0]), int(counts[1]), float(rate[0])
+
+
 def totals() -> Tuple[int, int]:
-    """(saturated, conversions) folded so far, after a ``sync()``; the
-    engine derives its per-step clip-rate drift statistic from deltas of
-    these."""
+    """(saturated, conversions) folded so far, after a ``sync()``, over
+    the session mesh; the engine derives its per-step clip-rate drift
+    statistic from deltas of these."""
     sync()
-    return _STATE.saturated_total, _STATE.conversions_total
+    sat, conv, _ = _over_mesh()
+    return sat, conv
 
 
 def summary() -> Dict[str, object]:
-    """JSON-safe roll-up for ``engine.metrics()``, after a ``sync()``."""
+    """JSON-safe roll-up for ``engine.metrics()``, after a ``sync()``,
+    over the session mesh."""
     sync()
-    sat, conv = _STATE.saturated_total, _STATE.conversions_total
+    sat, conv, worst = _over_mesh()
     return {
         "enabled": _STATE.enabled,
         "every_n": _STATE.every_n,
@@ -138,7 +168,7 @@ def summary() -> Dict[str, object]:
         "conversions": conv,
         "saturated": sat,
         "clip_rate": (sat / conv) if conv else 0.0,
-        "worst_col_rate": _STATE.worst_col_rate,
+        "worst_col_rate": worst,
     }
 
 

@@ -37,7 +37,16 @@ follow the slots. A span synchronises with the card before it closes
 ``metrics()`` folds it all with ``health()``, the throughput and, when
 the ``obs.adc`` collector is armed, the ADC saturation summary; armed,
 the monitor also ingests an ``adc_clip_rate`` statistic per step.
-Column-parallel serving (``mesh``) comes with ROADMAP queue 1, item 12.
+
+Column-parallel serving (DESIGN.md §10): ``engine_from_artifact(...,
+mesh=)`` places the artifact column-sharded on this rank of ``mesh`` (a
+``DeviceMesh`` over one process per rank) and installs it as the session
+mesh, so every CIM linear runs the kernels on the rank's columns and
+all-gathers the outputs. Every rank runs the same engine on the same
+prompts and gets the same logits, so greedy decoding (or sampling from
+the same seeded generator) gives every rank the same tokens, equal to the
+single-device engine's. The engine pins the session mesh at build time
+and raises if a later ``step``/``generate_batch`` runs under another.
 """
 from __future__ import annotations
 
@@ -61,17 +70,9 @@ from repro_torch.obs.tracing import Tracer
 
 from .health import logit_stats_device
 
-#: keywords of the reference whose features are not ported yet
-_UNPORTED = ("mesh",)
-
-
-def _refuse_mesh(where: str) -> None:
-    raise NotImplementedError(f"{where}: column-parallel serving (mesh) is "
-                              "not ported yet (ROADMAP queue 1, item 12)")
-
-
 def engine_from_artifact(artifact, cfg: ModelConfig, *, mesh=None,
-                         device=None, **engine_kw) -> "ServingEngine":
+                         mesh_axis: str = "model", device=None,
+                         **engine_kw) -> "ServingEngine":
     """A ``ServingEngine`` serving a model ``DeployArtifact`` on its packed
     backend, on ``device`` (``cuda`` unless ``"cpu"``). ``artifact`` is an
     artifact (``repro_torch.api.model_artifact``) or the path of one saved
@@ -79,19 +80,30 @@ def engine_from_artifact(artifact, cfg: ModelConfig, *, mesh=None,
     ``cim`` is replaced by the artifact's pinned config, so the engine runs
     exactly the quantization state that was packed, and the artifact's
     ``layout_version`` pins the engine's recalibration deltas. The drift,
-    health and telemetry keywords pass through to ``ServingEngine``."""
+    health and telemetry keywords pass through to ``ServingEngine``.
+
+    ``mesh`` (a ``DeviceMesh`` this rank belongs to) turns on
+    column-parallel serving: the artifact is loaded (or placed) with its
+    CIM nodes column-sharded over ``mesh_axis``, and ``mesh`` becomes the
+    session mesh for the process's lifetime (``mesh=None`` does not clear
+    an installed one; scope an engine in ``nn.module.session_mesh`` to mix
+    sharded and unsharded engines in one process)."""
     from repro_torch.api import DeployArtifact
     from repro_torch.models.registry import get_model
-    if mesh is not None:
-        _refuse_mesh("engine_from_artifact")
     if isinstance(artifact, (str, os.PathLike)):
-        artifact = DeployArtifact.load(os.fspath(artifact), device=device)
+        artifact = DeployArtifact.load(os.fspath(artifact), mesh=mesh,
+                                       mesh_axis=mesh_axis, device=device)
+    elif isinstance(artifact, DeployArtifact) and mesh is not None:
+        artifact = artifact.shard(mesh, mesh_axis=mesh_axis, device=device)
     if not isinstance(artifact, DeployArtifact):
         raise TypeError(f"engine_from_artifact takes a DeployArtifact or its "
                         f"path, got {type(artifact).__name__}")
     if artifact.kind != "model":
         raise ValueError(f"engine_from_artifact needs a 'model' artifact, "
                          f"got kind={artifact.kind!r}")
+    if mesh is not None:
+        from repro_torch.nn.module import current_rules, set_activation_rules
+        set_activation_rules(current_rules(), mesh)
     serve_cfg = dataclasses.replace(cfg, cim=artifact.config)
     return ServingEngine(get_model(serve_cfg), serve_cfg, artifact.params,
                          device=device,
@@ -199,13 +211,10 @@ class ServingEngine:
                  layout_version: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  report_every: int = 0,
-                 device=None, **unported):
-        if unported:
-            if any(k in _UNPORTED for k in unported):
-                _refuse_mesh("ServingEngine")
-            raise TypeError(f"ServingEngine: unexpected keywords "
-                            f"{sorted(unported)}")
+                 device=None):
+        from repro_torch.nn.module import current_mesh
         self.device = resolve_device(device)
+        self.mesh = current_mesh()           # pinned: see _check_mesh
         self.model, self.cfg = model, cfg
         self.params = to_device(params, self.device)
         self.B, self.max_len = batch_size, max_len
@@ -261,6 +270,23 @@ class ServingEngine:
         return torch.from_numpy(np.array(tok, dtype=np.int32)).to(self.device)
 
     # -- self-healing internals ----------------------------------------------
+
+    def _check_mesh(self, where: str) -> None:
+        """Raise when generation runs under another session mesh than the
+        engine was built under: its params were placed for that mesh."""
+        from repro_torch.nn.module import current_mesh
+        cur = current_mesh()
+        if cur is self.mesh or cur == self.mesh:
+            return
+        raise RuntimeError(
+            f"ServingEngine.{where}: the session mesh changed since this "
+            f"engine was built (built under {self.mesh!r}, now {cur!r}). "
+            "Rebuild the engine under the new mesh, or scope build and "
+            "generation together in repro_torch.nn.module.session_mesh.")
+
+    def _devices(self) -> int:
+        from repro_torch.kernels.ops import col_shards
+        return col_shards(self.mesh)
 
     def _invoke_step(self, tok: np.ndarray) -> np.ndarray:
         """One model invocation over the whole batch: the drift clock
@@ -353,7 +379,7 @@ class ServingEngine:
             "t": self.t,
             "fallback_active": self.fallback_active,
             "drifting": _drifting(self.drift_key, self.drift_schedule),
-            "mesh": None,
+            "mesh": None if self.mesh is None else repr(self.mesh),
             "queue_depth": len(self.queue),
             "active_slots": sum(s is not None for s in self.slots),
             "slots": self.B,
@@ -379,8 +405,8 @@ class ServingEngine:
                 "decode_steps": dec.count,
                 "decode_seconds": dec.sum,
                 "tokens_per_sec": tps,
-                "devices": 1,
-                "tokens_per_sec_per_device": tps,
+                "devices": self._devices(),
+                "tokens_per_sec_per_device": tps / self._devices(),
             },
             "saturation": obs_adc.summary() if obs_adc.enabled() else None,
             "metrics": self.registry.snapshot(),
@@ -429,6 +455,7 @@ class ServingEngine:
 
     def step(self) -> List[Dict]:
         """One decode step for all active slots; returns finished requests."""
+        self._check_mesh("step")
         self._admit()
         if all(s is None for s in self.slots):
             return []
@@ -491,6 +518,7 @@ class ServingEngine:
         planes; decode steps take the fallback while it is active. An
         encoder-decoder decodes against the states in
         ``engine.cache["enc_out"]``, which the caller puts there."""
+        self._check_mesh("generate_batch")
         if prompts.shape[0] != self.B:
             raise ValueError(f"generate_batch takes {self.B} prompts, got "
                              f"{prompts.shape[0]}")

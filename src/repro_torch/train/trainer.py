@@ -26,7 +26,7 @@ from repro_torch.optim.optimizer import make_optimizer
 from repro_torch.optim.schedule import cosine_warmup
 
 _FSDP = ("RunConfig(fsdp=True): sharding params and optimizer state over "
-         "a data axis is not ported yet (ROADMAP queue 1, item 12)")
+         "a data axis is not ported yet (ROADMAP queue 1, item 12b)")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -481,7 +481,10 @@ def test_unregistered_backend_gives_the_reference_message(tmp_path):
 
 
 def test_load_onto_a_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Loading onto a mesh is ported (tests/test_torch_serve_sharded.py);
+    a mesh that is not a DeviceMesh raises."""
+    _linear_case("int8")["port_pack"]().save(str(tmp_path))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tapi.DeployArtifact.load(str(tmp_path), mesh=object(), device=CPU)
 
 

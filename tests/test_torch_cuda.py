@@ -1074,3 +1074,24 @@ def test_front_end_convs_on_drifted_planes_bit_exact_with_plain(case, t):
                        ref.cim_conv_ref(a, planes, s_p, deq, **geo, **mq))
     assert torch.equal(cim_conv_adc_free_cuda(a, planes, deq, occ, **geo),
                        ref.cim_conv_adc_free_ref(a, planes, deq, **geo))
+
+
+def test_sharded_k1_and_k3_on_two_ranks_of_one_card(tmp_path):
+    """Column-parallel K1 and K3 on two gloo ranks sharing ``cuda:0``:
+    each rank launches the kernel on its own columns, and the gathered
+    output equals the single-device kernel's bit for bit, divisible and
+    ragged, int8 and nibble planes."""
+    import _torch_mesh_ranks as R
+    from repro_torch.kernels import _build
+    _build.build()            # the ranks load the built libraries
+    ranks = R.run_ranks(R.cuda_body, 2, str(tmp_path), timeout_s=300,
+                        device="cuda")
+    for res in ranks:
+        assert len(res) == 8
+        for name, ((single, on_full, on_shards), launches) in res.items():
+            assert torch.equal(on_full, single), name
+            assert torch.equal(on_shards, single), name
+            k1, k3 = launches
+            # one single-device launch and one per sharded call
+            assert (k1, k3) == ((3, 0) if name.startswith("linear")
+                                else (0, 3)), (name, launches)

@@ -118,10 +118,12 @@ def test_entry_points_default_to_cuda_and_refuse_unported_keywords(served):
             engine_from_artifact(art, tcfg, batch_size=2, max_len=32)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tapi.model_artifact(art.params, art.config)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # column-parallel serving is ported (tests/test_torch_serve_sharded.py):
+    # a mesh is a DeviceMesh, and the engine itself takes no mesh keyword
+    with pytest.raises(TypeError, match="DeviceMesh"):
         engine_from_artifact(art, tcfg, batch_size=2, max_len=32,
                              mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError):
         ServingEngine(None, tcfg, art.params, mesh=object(), device=CPU)
     with pytest.raises(TypeError):
         ServingEngine(None, tcfg, art.params, bogus=1, device=CPU)
