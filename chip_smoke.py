@@ -263,7 +263,25 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    (``--cim deploy --batch 8 --prompt-len 64 --new-tokens 16``) with
    ``--mesh 4 --dist-backend gloo`` (in a process of its own) and with
    ``--mesh 1`` (in this one): both exit 0 with the same tokens, and
-   rank 0's tok/s; the phase's seconds;
+   rank 0's tok/s; (d) the same llama3 pack on the same ranks decoded
+   greedily with flash decode (``flash_decode=True``: the KV cache
+   time-sharded over the ranks, a quarter of it on each, the partial
+   softmaxes merged by all-reduces) against the same ranks' plain
+   decode, with the bf16 and the int8 KV caches: tokens equal on every
+   rank (any that differs printed with its two top logits), logits within
+   ``MESH_FD_TOL`` a layer of their largest magnitude, the cache bytes a
+   rank a quarter of the whole, 28 K1 and 12 all-reduces a step;
+   ``ServingEngine.generate_batch`` with flash decode gives phase 13's
+   tokens; rank 0's flash step (CUDA events) and the all-reduces' share
+   of it (host clock); (e) moonshot-v1-16b-a3b at published widths cut to
+   phase 16d's 2 layers, the training launcher's CIM config (emulate),
+   ``moe_impl="auto"``: each rank holds its 16 experts
+   (``nn.module.shard_params``) and runs one forward and backward of the
+   LM loss at batch 4 x 64 expert-parallel; the loss equals the single
+   device's (computed by the parent first) to 1e-5 relative, every expert
+   bank's gradient block and the router's within ``MESH_MOE_GRAD_TOL`` of
+   their largest magnitude, the global gradient norm within 1e-3; each
+   rank's peak memory; the phase's seconds;
 18. a JSON line per kernel, the card's name and power limit, and the
    final JSON line.
 
@@ -4793,6 +4811,26 @@ MESH_LM_ARCH = "llama3-8b"        # phase 13's cut and traffic
 MESH_LAUNCH_ARCH = "qwen3-0.6b"   # uncut: spawned ranks see no in-process cut
 MESH_DRIFT_T = 256                # phase 12g's schedule, one realization
 MESH_DECODE_REPS = 7
+#: (d): flash decode over the llama3 pack's ranks, both KV caches. The
+#: logits gate: flash decode weights the values as the plain path does
+#: (the softmax weights rounded to bf16) and differs from it only in the
+#: float32 order of its sums before the bf16 cast of the attention output,
+#: so an output element moves by at most one bf16 ulp (2^-8 of its
+#: magnitude) where the two sums round apart; the gate allows two such
+#: ulps a layer at the logits' scale: 2^-7 of their largest magnitude per
+#: layer of the cut
+MESH_FD_KV = ("bf16", "int8")
+MESH_FD_TOL = 2.0 ** -7
+#: (e): moonshot at published widths, phase 16d's depth, expert parallel
+#: under the training launcher's CIM config; 4 x 64 tokens (+1 for the
+#: labels). The loss against the single device's to 1e-5 relative; each
+#: gradient leaf within 2^-6 of its largest magnitude (four bf16 ulps: the
+#: ranks sum the block's partial outputs in float32 in another order than
+#: one device, and the bf16 cast after the sum moves an element by one
+#: ulp where the two sums round apart)
+MESH_MOE_ARCH = "moonshot-v1-16b-a3b"
+MESH_MOE_RUN = dict(n_layers=2, batch=4, seq=64)
+MESH_MOE_GRAD_TOL = 2.0 ** -6
 #: (a)'s runs on phase 11's artifacts: (name, pack dtype, backend, forward
 #: keywords, drifted, counter, on float planes)
 MESH_RESNET_RUNS = (
@@ -4968,12 +5006,291 @@ def _mesh_llama3(torch, mesh, work, rank):
         step_ms=step_ms[mid], gather_share=shares[mid], k1_calls=len(k1),
         k1_shapes=sorted({(tuple(a[0].shape), int(a[1].shape[-1]))
                           for a, _ in k1}), other_calls=others,
-        k1_timed=k1_sum)
+        k1_timed=k1_sum), eng
+
+
+def _mesh_flash_decode(torch, mesh, work, rank, eng):
+    """(d) on this rank: phase 13's llama3 pack as the engine of (b)
+    placed it, decoded greedily with and without flash decode under the
+    mesh, with the bf16 and the int8 KV caches; flash decode through the
+    engine; the flash step timed on rank 0."""
+    import torch.distributed as dist
+
+    from repro_torch.core import colshard
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import ServingEngine
+    ref = torch.load(work / "llama3" / "ref.pt", weights_only=False)
+    prompts = ref["prompts"]
+    b, new = prompts.shape[0], ref["tokens"].shape[1]
+    p, base = eng.params, eng.cfg
+    tokens = torch.from_numpy(prompts).cuda()
+    out = {}
+    for kv in MESH_FD_KV:
+        runs = {}
+        for flash in (False, True):
+            c = base.replace(kv_cache_dtype=kv, flash_decode=flash)
+            model = get_model(c)
+            cache = model.init_cache(c, b, 128)
+            logits, cache = model.decode_step(p, cache, tokens, c)
+            last, gen = [], []
+            for i in range(new):
+                last.append(logits[:, -1].float().cpu())
+                gen.append(torch.argmax(last[-1], dim=-1)[:, None].to(
+                    torch.int32))
+                if i < new - 1:
+                    logits, cache = model.decode_step(p, cache,
+                                                      gen[-1].cuda(), c)
+            k = cache["layers"]["k"]
+            runs[flash] = (torch.stack(last), torch.cat(gen, dim=1), cache,
+                           type(k).__name__)
+        (l0, t0, c0, _), (l1, t1, c1, kind) = runs[False], runs[True]
+        differ = (t0 != t1).nonzero().tolist()
+        out[kv] = dict(
+            tokens_equal=bool(torch.equal(t0, t1)), tokens=t1.tolist(),
+            diff=float((l1 - l0).abs().max()),
+            scale=float(l0.abs().max()), placed=kind,
+            differ=[(r_, s_, torch.topk(l0[s_, r_], 2).values.tolist(),
+                     torch.topk(l1[s_, r_], 2).values.tolist())
+                    for r_, s_ in differ[:4]],
+            cache_bytes=sum(colshard.local(v).numel() * v.element_size()
+                            for n, v in c1["layers"].items() if n != "len"),
+            cache_bytes_whole=sum(v.numel() * v.element_size()
+                                  for n, v in c1["layers"].items()
+                                  if n != "len"))
+        if kv == "bf16":
+            c = base.replace(flash_decode=True)
+            cache, model = c1, get_model(c)
+            tok = t1[:, -1:].cuda()
+            step_ms, shares = [], []
+            for _ in range(MESH_DECODE_REPS):
+                torch.cuda.synchronize()
+                s0, w0 = colshard.collective.seconds, time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                calls0 = colshard.collective.calls
+                _reset_counters()
+                _, cache = model.decode_step(p, cache, tok, c)
+                end.record()
+                torch.cuda.synchronize()
+                launches, _ = _read_counters()
+                step_ms.append(start.elapsed_time(end))
+                shares.append((colshard.collective.seconds - s0)
+                              / (time.perf_counter() - w0))
+                reduces = colshard.collective.calls - calls0
+            mid = int(np.argsort(step_ms)[len(step_ms) // 2])
+            out["step_ms"], out["reduce_share"] = step_ms[mid], shares[mid]
+            out["reduces"], out["k1_step"] = reduces, launches["cim_matmul"]
+            del cache
+            eng_fd = ServingEngine(model, c, p, batch_size=b, max_len=128)
+            gen = eng_fd.generate_batch(prompts, new)
+            out["engine_tokens_equal"] = bool(np.array_equal(gen,
+                                                             ref["tokens"]))
+            out["engine_placed"] = type(
+                eng_fd.cache["layers"]["k"]).__name__
+            del eng_fd
+        del runs, c0, c1
+        gc.collect()
+    dist.barrier()
+    return out
+
+
+def _mesh_moe_cfg():
+    """(e)'s config: moonshot at published widths cut to phase 16d's
+    depth, the training launcher's CIM config, the reference's expert
+    dispatch (``moe_impl="auto"``)."""
+    from repro_torch.configs.registry import get_config
+    return get_config(MESH_MOE_ARCH, cim=train_cim()).replace(
+        n_layers=MESH_MOE_RUN["n_layers"], moe_impl="auto")
+
+
+def _mesh_moe_batch(torch):
+    r = MESH_MOE_RUN
+    g = torch.Generator().manual_seed(17)
+    return {"tokens": torch.randint(0, _mesh_moe_cfg().vocab,
+                                    (r["batch"], r["seq"] + 1),
+                                    generator=g).cuda()}
+
+
+def _is_bank(key: str) -> bool:
+    return key in ("wg", "wu", "wd") or key.startswith(("wg_", "wu_", "wd_"))
+
+
+def _phase17e_references(torch, work):
+    """(e)'s single-device loss and gradients of the seed-0 weights: each
+    rank's block of every expert bank's gradient, the router's, and the
+    global gradient norm, saved for the ranks."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.optim.optimizer import global_norm
+    from repro_torch.train.trainer import lm_loss_fn, loss_and_grads
+    cfg = _mesh_moe_cfg()
+    model = get_model(cfg)
+    params = init_params(model.specs(cfg), 0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(lm_loss_fn(model, cfg), params,
+                                 _mesh_moe_batch(torch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moe = grads["moe_layers"]["moe"]
+    e_loc = cfg.moe.n_experts // MESH_RANKS
+    (work / "moe").mkdir(parents=True, exist_ok=True)
+    for r in range(MESH_RANKS):
+        part = {k: v[:, r * e_loc:(r + 1) * e_loc].cpu()
+                for k, v in moe.items() if _is_bank(k)}
+        part["router"] = moe["router"]["w"].cpu()
+        torch.save(dict(loss=float(loss), grad_norm=float(global_norm(grads)),
+                        grads=part, s=wall,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30),
+                   work / "moe" / f"rank{r}.pt")
+    del params, grads, moe
+
+
+def _mesh_moe_ep(torch, mesh, work, rank):
+    """(e) on this rank: the seed-0 weights with this rank's 16 experts
+    placed (``shard_params``), one forward and backward of the LM loss
+    under the mesh, against the single device's."""
+    from repro_torch import tree_leaves
+    from repro_torch.core import colshard
+    from repro_torch.launch.mesh import expert_parallel_rules
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params, session_mesh, shard_params
+    from repro_torch.optim.optimizer import global_norm
+    from repro_torch.train.trainer import lm_loss_fn, loss_and_grads
+    ref = torch.load(work / "moe" / f"rank{rank}.pt", weights_only=False)
+    cfg = _mesh_moe_cfg()
+    model = get_model(cfg)
+    specs = model.specs(cfg)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    full = init_params(specs, 0, device=dev)
+    params = shard_params(full, specs, mesh, expert_parallel_rules(mesh))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = sum(colshard.local(v).numel() for v in tree_leaves(params))
+    batch = _mesh_moe_batch(torch)
+    with session_mesh(mesh):
+        torch.cuda.synchronize()
+        c0, t0 = colshard.collective.seconds, time.perf_counter()
+        loss, grads = loss_and_grads(lm_loss_fn(model, cfg), params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        share = (colshard.collective.seconds - c0) / wall
+        gn = float(global_norm(grads))
+    moe = grads["moe_layers"]["moe"]
+    errs = {}
+    for k, want in ref["grads"].items():
+        got = (moe["router"]["w"] if k == "router"
+               else colshard.local(moe[k])).float().cpu()
+        errs[k] = (float((got - want).abs().max())
+                   / max(float(want.abs().max()), 1e-30))
+    out = dict(loss=float(loss), loss_single=ref["loss"], grad_norm=gn,
+               grad_norm_single=ref["grad_norm"], errs=errs,
+               placed=[k for k, v in moe.items() if colshard.is_col_sharded(
+                   params["moe_layers"]["moe"][k])],
+               held=held, s=wall, s_single=ref["s"], reduce_share=share,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               peak_single=ref["peak_gib"])
+    del params, grads, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _report_flash_decode(res, ref, smi):
+    """(d)'s gates and line."""
+    n_layers = ref["cfg"].n_layers
+    for r, rr in enumerate(res):
+        got = rr["flash"]
+        for kv in MESH_FD_KV:
+            g = got[kv]
+            check(g["tokens_equal"] and g["tokens"] == res[0]["flash"][kv][
+                "tokens"], f"17d {kv} rank {r}: flash-decode tokens differ "
+                  f"from the plain decode's (or rank 0's) at (row, step, "
+                  f"plain top-2, flash top-2) {g['differ']}")
+            check(g["diff"] <= MESH_FD_TOL * n_layers * g["scale"],
+                  f"17d {kv} rank {r}: logits differ by {g['diff']!r}, over "
+                  f"2^-7 x {n_layers} layers x {g['scale']!r}")
+            check(g["placed"] == "DTensor" and g["cache_bytes"] * MESH_RANKS
+                  == g["cache_bytes_whole"], f"17d {kv} rank {r}: cache "
+                  f"{g['placed']}, {g['cache_bytes']} of "
+                  f"{g['cache_bytes_whole']} bytes")
+        check(got["engine_tokens_equal"] and got["engine_placed"] == "DTensor",
+              f"17d rank {r}: the engine's flash-decode tokens differ from "
+              "phase 13's, or its cache is whole")
+        check(got["k1_step"] == 7 * n_layers and got["reduces"]
+              == 3 * n_layers, f"17d rank {r}: {got['k1_step']} K1 and "
+              f"{got['reduces']} all-reduces a step")
+    d0 = res[0]["flash"]
+    print(f"phase 17d {MESH_LM_ARCH} ({n_layers} layers, phase 13's int8 "
+          f"pack, {ref['prompts'].shape[0]} prompts of "
+          f"{ref['prompts'].shape[1]} tokens, {ref['tokens'].shape[1]} new, "
+          f"max_len 128) with flash decode on {MESH_RANKS} gloo ranks: "
+          + "; ".join(
+              f"{kv} cache: tokens equal the plain decode's on every rank, "
+              f"max |logit diff| {d0[kv]['diff']:.4g} (gate "
+              f"{MESH_FD_TOL * n_layers * d0[kv]['scale']:.4g}: 2^-7 x "
+              f"{n_layers} layers x max |logit| {d0[kv]['scale']:.4g}), "
+              f"cache {d0[kv]['cache_bytes']} bytes a rank against "
+              f"{d0[kv]['cache_bytes_whole']} whole"
+              for kv in MESH_FD_KV)
+          + f"; generate_batch with flash decode equals phase 13's tokens on "
+          f"every rank; rank 0's flash step eager {d0['step_ms']:.2f} ms "
+          f"(CUDA events, median of {MESH_DECODE_REPS}), all-reduce share "
+          f"{d0['reduce_share']:.3f} (host clock, {d0['reduces']} a step), "
+          f"{d0['k1_step']} K1 a step; {res[0]['flash_s']:.1f} s on rank 0; "
+          f"nvidia-smi: {smi}", flush=True)
+
+
+def _report_moe_ep(res, smi):
+    """(e)'s gates and line."""
+    cfg = _mesh_moe_cfg()
+    for r, rr in enumerate(res):
+        g = rr["moe_ep"]
+        check(abs(g["loss"] - g["loss_single"]) <= 1e-5 * abs(
+            g["loss_single"]), f"17e rank {r}: loss {g['loss']!r} against "
+              f"the single device's {g['loss_single']!r}")
+        check(g["loss"] == res[0]["moe_ep"]["loss"], f"17e rank {r}: loss "
+              "differs from rank 0's")
+        bad = {k: e for k, e in g["errs"].items() if not e
+               <= MESH_MOE_GRAD_TOL}
+        check(not bad, f"17e rank {r}: gradients off by (max |diff| / max "
+              f"|single|) {bad}")
+        check(abs(g["grad_norm"] - g["grad_norm_single"]) <= 1e-3 * g[
+            "grad_norm_single"], f"17e rank {r}: global grad norm "
+              f"{g['grad_norm']!r} against {g['grad_norm_single']!r}")
+        check(set(g["placed"]) == {k for k in g["errs"] if k != "router"},
+              f"17e rank {r}: placed leaves {g['placed']}")
+    e0 = res[0]["moe_ep"]
+    mo = cfg.moe
+    r = MESH_MOE_RUN
+    print(f"phase 17e {cfg.name} cut to {cfg.n_layers} layers (1 dense, 1 "
+          f"MoE: {mo.n_experts} experts top-{mo.top_k} + {mo.n_shared} "
+          f"shared, d {cfg.d_model}), emulate, expert parallel on "
+          f"{MESH_RANKS} gloo ranks ({mo.n_experts // MESH_RANKS} experts "
+          f"a rank, shard_params): one forward and backward at batch "
+          f"{r['batch']} x {r['seq']}: loss {e0['loss']!r} against the "
+          f"single device's {e0['loss_single']!r}; per leaf max |grad diff| "
+          f"/ max |grad| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(e0["errs"].items()))
+          + f" (gate {MESH_MOE_GRAD_TOL:.4g}); global grad norm "
+          f"{e0['grad_norm']:.6g} against {e0['grad_norm_single']:.6g}; "
+          f"{e0['held'] / 1e9:.3f} B params a rank; forward and backward "
+          f"{e0['s']:.2f} s on rank 0 (all-reduce share "
+          f"{e0['reduce_share']:.3f}), {e0['s_single']:.2f} s on one device "
+          f"alone; peak memory per rank "
+          + ", ".join(f"{rr['moe_ep']['peak_gib']:.2f}" for rr in res)
+          + f" GiB (one device {e0['peak_single']:.2f}); "
+          f"{res[0]['moe_ep_s']:.1f} s on rank 0; nvidia-smi: {smi}",
+          flush=True)
 
 
 def _phase17_rank(rank, world, port, work):
     """One rank of phase 17: gloo on the shared card, a ("model",) mesh,
-    (a) and (b); results to ``work/rank<r>.json``."""
+    (a), (b), (d) and (e); results to ``work/rank<r>.json``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -4989,9 +5306,18 @@ def _phase17_rank(rank, world, port, work):
         res = {"resnet": _mesh_resnet(torch, mesh, work)}
         res["resnet_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        res["llama3"] = _mesh_llama3(torch, mesh, work, rank)
+        res["llama3"], eng = _mesh_llama3(torch, mesh, work, rank)
         res["llama3_s"] = time.perf_counter() - t0
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        res["flash"] = _mesh_flash_decode(torch, mesh, work, rank, eng)
+        res["flash_s"] = time.perf_counter() - t0
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["moe_ep"] = _mesh_moe_ep(torch, mesh, work, rank)
+        res["moe_ep_s"] = time.perf_counter() - t0
         (work / f"rank{rank}.json").write_text(json.dumps(res, default=str))
     finally:
         dist.destroy_process_group()
@@ -5041,6 +5367,9 @@ def phase17_column_parallel(torch, smi, qat):
     check((work / "llama3" / "ref.pt").exists(), "phase 17: phase 13 saved "
           "no llama3 pack")
     _phase17_references(torch, qat, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase17e_references(torch, work)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5121,6 +5450,9 @@ def phase17_column_parallel(torch, smi, qat):
           + ", ".join(f"{rr['peak_gib']:.2f}" for rr in res)
           + f" GiB; the ranks took {ranks_s:.1f} s; nvidia-smi: {smi}",
           flush=True)
+
+    _report_flash_decode(res, ref, smi)
+    _report_moe_ep(res, smi)
 
     # (c) the launcher
     rc4, lines4, s4 = _mesh_launch(["--mesh", str(MESH_RANKS),

@@ -39,7 +39,7 @@ from repro_torch import resolve_device
 
 _LIST_KEY = re.compile(r"^__\d+$")
 _SHARDING = ("restoring onto a device mesh is not ported yet (ROADMAP "
-             "queue 1, item 12b)")
+             "queue 1, item 12b.4)")
 
 
 @dataclasses.dataclass(frozen=True)

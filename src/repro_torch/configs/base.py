@@ -11,8 +11,8 @@ each transformer block in the backward
 the other families keep every activation.
 
 ``RunConfig`` carries the reference's training knobs. ``fsdp=True`` is
-refused by ``train.trainer.make_train_step`` (sharding is ROADMAP queue 1,
-item 12b); ``accum_unroll`` has no effect (the port's accumulation is a
+refused by ``train.trainer.make_train_step`` (FSDP is ROADMAP queue 1,
+item 12b.3); ``accum_unroll`` has no effect (the port's accumulation is a
 Python loop, unrolled by nature); ``grad_compress`` and
 ``async_checkpoint`` are carried and, as in the reference, read by no
 trainer: ``train.grad_compress`` is called by a data-parallel caller, and
@@ -135,7 +135,7 @@ class RunConfig:
     microbatch: int = 0          # per-device microbatch (0 = auto/no accum)
     accum_steps: int = 1         # gradient accumulation steps
     accum_unroll: bool = False   # no effect: the accumulation is a loop
-    fsdp: bool = False           # refused: sharding is item 12b
+    fsdp: bool = False           # refused: FSDP is item 12b.3
     optimizer: str = "adamw"     # adamw | adafactor | sgdm
     opt_state_dtype: str = "float32"
     lr: float = 3e-4

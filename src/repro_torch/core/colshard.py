@@ -20,12 +20,26 @@ all-gather of each rank's (..., N/D) float32 outputs over the mesh axis's
 process group (the list form, which gloo takes for CUDA tensors too),
 concatenated and sliced back to N. ``gather_cols.calls`` and
 ``gather_cols.seconds`` count its calls and their host seconds.
+
+The expert-parallel MoE and the sequence-parallel flash decode place
+leaves on another axis (``shard_dim``: an expert bank's experts, a decode
+cache's time and batch rows), read through ``local``/``like``/``select``
+the same way, and use the collectives below, each over the process groups
+of named mesh dims: ``all_reduce`` (sum or max, float32), ``all_gather``
+(along a dim), and two autograd operators: ``psum`` (forward a sum over
+the dims, backward the identity: the reference's ``psum`` at the end of a
+``shard_map`` body) and ``grad_psum`` (forward the identity, backward a
+sum over the dims: where a replicated input enters a rank-local part of a
+computation whose loss every rank computes whole). ``collective.calls``
+and ``collective.seconds`` count their calls and host seconds. gloo takes
+CUDA tensors for every one of them; nothing switches backend.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import types
 from typing import Callable
 
 import torch
@@ -118,18 +132,11 @@ def localize(x, cols: ColRange, pad_value: float = 0.0):
     return x[..., cols.lo:cols.lo + cols.width].contiguous()
 
 
-def _placements(cols: ColRange, dim: int):
-    return [Shard(dim) if name == cols.axis else Replicate()
-            for name in cols.mesh.mesh_dim_names]
-
-
 def wrap(local: torch.Tensor, cols: ColRange) -> DTensor:
     """A local column shard as the sharded leaf of ``cols.n`` columns."""
-    shape = tuple(local.shape[:-1]) + (cols.n,)
-    stride = tuple(int(s) for s in torch.empty(shape, device="meta").stride())
-    return DTensor.from_local(local, cols.mesh, _placements(cols, local.ndim - 1),
-                              run_check=False, shape=torch.Size(shape),
-                              stride=stride)
+    return placed(local, cols.mesh,
+                  placements_of(cols.mesh, {local.ndim - 1: (cols.axis,)}),
+                  tuple(local.shape[:-1]) + (cols.n,))
 
 
 def shard_leaf(x: torch.Tensor, mesh, axis: str, device=None) -> DTensor:
@@ -174,12 +181,17 @@ gather_cols.seconds = 0.0
 
 
 def full_leaf(x):
-    """A sharded leaf gathered to its full plain tensor on every rank (a
-    collective); any other leaf as it is."""
+    """A sharded or placed leaf gathered to its full plain tensor on every
+    rank (a collective); any other leaf as it is."""
     if not isinstance(x, DTensor):
         return x
-    cols = range_of(x)
-    return gather_cols(x.to_local(), cols)
+    dims = sharded_dims(x)
+    if set(dims) == {x.ndim - 1} and len(dims[x.ndim - 1]) == 1:
+        return gather_cols(x.to_local(), range_of(x))
+    out = x.to_local()
+    for dim, axes in dims.items():
+        out = all_gather(out, x.device_mesh, axes, dim)
+    return out
 
 
 def full_tree(tree):
@@ -190,3 +202,206 @@ def full_tree(tree):
     if isinstance(tree, (list, tuple)):
         return [full_tree(v) for v in tree]
     return full_leaf(tree)
+
+
+# ---------------------------------------------------------------------------
+# leaves placed on another axis: expert banks, decode caches
+# ---------------------------------------------------------------------------
+
+def mesh_coord(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 without it)."""
+    if mesh_shards(mesh, axis) <= 1:
+        return 0
+    return int(mesh.get_local_rank(mesh_dim=axis))
+
+
+def batch_shard(mesh, axes) -> tuple:
+    """(shards, index) of this rank over the batch ``axes`` of ``mesh``,
+    row-major, as the reference's ``P(("pod", "data"))`` splits rows."""
+    n, i = 1, 0
+    for a in axes:
+        d = mesh_shards(mesh, a)
+        n, i = n * d, i * d + mesh_coord(mesh, a)
+    return n, i
+
+
+def placed(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """``local`` as the placed leaf of global ``shape`` (no copy, no
+    collective; differentiable with respect to ``local``)."""
+    stride = tuple(int(s) for s in torch.empty(
+        tuple(shape), device="meta").stride())
+    return DTensor.from_local(local, mesh, list(placements), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def shard_dim(x: torch.Tensor, mesh, dims: dict, device=None) -> DTensor:
+    """A full (replicated) tensor as the placed leaf holding this rank's
+    block: ``dims`` maps tensor dims to the mesh axes splitting them, in
+    row-major order (e.g. ``{0: ("model",)}`` for an expert bank, ``{1:
+    ("data",), 2: ("model",)}`` for a decode cache). Each split dim must
+    divide. Only the block is copied (to ``device``, else ``x``'s)."""
+    local = x
+    for dim, axes in dims.items():
+        n, i = batch_shard(mesh, axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"divide over {n} ranks of {axes}")
+        w = x.shape[dim] // n
+        local = local.narrow(dim, i * w, w)
+    local = local.contiguous() if device is None else local.to(
+        device).contiguous()
+    return placed(local, mesh, placements_of(mesh, dims), x.shape)
+
+
+def placements_of(mesh, dims: dict) -> list:
+    """The placements of ``shard_dim``'s ``dims`` over ``mesh``'s dims."""
+    out = []
+    for name in mesh.mesh_dim_names:
+        hit = [d for d, axes in dims.items() if name in axes]
+        out.append(Shard(hit[0]) if hit else Replicate())
+    return out
+
+
+def local(x):
+    """A placed leaf's local tensor; any other value as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def like(ref, value: torch.Tensor):
+    """``value`` (a local tensor) placed as ``ref`` is, when ``ref`` is a
+    placed leaf; else ``value`` itself."""
+    if not isinstance(ref, DTensor):
+        return value
+    return placed(value, ref.device_mesh, ref.placements, ref.shape)
+
+
+def sharded_dims(x: DTensor) -> dict:
+    """{tensor dim: mesh axes splitting it} of a placed leaf."""
+    names = x.device_mesh.mesh_dim_names
+    out: dict = {}
+    for name, p in zip(names, x.placements):
+        if isinstance(p, Shard):
+            out[p.dim % x.ndim] = out.get(p.dim % x.ndim, ()) + (name,)
+    return out
+
+
+def select(x, i: int):
+    """``x[i]`` along a leading axis no mesh dim splits: a placed leaf's
+    layer ``i`` stays placed (its split dims shift down by one)."""
+    if not isinstance(x, DTensor):
+        return x[i]
+    return _drop_leading(x, x.to_local()[i])
+
+
+def unbind(x) -> list:
+    """``torch.unbind(x)`` along the leading axis, placed leaves kept
+    placed (one unbind of the local tensor: its backward stacks once)."""
+    if not isinstance(x, DTensor):
+        return list(torch.unbind(x))
+    return [_drop_leading(x, v) for v in torch.unbind(x.to_local())]
+
+
+def _drop_leading(x: DTensor, value: torch.Tensor) -> DTensor:
+    places = []
+    for p in x.placements:
+        if isinstance(p, Shard):
+            if p.dim % x.ndim == 0:
+                raise ValueError("the leading axis of a placed leaf is split "
+                                 "over the mesh: it cannot be indexed")
+            p = Shard(p.dim % x.ndim - 1)
+        places.append(p)
+    return placed(value, x.device_mesh, places, x.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# collectives over named mesh dims
+# ---------------------------------------------------------------------------
+
+def _groups(mesh, axes):
+    return [mesh.get_group(a) for a in axes if mesh_shards(mesh, a) > 1]
+
+
+#: counters of ``all_reduce`` and ``all_gather``: ``calls`` and their host
+#: ``seconds`` (the autograd operators' collectives included)
+collective = types.SimpleNamespace(calls=0, seconds=0.0)
+
+
+def _timed(fn, *args, **kw) -> None:
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    collective.calls += 1
+    collective.seconds += time.perf_counter() - t0
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """A new tensor: ``x`` summed (``op="sum"``) or maxed over the ranks of
+    ``mesh``'s dims ``axes``."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    out = x.contiguous().clone()
+    for g in _groups(mesh, axes):
+        _timed(dist.all_reduce, out, op=red, group=g)
+    return out
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` over ``axes`` concatenated along ``dim``, row-major
+    as ``batch_shard`` numbers them."""
+    out = x.contiguous()
+    for a in reversed(tuple(axes)):
+        if mesh_shards(mesh, a) <= 1:
+            continue
+        parts = [torch.empty_like(out) for _ in range(mesh_shards(mesh, a))]
+        _timed(dist.all_gather, parts, out, group=mesh.get_group(a))
+        out = torch.cat(parts, dim=dim)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GradPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.n = x.shape[0]
+        ctx.i = batch_shard(mesh, axes)[1]
+        return all_gather(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.i * ctx.n:(ctx.i + 1) * ctx.n], None, None
+
+
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Forward: ``x`` summed over ``axes``; backward: the identity (every
+    rank holds the whole cotangent of the sum)."""
+    return _Psum.apply(x, mesh, tuple(axes))
+
+
+def grad_psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Forward: the identity; backward: the cotangent summed over ``axes``
+    (each rank's part of it comes from its rank-local computation)."""
+    return _GradPsum.apply(x, mesh, tuple(axes))
+
+
+def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Forward: the ranks' row blocks over the batch ``axes`` gathered
+    along dim 0; backward: this rank's block of the cotangent."""
+    return _GatherRows.apply(x, mesh, tuple(axes))

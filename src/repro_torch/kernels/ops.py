@@ -134,7 +134,8 @@ def _sharded(run, record, digits, s_p, deq, occ, mesh, mesh_axis, *,
     occ = colshard.localize(occ, cols)
     if record is not None and obs_adc.will_fold():
         real = cols.real
-        record(logical_digits(d, groups)[..., :real], s_p[..., :real])
+        with obs_adc.partial_over((mesh_axis,)):
+            record(logical_digits(d, groups)[..., :real], s_p[..., :real])
     return colshard.gather_cols(run(d, s_p, deq, occ), cols)
 
 

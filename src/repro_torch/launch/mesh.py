@@ -114,6 +114,15 @@ def sharding_rules(mesh, *, fsdp: bool = False) -> Dict[str, object]:
             "experts": model, "embed": b if fsdp else None}
 
 
+def expert_parallel_rules(mesh) -> Dict[str, object]:
+    """The rules of a raw tree the port can place today
+    (``nn.module.shard_params``): ``sharding_rules`` with the experts over
+    ``model`` and every other weight axis whole (tensor parallelism over
+    raw weights and FSDP are ROADMAP item 12b.3)."""
+    return {**sharding_rules(mesh), "heads": None, "mlp": None,
+            "vocab": None}
+
+
 def spawn(fn: Callable, n: int, args: tuple = (), *,
           timeout_s: Optional[float] = 600.0) -> None:
     """Run ``fn(rank, *args)`` in ``n`` spawned processes and join them

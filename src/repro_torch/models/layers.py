@@ -12,6 +12,13 @@ GQA attention runs with the compute-dtype or the int8 KV cache
 CIM-aware conv layer of the zoo's front ends (whisper's stem, llava's
 patch embed): on ``deploy`` one launch of the implicit-GEMM conv kernel
 (``kernels.cim_conv``) per conv.
+
+Under a session mesh two parallel layers of the reference run over the
+ranks (one process each): the expert-parallel MoE (``_apply_moe_ep``:
+each rank's experts, raw banks placed by ``nn.module.shard_params``) and
+the sequence-parallel flash decode (``_flash_decode_ep``: a KV cache
+time-sharded by ``kv_cache``), each where the reference's predicate
+sends it.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import colshard
 from repro_torch.core.colshard import col_apply
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, constrain
@@ -336,28 +344,43 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is not None and x_kv is None:
-        _refuse_flash_decode(cfg)
         idx = cache["len"]                                   # (B,) int32
-        rows, cols = _write_at(idx, t, cache["k"])
         if "k_scale" in cache:                               # int8 KV cache
             (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
-            for name, new in (("k", kq), ("v", vq), ("k_scale", ks),
-                              ("v_scale", vs)):
-                cache[name][rows, cols] = new
-            new_cache = {n: cache[n] for n in ("k", "v", "k_scale",
-                                               "v_scale")}
-            k_at = (new_cache["k"].to(torch.float32)
-                    * new_cache["k_scale"][..., None]).to(k.dtype)
-            v_at = (new_cache["v"].to(torch.float32)
-                    * new_cache["v_scale"][..., None]).to(v.dtype)
+            new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
-            cache["k"][rows, cols] = k.to(cache["k"].dtype)
-            cache["v"][rows, cols] = v.to(cache["v"].dtype)
-            new_cache = {"k": cache["k"], "v": cache["v"]}
-            k_at, v_at = new_cache["k"], new_cache["v"]
+            new = {"k": k, "v": v}
+        mesh = _flash_decode_ep_ready(cfg, t, cache["k"].shape[1], b)
+        placed = colshard.is_col_sharded(cache["k"])
+        if mesh is not None and placed:
+            out = _flash_decode_ep(q, new, cache, idx, mesh)
+        elif placed:
+            # a prefill (T > 1) over the time-sharded cache: each rank
+            # writes the rows it owns, and the query attends over the
+            # gathered cache as the reference's plain path does
+            _check_cache_mesh(cfg, cache["k"].shape[0],
+                              cache["k"].shape[1])
+            start = idx.to(torch.long).clamp(0, cache["k"].shape[1] - t)
+            for name, rows in new.items():
+                _write_local(cache[name], rows, start)
+            k_at, v_at = _dequantized({n: colshard.full_leaf(cache[n])
+                                       for n in new}, k.dtype)
+            out = attention(q, k_at, v_at, causal=True, q_offset=idx,
+                            kv_len=idx + t, chunk=cfg.attn_chunk)
+        else:
+            if mesh is not None:
+                raise ValueError(
+                    "flash decode under a mesh reads the time-sharded cache "
+                    "that init_cache allocates under the same session "
+                    "mesh; this cache is whole")
+            rows, cols = _write_at(idx, t, cache["k"])
+            for name, val in new.items():
+                cache[name][rows, cols] = val.to(cache[name].dtype)
+            k_at, v_at = _dequantized(cache, k.dtype)
+            out = attention(q, k_at, v_at, causal=True, q_offset=idx,
+                            kv_len=idx + t, chunk=cfg.attn_chunk)
+        new_cache = {n: cache[n] for n in new}
         new_cache["len"] = idx + t
-        out = attention(q, k_at, v_at, causal=True, q_offset=idx,
-                        kv_len=idx + t, chunk=cfg.attn_chunk)
     else:
         out = attention(q, k, v, causal=causal and x_kv is None,
                         chunk=cfg.attn_chunk)
@@ -378,6 +401,15 @@ def _write_at(idx: torch.Tensor, t: int, cache: torch.Tensor):
     rows = torch.arange(cache.shape[0], device=dev)[:, None]
     start = idx.to(torch.long).clamp(0, cache.shape[1] - t)
     return rows, start[:, None] + torch.arange(t, device=dev)[None, :]
+
+
+def _dequantized(cache: Dict, dtype: torch.dtype):
+    """(K, V) to attend over: the int8 cache's codes times their scales in
+    ``dtype``, or the compute-dtype cache as it is."""
+    if "k_scale" not in cache:
+        return cache["k"], cache["v"]
+    return tuple((cache[n].to(torch.float32) * cache[f"{n}_scale"][..., None]
+                  ).to(dtype) for n in ("k", "v"))
 
 
 def _kv_quantize(x: torch.Tensor):
@@ -551,17 +583,141 @@ def moe_specs(cfg: ModelConfig) -> Dict:
     return sp
 
 
-def _refuse_flash_decode(cfg: ModelConfig) -> None:
-    """The reference's sequence-parallel flash decode (``cfg.flash_decode``
-    under a mesh) is not ported: raise rather than serve another path."""
-    if not cfg.flash_decode:
-        return
-    from repro_torch.kernels import ops as kops
+# ---------------------------------------------------------------------------
+# sequence-parallel flash decode: the cache's time axis over "model"
+# ---------------------------------------------------------------------------
+
+def _mesh_dims(mesh) -> Tuple[str, ...]:
+    return tuple(getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def _cache_mesh(cfg: ModelConfig, b: int, t_cache: int):
+    """The session mesh when a decode cache of ``b`` rows and ``t_cache``
+    positions is time-sharded for flash decode (the reference's
+    ``_flash_decode_ep_ready`` without its one-token condition): a mesh
+    with ``"model"``, ``cfg.flash_decode``, the time axis dividing the
+    ``"model"`` ranks and the rows the batch axes' ranks. Else None."""
+    from repro_torch.launch.mesh import batch_axes
     from repro_torch.nn.module import current_mesh
-    if kops.col_shards(current_mesh()) > 1:
-        raise NotImplementedError(
-            "flash_decode under a mesh (sequence-parallel decode attention) "
-            "is not ported yet (ROADMAP queue 1, item 12b)")
+    mesh = current_mesh()
+    if (not cfg.flash_decode or "model" not in _mesh_dims(mesh)
+            or t_cache % colshard.mesh_shards(mesh, "model")):
+        return None
+    if b and b % colshard.batch_shard(mesh, batch_axes(mesh))[0]:
+        return None
+    return mesh
+
+
+def _flash_decode_ep_ready(cfg: ModelConfig, t: int, t_cache: int,
+                           b: int = 0):
+    """The mesh when flash decode applies (the reference's predicate): one
+    new token and ``_cache_mesh``'s conditions."""
+    return _cache_mesh(cfg, b, t_cache) if t == 1 else None
+
+
+def _check_cache_mesh(cfg: ModelConfig, b: int, t_cache: int) -> None:
+    """Raise unless a time-sharded cache meets the mesh and config that
+    placed it."""
+    if _cache_mesh(cfg, b, t_cache) is None:
+        raise ValueError("a time-sharded decode cache needs the session "
+                         "mesh and config init_cache placed it under")
+
+
+def kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
+             dev: torch.device, int8: bool) -> Dict:
+    """A stacked GQA decode cache (n_layers, batch, max_len, KvH, hd): K/V
+    in the compute dtype, or int8 codes with float32 per-(token, head)
+    scales, and the lengths. Under a session mesh where flash decode
+    applies (``_cache_mesh``) each rank allocates only its block, rows
+    over the batch axes and time over ``"model"``, as placed leaves
+    carrying the global shape (the reference's ``cache_shardings``); the
+    lengths stay whole."""
+    from repro_torch.launch.mesh import batch_axes
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dtypes = ({"k": torch.int8, "v": torch.int8, "k_scale": torch.float32,
+               "v_scale": torch.float32} if int8
+              else {"k": cdt(cfg), "v": cdt(cfg)})
+    mesh = _cache_mesh(cfg, batch, max_len)
+    out = {}
+    for name, dt in dtypes.items():
+        full = shape if name in ("k", "v") else shape[:-1]
+        if mesh is None:
+            out[name] = torch.zeros(full, dtype=dt, device=dev)
+            continue
+        dims = {1: batch_axes(mesh), 2: ("model",)}
+        nb = colshard.batch_shard(mesh, dims[1])[0]
+        block = (full[0], full[1] // nb,
+                 full[2] // colshard.mesh_shards(mesh, "model")) + full[3:]
+        out[name] = colshard.placed(
+            torch.zeros(block, dtype=dt, device=dev), mesh,
+            colshard.placements_of(mesh, dims), full)
+    out["len"] = torch.zeros((n_layers, batch), dtype=torch.int32, device=dev)
+    return out
+
+
+def _write_local(leaf, rows: torch.Tensor, start: torch.Tensor) -> None:
+    """Write the T new rows (B, T, ...) of every batch row at positions
+    ``start + 0..T-1`` into the block of a time-sharded cache leaf this
+    rank holds: the positions in its time slice, of the rows in its batch
+    block; the rest of the block keeps its values. Computed on the
+    device over the whole block, so no index leaves it."""
+    mesh = leaf.device_mesh
+    block = leaf.to_local()                               # (Bl, Tl, ...)
+    bl, t_loc = block.shape[:2]
+    bi = colshard.batch_shard(mesh, colshard.sharded_dims(leaf).get(0, ()))[1]
+    t0 = colshard.mesh_coord(mesh, "model") * t_loc
+    mine = slice(bi * bl, (bi + 1) * bl)
+    t = rows.shape[1]
+    off = (t0 + torch.arange(t_loc, device=block.device))[None, :] - start[
+        mine, None]                                        # (Bl, Tl)
+    inside = (off >= 0) & (off < t)
+    src = rows[mine].to(block.dtype)[
+        torch.arange(bl, device=block.device)[:, None], off.clamp(0, t - 1)]
+    inside = inside.reshape(inside.shape + (1,) * (block.ndim - 2))
+    block.copy_(torch.where(inside, src, block))
+
+
+def _flash_decode_ep(q: torch.Tensor, new: Dict, cache: Dict,
+                     idx: torch.Tensor, mesh) -> torch.Tensor:
+    """One decode token's attention over a time-sharded cache (the
+    reference's ``_flash_decode_ep``): the rank writes the new row where
+    it owns the position (the int8 cache's codes and scales quantized
+    once, by every rank alike), attends over its time slice of its batch
+    rows, and the partial softmaxes merge over ``"model"`` as the
+    reference merges them: a local max, a max all-reduce, ``exp(s -
+    m_g)``, then sum all-reduces of ``l`` and ``acc``. Each rank weights
+    its values by ``exp(s - m_g) / l`` rounded to the compute dtype, as
+    the plain path's softmax weights are, before the product (the
+    reference divides the summed ``acc`` by ``l``: the same in float32 up
+    to rounding, but in bfloat16 the weights' rounding is the plain
+    path's, so the decode keeps its tokens). The batch blocks are
+    gathered over the batch axes. q (B, 1, H, hd) -> (B, 1, H, hd)."""
+    for name, rows in new.items():
+        _write_local(cache[name], rows, idx.to(torch.long))
+    batch = colshard.sharded_dims(cache["k"]).get(0, ())
+    local = {n: cache[n].to_local() for n in new}
+    k_at, v_at = _dequantized(local, q.dtype)             # (Bl, Tl, KvH, hd)
+    bl, t_loc, kvh, hd = k_at.shape
+    bi = colshard.batch_shard(mesh, batch)[1]
+    mine = slice(bi * bl, (bi + 1) * bl)
+    h = q.shape[2]
+    kk, vv = _repeat_kv(k_at, h // kvh), _repeat_kv(v_at, h // kvh)
+    sc = 1.0 / torch.sqrt(torch.full((), float(hd), dtype=torch.float32,
+                                     device=q.device))
+    s = _scores(q[mine], kk, sc)                          # (Bl, H, 1, Tl)
+    kpos = (colshard.mesh_coord(mesh, "model") * t_loc
+            + torch.arange(t_loc, device=q.device))
+    valid = kpos[None, :] < (idx[mine] + 1)[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m_g = colshard.all_reduce(s.amax(dim=-1), mesh, ("model",), "max")
+    p = torch.exp(s - m_g[..., None])
+    l_g = colshard.all_reduce(p.sum(dim=-1), mesh, ("model",))
+    w = (p / torch.clamp_min(l_g[..., None], 1e-30)).to(v_at.dtype)
+    acc = torch.einsum("bhqk,bkhd->bhqd", w.to(torch.float32),
+                       vv.to(torch.float32))
+    acc_g = colshard.all_reduce(acc, mesh, ("model",))
+    out = acc_g.permute(0, 2, 1, 3).to(q.dtype)          # (Bl, 1, H, hd)
+    return colshard.all_gather(out, mesh, batch) if batch else out
 
 
 def _batched_experts_ok(p: Dict, nm: str, cfg: ModelConfig) -> bool:
@@ -723,23 +879,129 @@ def expert_counts(slot: torch.Tensor, n_experts: int,
 
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The MoE block: the reference's jit path (``_apply_moe_jit``). Packed
-    banks take it under a mesh too (their parallelism is the column
-    sharding inside the kernel dispatch); the reference's expert-parallel
-    path over raw banks is not ported and raises."""
-    from repro_torch.kernels import ops as kops
+    """The MoE block, dispatched by the reference's predicate: raw banks
+    (no ``*_digits``) with ``moe_impl != "jit"`` under a session mesh with
+    ``"model"`` whose ranks divide the experts take the expert-parallel
+    path (``_apply_moe_ep``); everything else the jit path
+    (``_apply_moe_jit``). Packed banks take the jit path under a mesh too:
+    their parallelism is the column sharding inside the kernel
+    dispatch."""
     from repro_torch.nn.module import current_mesh
-    shards = kops.col_shards(current_mesh())
-    if (cfg.moe_impl != "jit" and shards > 1
-            and not any(k.endswith("_digits") for k in p)
-            and cfg.moe.n_experts % shards == 0):
-        raise NotImplementedError(
-            "the expert-parallel MoE (moe_impl != 'jit' on raw banks under "
-            "a mesh) is not ported yet (ROADMAP queue 1, item 12b)")
+    mesh = current_mesh()
+    if (cfg.moe_impl != "jit" and not any(k.endswith("_digits") for k in p)
+            and "model" in _mesh_dims(mesh)
+            and cfg.moe.n_experts % colshard.mesh_shards(mesh, "model") == 0):
+        return _apply_moe_ep(p, x, cfg, mesh)
     return _apply_moe_jit(p, x, cfg)
 
 
+def _ep_experts(leaf: torch.Tensor, mesh, lo: int, n: int, batch):
+    """This rank's ``n`` experts from ``lo`` of a raw bank leaf, entering
+    the rank-local expert computation: a bank placed over ``"model"``
+    gives its local block, whose gradient is summed over the batch axes
+    (each batch block's tokens reach it); a whole bank is sliced, and its
+    gradient summed over every mesh dim."""
+    if colshard.is_col_sharded(leaf):
+        if colshard.sharded_dims(leaf) != {0: ("model",)}:
+            raise ValueError("an expert bank is placed on its experts over "
+                             "'model' (nn.module.shard_params), got "
+                             f"{leaf.placements}")
+        return colshard.grad_psum(leaf.to_local(), mesh, batch)
+    return colshard.grad_psum(leaf, mesh, batch + ("model",))[lo:lo + n]
+
+
+def _apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  mesh) -> torch.Tensor:
+    """The expert-parallel MoE (the reference's ``_apply_moe_ep``): the
+    experts split over ``"model"``, the tokens over the batch axes. Every
+    rank holds the block's input whole; it routes its batch block's
+    tokens, gathers those its experts own into capacity buffers
+    (``max(int(cf * n_loc * k / E) + 1, 4)`` slots, dropless when ``n_loc
+    * k <= 256``), runs its experts (CIM linears under emulate, whatever
+    the mode: raw banks are never packed), combines its partial output,
+    and one sum over ``"model"`` merges the partials; the batch blocks
+    are gathered back. The input and the router enter through
+    ``grad_psum`` and the partials leave through ``psum``, so the
+    gradients equal one device's, with no factor of the rank count."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.obs import adc as obs_adc
+    mo = cfg.moe
+    b, t, d = x.shape
+    c = cdt(cfg)
+    batch = batch_axes(mesh)
+    every = batch + ("model",)
+    e_local = mo.n_experts // colshard.mesh_shards(mesh, "model")
+    lo = colshard.mesh_coord(mesh, "model") * e_local
+    nb, bi = colshard.batch_shard(mesh, batch)
+    if (b * t) % nb:
+        raise ValueError(f"{b * t} tokens do not divide over {nb} batch "
+                         "ranks")
+    n_loc, k = b * t // nb, mo.top_k
+    xf = x.reshape(b * t, d)
+    xl = colshard.grad_psum(xf, mesh, every)[bi * n_loc:(bi + 1) * n_loc]
+    router = colshard.grad_psum(p["router"]["w"], mesh, every)
+    banks = {kk: _ep_experts(p[kk], mesh, lo, e_local, batch) for kk in p
+             if kk in ("wg", "wu", "wd")
+             or (cfg.cim.enabled and kk.startswith(("wg_", "wu_", "wd_")))}
+
+    logits = xl.to(torch.float32) @ router.to(torch.float32)  # (n_loc, E)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates, sel = vals[:, :k], idx[:, :k]
+    gates = (torch.softmax(gates, dim=-1) if mo.router_scale
+             else torch.sigmoid(gates))
+    cap = max(int(mo.capacity_factor * n_loc * k / mo.n_experts) + 1, 4)
+    if n_loc * k <= 256:
+        cap = n_loc * k
+
+    flat_e = sel.reshape(-1)
+    flat_tok = torch.arange(n_loc, device=x.device).repeat_interleave(k)
+    mine = (flat_e >= lo) & (flat_e < lo + e_local)
+    le = torch.where(mine, flat_e - lo, e_local)           # local expert id
+    order = torch.argsort(le, stable=True)
+    le_sorted = le[order]
+    start = torch.searchsorted(le_sorted,
+                               torch.arange(e_local, device=x.device),
+                               side="left")
+    pos = (torch.arange(n_loc * k, device=x.device)
+           - start[le_sorted.clamp(0, e_local - 1)])
+    slot_sorted = torch.where((le_sorted < e_local) & (pos < cap),
+                              le_sorted * cap + pos, e_local * cap)
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+
+    buf = torch.zeros((e_local * cap + 1, d), dtype=c, device=x.device)
+    buf[slot] = xl.to(c)[flat_tok]
+    buf = buf[:-1].reshape(e_local, cap, d)
+    with obs_adc.partial_over(every):
+        if cfg.act == "swiglu":
+            h = F.silu(_expert_matmul(banks, "wg", buf, cfg).to(
+                torch.float32)).to(c) * _expert_matmul(banks, "wu", buf, cfg)
+        else:
+            h = F.gelu(_expert_matmul(banks, "wu", buf, cfg).to(
+                torch.float32), approximate="tanh").to(c)
+        out_buf = _expert_matmul(banks, "wd", h, cfg).reshape(
+            e_local * cap, d)
+    out_buf = torch.cat([out_buf, torch.zeros((1, d), dtype=out_buf.dtype,
+                                              device=x.device)])
+    contrib = (out_buf[slot].to(torch.float32)
+               * gates.reshape(-1)[:, None]).reshape(n_loc, k, d)
+    y = torch.zeros((n_loc, d), dtype=torch.float32, device=x.device)
+    for j in range(k):                 # rank order from 0.0, as the jit path
+        y = y + contrib[:, j]
+    y = colshard.psum(y, mesh, ("model",)).to(c)
+    if nb > 1:
+        y = colshard.gather_rows(y, mesh, batch)
+    if mo.n_shared:
+        y = y + apply_mlp(p["shared"], xf, cfg)
+    return y.reshape(b, t, d)
+
+
 def _apply_moe_jit(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if any(colshard.is_col_sharded(p[nm]) for nm in ("wg", "wu", "wd")
+           if nm in p):
+        raise ValueError("expert banks placed over the mesh run on the "
+                         "expert-parallel path alone (moe_impl != 'jit' "
+                         "under the mesh they were placed on)")
     mo = cfg.moe
     b, t, d = x.shape
     n_tok = b * t

@@ -23,12 +23,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, constrain, stack_specs
 
 from .layers import (apply_mlp, apply_moe, apply_norm, cdt, gqa_attend,
-                     gqa_specs, mla_attend, mla_specs, mlp_specs, moe_specs,
-                     norm_specs, pdt)
+                     gqa_specs, kv_cache, mla_attend, mla_specs, mlp_specs,
+                     moe_specs, norm_specs, pdt)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +94,7 @@ def _layer(tree, i: int):
         return {k: _layer(v, i) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return tuple(_layer(v, i) for v in tree)
-    return tree[i]
+    return colshard.select(tree, i)
 
 
 def _layers(tree, n: int):
@@ -107,7 +108,7 @@ def _layers(tree, n: int):
     if isinstance(tree, (list, tuple)):
         per = [_layers(v, n) for v in tree]
         return [tuple(p[i] for p in per) for i in range(n)]
-    return torch.unbind(tree)
+    return colshard.unbind(tree)
 
 
 def _first_leaf(tree):
@@ -185,23 +186,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Per-layer decode caches, stacked on a leading layer axis, on
     ``device`` (``cuda`` unless ``"cpu"``): K/V in the compute dtype, or
     with ``kv_cache_dtype="int8"`` int8 codes and float32 per-(token,
-    head) scales; MLA's latent ``ckv`` and rotary key ``krope`` in the
-    compute dtype."""
+    head) scales (``layers.kv_cache``: time-sharded over the session mesh
+    where flash decode applies); MLA's latent ``ckv`` and rotary key
+    ``krope`` in the compute dtype."""
     dev = resolve_device(device)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     def kv(n_layers):
-        shape = (n_layers, batch, max_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        if cfg.kv_cache_dtype == "int8":
-            c = {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
-                 "k_scale": zeros(shape[:-1], torch.float32),
-                 "v_scale": zeros(shape[:-1], torch.float32)}
-        else:
-            c = {"k": zeros(shape, cdt(cfg)), "v": zeros(shape, cdt(cfg))}
-        return {**c, "len": zeros((n_layers, batch), torch.int32)}
+        return kv_cache(cfg, n_layers, batch, max_len, dev,
+                        int8=cfg.kv_cache_dtype == "int8")
 
     def mla(n_layers):
         m = cfg.mla

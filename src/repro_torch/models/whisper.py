@@ -28,7 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.module import ParamSpec, stack_specs
 
 from .layers import (apply_conv, apply_mlp, apply_norm, cdt, conv_specs,
-                     gqa_attend, gqa_specs, mlp_specs, norm_specs, pdt)
+                     gqa_attend, gqa_specs, kv_cache, mlp_specs, norm_specs,
+                     pdt)
 from .transformer import _layer, check_overrun
 
 
@@ -161,13 +162,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     the caller replaces with the encoder states, on ``device`` (``cuda``
     unless ``"cpu"``)."""
     dev = resolve_device(device)
-    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    shape = (cfg.n_layers, batch, max_len, kvh, hd)
     return {
-        "k": torch.zeros(shape, dtype=cdt(cfg), device=dev),
-        "v": torch.zeros(shape, dtype=cdt(cfg), device=dev),
-        "len": torch.zeros((cfg.n_layers, batch), dtype=torch.int32,
-                           device=dev),
+        **kv_cache(cfg, cfg.n_layers, batch, max_len, dev, int8=False),
         "enc_out": torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model),
                                dtype=cdt(cfg), device=dev),
     }

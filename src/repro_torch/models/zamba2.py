@@ -23,7 +23,7 @@ from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, stack_specs
 
 from .layers import (apply_mlp, apply_norm, cdt, gqa_attend, gqa_specs,
-                     mlp_specs, norm_specs, pdt)
+                     kv_cache, mlp_specs, norm_specs, pdt)
 from .mamba2 import apply_mamba2, init_mamba_state, mamba2_specs
 from .transformer import _layer, check_overrun
 
@@ -107,18 +107,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     dev = resolve_device(device)
     st = init_mamba_state(cfg, batch, device=dev)
     n_attn = _n_attn(cfg)
-    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     return {
         "mamba": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
                   for k, v in st.items()},
-        "attn": {
-            "k": torch.zeros((n_attn, batch, max_len, kvh, hd),
-                             dtype=cdt(cfg), device=dev),
-            "v": torch.zeros((n_attn, batch, max_len, kvh, hd),
-                             dtype=cdt(cfg), device=dev),
-            "len": torch.zeros((n_attn, batch), dtype=torch.int32,
-                               device=dev),
-        },
+        "attn": kv_cache(cfg, n_attn, batch, max_len, dev, int8=False),
     }
 
 

@@ -6,9 +6,12 @@ inputs, cfg)`` runs the model on a dict of tensors with the same nesting.
 Parameters are materialized only by ``init_params``.
 
 The logical axes map onto mesh axes through a rules table
-(``resolve_pspec``, ``logical_to_mesh``). The process's session mesh
-(``set_activation_rules``, ``session_mesh``, ``current_mesh``) is what
-the column-parallel CIM dispatch reads (``kernels.ops``): in the port a
+(``resolve_pspec``, ``logical_to_mesh``); ``param_shardings`` gives each
+leaf's placements on a ``DeviceMesh`` and ``shard_params`` realizes the
+two the port runs (expert banks over ``"model"``, packed columns). The
+process's session mesh (``set_activation_rules``, ``session_mesh``,
+``current_mesh``) is what the parallel paths read (``kernels.ops``,
+``models.layers``): in the port a
 ``torch.distributed`` ``DeviceMesh`` of one process per rank. ``constrain``
 stays the identity: activations are never sharded, every rank holds them
 whole. torch cannot reproduce ``jax.random``
@@ -135,6 +138,90 @@ def logical_to_mesh(specs, rules: Dict[str, Any]):
             return resolve_pspec(tree.pspec, rules)
         return {k: build(v) for k, v in tree.items()}
     return build(specs)
+
+
+def _placements(pspec: Tuple, names: Tuple[str, ...]) -> Tuple:
+    from torch.distributed.tensor import Replicate, Shard
+
+    def dim_of(name):
+        return next((i for i, e in enumerate(pspec)
+                     if e == name or (isinstance(e, tuple) and name in e)),
+                    None)
+    return tuple(Replicate() if dim_of(n) is None else Shard(dim_of(n))
+                 for n in names)
+
+
+def param_shardings(specs, mesh, rules: Dict[str, Any]):
+    """Tree of each leaf's placements on ``mesh`` (a ``DeviceMesh``, or
+    anything with ``mesh_dim_names``): one ``Shard(dim)`` or
+    ``Replicate()`` per mesh dim, resolved from the leaf's logical axes
+    through ``rules`` (``launch.mesh.sharding_rules``) as the reference's
+    ``NamedSharding(mesh, resolve_pspec(...))`` places it."""
+    names = tuple(mesh.mesh_dim_names)
+
+    def build(tree):
+        if isinstance(tree, ParamSpec):
+            return _placements(resolve_pspec(tree.pspec, rules), names)
+        return {k: build(v) for k, v in tree.items()}
+    return build(specs)
+
+
+_PLACEMENT_LEFT = ("ROADMAP queue 1, item 12b.3: FSDP (the embed axis over "
+                   "the batch axes) and tensor parallelism over raw weights "
+                   "(heads, mlp, vocab) are not ported yet")
+
+
+def shard_params(params, specs, mesh, rules: Dict[str, Any], *,
+                 device=None):
+    """A replicated param tree as this rank's tree on ``mesh``, leaves on
+    ``device`` (where they are when None). Two placements are realized:
+    the ``"experts"`` axis of a raw expert bank over ``"model"`` (a
+    ``DTensor`` of this rank's experts carrying the global shape,
+    ``core.colshard.shard_dim``), and a packed CIM node's columns
+    (``DeployArtifact.shard``'s rule: every node whose columns divide).
+    Every other leaf stays whole; a placement ``rules`` puts anywhere
+    else raises (``launch.mesh.expert_parallel_rules`` places the experts
+    alone)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.api.artifact import _shard_node
+    from repro_torch.core import colshard
+    dev = None if device is None else resolve_device(device)
+    names = tuple(mesh.mesh_dim_names)
+    n_model = colshard.mesh_shards(mesh, "model")
+
+    def on(x):
+        return x if dev is None or not isinstance(x, torch.Tensor) else x.to(
+            dev)
+
+    def walk(node, spec, path):
+        if isinstance(node, dict):
+            if n_model > 1 and any(k.endswith("_digits") for k in node):
+                return _shard_node(node, mesh, "model", n_model, dev,
+                                   lambda sub: walk(sub, None, path))
+            return {k: walk(v, None if not isinstance(spec, dict)
+                            else spec.get(k), f"{path}/{k}")
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, None, f"{path}/{i}") for i, v in enumerate(node)]
+        if not isinstance(spec, ParamSpec):
+            return on(node)
+        dims = {}
+        for name, pl in zip(names, _placements(
+                resolve_pspec(spec.pspec, rules), names)):
+            if (not isinstance(pl, Shard)
+                    or colshard.mesh_shards(mesh, name) <= 1):
+                continue
+            if name != "model" or spec.pspec[pl.dim] != "experts":
+                raise NotImplementedError(
+                    f"shard_params: {path or '<root>'} (logical axes "
+                    f"{spec.pspec}) is placed on mesh dim {name!r} at its "
+                    f"dim {pl.dim}: {_PLACEMENT_LEFT}")
+            dims[pl.dim] = (name,)
+        if not dims:
+            return on(node)
+        return colshard.shard_dim(node, mesh, dims, device=dev)
+    return walk(params, specs, "")
 
 
 # ---------------------------------------------------------------------------

@@ -27,11 +27,18 @@ stops recording at once; calls recorded while armed are still folded.
 Arming is refused inside a CUDA-graph capture: a captured side-output
 would replay without being recorded.
 
-Under a column-parallel session mesh each rank records the columns it
-serves (``kernels.ops``), and ``totals()`` and ``summary()`` sum the
-saturated and converted counts over the mesh's ``"model"`` axis (the
-worst column rate is the largest over it): collectives, so every rank
-calls them together. The sums equal the single device's counts.
+Under a session mesh a record is either whole, the same on every rank
+(a layer every rank runs on the whole input), or a part of the whole over
+some mesh dims, made inside ``partial_over(axes)``: the columns a rank
+serves under the column-parallel dispatch (``kernels.ops``, over
+``"model"``), or the experts and tokens of an expert-parallel MoE rank
+(``models.layers._apply_moe_ep``, over the batch axes and ``"model"``).
+``totals()`` and ``summary()`` count the whole records once and sum each
+part over its dims (the worst column rate is the largest over the mesh):
+collectives, so every rank calls them together. The totals equal the
+single device's counts, as the reference's host callbacks count them on
+a mesh of devices (a replicated layer once, a ``shard_map`` body's records
+on every device).
 """
 from __future__ import annotations
 
@@ -58,8 +65,13 @@ class _AdcState:
         self.worst_col_rate = 0.0       # max per-column rate ever folded
         self.last_col_rates: Optional[np.ndarray] = None
         self.last_col_occupancy: Optional[np.ndarray] = None
-        # recorded, not yet folded: (sat, occ, conversions per column)
-        self.pending: List[Tuple[torch.Tensor, torch.Tensor, int]] = []
+        # recorded, not yet folded: (sat, occ, conversions per column, the
+        # mesh dims the record is a part over)
+        self.pending: List[Tuple[torch.Tensor, torch.Tensor, int,
+                                 Tuple[str, ...]]] = []
+        self.partial: Tuple[str, ...] = ()   # dims of records made now
+        # folded (saturated, conversions) of the parts, by their dims
+        self.parts: Dict[Tuple[str, ...], List[int]] = {}
 
 
 _STATE = _AdcState()
@@ -100,6 +112,19 @@ def reset() -> None:
     _STATE.last_col_rates = None
     _STATE.last_col_occupancy = None
     _STATE.pending = []
+    _STATE.parts = {}
+
+
+@contextmanager
+def partial_over(axes):
+    """Records made inside are parts of the whole over the mesh dims
+    ``axes`` (a rank's columns, or its experts and tokens): ``totals()``
+    sums them over those dims."""
+    prev, _STATE.partial = _STATE.partial, tuple(axes)
+    try:
+        yield
+    finally:
+        _STATE.partial = prev
 
 
 @contextmanager
@@ -118,31 +143,51 @@ def sync() -> None:
     """Fold every recorded call on the host, in call order (this reads
     the recorded counts back from the device)."""
     pending, _STATE.pending = _STATE.pending, []
-    for sat, occ, conv_per_col in pending:
+    for sat, occ, conv_per_col, axes in pending:
         _fold(sat.cpu().numpy(), occ.cpu().numpy(),
-              conv_per_col=conv_per_col)
+              conv_per_col=conv_per_col, axes=axes)
 
 
 def _over_mesh() -> Tuple[int, int, float]:
-    """(saturated, conversions, worst column rate) folded so far, summed
-    (the rate: the largest) over the session mesh's column axis."""
+    """(saturated, conversions, worst column rate) folded so far over the
+    session mesh: the whole records once, each part summed over its dims
+    (the rate: the largest over every dim)."""
     from repro_torch.core.colshard import mesh_shards
     from repro_torch.nn.module import current_mesh
     st = _STATE
     sat, conv, worst = st.saturated_total, st.conversions_total, \
         st.worst_col_rate
     mesh = current_mesh()
-    if mesh_shards(mesh, "model") <= 1:
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    dims = [a for a in names if mesh_shards(mesh, a) > 1]
+    if not dims:
         return sat, conv, worst
     import torch.distributed as dist
-    group = mesh.get_group("model")
-    dev = (torch.device("cpu") if dist.get_backend(group) == "gloo"
-           else torch.device("cuda", torch.cuda.current_device()))
-    counts = torch.tensor([sat, conv], dtype=torch.int64, device=dev)
+
+    from repro_torch.launch.mesh import batch_axes
+    dev = (torch.device("cpu") if dist.get_backend(
+        mesh.get_group(dims[0])) == "gloo"
+        else torch.device("cuda", torch.cuda.current_device()))
+    # the parts a mesh can hold, the same list on every rank: the
+    # column-parallel dispatch's and the expert-parallel MoE's
+    kinds = [("model",)] + ([batch_axes(mesh) + ("model",)]
+                            if batch_axes(mesh) else [])
+    if not set(st.parts) <= set(kinds):
+        raise RuntimeError(f"ADC records are parts over {sorted(st.parts)}; "
+                           f"the session mesh {names} holds parts over "
+                           f"{kinds}")
+    for axes in kinds:
+        part = st.parts.get(axes, [0, 0])
+        counts = torch.tensor(part, dtype=torch.int64, device=dev)
+        for a in axes:
+            if mesh_shards(mesh, a) > 1:
+                dist.all_reduce(counts, group=mesh.get_group(a))
+        sat += int(counts[0]) - part[0]
+        conv += int(counts[1]) - part[1]
     rate = torch.tensor([worst], dtype=torch.float64, device=dev)
-    dist.all_reduce(counts, group=group)
-    dist.all_reduce(rate, op=dist.ReduceOp.MAX, group=group)
-    return int(counts[0]), int(counts[1]), float(rate[0])
+    for a in dims:
+        dist.all_reduce(rate, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    return sat, conv, float(rate[0])
 
 
 def totals() -> Tuple[int, int]:
@@ -199,8 +244,10 @@ def saturation_stats(psum: torch.Tensor, s_p: torch.Tensor, psum_bits: int
     return sat, occ
 
 
-def _fold(sat: np.ndarray, occ: np.ndarray, *, conv_per_col: int) -> None:
-    """Host-side sink for one folded call's per-column counts."""
+def _fold(sat: np.ndarray, occ: np.ndarray, *, conv_per_col: int,
+          axes: Tuple[str, ...] = ()) -> None:
+    """Host-side sink for one folded call's per-column counts (a part of
+    the whole over the mesh dims ``axes``, when given)."""
     st = _STATE
     if st.registry is None:
         return
@@ -210,6 +257,10 @@ def _fold(sat: np.ndarray, occ: np.ndarray, *, conv_per_col: int) -> None:
     conv = conv_per_col * n
     st.saturated_total += int(sat.sum())
     st.conversions_total += conv
+    if axes:
+        part = st.parts.setdefault(axes, [0, 0])
+        part[0] += int(sat.sum())
+        part[1] += conv
     rates = sat / float(conv_per_col)
     st.worst_col_rate = max(st.worst_col_rate, float(rates.max(initial=0.0)))
     st.last_col_rates = rates
@@ -245,4 +296,4 @@ def record(psum: torch.Tensor, s_p: torch.Tensor, psum_bits: int) -> None:
                            "inside a CUDA-graph capture")
     sat, occ = saturation_stats(psum.detach(), s_p.detach(), psum_bits)
     conv_per_col = int(np.prod(psum.shape[:-1]))
-    _STATE.pending.append((sat, occ, conv_per_col))
+    _STATE.pending.append((sat, occ, conv_per_col, _STATE.partial))

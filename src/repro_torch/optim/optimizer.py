@@ -9,6 +9,12 @@ dicts and lists of tensors:
 
 Global-norm clipping and decoupled weight decay are applied inside the
 step. Updates are computed in float32 and cast back to each leaf's dtype.
+
+A leaf placed over a mesh (an expert bank, ``nn.module.shard_params``) is
+updated on this rank's block alone and keeps its placement; its optimizer
+state is the block's, a plain tensor on the rank. ``global_norm`` sums
+each placed leaf's squares over the mesh dims splitting it and counts
+every whole leaf once.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Callable
 import torch
 
 from repro_torch import tree_leaves, tree_map
+from repro_torch.core import colshard
 
 
 def _unzip(params, out, n: int):
@@ -29,8 +36,22 @@ def _device(tree) -> torch.device:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
-                          for leaf in tree_leaves(tree)))
+    """The L2 norm of every leaf together: whole leaves' squares once, a
+    placed leaf's block squares summed over the mesh dims splitting it (a
+    collective when the tree holds one: every rank calls it)."""
+    whole, parts = 0.0, {}
+    for leaf in tree_leaves(tree):
+        sq = torch.sum(torch.square(colshard.local(leaf).to(torch.float32)))
+        if not colshard.is_col_sharded(leaf):
+            whole = whole + sq
+            continue
+        axes = tuple(a for axs in colshard.sharded_dims(leaf).values()
+                     for a in axs)
+        mesh, part = parts.get(axes, (leaf.device_mesh, 0.0))
+        parts[axes] = (mesh, part + sq)
+    for axes, (mesh, part) in parts.items():
+        whole = whole + colshard.all_reduce(part, mesh, axes)
+    return torch.sqrt(whole)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -40,12 +61,13 @@ def clip_by_global_norm(grads, max_norm: float):
         return grads, torch.zeros((), device=_device(grads))
     gn = global_norm(grads)
     scale = torch.clamp_max(max_norm / torch.clamp_min(gn, 1e-9), 1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                     grads), gn
+    return tree_map(lambda g: colshard.like(g, (colshard.local(g).to(
+        torch.float32) * scale).to(g.dtype)), grads), gn
 
 
 def _zeros(dtype):
-    return lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)
+    return lambda p: torch.zeros(colshard.local(p).shape, dtype=dtype,
+                                 device=p.device)
 
 
 def _step0(params) -> torch.Tensor:
@@ -70,13 +92,14 @@ def adamw_step(params, grads, state, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     bc2 = 1 - b2 ** t.to(torch.float32)
 
     def upd(p, g, m, v):
-        gf = g.to(torch.float32)
+        gf = colshard.local(g).to(torch.float32)
         m_new = b1 * m.to(torch.float32) + (1 - b1) * gf
         v_new = b2 * v.to(torch.float32) + (1 - b2) * gf * gf
         step_ = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-        pf = p.to(torch.float32)
+        pf = colshard.local(p).to(torch.float32)
         pf = pf - lr * (step_ + weight_decay * pf)
-        return pf.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+        return (colshard.like(p, pf.to(p.dtype)), m_new.to(m.dtype),
+                v_new.to(v.dtype))
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     new_params, new_m, new_v = _unzip(params, out, 3)
@@ -93,7 +116,7 @@ def _factored(shape) -> bool:
 
 def adafactor_init(params, state_dtype=torch.float32):
     def init_leaf(p):
-        shape = tuple(p.shape)
+        shape = tuple(colshard.local(p).shape)
         if _factored(shape):
             return {"vr": torch.zeros(shape[:-1], dtype=state_dtype,
                                       device=p.device),
@@ -108,9 +131,9 @@ def adafactor_step(params, grads, state, lr, *, decay=0.99, eps=1e-30,
     grads, gnorm = clip_by_global_norm(grads, grad_clip)
 
     def upd(p, g, v):
-        gf = g.to(torch.float32)
+        gf = colshard.local(g).to(torch.float32)
         g2 = gf * gf + eps
-        if _factored(p.shape):
+        if _factored(gf.shape):
             vr = decay * v["vr"].to(torch.float32) + (1 - decay) * g2.mean(-1)
             vc = decay * v["vc"].to(torch.float32) + (1 - decay) * g2.mean(-2)
             denom = (vr[..., None] * vc[..., None, :]
@@ -125,9 +148,9 @@ def adafactor_step(params, grads, state, lr, *, decay=0.99, eps=1e-30,
         # update clipping (Adafactor's RMS rule)
         rms_u = torch.sqrt(torch.mean(u * u) + 1e-12)
         u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
-        pf = p.to(torch.float32)
+        pf = colshard.local(p).to(torch.float32)
         pf = pf - lr * u - lr * weight_decay * pf
-        return pf.to(p.dtype), new_v
+        return colshard.like(p, pf.to(p.dtype)), new_v
 
     out = tree_map(upd, params, grads, state["v"])
     new_params, new_v = _unzip(params, out, 2)
@@ -148,9 +171,10 @@ def sgdm_step(params, grads, state, lr, *, momentum=0.9, weight_decay=0.0,
     grads, gnorm = clip_by_global_norm(grads, grad_clip)
 
     def upd(p, g, m):
-        gf = g.to(torch.float32) + weight_decay * p.to(torch.float32)
+        pf = colshard.local(p).to(torch.float32)
+        gf = colshard.local(g).to(torch.float32) + weight_decay * pf
         m_new = momentum * m.to(torch.float32) + gf
-        return ((p.to(torch.float32) - lr * m_new).to(p.dtype),
+        return (colshard.like(p, (pf - lr * m_new).to(p.dtype)),
                 m_new.to(m.dtype))
 
     out = tree_map(upd, params, grads, state["mom"])

@@ -8,7 +8,7 @@ format, with the reference's tree names ``params``, ``opt_state``,
 ``step`` and ``extra``, so either package resumes the other's
 checkpoints), an emergency save on SIGTERM/SIGINT, and a restore onto the
 device of the fresh state. Restoring onto a device mesh (``shardings``)
-is ROADMAP queue 1, item 12b, and raises.
+is ROADMAP queue 1, item 12b.4, and raises.
 
 Data-pipeline state is (seed, step), so resumption is exact when the
 caller starts the stream at the resumed step
@@ -37,7 +37,7 @@ from repro_torch.checkpoint.ckpt import CheckpointManager
 from .straggler import StragglerMonitor
 
 _SHARDINGS = ("resuming onto a device mesh (shardings) is not ported yet "
-              "(ROADMAP queue 1, item 12b)")
+              "(ROADMAP queue 1, item 12b.4)")
 
 
 class InjectedFailure(RuntimeError):

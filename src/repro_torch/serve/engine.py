@@ -47,6 +47,11 @@ prompts and gets the same logits, so greedy decoding (or sampling from
 the same seeded generator) gives every rank the same tokens, equal to the
 single-device engine's. The engine pins the session mesh at build time
 and raises if a later ``step``/``generate_batch`` runs under another.
+With ``cfg.flash_decode`` the engine's caches, made under that mesh, are
+time-sharded over its ``"model"`` ranks (``models.layers.kv_cache``) and
+each one-token step runs the sequence-parallel flash decode; the prompt's
+prefill writes each row on its owning rank. Under a mesh the engine runs
+eagerly: it captures no CUDA graph.
 """
 from __future__ import annotations
 

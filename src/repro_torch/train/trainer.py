@@ -12,6 +12,15 @@ are left as they were) and the metrics ``loss``, ``grad_norm``, ``lr`` and
 column-wise LSQ / straight-through path; a ``deploy`` tree holds integer
 digit planes, which have no gradient, and is refused as the reference's
 ``jax.value_and_grad`` refuses it.
+
+Under a session mesh the tree may hold expert banks placed over
+``"model"`` (``nn.module.shard_params``): such a leaf is differentiated
+through its local block, and its gradient is the rank's block of the
+single device's, placed alike. The expert-parallel MoE sums the
+replicated leaves' gradients over the mesh inside its backward
+(``core.colshard.grad_psum``), so every rank gets them whole, once. The
+optimizer updates each rank's blocks locally and reduces the gradient
+norm over the mesh (``optim.optimizer.global_norm``).
 """
 from __future__ import annotations
 
@@ -21,12 +30,13 @@ import torch
 
 from repro_torch import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import colshard
 from repro_torch.models.registry import ModelFns
 from repro_torch.optim.optimizer import make_optimizer
 from repro_torch.optim.schedule import cosine_warmup
 
 _FSDP = ("RunConfig(fsdp=True): sharding params and optimizer state over "
-         "a data axis is not ported yet (ROADMAP queue 1, item 12b)")
+         "a data axis is not ported yet (ROADMAP queue 1, item 12b.3)")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -77,16 +87,17 @@ def loss_and_grads(loss_fn: Callable, params, batch
                 f"grad requires floating-point leaves, got {p.dtype} at "
                 f"{path}: a deploy tree holds packed integer digit planes; "
                 "train under emulate and pack the result")
-        p = p.detach().requires_grad_(True)
-        leaves.append(p)
-        return p
+        loc = colshard.local(p).detach().requires_grad_(True)
+        leaves.append(loc)
+        return colshard.like(p, loc)
 
     tracked = _map_with_path(track, params)
     loss = loss_fn(tracked, batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     it = iter(torch.zeros_like(p) if g is None else g
               for p, g in zip(leaves, grads))
-    return loss.detach(), tree_map(lambda _: next(it), params)
+    return loss.detach(), tree_map(lambda p: colshard.like(p, next(it)),
+                                   params)
 
 
 def _map_with_path(fn, tree, path=""):
@@ -131,14 +142,17 @@ def make_train_step(model: ModelFns, cfg: ModelConfig, run: RunConfig,
         # microbatch accumulation in float32, in microbatch order
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=next(tree_leaves(params)).device)
-        g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        g_sum = tree_map(lambda p: torch.zeros(
+            colshard.local(p).shape, dtype=torch.float32, device=p.device),
+            params)
         for mb in _microbatches(batch, run.accum_steps):
             loss, g = loss_and_grads(loss_fn, params, mb)
             loss_sum = loss_sum + loss
-            g_sum = tree_map(lambda a, b: a + b.to(torch.float32), g_sum, g)
+            g_sum = tree_map(lambda a, b: a + colshard.local(b).to(
+                torch.float32), g_sum, g)
         inv = 1.0 / run.accum_steps
-        return loss_sum * inv, tree_map(lambda a: a * inv, g_sum)
+        return loss_sum * inv, tree_map(lambda p, a: colshard.like(p, a * inv),
+                                        params, g_sum)
 
     def train_step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)

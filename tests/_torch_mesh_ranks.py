@@ -322,28 +322,7 @@ def serve_body(rank, world, mesh, out_dir):
     # moonshot: the packed banks go expert by expert through the sharded
     # dispatch under a mesh; the experts kernel is gated off
     res["moe"] = _moe_case(mesh)
-
-    # the paths of the next slice raise under a mesh
-    raised = {}
-    with session_mesh(mesh):
-        for what, run in (
-                ("flash_decode", lambda: _decode(model, sharded.params,
-                                                 serve_cfg.replace(
-                                                     flash_decode=True),
-                                                 toks)),
-                ("moe_ep", lambda: _moe_ep(mesh))):
-            try:
-                run()
-                raised[what] = None
-            except NotImplementedError as e:
-                raised[what] = str(e)
-    res["raised"] = raised
     return res
-
-
-def _decode(model, params, cfg, toks):
-    cache = model.init_cache(cfg, toks.shape[0], 32, device=CPU)
-    return model.decode_step(params, cache, toks, cfg)
 
 
 def _moe_case(mesh):
@@ -391,16 +370,6 @@ def _walk_dicts(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _walk_dicts(v)
-
-
-def _moe_ep(mesh):
-    from repro_torch.models.registry import get_model
-    from repro_torch.nn.module import init_params
-    cfg = lm_cfg(MOE_ARCH).replace(moe_impl="ep")
-    cfg = cfg.replace(cim=cfg.cim.replace(mode="emulate"))
-    model = get_model(cfg)
-    params = init_params(model.specs(cfg), 0, device=CPU)
-    return model.forward(params, lm_inputs(cfg.vocab)[0], cfg)
 
 
 def lm_body(rank, world, mesh, out_dir):

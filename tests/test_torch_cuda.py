@@ -1095,3 +1095,42 @@ def test_sharded_k1_and_k3_on_two_ranks_of_one_card(tmp_path):
             # one single-device launch and one per sharded call
             assert (k1, k3) == ((3, 0) if name.startswith("linear")
                                 else (0, 3)), (name, launches)
+
+
+def test_expert_parallel_moe_and_flash_decode_on_two_ranks_of_one_card(
+        tmp_path):
+    """The expert-parallel MoE (CIM emulate, forward and gradients) and
+    flash decode with the bf16 and int8 caches on two gloo ranks sharing
+    ``cuda:0``: the ranks' results equal each other bit for bit, the MoE's
+    equal the single device's at rtol 1e-5 / atol 1e-6 of each leaf's
+    largest magnitude, and flash decode's logits the single device's
+    plain decode at 1e-5 (float32 compute) with the same tokens, over a
+    cache each rank holds half of in time."""
+    import _torch_mesh_ranks as R
+    import _torch_parallel_ranks as P
+    import numpy as np
+    ranks = R.run_ranks(P.cuda_body, 2, str(tmp_path), timeout_s=300,
+                        device="cuda")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+    for res in ranks:
+        for a, b in zip(leaves(res), leaves(ranks[0])):
+            assert torch.equal(a, b)
+        single, sharded = res["moe"]
+        for a, b in zip(leaves(sharded), leaves(single)):
+            tol = 1e-6 * max(1.0, float(b.abs().max()))
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=tol)
+        for kv in ("bf16", "int8"):
+            (l1, t1, kind1, _), (l2, t2, kind2, block) = res[f"fd_{kv}"]
+            assert torch.equal(t1, t2)
+            for a, b in zip(l2, l1):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                           atol=1e-5)
+            assert (kind1, kind2) == ("Tensor", "DTensor")
+            assert block[2] == P.FD_MAX_LEN // 2

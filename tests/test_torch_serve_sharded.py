@@ -13,8 +13,9 @@ greedy and sampled (also equal to the JAX engine's greedy tokens, and on
 every rank), drifted logits and drifted engine tokens, a ``ScaleDelta``
 applied to both placements, and the reduced moonshot, whose packed banks
 go expert by expert through the sharded dispatch under a mesh (the
-experts kernel gated off). ``flash_decode`` and the expert-parallel MoE
-raise under a mesh. The ranks spawn once for the file (120 s limit).
+experts kernel gated off). The expert-parallel MoE and flash decode are
+``tests/test_torch_parallel_layers.py``'s. The ranks spawn once for the
+file (120 s limit).
 """
 import filecmp
 import os
@@ -129,13 +130,6 @@ def test_moe_banks_per_expert_under_a_mesh(ranks):
         _equal(sharded.float(), single.float())
         assert k6_single > 0 and k6_sharded == 0
         assert gathers > 0 and banks > 0
-
-
-@pytest.mark.parametrize("what", ["flash_decode", "moe_ep"])
-def test_next_slice_paths_raise_under_a_mesh(ranks, what):
-    for res in ranks["ranks"]:
-        msg = res["raised"][what]
-        assert msg is not None and "item 12" in msg
 
 
 def test_a_mesh_of_one_rank_is_unsharded():
