@@ -459,7 +459,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 18. results
+    # 18. FSDP and tensor parallelism over a (data, model) mesh of ranks
+    phase18_fsdp(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. results
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -1850,12 +1855,12 @@ def launcher_cim(**kw):
 
 def moe_config(reduced: bool = False):
     """The MoE phase's model and traffic: the published config with its
-    depth cut to 3 layers (1 dense + 2 MoE), batch 8 x 64-token prompts,
+    depth cut to 2 layers (1 dense + 1 MoE), batch 8 x 64-token prompts,
     16 new tokens; the slot engine at batch 2."""
     from repro_torch.configs.registry import get_config
     cfg = get_config(MOE_ARCH, reduced=reduced, cim=launcher_cim())
     if not reduced:
-        cfg = cfg.replace(n_layers=3)
+        cfg = cfg.replace(n_layers=2)
     return dict(cfg=cfg, batch=8, prompt_len=64, new_tokens=16, max_len=128,
                 requests=((5, 4), (3, 2), (4, 3)), reps=10)
 
@@ -5476,6 +5481,632 @@ def phase17_column_parallel(torch, smi, qat):
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(Path(qat["paths"]["int8"]).parent, ignore_errors=True)
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; "
+          f"nvidia-smi: {smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 18: FSDP and tensor parallelism over a (data, model) mesh of ranks
+# ---------------------------------------------------------------------------
+
+FSDP_ARCH = "llama3-8b"
+#: published widths cut to 2 layers; the global batch 4 x 64 (+1 for the
+#: labels): emulate's float32 partial sums (M x S x kt x N a linear, 0.94 GB
+#: for wu at 256 rows on one device) and AdamW's float32 state (18 GB at
+#: this depth, the 128,256-word embedding and head 12.6 GB of it) beside
+#: four ranks' blocks on one card. lr 3e-4 after one warm-up step
+FSDP_RUN = dict(n_layers=2, batch=4, seq=64, steps=3, ckpt_at=2, lr=3e-4,
+                warmup=1)
+FSDP_MESH = ((2, 2), ("data", "model"))
+FSDP_WORK = ROOT / "build" / "chip_smoke_fsdp"
+#: (a)'s step-1 gradient gate, PERF.md section 2's mesh gate: each leaf's
+#: clipped gradient (its first moment / 0.1) within 2^-6 of its largest
+#: magnitude (four bf16 ulps: the ranks sum the row-parallel partial
+#: products and the batch blocks' gradients in another order than one
+#: device, and each bf16 cast after a sum moves an element by an ulp where
+#: the two sums round apart)
+FSDP_GRAD_TOL = 2.0 ** -6
+#: (a)'s params after step 3: tests/_torch_lm_train.py's one-step bound,
+#: per element REL x the leaf's largest magnitude + lr_t x 2 (the most a
+#: first AdamW update's direction can move), applied per step and summed
+FSDP_STEP_REL = 1e-4
+#: (c): the trained tree packed int8 and served on 4 ranks of ("model",)
+FSDP_SERVE = dict(batch=8, prompt=64, new=16, max_len=128)
+#: the parent's device (a rehearsal on the CPU sets "cpu")
+FSDP_DEV = "cuda"
+#: the ranks' join limit, and their group's
+FSDP_JOIN_S = 600
+
+
+def _fsdp_cfg():
+    from repro_torch.configs.registry import get_config
+    return get_config(FSDP_ARCH, cim=train_cim()).replace(
+        n_layers=FSDP_RUN["n_layers"])
+
+
+def _fsdp_cell(mesh):
+    """``build_cell``'s placements of the phase on ``mesh``
+    (``RUN_HINTS``: FSDP on; one microbatch: the hints' 8 do not divide a
+    batch of 4)."""
+    from repro_torch.launch.cells import build_cell
+    return build_cell(FSDP_ARCH, "train_4k", mesh, cim=train_cim(),
+                      overrides={"n_layers": FSDP_RUN["n_layers"]}, accum=1)
+
+
+def _fsdp_run(cell):
+    r = FSDP_RUN
+    return dataclasses.replace(cell.run, lr=r["lr"], warmup_steps=r["warmup"],
+                               total_steps=r["steps"])
+
+
+def _fsdp_batch(torch, dev):
+    r = FSDP_RUN
+    g = torch.Generator().manual_seed(25)
+    return {"tokens": torch.randint(0, _fsdp_cfg().vocab,
+                                    (r["batch"], r["seq"] + 1),
+                                    generator=g).to(dev)}
+
+
+def _lrs():
+    """The learning rate of each step of the phase's run."""
+    from repro_torch.optim.schedule import cosine_warmup
+    r = FSDP_RUN
+    return [float(cosine_warmup(t, base_lr=r["lr"], warmup_steps=r["warmup"],
+                                total_steps=r["steps"]))
+            for t in range(r["steps"])]
+
+
+def _phase18_references(torch, work):
+    """The single device's run of the phase (seed-0 weights, 3 AdamW steps
+    on deterministic algorithms): its losses, the first moment after step 1
+    and the params after step 3 saved as checkpoints (the ranks read their
+    blocks), its step time and peak memory."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch.launch.mesh import MeshShape
+    cfg = _fsdp_cfg()
+    cell = _fsdp_cell(MeshShape(*FSDP_MESH))
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with _Deterministic(torch):
+        params = init_params(model.specs(cfg), 0, device=FSDP_DEV)
+        init_state, step = make_train_step(model, cfg, _fsdp_run(cell))
+        state = init_state(params)
+        batch = _fsdp_batch(torch, FSDP_DEV)
+        losses, ms = [], []
+        for i in range(FSDP_RUN["steps"]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, m = step(params, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            if i == 0:
+                ckpt.save(str(work / "single_m1"), 1, state["m"])
+    ckpt.save(str(work / "single_p3"), FSDP_RUN["steps"], params)
+    out = dict(losses=losses, ms=ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               n_params=sum(int(v.numel()) for v in _leaf_list(params)))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_list(tree):
+    from repro_torch import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def _checksum(torch, tree):
+    """A position-weighted integer sum of every leaf's bits (its local
+    block), in leaf order: equal trees give equal sums, and a flipped bit
+    anywhere changes them."""
+    from repro_torch.core import colshard
+    out = []
+    for leaf in _leaf_list(tree):
+        x = colshard.local(leaf).detach().contiguous()
+        bits = x.view(torch.int32) if x.element_size() == 4 else x.view(
+            torch.int16)
+        bits = bits.reshape(-1).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append(int((bits * w).sum()))
+    return out
+
+
+def _block_errs(torch, got, want, mesh):
+    """{leaf path: (max |got - want|, max |want|)} over the whole leaves of
+    two trees of this rank's blocks (maxima over the mesh)."""
+    from repro_torch.core import colshard
+    out = {}
+
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+            return
+        gl = colshard.local(g).float()
+        wl = colshard.local(w).float()
+        v = torch.stack([(gl - wl).abs().max(), wl.abs().max()])
+        v = colshard.all_reduce(v, mesh, tuple(mesh.mesh_dim_names), "max")
+        out[path] = (float(v[0]), float(v[1]))
+    walk(got, want, "")
+    return out
+
+
+def _one_device_loss(torch, params, batch, model, cfg, rank, dev):
+    """The loss of the mesh's params on one device, on rank 0: the whole
+    tree gathered there leaf by leaf (``colshard.gather_first``: every
+    rank takes part, rank 0 alone keeps it), then a forward with no mesh
+    and no grad: the state the mesh's next step starts from, so the two
+    losses hold the distributed arithmetic against one device's."""
+    from repro_torch.core import colshard
+    from repro_torch.nn.module import session_mesh
+    from repro_torch.train.trainer import lm_loss_fn
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        full = colshard.gather_first(t)
+        return None if full is None else full.to(dev)
+    full = walk(params)
+    if rank != 0:
+        return None
+    with torch.no_grad(), session_mesh(None):
+        loss = float(lm_loss_fn(model, cfg)(full, batch))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _fsdp_steps(torch, mesh, cell, step, params, state, batch, n, first=0):
+    """``n`` steps on ``mesh`` from step ``first``: (params, state, losses,
+    step ms on CUDA events, collective share of each step on the host
+    clock)."""
+    from repro_torch.core import colshard
+    from repro_torch.nn.module import session_mesh
+    losses, ms, share = [], [], []
+    with session_mesh(mesh):
+        for _ in range(n):
+            torch.cuda.synchronize()
+            c0, t0 = colshard.collective.seconds, time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, m = step(params, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ms.append(start.elapsed_time(end))
+            share.append((colshard.collective.seconds - c0) / wall)
+            losses.append(float(m["loss"]))
+    return params, state, losses, ms, share
+
+
+def _resume(torch, mesh, cell, dev):
+    """The step-2 checkpoint restored by ``resume_or_init`` under
+    ``cell``'s placements on ``mesh``: (params, state, step)."""
+    from repro_torch.runtime.fault_tolerance import (FaultTolerantLoop,
+                                                     TrainLoopState)
+
+    def init_fn():
+        # the structure of a fresh state; the checkpoint is there, so no
+        # weights are drawn
+        def rec(t):
+            if isinstance(t, dict):
+                return {k: rec(v) for k, v in t.items()}
+            return torch.empty((), device=dev)
+        return TrainLoopState(params=rec(cell.arg_structs[0]),
+                              opt_state=rec(cell.arg_structs[1]), step=0)
+    loop = FaultTolerantLoop(str(FSDP_WORK / "ckpt"), async_save=False)
+    st = loop.resume_or_init(init_fn, shardings={
+        "params": cell.in_shardings[0], "opt_state": cell.in_shardings[1]},
+        mesh=mesh)
+    return st.params, st.opt_state, st.step
+
+
+def _fsdp_train(torch, mesh, rank, dev):
+    """(a) and (b) on this rank of the (2, 2) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import colshard
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params, place_tree
+    from repro_torch.runtime.fault_tolerance import (FaultTolerantLoop,
+                                                     TrainLoopState)
+    from repro_torch.train.trainer import make_train_step
+    cfg = _fsdp_cfg()
+    cell = _fsdp_cell(mesh)
+    model = get_model(cfg)
+    init_state, step = make_train_step(model, cfg, _fsdp_run(cell))
+    batch = _fsdp_batch(torch, dev)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model.specs(cfg), 0, device=dev,
+                         placements=cell.in_shardings[0], mesh=mesh)
+    state = place_tree(init_state(params), cell.in_shardings[1], mesh)
+    blocks = {}
+    for kind, tree in (("params", params), ("m", state["m"]),
+                       ("v", state["v"])):
+        layer = tree["layers"]
+        for node in ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wg",
+                     "mlp/wu", "mlp/wd"):
+            a, b = node.split("/")
+            w = layer[a][b]["w"]
+            blocks[f"{kind}/{node}"] = (list(w.shape),
+                                        list(colshard.local(w).shape))
+        blocks[f"{kind}/embed"] = (list(tree["embed"].shape), list(
+            colshard.local(tree["embed"]).shape))
+    out["blocks"] = blocks
+    out["held"] = sum(colshard.local(v).numel() for v in _leaf_list(params))
+
+    # (a) three steps; the first moment after step 1 against one device's,
+    # the step-2 checkpoint, the params after step 3
+    loop = FaultTolerantLoop(str(FSDP_WORK / "ckpt"), async_save=False)
+    losses, ms, share = [], [], []
+    t0 = time.perf_counter()
+    for i in range(FSDP_RUN["steps"]):
+        if i == 1:
+            # one device on the mesh's step-1 state (step 1's is the
+            # parent's run, step 3's the restore of the step-2 checkpoint)
+            out["same2"] = _one_device_loss(torch, params, batch, model, cfg,
+                                            rank, dev)
+        params, state, ls, tms, sh = _fsdp_steps(torch, mesh, cell, step,
+                                                 params, state, batch, 1)
+        losses += ls
+        ms += tms
+        share += sh
+        if i == 0:
+            m1_want = ckpt.restore(str(FSDP_WORK / "single_m1"), params,
+                                   shardings=cell.in_shardings[0], mesh=mesh,
+                                   device=dev)
+            out["m1_errs"] = _block_errs(torch, state["m"], m1_want, mesh)
+            del m1_want
+        if i + 1 == FSDP_RUN["ckpt_at"]:
+            c0 = time.perf_counter()
+            loop.mgr.save(i + 1, FaultTolerantLoop._pack(
+                TrainLoopState(params, state, i + 1)))
+            loop.mgr.wait()
+            out["save_s"] = time.perf_counter() - c0
+    out["train_s"] = time.perf_counter() - t0
+    out.update(losses=losses, ms=ms, share=share,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out["sum3"] = _checksum(torch, [params, state["m"], state["v"]])
+    p3_want = ckpt.restore(str(FSDP_WORK / "single_p3"), params,
+                           shardings=cell.in_shardings[0], mesh=mesh,
+                           device=dev)
+    out["p3_errs"] = _block_errs(torch, params, p3_want, mesh)
+    del params, state, p3_want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same mesh resumes from the step-2 checkpoint: its step 3
+    # equals (a)'s bit for bit
+    t0 = time.perf_counter()
+    params, state, at = _resume(torch, mesh, cell, dev)
+    out["restore_s"] = time.perf_counter() - t0
+    params, state, ls, _, _ = _fsdp_steps(torch, mesh, cell, step, params,
+                                          state, batch, 1, at)
+    out["resumed"] = dict(at=at, loss=ls[0], sum3=_checksum(
+        torch, [params, state["m"], state["v"]]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) a ("model",) mesh of 2 ranks (ranks 0 and 1) restores it with
+    # its own build_cell's placements; ranks 2 and 3 wait
+    pair = mesh["model"]
+    if rank < 2:
+        pc = _fsdp_cell(pair)
+        p2, s2, at2 = _resume(torch, pair, pc, dev)
+        _, _, ls2, _, _ = _fsdp_steps(torch, pair, pc, step, p2, s2, batch,
+                                      1, at2)
+        held2 = sum(colshard.local(v).numel() for v in _leaf_list(p2))
+        out["pair"] = dict(at=at2, loss=ls2[0], held=held2)
+        del p2, s2
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out, params
+
+
+def _fsdp_serve(torch, mesh4, rank, dev, trained, work):
+    """(c) on this rank: (a)'s trained tree (the resumed step 3, bit-equal
+    to it) gathered, packed int8, served by one device on rank 0 and on
+    the ("model",) mesh of 4 under the full ``sharding_rules``."""
+    import torch.distributed as dist
+
+    from repro_torch.api import model_artifact
+    from repro_torch.core import colshard
+    from repro_torch.launch.mesh import sharding_rules
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import session_mesh
+    from repro_torch.serve.engine import engine_from_artifact
+    cfg = _fsdp_cfg()
+    sv = FSDP_SERVE
+    full = colshard.full_tree(trained)
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    art = model_artifact(full, cfg.cim.replace(pack_dtype="int8"),
+                         device=dev)
+    pack_s = time.perf_counter() - t0
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg = cfg.replace(cim=art.config)
+    model = get_model(dcfg)
+    g = torch.Generator().manual_seed(26)
+    prompts = torch.randint(0, cfg.vocab, (sv["batch"], sv["prompt"]),
+                            generator=g)
+    tokens = prompts.to(dev)
+    out = {"pack_s": pack_s}
+    if rank == 0:                      # the single device
+        with torch.no_grad(), session_mesh(None):
+            y1 = model.forward(art.params, tokens, dcfg).float()
+            eng1 = engine_from_artifact(art, cfg, batch_size=sv["batch"],
+                                        max_len=sv["max_len"], device=dev)
+            t1 = eng1.generate_batch(prompts.numpy(), sv["new"])
+        torch.save(dict(tokens=np.asarray(t1)), work / "serve_ref.pt")
+        del eng1
+    dist.barrier()
+    t0 = time.perf_counter()
+    eng = engine_from_artifact(art, cfg, mesh=mesh4,
+                               rules=sharding_rules(mesh4),
+                               batch_size=sv["batch"],
+                               max_len=sv["max_len"], device=dev)
+    del art
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["load_s"] = time.perf_counter() - t0
+    p = eng.params
+    nodes = [n["w_digits"] for _, n in _packed_nodes(p)]
+    out["sharded_nodes"] = (sum(colshard.is_col_sharded(d) for d in nodes),
+                            len(nodes))
+    out["raw_placed"] = {k: str(getattr(v, "placements", None)) for k, v in (
+        ("embed", p["embed"]), ("lm_head", p["lm_head"]["w"]))}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counters()
+        y = eng.model.forward(p, tokens, eng.cfg).float()
+        torch.cuda.synchronize()
+        out["launches"], out["floats"] = _read_counters()
+        calls = _capture_kernel_calls(
+            lambda: eng.model.forward(p, tokens, eng.cfg))
+        out["k1_widths"] = sorted({int(a[1].shape[-1]) for a, _ in calls[
+            "cim_matmul_transformer"]})
+        out["k1_full"] = sorted({int(n.shape[-1]) for n in nodes})
+        gen = eng.generate_batch(prompts.numpy(), sv["new"])
+    out["finite"] = bool(torch.isfinite(y).all())
+    out["logit_sum"] = float(y.double().sum())
+    if rank == 0:
+        out["diff"] = float((y - y1).abs().max())
+        out["scale"] = float(y1.abs().max())
+    ref = torch.load(work / "serve_ref.pt", weights_only=False)
+    out["tokens_equal"] = bool(np.array_equal(np.asarray(gen),
+                                              ref["tokens"]))
+    out["sample"] = np.asarray(gen)[0].tolist()
+    return out
+
+
+def _phase18_rank(rank, world, port, work):
+    """One rank of phase 18: gloo on the shared card; (a), (b) on the (2,
+    2) mesh and its ("model",) pair, (c) on a ("model",) mesh of 4;
+    results to ``work/rank<r>.json``."""
+    import os
+    # four ranks' blocks, gathered layers and emulate's partial sums share
+    # one card: segments that grow in place waste less of it
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh as lm
+    work = Path(work)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = lm.init_rank(rank, world, port, backend="gloo", device="cuda",
+                       timeout_s=FSDP_JOIN_S)
+    try:
+        mesh = lm.make_mesh(*FSDP_MESH, device=dev, backend="gloo")
+        mesh4 = lm.make_mesh(world, ("model",), device=dev, backend="gloo")
+        t0 = time.perf_counter()
+        with _Deterministic(torch):
+            res, trained = _fsdp_train(torch, mesh, rank, dev)
+        res["train_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["serve"] = _fsdp_serve(torch, mesh4, rank, dev, trained, work)
+        res["serve_s"] = time.perf_counter() - t0
+        (work / f"rank{rank}.json").write_text(json.dumps(res, default=str))
+    finally:
+        dist.destroy_process_group()
+
+
+def _phase18_single_restore(torch):
+    """(b) on one device: the step-2 checkpoint restored by
+    ``resume_or_init`` with ``build_cell``'s placements on a mesh of one,
+    then step 3."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.trainer import make_train_step
+    cfg = _fsdp_cfg()
+    cell = _fsdp_cell(MeshShape((1,), ("model",)))
+    _, step = make_train_step(get_model(cfg), cfg, _fsdp_run(cell))
+    with _Deterministic(torch):
+        params, state, at = _resume(torch, cell.mesh, cell,
+                                    torch.device(FSDP_DEV))
+        _, _, m = step(params, state, _fsdp_batch(torch, FSDP_DEV))
+        loss = float(m["loss"])
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return at, loss
+
+
+def phase18_fsdp(torch, smi):
+    """FSDP and tensor parallelism over a ("data", "model") mesh of (2, 2)
+    gloo ranks sharing the card: (a) llama3-8b at published widths cut to 2
+    layers, trained 3 AdamW steps under CIM emulate with ``build_cell``'s
+    placements, against one device; (b) its step-2 checkpoint resumed on
+    the same mesh (step 3 bit-equal), on a ("model",) mesh of 2 and on one
+    device; (c) the trained tree packed int8 and served on a ("model",)
+    mesh of 4 under the full ``sharding_rules`` (K1 on N/4 columns, the
+    embedding and the head vocab-parallel)."""
+    import shutil
+
+    from repro_torch.launch import mesh as lm
+    t_phase = time.perf_counter()
+    work = FSDP_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    single = _phase18_references(torch, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    single["left_gib"] = torch.cuda.memory_reserved() / 2 ** 30
+    print(f"phase 18 one device: losses {single['losses']}, step ms "
+          f"{[round(v, 2) for v in single['ms']]}, peak "
+          f"{single['peak_gib']:.2f} GiB, {single['left_gib']:.2f} GiB "
+          f"still reserved before the ranks", flush=True)
+    t0 = time.perf_counter()
+    try:
+        lm.spawn(_phase18_rank, MESH_RANKS,
+                 (MESH_RANKS, lm.free_port(), str(work)),
+                 timeout_s=FSDP_JOIN_S)
+    except Exception as e:           # a rank raised, or the ranks hung
+        check(False, f"phase 18 ranks: {type(e).__name__}: {e}")
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(MESH_RANKS)]
+    at1, loss1 = _phase18_single_restore(torch)
+    cfg = _fsdp_cfg()
+    lrs = _lrs()
+    steps = FSDP_RUN["steps"]
+
+    # (a) each step's loss against one device's on the same params: step
+    # 1's the one device's own run (the seed-0 weights), step 2's rank 0's
+    # forward on the gathered step-1 state, step 3's the one device's
+    # restore of the step-2 checkpoint ((b)). The one device's own run
+    # parts from the mesh's after step 1 and is printed beside: AdamW's
+    # first update is lr x sign(g), and a gradient within rounding of zero
+    # takes either sign
+    same = [single["losses"][0], res[0]["same2"], loss1]
+    for r, rr in enumerate(res):
+        for i, (got, want) in enumerate(zip(rr["losses"], same)):
+            check(abs(got - want) <= 1e-5 * abs(want), f"18a rank {r} step "
+                  f"{i + 1}: loss {got!r} against one device's {want!r} on "
+                  "the same params")
+        check(rr["losses"] == res[0]["losses"], f"18a rank {r}: losses "
+              "differ from rank 0's")
+        bad = {k: e / s for k, (e, s) in rr["m1_errs"].items()
+               if not e <= FSDP_GRAD_TOL * s}
+        check(not bad, f"18a rank {r}: step-1 gradients (first moments) off "
+              f"by (max |diff| / max |single|) {bad}")
+        lim = steps * FSDP_STEP_REL
+        bad = {k: e for k, (e, s) in rr["p3_errs"].items()
+               if not e <= lim * s + 2 * sum(lrs)}
+        check(not bad, f"18a rank {r}: params after step {steps} off by "
+              f"{bad}")
+        for k, (shape, local) in rr["blocks"].items():
+            check(int(np.prod(local)) * 4 == int(np.prod(shape)),
+                  f"18a rank {r}: {k} holds {local} of {shape}")
+    a0 = res[0]
+    m1 = max(e / s for e, s in a0["m1_errs"].values())
+    p3 = max(e for e, _ in a0["p3_errs"].values())
+    mid = int(np.argsort(a0["ms"][1:])[len(a0["ms"][1:]) // 2]) + 1
+    print(f"phase 18a {cfg.name} ({cfg.n_layers} layers, published widths, "
+          f"{single['n_params'] / 1e9:.3f} B params, CIM emulate, AdamW in "
+          f"float32) on a (data, model) = {FSDP_MESH[0]} mesh of gloo ranks "
+          f"sharing the card, build_cell's placements (FSDP: embed over "
+          f"data; heads, mlp, vocab over model), batch {FSDP_RUN['batch']} "
+          f"x {FSDP_RUN['seq']}, {steps} steps: losses "
+          f"{a0['losses']} against one device's on the same params {same} "
+          f"(gate 1e-5 relative; the one device's own run "
+          f"{single['losses']}); step-1 gradients within "
+          f"{m1:.3g} of each leaf's largest magnitude (gate "
+          f"{FSDP_GRAD_TOL:.4g}); params after step {steps} within {p3:.3g} "
+          f"(gate {steps} x ({FSDP_STEP_REL:g} of the leaf's scale + 2 lr)); "
+          f"each rank holds a quarter of every embed x (heads|mlp) weight "
+          f"and of its moments ({a0['held'] / 1e9:.3f} B params a rank); "
+          f"step ms on rank 0 {[round(v, 2) for v in a0['ms']]} (CUDA "
+          f"events; one device {[round(v, 2) for v in single['ms']]}), "
+          f"collectives' share {a0['share'][mid]:.3f} (host clock, the "
+          f"median step); peak memory per rank "
+          + ", ".join(f"{rr['peak_gib']:.2f}" for rr in res)
+          + f" GiB (one device {single['peak_gib']:.2f}); the step-2 "
+          f"checkpoint written in {a0['save_s']:.1f} s; nvidia-smi: {smi}",
+          flush=True)
+
+    # (b)
+    for r, rr in enumerate(res):
+        g = rr["resumed"]
+        check(g["at"] == FSDP_RUN["ckpt_at"] and g["loss"] == rr["losses"][
+            -1] and g["sum3"] == rr["sum3"], f"18b rank {r}: the resume on "
+              f"the same mesh (from step {g['at']}) gave loss {g['loss']!r} "
+              f"against {rr['losses'][-1]!r}; bit-equal state "
+              f"{g['sum3'] == rr['sum3']}")
+    want = a0["losses"][-1]
+    for r in (0, 1):
+        g = res[r]["pair"]
+        check(g["at"] == FSDP_RUN["ckpt_at"] and abs(g["loss"] - want)
+              <= 1e-5 * abs(want), f"18b rank {r} on the ('model',) mesh of "
+              f"2: step-3 loss {g['loss']!r} against {want!r}")
+    check(at1 == FSDP_RUN["ckpt_at"] and abs(loss1 - want) <= 1e-5 * abs(
+        want), f"18b one device: step-3 loss {loss1!r} against {want!r}")
+    print(f"phase 18b the step-{FSDP_RUN['ckpt_at']} checkpoint (written "
+          f"once by rank 0 in the reference's format) resumed by "
+          f"resume_or_init(shardings=) on the same mesh: step 3 bit-equal to "
+          f"18a's on every rank (loss {want!r}, params and moments), "
+          f"restored in {a0['restore_s']:.1f} s; on a ('model',) mesh of 2 "
+          f"({res[0]['pair']['held'] / 1e9:.3f} B params a rank): step-3 "
+          f"loss {res[0]['pair']['loss']!r}; on one device: "
+          f"{loss1!r}; nvidia-smi: {smi}", flush=True)
+
+    # (c)
+    dcfg_k1 = 7 * cfg.n_layers
+    for r, rr in enumerate(res):
+        g = rr["serve"]
+        check(g["finite"] and g["tokens_equal"], f"18c rank {r}: finite "
+              f"{g['finite']}, tokens equal the single device's "
+              f"{g['tokens_equal']}")
+        check(g["logit_sum"] == res[0]["serve"]["logit_sum"], f"18c rank {r}"
+              ": prefill logits differ from rank 0's")
+        want_l = {"cim_matmul": dcfg_k1, "cim_conv": 0,
+                  "cim_matmul_adc_free": 0, "cim_conv_adc_free": 0,
+                  "cim_matmul_experts": 0, "plain_gathers": 0}
+        check(g["launches"] == want_l and not any(g["floats"].values()),
+              f"18c rank {r}: launches {g['launches']}, expected {want_l}")
+        check(g["k1_widths"] == sorted({n // MESH_RANKS for n in g[
+            "k1_full"]}), f"18c rank {r}: K1 widths {g['k1_widths']} "
+              f"against N/{MESH_RANKS} of {g['k1_full']}")
+        check(g["sharded_nodes"][0] == g["sharded_nodes"][1], f"18c rank {r}"
+              f": {g['sharded_nodes']} packed nodes sharded")
+        check("Shard(dim=0)" in g["raw_placed"]["embed"] and "Shard(dim=1)"
+              in g["raw_placed"]["lm_head"], f"18c rank {r}: raw leaves "
+              f"placed {g['raw_placed']}")
+    c0 = res[0]["serve"]
+    check(c0["diff"] <= 1e-4 * c0["scale"], f"18c prefill logits: max |mesh "
+          f"- single| {c0['diff']!r} over largest {c0['scale']!r}")
+    sv = FSDP_SERVE
+    print(f"phase 18c the trained tree gathered and packed int8 "
+          f"({c0['pack_s']:.2f} s), {sv['batch']} prompts of {sv['prompt']} "
+          f"+ {sv['new']} new tokens on a ('model',) mesh of {MESH_RANKS} "
+          f"under sharding_rules (embedding {c0['raw_placed']['embed']} and "
+          f"head {c0['raw_placed']['lm_head']}: vocab-parallel; packed "
+          f"columns): prefill logits within {c0['diff']!r} of the single "
+          f"device's (largest {c0['scale']:.4f}; gate 1e-4 of it), tokens "
+          f"equal the single device's on every rank, sample {c0['sample']}; "
+          f"per rank {c0['launches']['cim_matmul']} K1 a forward on widths "
+          f"{c0['k1_widths']} (N/{MESH_RANKS}) and no other kernel; loaded "
+          f"in {c0['load_s']:.2f} s; nvidia-smi: {smi}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 18 took {time.perf_counter() - t_phase:.1f} s (the ranks "
+          f"{ranks_s:.1f} s: rank 0's training {a0['train_s']:.1f} s, (a)-(b) "
+          f"{a0['train_phase_s']:.1f} s, (c) {a0['serve_s']:.1f} s); "
           f"nvidia-smi: {smi}", flush=True)
 
 

@@ -20,6 +20,10 @@ wrapped in ``Int4``.
 
 ``CheckpointManager(async_save=True)`` snapshots the tree to host memory
 on the caller's thread and writes it on a background thread.
+
+A tree placed over a mesh of ranks is written whole, once (the mesh's rank
+0), in the same format; ``restore(..., shardings=)`` reads each rank's
+block of it onto any mesh.
 """
 from __future__ import annotations
 
@@ -35,11 +39,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree_leaves
 
 _LIST_KEY = re.compile(r"^__\d+$")
-_SHARDING = ("restoring onto a device mesh is not ported yet (ROADMAP "
-             "queue 1, item 12b.4)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +80,34 @@ def _raw(arr: np.ndarray) -> np.ndarray:
     if arr.flags.c_contiguous:
         return arr.reshape(-1).view(np.uint8)
     return np.frombuffer(arr.tobytes(), np.uint8)
+
+
+def _storage(raw: np.ndarray, dtype: str, shape) -> np.ndarray:
+    """A view (no copy; ``raw`` may be memory-mapped) of a leaf's raw bytes
+    in its storage dtype and shape: int16 bits for ``bfloat16``, one byte
+    a value for ``int4``."""
+    shape = tuple(int(s) for s in shape)
+    if dtype == "bfloat16":
+        return raw.view(np.int16).reshape(shape)
+    if dtype == "int4":
+        return raw.reshape(shape)
+    try:
+        return raw.view(np.dtype(dtype)).reshape(shape)
+    except TypeError:
+        raise ValueError(f"leaf dtype {dtype!r} cannot be decoded without "
+                         "ml_dtypes (decoded: numpy dtypes, bfloat16, "
+                         "int4)") from None
+
+
+def _decoded(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """The tensor of a storage-dtype array (a copy of its own)."""
+    arr = np.array(arr)
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr).view(torch.bfloat16)
+    if dtype == "int4":
+        return torch.from_numpy((((arr & 0xF) ^ 8).astype(np.int16)
+                                 - 8).astype(np.int8))
+    return torch.from_numpy(arr)
 
 
 def decode_leaf(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
@@ -156,16 +186,62 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
+def _mesh_of(tree):
+    """The mesh of the first placed leaf of ``tree`` (None without one)."""
+    from repro_torch.core import colshard
+    return next((x.device_mesh for x in tree_leaves(tree)
+                 if colshard.is_col_sharded(x)), None)
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes a checkpoint of a tree placed on ``mesh``:
+    the rank at coordinate 0 on every mesh dim (every rank without one)."""
+    return mesh is None or all(c == 0 for c in mesh.get_coordinate())
+
+
+def _barrier(mesh, device) -> None:
+    """Every rank of ``mesh`` reaches this before any leaves it (a sum of
+    one element over every mesh dim)."""
+    from repro_torch.core import colshard
+    colshard.all_reduce(torch.zeros(1, device=device), mesh,
+                        tuple(mesh.mesh_dim_names))
+
+
 def save(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Write ``tree`` as checkpoint ``step`` atomically; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write ``tree`` as checkpoint ``step`` atomically; returns its path.
+    A tree with placed leaves (``nn.module.shard_params``, the optimizer
+    state of a placed tree) is gathered whole (a collective: every rank
+    of its mesh calls ``save``), written once, by the mesh's rank 0, in
+    the reference's format, and every rank waits for the write."""
+    mesh = _mesh_of(tree)
+    if mesh is None:
+        return _write(ckpt_dir, step, tree)
+    device = next(x for x in tree_leaves(tree)
+                  if isinstance(x, torch.Tensor)).device
+    path = _write(ckpt_dir, step, tree, writes=_writes(mesh))
+    _barrier(mesh, device)
+    return path
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, writes: bool = True) -> str:
+    """Write ``tree`` leaf by leaf. A placed leaf is gathered whole on the
+    writing rank's host first (``colshard.gather_first``, a collective), so
+    every rank of its mesh walks the tree; only the rank that ``writes``
+    touches the files, and it holds one whole leaf at a time."""
+    from repro_torch.core import colshard
     final = _step_dir(ckpt_dir, step)
+    if not writes:
+        for _, leaf in _flatten(tree):
+            colshard.gather_first(leaf)
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "leaves": {}}
     for i, (path, leaf) in enumerate(_flatten(tree)):
+        leaf = colshard.gather_first(leaf)
         raw, shape, dtype = _encode_leaf(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), raw)
@@ -261,13 +337,75 @@ def restore_tree(ckpt_dir: str, step: Optional[int] = None, *,
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
-            shardings: Any = None, *, device=None) -> Any:
+            shardings: Any = None, *, device=None, mesh=None) -> Any:
     """Restore into the structure of ``like``, leaves on ``device``
-    (``cuda`` unless ``"cpu"``)."""
-    if shardings is not None:
-        raise NotImplementedError(_SHARDING)
-    flat, _ = _load_leaves(ckpt_dir, step, resolve_device(device))
-    return _unflatten_into(like, flat)
+    (``cuda`` unless ``"cpu"``). ``shardings`` (a tree matching ``like``
+    of per-mesh-dim placements, as ``launch.cells.build_cell`` gives them;
+    a None subtree restores whole) puts each leaf on this rank's block of
+    ``mesh`` (else the session mesh): the leaf file is memory-mapped and
+    only the block is read and copied to the device, so a checkpoint
+    written on one mesh (or by the reference) restores onto another."""
+    dev = resolve_device(device)
+    if shardings is None:
+        flat, _ = _load_leaves(ckpt_dir, step, dev)
+        return _unflatten_into(like, flat)
+    if mesh is None:
+        from repro_torch.nn.module import current_mesh
+        mesh = current_mesh()
+    path, manifest = _manifest(ckpt_dir, step)
+    return _placed_into(like, shardings, manifest["leaves"], path, mesh, dev)
+
+
+def _manifest(ckpt_dir: str, step: Optional[int]):
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    path = _step_dir(ckpt_dir, step)
+    with open(os.path.join(path, "manifest.json")) as f:
+        return path, json.load(f)
+
+
+def _placed_into(like, shardings, leaves: Dict, path: str, mesh, dev,
+                 key: str = ""):
+    from repro_torch.nn.module import is_placements
+    if isinstance(like, dict):
+        return {k: _placed_into(
+            like[k], None if shardings is None else shardings.get(k),
+            leaves, path, mesh, dev, f"{key}/{k}" if key else str(k))
+            for k in like}
+    if isinstance(like, (tuple, list)):
+        return type(like)(_placed_into(
+            v, None if shardings is None else shardings[i], leaves, path,
+            mesh, dev, f"{key}/__{i}") for i, v in enumerate(like))
+    if shardings is not None and not is_placements(shardings):
+        raise ValueError(f"shardings at {key or '<root>'} do not match a "
+                         f"leaf: {shardings!r}")
+    if shardings is not None and mesh is None:
+        raise ValueError(f"restore: {key or '<root>'} has placements "
+                         f"{shardings}, and no mesh to place it on: pass "
+                         "mesh=, or run under nn.module.session_mesh")
+    return _read_block(path, leaves[key], shardings, mesh, dev)
+
+
+def _read_block(path: str, meta: Dict, placements, mesh, dev):
+    """A leaf file's block under ``placements`` on ``mesh``, as the placed
+    leaf (``core.colshard.placed``) or, unsplit, the whole tensor."""
+    from repro_torch.core import colshard
+    from repro_torch.nn.module import block_dims
+    raw = np.load(os.path.join(path, meta["file"]), mmap_mode="r")
+    arr = _storage(raw, meta["dtype"], meta["shape"])
+    dims = block_dims(placements, arr.shape, mesh)
+    index = [slice(None)] * arr.ndim
+    for d, axes in dims.items():
+        n, i = colshard.batch_shard(mesh, axes)
+        w = arr.shape[d] // n
+        index[d] = slice(i * w, (i + 1) * w)
+    block = _decoded(arr[tuple(index)], meta["dtype"]).to(dev)
+    if not dims:
+        return block
+    return colshard.placed(block, mesh, colshard.placements_of(mesh, dims),
+                           arr.shape)
 
 
 def _host_snapshot(tree):
@@ -314,7 +452,7 @@ class CheckpointManager:
                 return
             step, host_tree = item
             try:
-                save(self.ckpt_dir, step, host_tree)
+                _write(self.ckpt_dir, step, host_tree)
                 self._gc()
             except BaseException as e:   # raised by the next save() / wait()
                 self._error = e
@@ -330,13 +468,23 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any):
         """Snapshot ``tree`` to host memory now; write it now, or on the
-        background thread when ``async_save``."""
+        background thread when ``async_save``. A placed tree is written
+        now, whatever ``async_save``: gathered leaf by leaf on every rank of
+        its mesh (a collective), written by the mesh's rank 0 alone, and
+        every rank returns once the files are complete."""
         self._raise_pending()
+        mesh = _mesh_of(tree)
+        if mesh is not None:
+            # gathered leaf by leaf and written now, by the mesh's rank 0
+            save(self.ckpt_dir, step, tree)
+            if _writes(mesh):
+                self._gc()
+            return
         host_tree = _host_snapshot(tree)
         if self.async_save:
             self._q.put((step, host_tree))
         else:
-            save(self.ckpt_dir, step, host_tree)
+            _write(self.ckpt_dir, step, host_tree)
             self._gc()
 
     def wait(self):
@@ -351,5 +499,6 @@ class CheckpointManager:
         return latest_step(self.ckpt_dir)
 
     def restore(self, like: Any, step: Optional[int] = None,
-                shardings: Any = None, *, device=None) -> Any:
-        return restore(self.ckpt_dir, like, step, shardings, device=device)
+                shardings: Any = None, *, device=None, mesh=None) -> Any:
+        return restore(self.ckpt_dir, like, step, shardings, device=device,
+                       mesh=mesh)

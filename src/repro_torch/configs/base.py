@@ -10,9 +10,10 @@ each transformer block in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does;
 the other families keep every activation.
 
-``RunConfig`` carries the reference's training knobs. ``fsdp=True`` is
-refused by ``train.trainer.make_train_step`` (FSDP is ROADMAP queue 1,
-item 12b.3); ``accum_unroll`` has no effect (the port's accumulation is a
+``RunConfig`` carries the reference's training knobs. ``fsdp`` is a
+placement, read by ``launch.cells.build_cell`` (the embed axis over the
+batch axes); the train step follows the placements its params carry.
+``accum_unroll`` has no effect (the port's accumulation is a
 Python loop, unrolled by nature); ``grad_compress`` and
 ``async_checkpoint`` are carried and, as in the reference, read by no
 trainer: ``train.grad_compress`` is called by a data-parallel caller, and
@@ -135,7 +136,7 @@ class RunConfig:
     microbatch: int = 0          # per-device microbatch (0 = auto/no accum)
     accum_steps: int = 1         # gradient accumulation steps
     accum_unroll: bool = False   # no effect: the accumulation is a loop
-    fsdp: bool = False           # refused: FSDP is item 12b.3
+    fsdp: bool = False           # embed axis over the batch axes
     optimizer: str = "adamw"     # adamw | adafactor | sgdm
     opt_state_dtype: str = "float32"
     lr: float = 3e-4

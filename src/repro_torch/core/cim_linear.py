@@ -213,16 +213,24 @@ def _full_psum_scale(params, t: ArrayTiling) -> torch.Tensor:
 
 def _quantize_weight_int(params, cfg: CIMConfig, t: ArrayTiling) -> torch.Tensor:
     """Integer weight codes (K, N) in float32, LSQ gradients attached."""
-    w = params["w"].to(torch.float32)
-    s_w = _full_weight_scale(params, t)
-    s_full = torch.repeat_interleave(s_w, t.array_rows, dim=0)[: t.k]
+    return weight_codes(params["w"], _full_weight_scale(params, t), cfg, t)
+
+
+def weight_codes(w: torch.Tensor, s_w: torch.Tensor, cfg: CIMConfig,
+                 t: ArrayTiling) -> torch.Tensor:
+    """Integer codes of a weight block ``w`` (K', N') under its (K'/rows,
+    N') weight scales ``s_w``, LSQ gradients attached; ``t`` is the whole
+    layer's tiling, whose group size sets LSQ's g (a rank's block of a
+    placed weight keeps the whole layer's)."""
+    w = w.to(torch.float32)
+    s_full = torch.repeat_interleave(s_w, t.array_rows, dim=0)[: w.shape[0]]
     w_hat = lsq_fake_quant(
         w, s_full, cfg.weight_bits, signed=True,
         group_size=t.weight_group_size(cfg.weight_granularity))
     return w_hat / torch.clamp_min(s_full, 1e-9)
 
 
-def _quantize_act(x, params, cfg: CIMConfig):
+def _quantize_act(x, params, cfg: CIMConfig, rows: int = 1):
     """(a_int, s_a): integer activation codes (float32) and their scale.
 
     The reference divides the fake-quantized activation by s_a, which can
@@ -231,10 +239,14 @@ def _quantize_act(x, params, cfg: CIMConfig):
     ADC-free deploy bit for bit. So the quotient is snapped to the
     integer it stands for with a straight-through step: the value is
     exactly the code ``deploy_act_codes`` gives, and the gradient is
-    ``lsq_fake_quant``'s own."""
+    ``lsq_fake_quant``'s own. ``rows`` is the ranks over which a data
+    parallel step splits the batch: LSQ's g counts the global batch, as
+    the reference's one program does."""
     s_a = params["s_a"]
-    a_hat = lsq_fake_quant(x.to(torch.float32), s_a, cfg.act_bits,
-                           signed=cfg.act_signed)
+    xf = x.to(torch.float32)
+    a_hat = lsq_fake_quant(xf, s_a, cfg.act_bits, signed=cfg.act_signed,
+                           group_size=rows * max(
+                               1, xf.numel() // max(1, s_a.numel())))
     a = a_hat / torch.clamp_min(s_a, 1e-9)
     return round_ste(a), s_a
 
@@ -305,11 +317,27 @@ def _forward_off(x, params, cfg, variation, sigma, compute_dtype):
     return x.to(compute_dtype) @ params["w"].to(compute_dtype)
 
 
-def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype):
+def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype, *,
+                     rows: int = 1):
     k, n = params["w"].shape
     t = cfg.tiling(k, n)
-    a_int, s_a = _quantize_act(x, params, cfg)
+    a_int, s_a = _quantize_act(x, params, cfg, rows)
     w_int = _quantize_weight_int(params, cfg, t)
+    y = emulate_macs(a_int, w_int, _full_psum_scale(params, t),
+                     _deq_w(params, cfg, t), cfg, variation, sigma, rows)
+    y = y * torch.clamp_min(s_a, 1e-9)
+    return y.to(compute_dtype)
+
+
+def emulate_macs(a_int, w_int, s_p, deq, cfg: CIMConfig, variation=None,
+                 sigma=None, rows: int = 1) -> torch.Tensor:
+    """Emulate's array arithmetic on codes (..., K') and (K', N') of whole
+    array tiles (or of the layer): bit-split digits, per-(split, tile,
+    column) partial sums, the ADC's LSQ quantization under ``s_p`` (S, kt',
+    N'), and the shift-and-add under ``deq`` (S, kt', N'), float32 (...,
+    N'). ``rows`` scales LSQ's row count to the global batch (a data
+    parallel step)."""
+    t = cfg.tiling(w_int.shape[0], w_int.shape[1])
     digits = split_digits(w_int, cfg.weight_bits, cfg.cell_bits)
     a_t = _tile_inputs(a_int, t)
     d_t = _tile_digits(digits, t)
@@ -324,14 +352,13 @@ def _forward_emulate(x, params, cfg, variation, sigma, compute_dtype):
     if cfg.psum_quant:
         # snap float roundoff to the integer grid, straight through
         psum = round_ste(psum)
-        s_p = _full_psum_scale(params, t)
         if obs_adc.enabled() and obs_adc.will_fold():
             # exact counters on the detached partial sums
             obs_adc.record(psum, s_p, cfg.psum_bits)
-        psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True)
-    y = shift_add(psum, _deq_w(params, cfg, t))
-    y = y * torch.clamp_min(s_a, 1e-9)
-    return y.to(compute_dtype)
+        psum = lsq_fake_quant(psum, s_p, cfg.psum_bits, signed=True,
+                              group_size=rows * max(
+                                  1, psum.numel() // max(1, s_p.numel())))
+    return shift_add(psum, deq)
 
 
 def _forward_deploy(x, params, cfg, variation, sigma, compute_dtype,

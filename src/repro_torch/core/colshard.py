@@ -33,6 +33,19 @@ sum over the dims: where a replicated input enters a rank-local part of a
 computation whose loss every rank computes whole). ``collective.calls``
 and ``collective.seconds`` count their calls and host seconds. gloo takes
 CUDA tensors for every one of them; nothing switches backend.
+
+FSDP and raw-weight tensor parallelism read placed weights at use:
+``unshard_batch`` gathers the dims the batch axes split
+(``fsdp_gather``: an all-gather forward, a reduce-scatter backward: each
+rank's cotangent holds its batch rows' part), ``whole`` then gathers the
+``"model"`` split too (``gather``: its backward takes the rank's block of
+the replicated cotangent), and a layer that reads its leaves directly
+takes ``at_use``. Megatron's pair is ``grad_psum`` (the input of a
+column-parallel layer; ``col_matmul`` for a plain product, its sum in
+float32) and ``psum`` (the output of a row-parallel one, whose input
+enters through ``split``). None scales by the rank count.
+``gather_first`` brings a placed leaf whole to the first rank's host (a
+checkpoint's write).
 """
 from __future__ import annotations
 
@@ -194,6 +207,40 @@ def full_leaf(x):
     return out
 
 
+def gather_first(x):
+    """A placed leaf whole, on the CPU of the rank at coordinate 0 of every
+    mesh dim splitting it (None on every other rank); any other leaf as it
+    is. Each dim's blocks go to the first rank of that dim's group as host
+    tensors (``dist.gather``), row-major as ``shard_dim`` cut them: a
+    quarter of an all-gather's traffic on four ranks, and no other rank
+    holds the whole leaf. Every rank of the mesh calls it."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    out, done = x.to_local().detach().cpu(), set()
+    for dim, axes in sharded_dims(x).items():
+        for a in reversed(axes):
+            if mesh_shards(mesh, a) <= 1:
+                continue
+            if any(coord[b] for b in done):     # not a first rank: done
+                return None
+            g = mesh.get_group(a)
+            first = dist.get_global_rank(g, 0)
+            parts = ([torch.empty_like(out) for _ in range(
+                mesh_shards(mesh, a))] if coord[a] == 0 else None)
+            t0 = time.perf_counter()
+            dist.gather(out.contiguous(), parts, dst=first, group=g)
+            collective.calls += 1
+            collective.seconds += time.perf_counter() - t0
+            done.add(a)
+            if coord[a]:
+                return None
+            out = torch.cat(parts, dim=dim)
+    return out if not any(coord[b] for b in done) else None
+
+
 def full_tree(tree):
     """Every sharded leaf of a nested dict/list tree gathered (every rank
     must call it)."""
@@ -272,7 +319,7 @@ def like(ref, value: torch.Tensor):
     placed leaf; else ``value`` itself."""
     if not isinstance(ref, DTensor):
         return value
-    return placed(value, ref.device_mesh, ref.placements, ref.shape)
+    return placed(local(value), ref.device_mesh, ref.placements, ref.shape)
 
 
 def sharded_dims(x: DTensor) -> dict:
@@ -377,16 +424,92 @@ class _GradPsum(torch.autograd.Function):
         return all_reduce(g, ctx.mesh, ctx.axes), None, None
 
 
-class _GatherRows(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
+    """Forward: the ranks' blocks over ``axes`` gathered along ``dim``;
+    backward: this rank's block of the cotangent. The computation after
+    the gather is replicated over ``axes``, so every rank holds the whole
+    cotangent already: no sum."""
+
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.n = x.shape[0]
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.n, ctx.dim = x.shape[dim], dim
         ctx.i = batch_shard(mesh, axes)[1]
-        return all_gather(x, mesh, axes)
+        return all_gather(x, mesh, axes, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.i * ctx.n:(ctx.i + 1) * ctx.n], None, None
+        return g.narrow(ctx.dim, ctx.i * ctx.n, ctx.n), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """Forward: the ranks' blocks over ``axes`` gathered along ``dim`` (FSDP's
+    weight gather); backward: the cotangents summed over ``axes`` and this
+    rank's block taken (a reduce-scatter: each rank's cotangent holds only
+    its batch rows' part). The sum is an all-reduce and a slice: gloo has no
+    reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.n, ctx.dim = mesh, axes, x.shape[dim], dim
+        ctx.i = batch_shard(mesh, axes)[1]
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g, ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, ctx.i * ctx.n, ctx.n), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """Forward: this rank's block of ``x`` along ``dim`` over ``axes``;
+    backward: the ranks' cotangent blocks gathered (each rank's part of
+    the computation after the split sees only its block)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        n, i = batch_shard(mesh, axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                             f"over {n} ranks of {axes}")
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        w = x.shape[dim] // n
+        return x.narrow(dim, i * w, w).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _ColMatmul(torch.autograd.Function):
+    """Forward: ``x @ w`` for this rank's columns ``w``, in the operands'
+    dtype (per element the single device's product); backward: ``w``'s
+    gradient the same way, and ``x``'s the ranks' partial products summed
+    over ``axes`` in float32, then rounded once to ``x``'s dtype (a bf16
+    partial rounded on each rank before the sum would be one more
+    rounding than the single device's GEMM)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mesh, axes):
+        ctx.save_for_backward(x, w)
+        ctx.mesh, ctx.axes = mesh, axes
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = all_reduce(g.to(torch.float32) @ w.to(torch.float32).t(),
+                        ctx.mesh, ctx.axes).to(x.dtype)
+        dw = (x.reshape(-1, x.shape[-1]).t()
+              @ g.reshape(-1, g.shape[-1]).to(x.dtype))
+        return dx, dw.to(w.dtype), None, None
+
+
+def col_matmul(x: torch.Tensor, w: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x @ w`` on this rank's columns ``w`` of a column-parallel layer
+    whose input ``x`` every rank holds whole: the input's gradient sums
+    the ranks' parts over ``axes`` (Megatron's f and the product in one,
+    the sum in float32)."""
+    return _ColMatmul.apply(x, w, mesh, tuple(axes))
 
 
 def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -401,7 +524,99 @@ def grad_psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _GradPsum.apply(x, mesh, tuple(axes))
 
 
-def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """Forward: the ranks' row blocks over the batch ``axes`` gathered
-    along dim 0; backward: this rank's block of the cotangent."""
-    return _GatherRows.apply(x, mesh, tuple(axes))
+def gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Forward: the ranks' blocks over ``axes`` concatenated along ``dim``;
+    backward: this rank's block of the (replicated) cotangent. A
+    column-parallel output, and the expert-parallel MoE's batch blocks,
+    leave through it."""
+    return _Gather.apply(x, mesh, tuple(axes), dim % x.ndim)
+
+
+def split(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Forward: this rank's block of ``x`` along ``dim`` over ``axes``;
+    backward: the blocks' cotangents gathered. A row-parallel input enters
+    through it."""
+    return _Split.apply(x, mesh, tuple(axes), dim % x.ndim)
+
+
+def fsdp_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """FSDP's weight gather: forward the ranks' blocks over the batch
+    ``axes`` concatenated along ``dim``, backward the cotangent summed over
+    them and this rank's block taken."""
+    return _FsdpGather.apply(x, mesh, tuple(axes), dim % x.ndim)
+
+
+# ---------------------------------------------------------------------------
+# placed raw weights at use: FSDP and tensor parallelism
+# ---------------------------------------------------------------------------
+
+def unshard_batch(x):
+    """A placed leaf with every dim that a mesh dim other than ``"model"``
+    splits (FSDP's embed axis over the batch axes) gathered through
+    ``fsdp_gather``: a leaf placed over ``"model"`` alone stays placed (its
+    local block now whole on the batch axes), any other comes back as its
+    plain tensor. Called where a layer takes its weights, so a rank holds
+    one layer's gathered weights at a time."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, loc, keep = x.device_mesh, x.to_local(), {}
+    for dim, axes in sharded_dims(x).items():
+        batch = tuple(a for a in axes if a != "model")
+        if batch:
+            loc = fsdp_gather(loc, mesh, batch, dim)
+        if "model" in axes:
+            if batch:
+                raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf is "
+                                 f"split over {axes} together: FSDP and "
+                                 "tensor parallelism split different dims")
+            keep[dim] = ("model",)
+    if not keep:
+        return loc
+    return placed(loc, mesh, placements_of(mesh, keep), x.shape)
+
+
+def unshard_tree(tree):
+    """``unshard_batch`` over every leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: unshard_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unshard_tree(v) for v in tree)
+    return unshard_batch(tree)
+
+
+def at_use(tree):
+    """A layer's params as a block that reads its leaves directly takes
+    them: every leaf whole (``whole``: FSDP's and ``"model"``'s splits
+    gathered, the computation after replicated), but the raw linear nodes
+    (dicts holding ``"w"``), which ``nn.linear.apply_linear`` runs on
+    their placed blocks."""
+    if isinstance(tree, dict):
+        if "w" in tree:
+            return tree
+        return {k: at_use(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(at_use(v) for v in tree)
+    return whole(tree)
+
+
+def model_dim(x):
+    """The dim of a placed leaf that ``"model"`` splits (None when it splits
+    none, or for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return None
+    return next((d for d, axes in sharded_dims(x).items()
+                 if "model" in axes), None)
+
+
+def whole(x):
+    """A leaf placed over ``"model"`` gathered whole on every rank (the
+    computation after it is replicated: the backward takes this rank's
+    block); a plain tensor as it is. Batch-axis splits go first
+    (``unshard_batch``)."""
+    x = unshard_batch(x)
+    if not isinstance(x, DTensor):
+        return x
+    out = x.to_local()
+    for dim, axes in sharded_dims(x).items():
+        out = gather(out, x.device_mesh, axes, dim)
+    return out

@@ -15,6 +15,7 @@ the mesh shape is an argument.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import socket
 import time
@@ -115,12 +116,23 @@ def sharding_rules(mesh, *, fsdp: bool = False) -> Dict[str, object]:
 
 
 def expert_parallel_rules(mesh) -> Dict[str, object]:
-    """The rules of a raw tree the port can place today
-    (``nn.module.shard_params``): ``sharding_rules`` with the experts over
-    ``model`` and every other weight axis whole (tensor parallelism over
-    raw weights and FSDP are ROADMAP item 12b.3)."""
+    """``sharding_rules`` with the experts over ``model`` and every other
+    weight axis whole: the placement of a raw tree whose only parallelism
+    is the expert-parallel MoE (the serving and routing callers that keep
+    the dense weights replicated)."""
     return {**sharding_rules(mesh), "heads": None, "mlp": None,
             "vocab": None}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's dim names and ranks with no process behind it: what
+    ``launch.cells.build_cell`` needs to resolve placements with nothing
+    allocated and no group joined (``DeviceMesh`` answers the same
+    ``mesh_dim_names`` and ``shape``)."""
+
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
 
 
 def spawn(fn: Callable, n: int, args: tuple = (), *,

@@ -147,7 +147,8 @@ def apply_norm(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:                                   # rmsnorm
         y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
     if "scale" in p:
-        y = y * p["scale"].to(torch.float32)
+        # whole at use: FSDP places a norm scale over the batch axes
+        y = y * colshard.whole(p["scale"]).to(torch.float32)
     return y.to(x.dtype)
 
 
@@ -164,7 +165,7 @@ def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def apply_head_rmsnorm(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return _rms(x, p["scale"])
+    return _rms(x, colshard.whole(p["scale"]))
 
 
 # ---------------------------------------------------------------------------
@@ -924,11 +925,17 @@ def _apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     ``grad_psum`` and the partials leave through ``psum``, so the
     gradients equal one device's, with no factor of the rank count."""
     from repro_torch.launch.mesh import batch_axes
+    from repro_torch.nn.module import batch_parallel
     from repro_torch.obs import adc as obs_adc
     mo = cfg.moe
     b, t, d = x.shape
     c = cdt(cfg)
-    batch = batch_axes(mesh)
+    p = colshard.unshard_tree(p)
+    ranks_rows = batch_axes(mesh) + ("model",)
+    # inside a data parallel step x holds this rank's rows already: no
+    # further split, and the replicated leaves' gradients are summed over
+    # the batch axes by the trainer
+    batch = () if batch_parallel() is not None else batch_axes(mesh)
     every = batch + ("model",)
     e_local = mo.n_experts // colshard.mesh_shards(mesh, "model")
     lo = colshard.mesh_coord(mesh, "model") * e_local
@@ -972,7 +979,7 @@ def _apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     buf = torch.zeros((e_local * cap + 1, d), dtype=c, device=x.device)
     buf[slot] = xl.to(c)[flat_tok]
     buf = buf[:-1].reshape(e_local, cap, d)
-    with obs_adc.partial_over(every):
+    with obs_adc.partial_over(ranks_rows):
         if cfg.act == "swiglu":
             h = F.silu(_expert_matmul(banks, "wg", buf, cfg).to(
                 torch.float32)).to(c) * _expert_matmul(banks, "wu", buf, cfg)
@@ -990,7 +997,7 @@ def _apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         y = y + contrib[:, j]
     y = colshard.psum(y, mesh, ("model",)).to(c)
     if nb > 1:
-        y = colshard.gather_rows(y, mesh, batch)
+        y = colshard.gather(y, mesh, batch, 0)
     if mo.n_shared:
         y = y + apply_mlp(p["shared"], xf, cfg)
     return y.reshape(b, t, d)

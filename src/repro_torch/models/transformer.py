@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree_leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
@@ -77,6 +77,10 @@ def specs(cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _block(p: Dict, x, cfg: ModelConfig, positions, cache, moe: bool):
+    # FSDP: this layer's weights gathered over the batch axes here, so a
+    # rank holds one layer's at a time (and a remat recompute gathers
+    # them again, in the same order on every rank)
+    p = colshard.unshard_tree(p)
     attend = mla_attend if cfg.mla is not None else gqa_attend
     h, new_cache = attend(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
                           positions=positions, cache=cache)
@@ -112,9 +116,9 @@ def _layers(tree, n: int):
 
 
 def _first_leaf(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree
+    """The first leaf of a tree (an empty node, such as olmo's
+    non-parametric norms, is skipped)."""
+    return next(iter(tree_leaves(tree)))
 
 
 def _remat_block(p: Dict, x, cfg: ModelConfig, positions, moe: bool):
@@ -145,17 +149,51 @@ def _run_stack(layer_params, x, cfg, positions, caches, moe: bool):
     return x, {**caches, "len": torch.stack(lens)}
 
 
+def embed_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the (vocab, d) ``table`` at ``tokens``. A table placed over
+    ``"model"`` on its vocab (``nn.module.shard_params``) is looked up
+    vocab-parallel: each rank gathers the rows it holds, zero elsewhere,
+    and one sum over ``"model"`` (``colshard.psum``) adds them, exactly
+    (one nonzero term each). FSDP's split of ``d`` is gathered first."""
+    table = colshard.unshard_batch(table)
+    idx = tokens.to(torch.long)
+    if colshard.model_dim(table) is None:
+        return colshard.whole(table)[idx]
+    if colshard.model_dim(table) != 0:
+        raise ValueError("an embedding table is placed over 'model' on its "
+                         f"vocab, got {table.placements}")
+    mesh, loc = table.device_mesh, table.to_local()
+    lo = colshard.mesh_coord(mesh, "model") * loc.shape[0]
+    mine = (idx >= lo) & (idx < lo + loc.shape[0])
+    rows = loc[torch.where(mine, idx - lo, 0)] * mine[..., None].to(
+        loc.dtype)
+    return colshard.psum(rows, mesh, ("model",))
+
+
 def _embed(params, tokens, cfg, extra_embeds):
-    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(cdt(cfg)), x], dim=1)
     return x
 
 
+def tied_logits(x: torch.Tensor, table, dtype) -> torch.Tensor:
+    """x (B, T, d) against the (vocab, d) embedding ``table`` in ``dtype``.
+    A table placed over ``"model"`` on its vocab gives this rank's vocab
+    columns (per column the single device's product), gathered."""
+    table = colshard.unshard_batch(table)
+    if colshard.model_dim(table) == 0:
+        mesh = table.device_mesh
+        y = colshard.col_matmul(x, table.to_local().to(dtype).t(), mesh,
+                                ("model",))
+        return colshard.gather(y, mesh, ("model",), -1)
+    return torch.einsum("btd,vd->btv", x, colshard.whole(table).to(dtype))
+
+
 def _logits(params, x, cfg):
     x = apply_norm(params["ln_f"], x, cfg)
     if cfg.tie_embeddings:
-        return torch.einsum("btd,vd->btv", x, params["embed"].to(cdt(cfg)))
+        return tied_logits(x, params["embed"], cdt(cfg))
     return apply_linear(params["lm_head"], x,
                         cfg.cim if cfg.cim_lm_head else None,
                         compute_dtype=cdt(cfg))
@@ -248,7 +286,7 @@ def _decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """``decode_step`` below its host check: the write past ``max_len``
     clamps as the reference's does."""
-    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     first = next(iter(cache.values()))
     t = tokens.shape[1]
     positions = (first["len"][0][:, None].to(torch.long)

@@ -25,12 +25,13 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import colshard
 from repro_torch.nn.module import ParamSpec, stack_specs
 
 from .layers import (apply_conv, apply_mlp, apply_norm, cdt, conv_specs,
                      gqa_attend, gqa_specs, kv_cache, mlp_specs, norm_specs,
                      pdt)
-from .transformer import _layer, check_overrun
+from .transformer import _layer, check_overrun, embed_lookup, tied_logits
 
 
 def _enc_block_specs(cfg):
@@ -130,8 +131,8 @@ def decode(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor,
         pos_idx = position_offset.to(torch.long)[:, None] + ar[None]
     else:
         pos_idx = position_offset + ar
-    x = (params["embed"][tokens.to(torch.long)].to(cdt(cfg))
-         + params["dec_pos"][pos_idx].to(cdt(cfg)))
+    x = (embed_lookup(params["embed"], tokens).to(cdt(cfg))
+         + colshard.whole(params["dec_pos"])[pos_idx].to(cdt(cfg)))
     lens = []
     for i in range(cfg.n_layers):
         c_i = None if cache is None else _layer(cache, i)
@@ -140,7 +141,7 @@ def decode(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor,
         if nc is not None:
             lens.append(nc["len"])
     x = apply_norm(params["dec_ln_f"], x, cfg)
-    logits = torch.einsum("btd,vd->btv", x, params["embed"].to(cdt(cfg)))
+    logits = tied_logits(x, params["embed"], cdt(cfg))
     new_cache = None if cache is None else {**cache,
                                             "len": torch.stack(lens)}
     return logits, new_cache

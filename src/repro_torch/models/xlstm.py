@@ -22,11 +22,12 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, stack_specs
 
 from .layers import apply_norm, cdt, norm_specs, pdt
-from .transformer import _layer
+from .transformer import _layer, embed_lookup
 
 NEG = -1e30
 
@@ -306,13 +307,13 @@ def _iterate(params, x, cfg, states):
     for kind in _layer_kinds(cfg):
         if kind == "mlstm":
             st = None if states is None else _layer(states["mlstm"], mi)
-            x, ns = apply_mlstm(_layer(params["mlstm_layers"], mi), x, cfg,
-                                state=st)
+            x, ns = apply_mlstm(colshard.at_use(_layer(
+                params["mlstm_layers"], mi)), x, cfg, state=st)
             mi += 1
         else:
             st = None if states is None else _layer(states["slstm"], si)
-            x, ns = apply_slstm(_layer(params["slstm_layers"], si), x, cfg,
-                                state=st)
+            x, ns = apply_slstm(colshard.at_use(_layer(
+                params["slstm_layers"], si)), x, cfg, state=st)
             si += 1
         if ns is not None:                # into the cache slice, in place
             tree_map(lambda dst, new: dst.copy_(new), st, ns)
@@ -321,7 +322,7 @@ def _iterate(params, x, cfg, states):
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             extra_embeds=None) -> torch.Tensor:
-    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     x, _ = _iterate(params, x, cfg, None)
     x = apply_norm(params["ln_f"], x, cfg)
     return apply_linear(params["lm_head"], x, None, compute_dtype=cdt(cfg))
@@ -361,7 +362,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step (or a stateful prefill of T tokens); the states are
     written in place and the same cache comes back."""
-    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     x, cache = _iterate(params, x, cfg, cache)
     x = apply_norm(params["ln_f"], x, cfg)
     return (apply_linear(params["lm_head"], x, None, compute_dtype=cdt(cfg)),

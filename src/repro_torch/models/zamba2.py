@@ -19,13 +19,14 @@ import torch
 
 from repro_torch import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, stack_specs
 
 from .layers import (apply_mlp, apply_norm, cdt, gqa_attend, gqa_specs,
                      kv_cache, mlp_specs, norm_specs, pdt)
 from .mamba2 import apply_mamba2, init_mamba_state, mamba2_specs
-from .transformer import _layer, check_overrun
+from .transformer import _layer, embed_lookup, check_overrun
 
 
 def _n_attn(cfg: ModelConfig) -> int:
@@ -72,8 +73,8 @@ def _run(params, x, cfg: ModelConfig, positions, states):
     for g in range(n_groups):
         for i in range(g * every, (g + 1) * every):
             st = None if states is None else _layer(states["mamba"], i)
-            x, ns = apply_mamba2(_layer(params["mamba_layers"], i), x, cfg,
-                                 state=st)
+            x, ns = apply_mamba2(colshard.at_use(_layer(
+                params["mamba_layers"], i)), x, cfg, state=st)
             if ns is not None:            # into the cache slice, in place
                 tree_map(lambda dst, new: dst.copy_(new), st, ns)
         if "shared_attn" in params:
@@ -92,7 +93,7 @@ def _run(params, x, cfg: ModelConfig, positions, states):
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             extra_embeds=None) -> torch.Tensor:
-    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run(params, x, cfg, positions, None)
     x = apply_norm(params["ln_f"], x, cfg)
@@ -121,7 +122,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     would overrun ``max_len`` (``transformer.check_overrun``; skipped under
     a CUDA-graph capture)."""
     check_overrun(cache["attn"], tokens)
-    x = params["embed"][tokens.to(torch.long)].to(cdt(cfg))
+    x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     positions = (cache["attn"]["len"][0][:, None].to(torch.long)
                  + torch.arange(tokens.shape[1], device=x.device)[None])
     x, new_cache = _run(params, x, cfg, positions, cache)

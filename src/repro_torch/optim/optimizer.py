@@ -10,11 +10,15 @@ dicts and lists of tensors:
 Global-norm clipping and decoupled weight decay are applied inside the
 step. Updates are computed in float32 and cast back to each leaf's dtype.
 
-A leaf placed over a mesh (an expert bank, ``nn.module.shard_params``) is
-updated on this rank's block alone and keeps its placement; its optimizer
-state is the block's, a plain tensor on the rank. ``global_norm`` sums
-each placed leaf's squares over the mesh dims splitting it and counts
-every whole leaf once.
+A leaf placed over a mesh (``nn.module.shard_params``) is updated on this
+rank's block alone and keeps its placement; its optimizer state is placed
+as the reference's ``launch.cells._opt_shardings`` places it (the
+param's placement; Adafactor's ``vr``/``vc`` with the reduced dim
+dropped, their means taken over the whole dim). Under ZeRO-1 the state
+is further split over the batch axes while the param is replicated
+there: the rank updates its block of the param and the blocks are
+all-gathered, once a step. ``global_norm`` sums each placed leaf's squares
+over the mesh dims splitting it and counts every whole leaf once.
 """
 from __future__ import annotations
 
@@ -66,12 +70,54 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _zeros(dtype):
-    return lambda p: torch.zeros(colshard.local(p).shape, dtype=dtype,
-                                 device=p.device)
+    """A zero state leaf placed as its parameter (its block, carrying the
+    global shape: ``checkpoint.save`` writes it whole)."""
+    return lambda p: colshard.like(p, torch.zeros(
+        colshard.local(p).shape, dtype=dtype, device=p.device))
 
 
 def _step0(params) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=_device(params))
+
+
+def _zero1(p, s):
+    """{dim: batch axes} that split the state leaf ``s`` and not its
+    parameter ``p``: ZeRO-1's placement (``launch.cells._zero1_shardings``),
+    where the rank updates its block and the param is gathered after."""
+    if not colshard.is_col_sharded(s):
+        return {}
+    have = (colshard.sharded_dims(p) if colshard.is_col_sharded(p) else {})
+    return {d: tuple(a for a in axes if a not in have.get(d, ()))
+            for d, axes in colshard.sharded_dims(s).items()
+            if any(a not in have.get(d, ()) for a in axes)}
+
+
+def _block(x: torch.Tensor, mesh, extra: dict) -> torch.Tensor:
+    for dim, axes in extra.items():
+        n, i = colshard.batch_shard(mesh, axes)
+        w = x.shape[dim] // n
+        x = x.narrow(dim, i * w, w)
+    return x
+
+
+def _blockwise(upd):
+    """``upd`` on local blocks, ZeRO-1 included: the rank updates its block
+    of a param whose state the batch axes split further, and the new
+    param's blocks are gathered over them."""
+    def run(p, g, *states):
+        ref = next((s for s in tree_leaves(list(states))
+                    if colshard.is_col_sharded(s)), None)
+        extra = _zero1(p, ref) if ref is not None else {}
+        pl, gl = colshard.local(p), colshard.local(g)
+        if extra:
+            mesh = ref.device_mesh
+            pl, gl = _block(pl, mesh, extra), _block(gl, mesh, extra)
+        new_p, *new_s = upd(pl, gl, *states)
+        if extra:
+            for dim, axes in extra.items():
+                new_p = colshard.all_gather(new_p, mesh, axes, dim)
+        return (colshard.like(p, new_p), *new_s)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -91,15 +137,16 @@ def adamw_step(params, grads, state, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     bc1 = 1 - b1 ** t.to(torch.float32)
     bc2 = 1 - b2 ** t.to(torch.float32)
 
+    @_blockwise
     def upd(p, g, m, v):
-        gf = colshard.local(g).to(torch.float32)
-        m_new = b1 * m.to(torch.float32) + (1 - b1) * gf
-        v_new = b2 * v.to(torch.float32) + (1 - b2) * gf * gf
+        gf = g.to(torch.float32)
+        m_new = b1 * colshard.local(m).to(torch.float32) + (1 - b1) * gf
+        v_new = b2 * colshard.local(v).to(torch.float32) + (1 - b2) * gf * gf
         step_ = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-        pf = colshard.local(p).to(torch.float32)
+        pf = p.to(torch.float32)
         pf = pf - lr * (step_ + weight_decay * pf)
-        return (colshard.like(p, pf.to(p.dtype)), m_new.to(m.dtype),
-                v_new.to(v.dtype))
+        return (pf.to(p.dtype), colshard.like(m, m_new.to(m.dtype)),
+                colshard.like(v, v_new.to(v.dtype)))
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     new_params, new_m, new_v = _unzip(params, out, 3)
@@ -114,16 +161,45 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
 
 
+def _dims(p) -> dict:
+    return colshard.sharded_dims(p) if colshard.is_col_sharded(p) else {}
+
+
+def _reduced_state(p, dtype, drop: int):
+    """A factored state leaf (the param with dim ``drop`` reduced away),
+    placed as the param's remaining dims are."""
+    loc = list(colshard.local(p).shape)
+    shape = list(p.shape)
+    del loc[drop], shape[drop]
+    z = torch.zeros(loc, dtype=dtype, device=p.device)
+    dims = {(d if d < drop else d - 1): axes
+            for d, axes in _dims(p).items() if d != drop}
+    if not dims:
+        return z
+    return colshard.placed(z, p.device_mesh,
+                           colshard.placements_of(p.device_mesh, dims),
+                           shape)
+
+
 def adafactor_init(params, state_dtype=torch.float32):
     def init_leaf(p):
-        shape = tuple(colshard.local(p).shape)
-        if _factored(shape):
-            return {"vr": torch.zeros(shape[:-1], dtype=state_dtype,
-                                      device=p.device),
-                    "vc": torch.zeros(shape[:-2] + shape[-1:],
-                                      dtype=state_dtype, device=p.device)}
-        return {"v": torch.zeros(shape, dtype=state_dtype, device=p.device)}
+        if _factored(tuple(p.shape)):
+            nd = p.ndim
+            return {"vr": _reduced_state(p, state_dtype, nd - 1),
+                    "vc": _reduced_state(p, state_dtype, nd - 2)}
+        return {"v": _zeros(state_dtype)(p)}
     return {"v": tree_map(init_leaf, params), "step": _step0(params)}
+
+
+def _mean(x: torch.Tensor, dim, p, pdim) -> torch.Tensor:
+    """The mean of ``x`` over its ``dim`` (the param's ``pdim``), over the
+    whole dim where the mesh splits it."""
+    out = x.mean(dim)
+    axes = _dims(p).get(pdim % p.ndim, ())
+    if not axes:
+        return out
+    n = colshard.batch_shard(p.device_mesh, axes)[0]
+    return colshard.all_reduce(out, p.device_mesh, axes) / n
 
 
 def adafactor_step(params, grads, state, lr, *, decay=0.99, eps=1e-30,
@@ -133,20 +209,28 @@ def adafactor_step(params, grads, state, lr, *, decay=0.99, eps=1e-30,
     def upd(p, g, v):
         gf = colshard.local(g).to(torch.float32)
         g2 = gf * gf + eps
-        if _factored(gf.shape):
-            vr = decay * v["vr"].to(torch.float32) + (1 - decay) * g2.mean(-1)
-            vc = decay * v["vc"].to(torch.float32) + (1 - decay) * g2.mean(-2)
+        if _factored(tuple(p.shape)):
+            vr = (decay * colshard.local(v["vr"]).to(torch.float32)
+                  + (1 - decay) * _mean(g2, -1, p, -1))
+            vc = (decay * colshard.local(v["vc"]).to(torch.float32)
+                  + (1 - decay) * _mean(g2, -2, p, -2))
+            vr_mean = _mean(vr, -1, p, -2)
             denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp_min(vr.mean(-1, keepdim=True)[..., None],
-                                       eps))
+                     / torch.clamp_min(vr_mean[..., None, None], eps))
             u = gf / torch.sqrt(denom + eps)
-            new_v = {"vr": vr.to(v["vr"].dtype), "vc": vc.to(v["vc"].dtype)}
+            new_v = {"vr": colshard.like(v["vr"], vr.to(v["vr"].dtype)),
+                     "vc": colshard.like(v["vc"], vc.to(v["vc"].dtype))}
         else:
-            vv = decay * v["v"].to(torch.float32) + (1 - decay) * g2
+            vv = (decay * colshard.local(v["v"]).to(torch.float32)
+                  + (1 - decay) * g2)
             u = gf / torch.sqrt(vv + eps)
-            new_v = {"v": vv.to(v["v"].dtype)}
-        # update clipping (Adafactor's RMS rule)
-        rms_u = torch.sqrt(torch.mean(u * u) + 1e-12)
+            new_v = {"v": colshard.like(v["v"], vv.to(v["v"].dtype))}
+        # update clipping (Adafactor's RMS rule), over the whole leaf
+        sq = torch.sum(u * u)
+        axes = tuple(a for ax in _dims(p).values() for a in ax)
+        if axes:
+            sq = colshard.all_reduce(sq, p.device_mesh, axes)
+        rms_u = torch.sqrt(sq / p.numel() + 1e-12)
         u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
         pf = colshard.local(p).to(torch.float32)
         pf = pf - lr * u - lr * weight_decay * pf
@@ -170,12 +254,13 @@ def sgdm_step(params, grads, state, lr, *, momentum=0.9, weight_decay=0.0,
               grad_clip=1.0):
     grads, gnorm = clip_by_global_norm(grads, grad_clip)
 
+    @_blockwise
     def upd(p, g, m):
-        pf = colshard.local(p).to(torch.float32)
-        gf = colshard.local(g).to(torch.float32) + weight_decay * pf
-        m_new = momentum * m.to(torch.float32) + gf
-        return (colshard.like(p, (pf - lr * m_new).to(p.dtype)),
-                m_new.to(m.dtype))
+        pf = p.to(torch.float32)
+        gf = g.to(torch.float32) + weight_decay * pf
+        m_new = momentum * colshard.local(m).to(torch.float32) + gf
+        return (pf - lr * m_new).to(p.dtype), colshard.like(m, m_new.to(
+            m.dtype))
 
     out = tree_map(upd, params, grads, state["mom"])
     new_params, new_m = _unzip(params, out, 2)

@@ -7,8 +7,8 @@ the port's ``checkpoint.CheckpointManager`` (the reference's on-disk
 format, with the reference's tree names ``params``, ``opt_state``,
 ``step`` and ``extra``, so either package resumes the other's
 checkpoints), an emergency save on SIGTERM/SIGINT, and a restore onto the
-device of the fresh state. Restoring onto a device mesh (``shardings``)
-is ROADMAP queue 1, item 12b.4, and raises.
+device of the fresh state, or onto a device mesh (``shardings``: each
+rank reads its blocks of whatever mesh wrote the checkpoint).
 
 Data-pipeline state is (seed, step), so resumption is exact when the
 caller starts the stream at the resumed step
@@ -35,10 +35,6 @@ from repro_torch import tree_leaves
 from repro_torch.checkpoint.ckpt import CheckpointManager
 
 from .straggler import StragglerMonitor
-
-_SHARDINGS = ("resuming onto a device mesh (shardings) is not ported yet "
-              "(ROADMAP queue 1, item 12b.4)")
-
 
 class InjectedFailure(RuntimeError):
     pass
@@ -96,18 +92,26 @@ class FaultTolerantLoop:
         return out
 
     def resume_or_init(self, init_fn: Callable[[], TrainLoopState],
-                       shardings: Any = None) -> TrainLoopState:
+                       shardings: Any = None, *, mesh=None
+                       ) -> TrainLoopState:
         """Restore the latest checkpoint if one exists, onto the device of
-        ``init_fn()``'s params, else return that fresh state."""
-        if shardings is not None:
-            raise NotImplementedError(_SHARDINGS)
+        ``init_fn()``'s params, else return that fresh state. With
+        ``shardings`` ({"params": ..., "opt_state": ...} placements, as
+        ``launch.cells.build_cell`` gives them, on ``mesh`` or the session
+        mesh) the params and the optimizer state are restored as this
+        rank's blocks, whatever mesh wrote them; ``step`` and ``extra``
+        are not placed."""
         latest = self.mgr.latest_step()
         st = init_fn()
         if latest is None:
             return st
         device = next(tree_leaves(st.params)).device
-        restored = self.mgr.restore(self._pack(st), step=latest,
-                                    device=device)
+        like = self._pack(st)
+        sh = None
+        if shardings is not None:
+            sh = {k: shardings.get(k) for k in ("params", "opt_state")}
+        restored = self.mgr.restore(like, step=latest, shardings=sh,
+                                    device=device, mesh=mesh)
         return TrainLoopState(params=restored["params"],
                               opt_state=restored["opt_state"],
                               step=int(restored["step"]),

@@ -66,6 +66,7 @@ import torch
 
 from repro_torch import resolve_device, to_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import colshard
 from repro_torch.core.variation import DriftSchedule, DriftState, drift_tree
 from repro_torch.models.registry import ModelFns
 from repro_torch.obs import adc as obs_adc
@@ -76,7 +77,7 @@ from repro_torch.obs.tracing import Tracer
 from .health import logit_stats_device
 
 def engine_from_artifact(artifact, cfg: ModelConfig, *, mesh=None,
-                         mesh_axis: str = "model", device=None,
+                         mesh_axis: str = "model", device=None, rules=None,
                          **engine_kw) -> "ServingEngine":
     """A ``ServingEngine`` serving a model ``DeployArtifact`` on its packed
     backend, on ``device`` (``cuda`` unless ``"cpu"``). ``artifact`` is an
@@ -92,13 +93,24 @@ def engine_from_artifact(artifact, cfg: ModelConfig, *, mesh=None,
     CIM nodes column-sharded over ``mesh_axis``, and ``mesh`` becomes the
     session mesh for the process's lifetime (``mesh=None`` does not clear
     an installed one; scope an engine in ``nn.module.session_mesh`` to mix
-    sharded and unsharded engines in one process)."""
+    sharded and unsharded engines in one process). With ``rules`` as well
+    (``launch.mesh.sharding_rules``) the whole tree is placed by
+    ``nn.module.shard_params``: the packed nodes by their columns as
+    above, and the raw leaves as the rules put them (a vocab-parallel
+    embedding and LM head over ``"model"``)."""
     from repro_torch.api import DeployArtifact
     from repro_torch.models.registry import get_model
+    if rules is not None and mesh is None:
+        raise ValueError("engine_from_artifact: rules place the tree on a "
+                         "mesh; pass mesh= too")
+    placed_by_rules = rules is not None
     if isinstance(artifact, (str, os.PathLike)):
-        artifact = DeployArtifact.load(os.fspath(artifact), mesh=mesh,
-                                       mesh_axis=mesh_axis, device=device)
-    elif isinstance(artifact, DeployArtifact) and mesh is not None:
+        artifact = DeployArtifact.load(
+            os.fspath(artifact), mesh=None if placed_by_rules else mesh,
+            mesh_axis=mesh_axis,
+            device="cpu" if placed_by_rules else device)
+    elif (isinstance(artifact, DeployArtifact) and mesh is not None
+          and not placed_by_rules):
         artifact = artifact.shard(mesh, mesh_axis=mesh_axis, device=device)
     if not isinstance(artifact, DeployArtifact):
         raise TypeError(f"engine_from_artifact takes a DeployArtifact or its "
@@ -106,10 +118,18 @@ def engine_from_artifact(artifact, cfg: ModelConfig, *, mesh=None,
     if artifact.kind != "model":
         raise ValueError(f"engine_from_artifact needs a 'model' artifact, "
                          f"got kind={artifact.kind!r}")
+    serve_cfg = dataclasses.replace(cfg, cim=artifact.config)
+    if placed_by_rules:
+        from repro_torch.nn.module import shard_params
+        if mesh_axis != "model":
+            raise ValueError("rules place the packed columns over 'model'")
+        colshard.check_mesh(mesh, mesh_axis)
+        artifact = dataclasses.replace(artifact, params=shard_params(
+            artifact.params, get_model(serve_cfg).specs(serve_cfg), mesh,
+            rules, device=resolve_device(device)))
     if mesh is not None:
         from repro_torch.nn.module import current_rules, set_activation_rules
         set_activation_rules(current_rules(), mesh)
-    serve_cfg = dataclasses.replace(cfg, cim=artifact.config)
     return ServingEngine(get_model(serve_cfg), serve_cfg, artifact.params,
                          device=device,
                          layout_version=artifact.layout_version, **engine_kw)

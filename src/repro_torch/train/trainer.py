@@ -13,14 +13,17 @@ column-wise LSQ / straight-through path; a ``deploy`` tree holds integer
 digit planes, which have no gradient, and is refused as the reference's
 ``jax.value_and_grad`` refuses it.
 
-Under a session mesh the tree may hold expert banks placed over
-``"model"`` (``nn.module.shard_params``): such a leaf is differentiated
+Under a session mesh the tree may hold leaves placed over it
+(``nn.module.shard_params``: expert banks, raw weights over ``"model"``,
+FSDP's embed axis over the batch axes): such a leaf is differentiated
 through its local block, and its gradient is the rank's block of the
-single device's, placed alike. The expert-parallel MoE sums the
-replicated leaves' gradients over the mesh inside its backward
-(``core.colshard.grad_psum``), so every rank gets them whole, once. The
-optimizer updates each rank's blocks locally and reduces the gradient
-norm over the mesh (``optim.optimizer.global_norm``).
+single device's, placed alike. The forward's collectives carry the
+gradients: an FSDP gather reduce-scatters in its backward, a
+column-parallel input sums its ranks' parts (``core.colshard``). With
+batch axes of more than one rank the step is data parallel (each rank its
+rows, the global masked mean, replicated leaves' gradients summed over
+the batch axes). The optimizer updates each rank's blocks locally and
+reduces the gradient norm over the mesh (``optim.optimizer.global_norm``).
 """
 from __future__ import annotations
 
@@ -32,12 +35,10 @@ from repro_torch import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import colshard
 from repro_torch.models.registry import ModelFns
+from repro_torch.nn.module import (batch_parallel, batch_ranks, current_mesh,
+                                   data_parallel)
 from repro_torch.optim.optimizer import make_optimizer
 from repro_torch.optim.schedule import cosine_warmup
-
-_FSDP = ("RunConfig(fsdp=True): sharding params and optimizer state over "
-         "a data axis is not ported yet (ROADMAP queue 1, item 12b.3)")
-
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
@@ -51,10 +52,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if label_smoothing > 0:
         ce = ((1 - label_smoothing) * ce
               + label_smoothing * (logz - logits.mean(dim=-1)))
+    dp = batch_parallel()
+    if dp is None:
+        if mask is None:
+            return ce.mean()
+        mask = mask.to(torch.float32)
+        return (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    # a data parallel step: the global masked mean, as the reference's one
+    # program computes it (sums over the batch axes, then one divide), not
+    # the mean of the ranks' means
+    mesh, axes = dp
     if mask is None:
-        return ce.mean()
+        return colshard.psum(ce.sum(), mesh, axes) / float(
+            ce.numel() * batch_ranks())
     mask = mask.to(torch.float32)
-    return (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return colshard.psum((ce * mask).sum(), mesh, axes) / torch.clamp_min(
+        colshard.all_reduce(mask.sum(), mesh, axes), 1.0)
 
 
 def lm_loss_fn(model: ModelFns, cfg: ModelConfig):
@@ -119,15 +132,94 @@ def _microbatches(batch: Dict, n: int):
     return [{k: v[i] for k, v in micro.items()} for i in range(n)]
 
 
+def _data_axes(mesh) -> Tuple[str, ...]:
+    """The session mesh's batch axes of more than one rank."""
+    from repro_torch.launch.mesh import batch_axes
+    return tuple(a for a in batch_axes(mesh)
+                 if colshard.mesh_shards(mesh, a) > 1)
+
+
+def _rows(batch: Dict, mesh, axes) -> Dict:
+    """This rank's rows of every batch leaf over ``axes``, as the
+    reference's ``batch_shardings`` place ``tokens`` and ``frontend``."""
+    n, i = colshard.batch_shard(mesh, axes)
+
+    def take(x):
+        if x.shape[0] % n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not divide "
+                             f"over {n} ranks of {axes}")
+        w = x.shape[0] // n
+        return x[i * w:(i + 1) * w]
+    return {k: take(v) for k, v in batch.items()}
+
+
+def _sum_over_batch(grads, mesh, axes):
+    """Each gradient summed over the batch ``axes`` that do not split its
+    leaf: a replicated leaf's gradient holds only this rank's rows' part
+    (an FSDP leaf's was reduce-scattered in the backward)."""
+    def one(g):
+        split = {a for ax in (colshard.sharded_dims(g).values()
+                              if colshard.is_col_sharded(g) else ())
+                 for a in ax}
+        over = tuple(a for a in axes if a not in split)
+        if not over:
+            return g
+        return colshard.like(g, colshard.all_reduce(colshard.local(g), mesh,
+                                                    over))
+    return tree_map(one, grads)
+
+
+def batch_grads(loss_fn: Callable, params, batch: Dict,
+                accum_steps: int = 1):
+    """(loss, gradient tree) of ``loss_fn`` on the global ``batch``, over
+    ``accum_steps`` microbatches accumulated in float32 in microbatch
+    order: one step's gradients. Under a session mesh with batch axes of
+    more than one rank each rank takes its rows of every microbatch
+    (``nn.module.data_parallel``: the loss is the global mean and LSQ's g
+    counts the global batch), and the replicated leaves' gradients are
+    summed over the batch axes after the last microbatch."""
+    mesh = current_mesh()
+    axes = _data_axes(mesh) if mesh is not None else ()
+
+    def micro(mb):
+        if not axes:
+            return loss_and_grads(loss_fn, params, mb)
+        with data_parallel(mesh, axes):
+            return loss_and_grads(loss_fn, params, _rows(mb, mesh, axes))
+
+    if accum_steps <= 1:
+        loss, grads = micro(batch)
+    else:
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=next(tree_leaves(params)).device)
+        g_sum = tree_map(lambda p: torch.zeros(
+            colshard.local(p).shape, dtype=torch.float32, device=p.device),
+            params)
+        for mb in _microbatches(batch, accum_steps):
+            loss, g = micro(mb)
+            loss_sum = loss_sum + loss
+            g_sum = tree_map(lambda a, b: a + colshard.local(b).to(
+                torch.float32), g_sum, g)
+        inv = 1.0 / accum_steps
+        loss, grads = loss_sum * inv, tree_map(
+            lambda p, a: colshard.like(p, a * inv), params, g_sum)
+    return loss, (_sum_over_batch(grads, mesh, axes) if axes else grads)
+
+
 def make_train_step(model: ModelFns, cfg: ModelConfig, run: RunConfig,
                     loss_fn: Optional[Callable] = None):
     """Returns (init_state, train_step).
 
     init_state(params) -> opt_state
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
-    """
-    if run.fsdp:
-        raise NotImplementedError(_FSDP)
+
+    Under a session mesh with batch axes of more than one rank the step is
+    data parallel: ``batch`` is the global batch, each rank takes its rows
+    of every microbatch, the loss is the global masked mean, and the
+    replicated leaves' gradients are summed over the batch axes.
+    ``run.fsdp`` is a placement (``launch.cells.build_cell``,
+    ``nn.module.shard_params``): the step follows whatever placements the
+    params carry."""
     opt = make_optimizer(run.optimizer)
     state_dtype = (torch.bfloat16 if run.opt_state_dtype == "bfloat16"
                    else torch.float32)
@@ -136,26 +228,8 @@ def make_train_step(model: ModelFns, cfg: ModelConfig, run: RunConfig,
     def init_state(params):
         return opt.init(params, state_dtype)
 
-    def grads_of(params, batch):
-        if run.accum_steps <= 1:
-            return loss_and_grads(loss_fn, params, batch)
-        # microbatch accumulation in float32, in microbatch order
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=next(tree_leaves(params)).device)
-        g_sum = tree_map(lambda p: torch.zeros(
-            colshard.local(p).shape, dtype=torch.float32, device=p.device),
-            params)
-        for mb in _microbatches(batch, run.accum_steps):
-            loss, g = loss_and_grads(loss_fn, params, mb)
-            loss_sum = loss_sum + loss
-            g_sum = tree_map(lambda a, b: a + colshard.local(b).to(
-                torch.float32), g_sum, g)
-        inv = 1.0 / run.accum_steps
-        return loss_sum * inv, tree_map(lambda p, a: colshard.like(p, a * inv),
-                                        params, g_sum)
-
     def train_step(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
+        loss, grads = batch_grads(loss_fn, params, batch, run.accum_steps)
         lr = cosine_warmup(opt_state["step"], base_lr=run.lr,
                            warmup_steps=run.warmup_steps,
                            total_steps=run.total_steps)

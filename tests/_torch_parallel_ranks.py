@@ -1,7 +1,7 @@
 """Rank bodies of ``tests/test_torch_parallel_layers.py`` (imports no JAX):
 the expert-parallel MoE, the sequence-parallel flash decode, their
-engine, AdamW step and ADC totals, and ``shard_params``' refusals, on
-gloo ranks.
+engine, AdamW step and ADC totals, and ``shard_params``' placements of
+every config, on gloo ranks.
 
 The parent writes ``inputs.pkl`` (the JAX package's params as numpy, and
 the numpy inputs) to the output directory; ``body`` runs every case on
@@ -292,27 +292,31 @@ def adc_case(case, mesh):
     return out
 
 
-def refusals(meshes):
-    """``shard_params`` under the placements left to item 12b.3: raw
-    tensor parallelism (``sharding_rules`` on the model mesh) and FSDP
-    (on the 2-D mesh)."""
+def placements(meshes):
+    """Every config's reduced tree (the port's init) placed by
+    ``shard_params`` under the full ``sharding_rules`` of the (2, 2) mesh,
+    FSDP as the arch's ``RUN_HINTS`` say: {arch: {leaf path: (global
+    shape, local shape, placements as (kind, dim) pairs)}}."""
+    from repro_torch.configs.registry import ARCHS, get_config
+    from repro_torch.core import colshard
+    from repro_torch.launch.cells import RUN_HINTS
     from repro_torch.launch.mesh import sharding_rules
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import init_params, shard_params
-    cfg = moe_cfg()
-    specs = get_model(cfg).specs(cfg)
-    params = init_params(specs, 0, device=CPU)
+    mesh = meshes["data2_model2"]
     out = {}
-    for what, mesh, fsdp in (("tensor_parallel", meshes["model4"], False),
-                             ("fsdp", meshes["data2_model2"], True)):
-        rules = sharding_rules(mesh, fsdp=fsdp)
-        if what == "fsdp":
-            rules = {**rules, "heads": None, "mlp": None, "vocab": None}
-        try:
-            shard_params(params, specs, mesh, rules)
-            out[what] = None
-        except NotImplementedError as e:
-            out[what] = str(e)
+    for arch in sorted(ARCHS):
+        cfg = get_config(arch, reduced=True)
+        specs = get_model(cfg).specs(cfg)
+        placed = shard_params(init_params(specs, 0, device=CPU), specs, mesh,
+                              sharding_rules(mesh, fsdp=RUN_HINTS[arch][
+                                  "fsdp"]))
+        out[arch] = {
+            path: (tuple(v.shape), tuple(colshard.local(v).shape),
+                   tuple(("S", p.dim) if p.is_shard() else ("R", None)
+                         for p in v.placements)
+                   if colshard.is_col_sharded(v) else None)
+            for path, v in _leaves(placed)}
     return out
 
 
@@ -326,7 +330,7 @@ def body(rank, world, mesh, out_dir):
     res["engine_artifact"] = engine_artifact_case(mesh)
     res["adamw"] = {n: adamw_case(m) for n, m in meshes.items()}
     res["adc"] = adc_case(inputs["adc"], mesh)
-    res["refusals"] = refusals(meshes)
+    res["placements"] = placements(meshes)
     return res
 
 

@@ -141,8 +141,19 @@ def test_checkpoint_round_trip_and_empty_containers(tmp_path):
     assert int(out["step"]) == 7 and out["step"].dtype == torch.int64
     like = tckpt.restore(str(tmp_path), tree, device=CPU)
     assert torch.equal(like["b"]["d"][1], tree["b"]["d"][1])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tckpt.restore(str(tmp_path), tree, shardings={"a": None}, device=CPU)
+    # placements restore each leaf's block; on a mesh of one rank (a
+    # shape record: no process group) every leaf comes back whole
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch.mesh import MeshShape
+    placed = tckpt.restore(str(tmp_path), tree, device=CPU,
+                           shardings={"a": (Shard(1),), "b": None},
+                           mesh=MeshShape((1,), ("model",)))
+    assert torch.equal(placed["a"], tree["a"])
+    assert placed["b"]["c"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="no mesh"):
+        tckpt.restore(str(tmp_path), tree, shardings={"a": (Shard(1),)},
+                      device=CPU)
 
 
 def test_checkpoint_ignores_a_leftover_tmp_and_rejects_list_keys(tmp_path):

@@ -7,6 +7,7 @@ scales' gradients; and gradient accumulation. Cases and tolerances:
 """
 import numpy as np
 import pytest
+import torch
 
 from _torch_lm_train import (CPU, LM_CIM, RUN, check_against_reference,
                              configs, port_batch, reference_step,
@@ -84,13 +85,23 @@ def test_accumulation_scales_the_psum_scale_gradient_as_the_reference():
 
 
 def test_fsdp_and_deploy_trees_are_refused():
-    """``RunConfig(fsdp=True)`` names ROADMAP item 12; a deploy tree's
-    integer digit planes have no gradient (the reference's
-    ``jax.value_and_grad`` raises TypeError on them too)."""
+    """``RunConfig(fsdp=True)`` is a placement: without a mesh its step is
+    the plain one, bit for bit (the mesh runs are
+    ``tests/test_torch_fsdp.py``); a deploy tree's integer digit planes
+    have no gradient (the reference's ``jax.value_and_grad`` raises
+    TypeError on them too)."""
     _, tcfg = configs("qwen3-0.6b")
     model = get_model(tcfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(model, tcfg, RunConfig(fsdp=True))
+    params = init_params(model.specs(tcfg), 0, device=CPU)
+    batch = port_batch(stream_batch(tcfg))
+    outs = []
+    for fsdp in (False, True):
+        init_state, step = make_train_step(model, tcfg,
+                                           RunConfig(**RUN, fsdp=fsdp))
+        outs.append(step(params, init_state(params), batch))
+    assert torch.equal(outs[0][2]["loss"], outs[1][2]["loss"])
+    for a, b in zip(tree_leaves(outs[0][0]), tree_leaves(outs[1][0])):
+        assert torch.equal(a, b)
     dcfg = tcfg.replace(cim=configs("qwen3-0.6b", LM_CIM)[1].cim.replace(
         mode="deploy"))
     dmodel = get_model(dcfg)

@@ -36,8 +36,8 @@ seeds. Cases and tolerances, in float32 compute:
   device's, as the reference's host callbacks count them on four
   devices (a replicated layer once);
 - ``param_shardings`` equals the reference's ``logical_to_mesh`` on every
-  config, and ``shard_params`` raises on the placements left to ROADMAP
-  item 12b.3.
+  config, and ``shard_params`` places every config's tree on the (2, 2)
+  mesh as the reference's ``build_cell`` does.
 """
 import contextlib
 import os
@@ -143,6 +143,21 @@ _REFERENCE = textwrap.dedent("""
             jax.block_until_ready(jax.jit(lambda p, x: layers.apply_moe(
                 p, x, cfg))(params, jnp.asarray(c["x"])))
             out["adc"][where] = adc.totals()
+    from repro.launch.cells import build_cell
+    from repro.configs.registry import ARCHS
+    mesh = jax.make_mesh((2, 2), ("data", "model"))
+    out["placements"] = {}
+    for arch in sorted(ARCHS):
+        cell = build_cell(arch, "train_4k", mesh, reduced=True)
+        flat = {}
+        def walk(sh, st, path=""):
+            if isinstance(sh, dict):
+                for k in sh:
+                    walk(sh[k], st[k], path + "/" + k)
+                return
+            flat[path] = (tuple(sh.spec), tuple(sh.shard_shape(st.shape)))
+        walk(cell.in_shardings[0], cell.arg_structs[0])
+        out["placements"][arch] = flat
     with open(d + "/reference.pkl", "wb") as f:
         pickle.dump(out, f)
 """)
@@ -408,12 +423,30 @@ def test_adc_totals_under_expert_parallelism_equal_one_device(runs):
         assert tuple(res["adc"]["mesh"]) == want
 
 
-@pytest.mark.parametrize("what", ["tensor_parallel", "fsdp"])
+@pytest.mark.parametrize("what", sorted(J_ARCHS))
 def test_shard_params_raises_on_placements_left_to_12b3(runs, what):
-    ranks, _, _ = runs
+    """(The name is kept from the slice that refused these placements.)
+    ``shard_params`` places each config's reduced tree under the full
+    ``sharding_rules`` of the (2, 2) mesh, FSDP as ``RUN_HINTS`` say, as
+    the reference's ``build_cell`` places it: every leaf's local block has
+    the shape of the reference's shard, and its placements are the
+    reference's (truncated) ``PartitionSpec``."""
+    ranks, ref, _ = runs
+    want = ref["placements"][what]
     for res in ranks:
-        msg = res["refusals"][what]
-        assert msg is not None and "item 12b.3" in msg
+        got = res["placements"][what]
+        assert set(got) == set(want), (what, sorted(set(got) ^ set(want)))
+        for path, (shape, local, pl) in got.items():
+            spec, shard = want[path]
+            assert local == shard, (what, path, local, shard)
+            placed = _reference_placements(spec, ("data", "model"))
+            if any(k == "S" for k, _ in placed):
+                assert pl == placed, (what, path, pl, placed)
+            else:
+                assert pl is None and local == shape, (what, path, pl)
+    assert any(pl is not None and ("S", 0) in pl and ("S", 1) in pl
+               for pl in (v[2] for v in ranks[0]["placements"][
+                   "llama3-8b"].values()) if pl)
 
 
 def _reference_placements(pspec, axes):
