@@ -6,13 +6,22 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases (each prints one line or a few; any failed check exits non-zero):
+Phases (each prints one line or a few and ``phase N took X s``; any
+failed check exits non-zero). The whole run, the build included, is cut
+to fit ``RUN_BUDGET_S`` (750 s): earlier paths are cut in depth, steps or
+batch, never in width, and every gate stays; the last line before the
+results gives the run's seconds.
 
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. builds the hand-written kernels of ``src/repro_torch/csrc/`` (one
    ``nvcc`` per source, all at once) and prints each instance's ptxas
    registers and spills, and each library's count of tensor-core
-   instructions in its SASS (the float-digit kernel must hold DMMA);
+   instructions in its SASS (the float-digit kernel must hold DMMA;
+   ``cuobjdump -sass`` runs beside phases 3-9 and is read after phase 9);
+   the build starts before torch is imported, phase 19's dry runs after
+   phase 1 in a process of their own, and the work that runs no kernel
+   goes on the card beside it: phase 16(d) and the one-device references
+   of phases 17(e) and 18;
 3. holds the CIM matmul/conv kernel (int8 tensor cores on integer planes)
    against its plain PyTorch version on random inputs (dense, occupancy
    skip with dead columns and dead blocks, nibble planes, psum_bits
@@ -77,15 +86,16 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    counts and a per-expert loop on codes zeroed past them;
 10. the MoE serving path: moonshot-v1-16b-a3b at its published widths
    (d_model 2048, 16 heads of 128, 64 experts top-6 of d_ff 1408, 2
-   shared, vocab 163840), depth cut from 48 to 3 layers (1 dense + 2
-   MoE; cut from 4 to make room for phase 17), random weights from seed 0, packed with the serving launcher's
+   shared, vocab 163840), depth cut from 48 to 2 layers (1 dense + 1
+   MoE), random weights from seed 0, packed with the serving launcher's
    CIM config (4-bit weights on 2-bit cells, 8-bit activations, 6-bit
    partial sums, 128x128 arrays, column-wise scales) at int8 and int4,
    served in bfloat16: one prefill forward (batch 8 x 64 tokens) on
    deploy against emulate, ``generate_batch`` of 16 new tokens and the
    slot engine on 3 requests at batch 2, deploy tokens against emulate
    tokens; the launch counters (6 experts-kernel and 21 matmul-kernel
-   launches per forward), every experts launch given the counts its MoE
+   launches per forward at 3 layers; 3 and 14 at 2), every experts
+   launch given the counts its MoE
    block computed on the device; the same packs on the ``adc_free`` backend,
    one prefill forward each against emulate with ``psum_quant=False``,
    the ADC-free matmul on every CIM linear (K4's path: 21 + 6 x 64
@@ -107,8 +117,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    paper's CIFAR-10 settings (``repro_torch.train.qat.train_qat``: LSQ
    and straight-through gradients on the emulate backend) on
    ``make_image_dataset(n=4096, hw=32, seed=0)``, the first quarter held
-   out, 300 steps at batch 128, lr 0.05 cosine; a ``CheckpointManager``
-   save at step 150 whose restored params, BN state and momentum equal
+   out, 60 steps at batch 128, lr 0.05 cosine; a ``CheckpointManager``
+   save at step 30 whose restored params, BN state and momentum equal
    the saved ones bit for bit; the trained model packed int8 and int4,
    each ``DeployArtifact`` saved and loaded back (leaves equal in dtype
    and bits), and the loaded artifacts deployed at batch 256: 20 K3, 0
@@ -116,7 +126,7 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    the trained params. Gates: the mean loss of the last 20 steps at most
    0.7 x that of the first 20, held-out accuracy at least 0.20 (chance
    0.10). Prints ms per QAT step (CUDA events, median over steps
-   10-300) and the save and load seconds. The QAT run takes cuDNN's
+   10-60) and the save and load seconds. The QAT run takes cuDNN's
    deterministic algorithms, so every run gives the same losses;
 12. drift, recalibration, the health monitor and the telemetry plane,
    on phase 10's packs (``tests/test_drift.py``'s schedule, a
@@ -146,13 +156,13 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    K3 launches per drifted forward;
 13. the dense and MLA transformers of the zoo at their published widths,
    on phase 10's traffic and CIM config, random weights from seed 0,
-   int8 and int4 packs (``ZOO_CASES``): deepseek-v3-671b's three leading
-   dense layers (MLA: q_lora 1536, kv_lora 512, 128 heads; d_ff 18432;
-   ``moe=None``), llama3-8b cut to 4 layers with the bf16 and the int8 KV
-   cache, and qwen3-0.6b cut to 8 of its 28 layers (qk-norm, tied
-   embeddings; cut to make room for phase 17).
+   int8 and int4 packs (``ZOO_CASES``): deepseek-v3-671b's leading
+   dense layer (MLA: q_lora 1536, kv_lora 512, 128 heads; d_ff 18432;
+   ``moe=None``), llama3-8b cut to 2 layers with the bf16 and the int8 KV
+   cache, and qwen3-0.6b cut to 2 of its 28 layers (qk-norm, tied
+   embeddings).
    Each: deploy prefill logits against emulate, the engine's and the slot
-   engine's tokens against emulate's per KV cache, 24, 28 and 56 K1
+   engine's tokens against emulate's per KV cache, 8, 14 and 14 K1
    launches per forward and no other kernel, prefill and decode times
    (eager, and a decode step replayed from a CUDA graph against the eager
    loop's tokens), every K1 call of one prefill forward and one decode
@@ -162,18 +172,19 @@ Phases (each prints one line or a few; any failed check exits non-zero):
 14. the recurrent and multimodal zoo at published widths
    (``RECURRENT_ZOO``), on phase 13's traffic and CIM config, random
    weights from seed 0: zamba2-2.7b cut to 12 Mamba2 layers (the shared
-   attention block applied twice), xlstm-1.3b cut to 8 blocks (7 mLSTM, 1
-   sLSTM), whisper-small cut to 4 encoder and 4 decoder layers of 12
-   (cut to make room for phase 17) with its conv stem on raw log-mel frames
-   (8 x 3000 x 80: both stem convs on K3, the encoder at M 12,000) and
-   llava-next-mistral-7b cut to 4 layers with its 14x14 patch-embed conv
+   attention block applied twice, its two cache slots), xlstm-1.3b
+   cut to 8 blocks (7 mLSTM, 1 sLSTM: one period), whisper-small cut to 1
+   encoder and 1 decoder layer of 12 with its conv
+   stem on raw log-mel frames (8 x 3000 x 80: both stem convs on K3, the
+   encoder at M 12,000) and llava-next-mistral-7b cut to 1 layer with
+   its 14x14 patch-embed conv
    on 336 x 336 images (K3 on 196-row tiles, 576 image tokens before the
    text); int8 packs, and int4 on whisper. Each: the deploy forward with
    its front-end input against emulate, served tokens against emulate's
    (``generate_batch``, or whisper's lockstep run with the encoder states
    in the cache, and the slot engine), the K1 and K3 counters against the
-   spec tree's CIM nodes (zamba2 38 K1, xlstm 38, whisper 2 K3 and 64 K1
-   a forward and 40 K1 a decode step, llava 1 K3 and 28 K1) with no
+   spec tree's CIM nodes (zamba2 38 K1, xlstm 38, whisper 2 K3 and 16 K1
+   a forward and 10 K1 a decode step, llava 1 K3 and 7 K1) with no
    other kernel and no patch gather in torch, a decode step replayed from
    a CUDA graph with logits, tokens and caches bit-equal to the eager
    steps, every K1 and K3 call of one forward and one decode step against
@@ -181,9 +192,9 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    the phase's seconds;
 15. the recurrent and multimodal zoo on a drifting chip (``DRIFT_ZOO``):
    phase 14's four configurations at their cuts and published widths
-   (zamba2 at 12 layers, xlstm at 8 blocks, whisper at 4 + 4 layers on 8
-   x 3000 x 80 log-mel frames, llava at 4 layers, its forward with images at batch
-   2), int8 packs, phase 12's schedule (``DRIFT_SCHED``, a
+   (zamba2 at 12 layers, xlstm at 8 blocks, whisper at 1 + 1 layers on 8
+   x 3000 x 80 log-mel frames, llava at 1 layer, its forward with images
+   at batch 2), int8 packs, phase 12's schedule (``DRIFT_SCHED``, a
    ``Sampler(DRIFT_SEED)`` source) from t = 300. Each: the forward with
    the front-end input and one prefill + 15 decode steps drifted, deploy
    against emulate under the same fields (the conv front ends too); the
@@ -192,8 +203,8 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    whisper's drifting slot engine against its schedule replayed on
    drifted emulate, and ``generate_batch`` without encoder states
    refused; the counted run (the forward and the engine) all on float
-   planes: zamba2 38 K1, xlstm 38, whisper 2 K3 + 64 K1 a forward and
-   40 K1 an invocation, llava 1 K3 + 28 K1, no integer K1/K3 and no
+   planes: zamba2 38 K1, xlstm 38, whisper 2 K3 + 16 K1 a forward and
+   10 K1 an invocation, llava 1 K3 + 7 K1, no integer K1/K3 and no
    patch gather in torch; the drifted decode step eager (with its
    ``drift_tree``) and one realization's step replayed from a CUDA graph
    (bit-equal to eager); every float K1 and K3 call of one drifted
@@ -206,31 +217,37 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    ``main`` on zamba2 at its cut with ``--cim deploy``, the drift flags,
    ``--health`` and ``--metrics-out``: exit 0, its tok/s, a metrics JSON
    naming only ``obs.names`` metrics; the phase's seconds and peak memory;
-16. the LM training path (``phase16_lm_training``): (a) qwen3-0.6b
-   uncut (28 layers, d 1024, GQA kv 8, qk-norm, tied embeddings of
+16. the LM training path (``phase16_lm_training``: (a)-(c) and (e) after
+   phase 15, nothing beside them; (d) beside phase 2's build): (a)
+   qwen3-0.6b uncut (28 layers, d 1024, GQA kv 8, qk-norm, tied embeddings of
    151,936) trained by the port's launcher,
    ``repro_torch.launch.train.main``, under its CIM config (``--cim
    emulate``: 4-bit weights on 2-bit cells, 6-bit partial sums, 128x128
    arrays, column-wise LSQ and straight-through gradients) at batch 8 x
-   256, AdamW, lr 3e-4, 20 steps (cut from 40 to make room for phase
-   17), a checkpoint every 10, on deterministic
+   256, AdamW, lr 3e-4, 20 steps, checkpoints at steps 18 and 20, on
+   deterministic
    algorithms (``_Deterministic``: the scatter-add backwards summed in a
    fixed order); gates: exit 0, every loss and grad norm finite, the
    mean loss of the last 10 steps at most 0.7 x that of the first 5;
    prints ms per step (CUDA events, median over steps 6-20), tokens/s
-   and peak memory; (b) the same command with ``--crash-at 11`` in a
-   fresh directory raises ``InjectedFailure``, the relaunch resumes from
-   step 10 and ends at 20 with (a)'s params (rtol 1e-5, atol 1e-6;
-   bit-equal expected); (c) the trained params packed int8 and served (8
-   stream prompts of 64 tokens, 16 new, ``generate_batch``): deploy
-   prefill logits against emulate at 1e-4 of their largest magnitude,
-   tokens identical, 196 K1 launches per forward and no other kernel;
-   the share of the served tokens that follow the stream's transition
-   table is printed; (e) ``compressed_psum_tree`` on the trained model's
-   gradient in a one-rank NCCL group equal to the same function on the
-   CPU bit for bit; (d) moonshot-v1-16b-a3b at published width cut to 2
-   layers (one dense, one MoE of 64 experts top-6 + 2 shared), emulate,
-   5 AdamW steps at batch 8 x 128: losses and grad norms finite, and on
+   and peak memory; its step ``PROBE_STEP`` (3) runs under
+   ``FlopCounterMode`` for phase 19(a); (b) the same command with
+   ``--crash-at 19 --ckpt-every 19`` in a directory holding (a)'s
+   step-18 checkpoint resumes there, writes its step-19 checkpoint (async,
+   waited for) and raises ``InjectedFailure``; the relaunch resumes from
+   that step 19 and ends at 20 with (a)'s params (rtol 1e-5, atol 1e-6;
+   bit-equal expected); (c) the
+   trained params packed int8 and served (8 stream prompts of 64 tokens,
+   16 new, ``generate_batch``): deploy prefill logits against emulate at
+   1e-4 of their largest magnitude, tokens identical, 196 K1 launches per
+   forward and no other kernel; the share of the served tokens that
+   follow the stream's transition table is printed; (e)
+   ``compressed_psum_tree`` on the trained model's gradient (the
+   embedding and the first 4 of its 28 layers) in a one-rank NCCL group
+   equal to the same function on the CPU bit for bit; (d)
+   moonshot-v1-16b-a3b at published width cut to 2 layers (one dense,
+   one MoE of 64 experts top-6 + 2 shared), emulate, 2 AdamW steps at
+   batch 8 x 128: losses and grad norms finite, and on
    the last batch and on a 4-token probe every expert the router gave
    tokens has nonzero gradients on its weights and column scales and
    every other expert zero ones; the phase's seconds;
@@ -249,18 +266,19 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    parent's single-device logits, with 20 K3 (K5 for adc_free; on float
    planes for the last two) launches per rank per forward, each on C_out
    / 4 columns, no K1 and no patch gather in torch; (b) phase 13's int8
-   llama3-8b pack at 4 layers (published widths, bf16 KV cache, 8 prompts
-   of 64 tokens, 16 new), saved by phase 13 and served by each rank
-   through ``engine_from_artifact(path, cfg, mesh=)``: prefill logits
-   bit-equal to the single device's, ``generate_batch`` tokens equal to
-   phase 13's on every rank, 28 K1 launches per rank per forward (every
+   llama3-8b pack at phase 13's 2 layers (published widths, bf16 KV
+   cache, 8 prompts of 64 tokens, 16 new), saved by phase 13 and served
+   by each rank through ``engine_from_artifact(path, cfg, mesh=)``:
+   prefill logits bit-equal to the single device's, ``generate_batch``
+   tokens equal to phase 13's on every rank, 14 K1 launches per rank per
+   forward (every
    linear sharded) and no other kernel, the ADC collector's totals over
    one armed prefill summed over the mesh equal to the single device's;
    rank 0 prints the eager decode step (CUDA events), the share of it in
    the all-gathers (host clock), its K1 calls of a decode step timed by
    graph replay beside their bound at the shard's shapes, and each rank's
    peak memory; (c) ``repro_torch.launch.serve`` on qwen3-0.6b uncut
-   (``--cim deploy --batch 8 --prompt-len 64 --new-tokens 16``) with
+   (``--cim deploy --batch 2 --prompt-len 8 --new-tokens 2``) with
    ``--mesh 4 --dist-backend gloo`` (in a process of its own) and with
    ``--mesh 1`` (in this one): both exit 0 with the same tokens, and
    rank 0's tok/s; (d) the same llama3 pack on the same ranks decoded
@@ -270,7 +288,7 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    decode, with the bf16 and the int8 KV caches: tokens equal on every
    rank (any that differs printed with its two top logits), logits within
    ``MESH_FD_TOL`` a layer of their largest magnitude, the cache bytes a
-   rank a quarter of the whole, 28 K1 and 12 all-reduces a step;
+   rank a quarter of the whole, 14 K1 and 6 all-reduces a step;
    ``ServingEngine.generate_batch`` with flash decode gives phase 13's
    tokens; rank 0's flash step (CUDA events) and the all-reduces' share
    of it (host clock); (e) moonshot-v1-16b-a3b at published widths cut to
@@ -282,8 +300,40 @@ Phases (each prints one line or a few; any failed check exits non-zero):
    bank's gradient block and the router's within ``MESH_MOE_GRAD_TOL`` of
    their largest magnitude, the global gradient norm within 1e-3; each
    rank's peak memory; the phase's seconds;
-18. a JSON line per kernel, the card's name and power limit, and the
-   final JSON line.
+18. FSDP and tensor parallelism over a ``("data", "model")`` mesh of (2,
+   2) gloo ranks sharing the card (``phase18_fsdp``): (a) llama3-8b at
+   published widths cut to 2 layers, emulate under the training
+   launcher's CIM config, AdamW in float32, ``build_cell``'s placements
+   (FSDP: embed over data; heads, mlp, vocab over model), batch 4 x 64,
+   2 steps (3 until the run was cut to its time budget): each step's loss
+   against one device's on the same params to 1e-5 (step 2's twice: on
+   the gathered step-1 state and on the checkpoint's restore),
+   step-1 gradients within ``FSDP_GRAD_TOL`` of each leaf's scale,
+   a quarter of every embed x (heads | mlp) weight and its moments a
+   rank, the step-1 checkpoint written once by rank 0; rank 0 counts its
+   step 1's argument bytes and collectives by kind for phase 19(b); (b)
+   that checkpoint resumed on the same mesh (step 2 bit-equal), on a
+   ("model",) mesh of 2 and on one device; (c) the trained tree packed
+   int8 and served (4 prompts of 64 tokens, 4 new) on a ("model",) mesh
+   of 4 under the full ``sharding_rules``: prefill logits and tokens
+   equal to one device's, 14 K1 a forward a rank on N/4 columns and no
+   other kernel; the phase's seconds;
+19. the dry run against the card (``phase19_dry_run``): the port's
+   ``launch.dryrun.run_cell`` counts two cells on ``meta`` tensors in a
+   process of its own (no card; started before the build): (a) phase
+   16a's run, qwen3-0.6b uncut on one device at batch 8 x 256 under the
+   training launcher's CIM config: its argument bytes equal the params,
+   AdamW state and batch of 16a's step 3 on the card, and its FLOPs
+   ``FlopCounterMode``'s count of that step on the card, exactly; its
+   meta peak beside the card's ``max_memory_allocated`` over the step and
+   its roofline bound beside 16a's median step, printed; (b) phase 18's
+   cell as rank 0 of the fake process group: its argument bytes a rank
+   (and apart, its batch's: the rows rank 0's step read, counted as it
+   took them) and its collective bytes by kind equal what rank 0 of phase
+   18's gloo run held and counted over its step 1, exactly; the phase's
+   seconds;
+then the whole run's seconds, a JSON line per kernel, the card's name
+and power limit, and the final JSON line.
 
 Times: each kernel and each library call is timed as the device time of
 a CUDA-graph replay of repeated calls (no host launch gaps: ``ms``,
@@ -306,6 +356,7 @@ sweep checks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -330,10 +381,10 @@ SIGMA = 0.3                       # cell variation of the float-plane checks
 SWEEP_SIGMAS = (0.0, 0.1, 0.2, 0.3, 0.4)
 SWEEP_SAMPLES = 4
 QAT_IMAGES = 4096                 # the first quarter held out
-QAT_STEPS = 300
+QAT_STEPS = 60
 QAT_BATCH = 128
 QAT_LR = 0.05
-QAT_CKPT_STEP = 150
+QAT_CKPT_STEP = 30
 QAT_LOSS_RATIO = 0.7              # last-20 mean over first-20 mean, at most
 QAT_MIN_ACC = 0.20                # held-out accuracy (chance 0.10)
 
@@ -343,9 +394,69 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+class _Build:
+    """``_build.build()`` in a thread of its own, holding the build module's
+    lock (a ``load`` elsewhere meanwhile waits for it rather than start a
+    second nvcc); ``error`` and ``seconds`` once joined."""
+
+    def __init__(self, build_module):
+        import threading
+        self._mod, self.error, self.seconds = build_module, None, 0.0
+        self._thread = threading.Thread(target=self._run)
+
+    def _run(self):
+        t0 = time.perf_counter()
+        try:
+            with self._mod._lock:
+                self._mod.build()
+        except Exception as e:           # re-raised by ``check`` in main
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def start(self):
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+
+
+def _took(n, t0: float) -> float:
+    """Print ``phase n took X s`` since ``t0``; the time now."""
+    now = time.perf_counter()
+    print(f"phase {n} took {now - t0:.1f} s", flush=True)
+    return now
+
+
+def _start_build():
+    """Phase 2's build, started before torch is imported (nvcc needs none
+    of it): ``kernels/_build.py`` loaded from its file under its package
+    name, so that the kernels' wrappers import this module and wait on its
+    lock; None where the checkout holds no kernels or the machine no nvcc."""
+    import importlib.util
+    path = ROOT / "src" / "repro_torch" / "kernels" / "_build.py"
+    if not path.exists():
+        return None
+    spec = importlib.util.spec_from_file_location(
+        "repro_torch.kernels._build", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    try:
+        mod._nvcc()
+    except RuntimeError:
+        return None
+    build = _Build(mod)
+    build.start()
+    return build
+
+
 def main() -> int:
+    t_run = time.perf_counter()
+    build = _start_build()
     import torch
     if not torch.cuda.is_available():
+        if build is not None:
+            build.join()
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
@@ -363,22 +474,42 @@ def main() -> int:
     print(f"phase 1 device: {torch.cuda.get_device_name(0)}; "
           f"count {torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = _took(1, t_run)
 
-    # 2. build
-    t0 = time.perf_counter()
-    _build.build()
+    # 19's dry runs count on the host, in a process of their own, while
+    # the kernels build
+    dry = _start_dry_runs()
+
+    # 2. build, in a thread of its own since the start: the work that runs
+    # no kernel goes on the card meanwhile (16(d), phase 18's one-device
+    # reference run and 17(e)'s; their times are printed as taken beside
+    # the build); the SASS dumps run in the background until phase 9's end
+    check(build is not None and _build is build._mod, "phase 2: the "
+          "build did not start before torch was imported")
+    t_beside = time.perf_counter()
+    _moe_training(torch, dev, smi, False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    single18 = _phase18_references(torch, FSDP_WORK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase17e_references(torch, MESH_WORK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_beside = time.perf_counter() - t_beside
+    build.join()
+    check(build.error is None, f"phase 2 build: {build.error}")
     print(f"phase 2 build: {', '.join(n + '.cu' for n in _build.SOURCES)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{build.seconds:.1f} s from the script's start (16d and the "
+          f"references of 17e and 18 beside it, {t_beside:.1f} s)",
+          flush=True)
     for name in _build.SOURCES:
         print(f"phase 2 ptxas {name}.cu: "
               + ("; ".join(_ptxas_summary(_build.build_log.get(name, "")))
                  or "already built"), flush=True)
-    sass = {name: _sass_counts(_build.library_path(name))
+    sass = {name: _start_sass(_build.library_path(name))
             for name in _build.SOURCES}
-    print("phase 2 SASS tensor-core instructions (cuobjdump -sass): "
-          + "; ".join(f"{n}.cu {c}" for n, c in sass.items()), flush=True)
-    check(sass["cim_matmul"]["DMMA"] > 0,
-          "the float-digit kernel's SASS holds no DMMA (FP64 tensor core)")
+    t0 = _took(2, t0)
 
     # "cim_matmul": K1's cases of phases 3 and 3b, at shapes of their own
     errs = {name: 0.0 for name in (*KERNELS, "cim_matmul")}
@@ -399,47 +530,66 @@ def main() -> int:
               "cim_matmul", "cim_conv", "cim_matmul_adc_free",
               "cim_conv_adc_free", "cim_conv_variation")),
           flush=True)
+    t0 = _took(3, t0)
 
     # 4. the main path: packed ResNet-20 inference
     timings, model = phase4_resnet20(torch, dev, errs)
+    t0 = _took(4, t0)
 
     # 5. ResNet-18
     phase5_resnet18(torch, dev)
+    t0 = _took(5, t0)
 
     # 6.-8. the adc_free and binary backends and cell variation
     timings.update(phase6_adc_free(torch, model, errs))
+    t0 = _took(6, t0)
     phase7_binary(torch, model)
+    t0 = _took(7, t0)
     timings.update(phase8_variation(torch, model, errs))
     resnet20 = {k: model[k] for k in ("cfg", "cim", "state")}
     resnet20["packed"] = model["packed"]["int8"]      # phase 12's sweep
     del model                          # free the ResNet phases' tensors
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = _took(8, t0)
 
     # 9. the CIM experts kernel against its plain version
     n_cases = phase9_experts_cases(torch, dev, errs)
     print(f"phase 9 experts kernel vs plain: {n_cases} cases pass; max "
           f"|kernel - plain| {errs['cim_matmul_experts']!r}", flush=True)
+    t0 = _took(9, t0)
+
+    # 2's SASS dumps, collected
+    sass = {name: _sass_counts(*job) for name, job in sass.items()}
+    print("phase 2 SASS tensor-core instructions (cuobjdump -sass, run "
+          "beside phases 3-9): "
+          + "; ".join(f"{n}.cu {c}" for n, c in sass.items()), flush=True)
+    check(sass["cim_matmul"]["DMMA"] > 0,
+          "the float-digit kernel's SASS holds no DMMA (FP64 tensor core)")
 
     # 10. the MoE serving path at full width
     mc = moe_config()
     timings.update(phase10_moe_serving(torch, errs, mc))
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = _took(10, t0)
 
     # 11. the training path: QAT, checkpoint, artifacts on disk, deploy
     qat = phase11_qat(torch, dev, smi)
+    t0 = _took(11, t0)
 
     # 12. drift, recalibration, the health monitor and the telemetry plane
     timings.update(phase12_drift(torch, errs, mc, resnet20))
     del mc, resnet20
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
 
     # 13. the dense and MLA transformers of the zoo at published widths
     timings.update(phase13_zoo(torch, errs))
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = _took(13, t0)
 
     # 14. the recurrent and multimodal zoo at published widths
     timings.update(phase14_recurrent_zoo(torch, errs))
@@ -451,20 +601,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 16. the LM training path
-    phase16_lm_training(torch, smi)
+    # 16. the LM training path ((d) ran beside the build); one of its
+    # steps is counted for 19(a)
+    step16 = phase16_lm_training(torch, smi)
 
     # 17. column-parallel serving over a mesh of ranks sharing the card
     phase17_column_parallel(torch, smi, qat)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 18. FSDP and tensor parallelism over a (data, model) mesh of ranks
-    phase18_fsdp(torch, smi)
+    # 18. FSDP and tensor parallelism over a (data, model) mesh of ranks;
+    # rank 0 counts its first step for 19(b)
+    step18 = phase18_fsdp(torch, smi, single18)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 19. results
+    # 19. the dry run against the card
+    phase19_dry_run(dry, step16, step18, smi)
+
+    # results
+    print(f"chip_smoke took {time.perf_counter() - t_run:.1f} s in all, the "
+          f"build included (budget {RUN_BUDGET_S} s); nvidia-smi: {smi}",
+          flush=True)
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = timings[name]
@@ -568,18 +726,30 @@ def _read_counters():
             {k: getattr(fn, "float_launches", 0) for k, fn in fns.items()})
 
 
-def _sass_counts(path):
-    """{"DMMA", "IMMA", "HMMA": count} of a built library's SASS (FP64,
-    integer and half-precision tensor-core instructions, by
-    ``cuobjdump -sass``); fails where the toolkit has no cuobjdump."""
+def _start_sass(path):
+    """Start ``cuobjdump -sass`` on a built library, its listing written to
+    a file beside it: (the process, the listing's path). Fails where the
+    toolkit has no cuobjdump."""
     import os
-    import re
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.path.exists(exe), "cuobjdump not found: the SASS of the "
           "float-digit kernel cannot be checked for DMMA")
-    sass = subprocess.run([exe, "-sass", str(path)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    out = Path(path).with_suffix(".sass")
+    with open(out, "w") as f:
+        return subprocess.Popen([exe, "-sass", str(path)], stdout=f,
+                                stderr=subprocess.STDOUT), out
+
+
+def _sass_counts(proc, out):
+    """{"DMMA", "IMMA", "HMMA": count} of a library's SASS listing (FP64,
+    integer and half-precision tensor-core instructions) once
+    ``_start_sass``'s process has ended."""
+    import re
+    check(proc.wait(timeout=300) == 0, f"cuobjdump -sass exited "
+          f"{proc.returncode}: {out.read_text()[-2000:]}")
+    sass = out.read_text()
+    out.unlink()
     return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("DMMA", "IMMA", "HMMA")}
 
@@ -3313,11 +3483,11 @@ def phase12_drift(torch, errs, mc, resnet20):
 #: is cut to 8 of 28 layers (phase 17 serves it uncut). K1 per forward: MLA's 5 CIM linears and the MLP's 3 a layer,
 #: GQA's 4 and 3.
 ZOO_CASES = (
-    ("cim_matmul_mla", "deepseek-v3-671b", dict(n_layers=3, moe=None), 8,
+    ("cim_matmul_mla", "deepseek-v3-671b", dict(n_layers=1, moe=None), 8,
      ("bf16",)),
-    ("cim_matmul_llama3", "llama3-8b", dict(n_layers=4), 7,
+    ("cim_matmul_llama3", "llama3-8b", dict(n_layers=2), 7,
      ("bf16", "int8")),
-    (None, "qwen3-0.6b", dict(n_layers=8), 7, ("bf16",)),
+    (None, "qwen3-0.6b", dict(n_layers=2), 7, ("bf16",)),
 )
 
 
@@ -3696,10 +3866,10 @@ def _keep_for_mesh(torch, keep, cfg, art, fwd, prompts, run):
 #: depth cut, pack dtypes, batch of the forward with the front-end input).
 #: zamba2-2.7b is cut from 54 to 12 Mamba2 layers (two groups of 6: the
 #: shared block applied twice), xlstm-1.3b from 48 to 8 blocks (one 7:1
-#: period), llava-next-mistral-7b from 32 to 4 layers, whisper-small from
-#: 12 + 12 to 4 + 4 encoder and decoder layers. Whisper takes its conv stem on raw log-mel frames (80 mel bins,
-#: 3000 frames), llava its patch-embed conv on 336 x 336 images (patch 14:
-#: 576 patches of 1024). int4 on whisper too, where nibble planes reach K3
+#: period), llava-next-mistral-7b from 32 to 1 layer, whisper-small from
+#: 12 + 12 to 1 + 1 encoder and decoder layers. Whisper takes its conv
+#: stem on raw log-mel frames (80 mel bins, 3000 frames), llava its
+#: patch-embed conv on 336 x 336 images (patch 14: 576 patches of 1024). int4 on whisper too, where nibble planes reach K3
 #: (c_per_array 42 is even). llava's forward with images runs at batch 4
 #: (4 x 640 rows): at 8 x 640 emulate's float32 partial sums of one
 #: d_ff linear are 18.8 GB a tensor, and its straight-through rounding
@@ -3708,10 +3878,10 @@ def _keep_for_mesh(torch, keep, cfg, art, fwd, prompts, run):
 RECURRENT_ZOO = (
     ("zamba2-2.7b", dict(n_layers=12), ("int8",), None),
     ("xlstm-1.3b", dict(n_layers=8), ("int8",), None),
-    ("whisper-small", dict(conv_frontend=True, frontend_dim=80, n_layers=4,
-                           enc_layers=4), ("int8", "int4"), None),
+    ("whisper-small", dict(conv_frontend=True, frontend_dim=80, n_layers=1,
+                           enc_layers=1), ("int8", "int4"), None),
     ("llava-next-mistral-7b", dict(conv_frontend=True, patch_size=14,
-                                   n_layers=4), ("int8",), 4),
+                                   n_layers=1), ("int8",), 4),
 )
 
 
@@ -3816,7 +3986,8 @@ def phase14_recurrent_zoo(torch, errs, reduced: bool = False):
                       launches=launches[k])
         what = f"{launches[k]} launches on the main path"
         print(f"phase 14 {k}: {_fmt_total(out[k], what)}", flush=True)
-    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return out
 
 
@@ -4311,14 +4482,19 @@ def phase15_zoo_drift(torch, errs, reduced: bool = False):
 
 #: (a)-(c): qwen3-0.6b uncut, trained by the launcher under its CIM config
 TRAIN_ARCH = "qwen3-0.6b"
-TRAIN_RUN = dict(batch=8, seq=256, lr=3e-4, steps=20, ckpt_every=10,
-                 crash_at=11)
+#: (a) saves at steps 18 and 20; (b) starts from (a)'s step 18 and saves
+#: every ``b_ckpt_every`` steps: the crashed run writes step 19 before it
+#: crashes there, and the relaunch resumes from it
+TRAIN_RUN = dict(batch=8, seq=256, lr=3e-4, steps=20, ckpt_every=18,
+                 b_ckpt_every=19, crash_at=19)
 TRAIN_LOSS_RATIO = 0.7            # last-10 mean over first-5 mean, at most
 FT_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_fault_tolerance.py:72-76
 #: (d): moonshot at published width, cut to one dense and one MoE layer
 ROUTE_ARCH = "moonshot-v1-16b-a3b"
-ROUTE_RUN = dict(n_layers=2, batch=8, seq=128, steps=5, lr=3e-4)
+ROUTE_RUN = dict(n_layers=2, batch=8, seq=128, steps=2, lr=3e-4)
 ROUTE_PROBE = (1, 4)              # (batch, tokens): most experts get none
+#: (e) syncs the gradient of the embedding and of this many layers
+SYNC_LAYERS = 4
 
 
 def train_cim():
@@ -4396,11 +4572,64 @@ class _FinalParams:
         return False
 
 
-def _train_launch(torch, argv, hist=None):
+#: the step of 16a that phase 19(a) counts (before the timed steps 6-20)
+PROBE_STEP = 3
+
+
+class _StepProbe:
+    """Phase 19(a)'s count of one step of the launcher's run: while inside,
+    ``trainer.make_train_step`` hands out a step that runs its call number
+    ``at`` under ``FlopCounterMode`` and records the FLOPs, the bytes of
+    its arguments (params, optimizer state, batch) and the card's
+    ``max_memory_allocated`` over that step (the run's peak before it is
+    kept in ``peak_before``)."""
+
+    def __init__(self, torch, at: int):
+        self.torch, self.at, self.calls, self.rec = torch, at, 0, {}
+
+    def __enter__(self):
+        from repro_torch.train import trainer
+        self._make = trainer.make_train_step
+
+        def make(*args, **kw):
+            init_state, step = self._make(*args, **kw)
+
+            def probed(params, opt_state, batch):
+                self.calls += 1
+                if self.calls != self.at:
+                    return step(params, opt_state, batch)
+                return self._count(step, params, opt_state, batch)
+            return init_state, probed
+        trainer.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import trainer
+        trainer.make_train_step = self._make
+
+    def _count(self, step, params, opt_state, batch):
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from repro_torch.launch.dryrun import tree_bytes
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.rec["peak_before"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.rec["argument"] = tree_bytes((params, opt_state, batch))
+        counter = FlopCounterMode(display=False)
+        with counter:
+            out = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        self.rec["flops"] = int(counter.get_total_flops())
+        self.rec["peak"] = torch.cuda.max_memory_allocated()
+        return out
+
+
+def _train_launch(torch, argv, hist=None, probe=None):
     """``repro_torch.launch.train.main(argv)`` in process, deterministic,
     its ``[train]`` lines captured: (exit code, lines, the final params).
     ``hist`` collects (step, loss, grad norm, a CUDA event recorded after
-    the step)."""
+    the step); ``probe``, a ``_StepProbe``, counts one of its steps."""
     import contextlib
     import io
 
@@ -4414,7 +4643,7 @@ def _train_launch(torch, argv, hist=None):
     buf = io.StringIO()
     try:
         with _Deterministic(torch), contextlib.redirect_stdout(buf), \
-                _FinalParams() as final:
+                _FinalParams() as final, probe or contextlib.nullcontext():
             rc = train.main(argv, on_metrics=None if hist is None
                             else on_metrics)
     finally:
@@ -4621,7 +4850,7 @@ def _moe_training(torch, dev, smi, reduced):
           f"top-{mo.top_k} of d_ff {mo.d_ff} + {mo.n_shared} shared; d "
           f"{cfg.d_model}, vocab {cfg.vocab}; {n / 1e9:.3f} B params), "
           f"emulate, AdamW: {r['steps']} steps at batch {r['batch']} x "
-          f"{r['seq']}: ms per step (CUDA events) "
+          f"{r['seq']}: ms per step (CUDA events, beside the kernels' build) "
           + ", ".join(f"{t:.1f}" for t in ms)
           + f"; losses {[round(v, 4) for v in losses]}, grad norms "
           f"{[round(v, 4) for v in norms]}; routing gradients: last batch "
@@ -4655,6 +4884,10 @@ def _compressed_sync(torch, dev, cfg, params, seed, step, smi):
         _, grads = loss_and_grads(lm_loss_fn(get_model(cfg), cfg), params,
                                   {"tokens": torch.as_tensor(
                                       batch["tokens"]).to(dev)})
+    # the stacked layers' gradients cut to the first SYNC_LAYERS (the CPU
+    # side's time grows with the values synced)
+    grads = dict(grads, layers=tree_map(lambda g: g[:SYNC_LAYERS],
+                                        grads["layers"]))
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -4684,7 +4917,8 @@ def _compressed_sync(torch, dev, cfg, params, seed, step, smi):
         check(not bad, f"16e {name}: {len(bad)} leaves differ from the CPU's")
     n = sum(v.numel() for v in tree_leaves(grads))
     print(f"phase 16e compressed_psum_tree on the trained model's gradient "
-          f"({n / 1e9:.3f} G values, {len(list(tree_leaves(grads)))} leaves) "
+          f"(the embedding and {SYNC_LAYERS} layers: {n / 1e9:.3f} G values, "
+          f"{len(list(tree_leaves(grads)))} leaves) "
           f"in a "
           f"one-rank NCCL group: {ms:.3f} ms on the card (CUDA events), the "
           f"synced gradient and the error feedback bit-equal to the CPU's "
@@ -4692,12 +4926,11 @@ def _compressed_sync(torch, dev, cfg, params, seed, step, smi):
 
 
 
-def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
-    """The LM training path: (a) qwen3-0.6b trained uncut by the launcher,
-    (b) crashed and resumed, (c) packed and served on K1, (d) moonshot's
-    routing gradients at published width, (e) the compressed gradient sync
-    on the card against the CPU. ``reduced`` and ``dev`` rehearse it on the
-    reduced configs (the CPU: ``dev`` "cpu")."""
+def phase16_train(torch, smi, reduced: bool = False, dev=None):
+    """Phase 16's (a) and (b): qwen3-0.6b trained uncut by the launcher,
+    then crashed and resumed. Returns the trained params (on the host)
+    and (a)'s step ``PROBE_STEP`` as ``_StepProbe`` counted it, with the
+    median step ms, for phase 19(a)."""
     import shutil
 
     from repro_torch import tree_leaves
@@ -4711,8 +4944,8 @@ def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
     shutil.rmtree(work, ignore_errors=True)
     argv = ["--arch", TRAIN_ARCH, "--cim", "emulate", "--batch",
             str(r["batch"]), "--seq", str(r["seq"]), "--lr", str(r["lr"]),
-            "--steps", str(r["steps"]), "--ckpt-every", str(r["ckpt_every"]),
-            "--log-every", "1", "--seed", "0", "--device", str(dev)]
+            "--steps", str(r["steps"]), "--log-every", "1", "--seed", "0",
+            "--device", str(dev)]
     if reduced:
         argv += ["--reduced"]
     cfg = get_config(TRAIN_ARCH, reduced=reduced, cim=train_cim())
@@ -4720,11 +4953,16 @@ def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
     # (a) the uninterrupted run
     torch.cuda.reset_peak_memory_stats()
     hist = []
+    probe = _StepProbe(torch, PROBE_STEP)
     t0 = time.perf_counter()
     rc, lines, trained = _train_launch(
-        torch, argv + ["--ckpt-dir", str(work / "a")], hist)
+        torch, argv + ["--ckpt-every", str(r["ckpt_every"]), "--ckpt-dir",
+                       str(work / "a")], hist, probe)
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(set(probe.rec) == {"peak_before", "argument", "flops", "peak"},
+          f"16a: step {PROBE_STEP} was not counted ({probe.calls} steps)")
+    peak = max(torch.cuda.max_memory_allocated(),
+               probe.rec["peak_before"]) / 2 ** 30
     check(rc == 0, f"16a launcher exit {rc}")
     steps = [h[0] for h in hist]
     check(steps == list(range(1, r["steps"] + 1)), f"16a logged steps "
@@ -4757,10 +4995,22 @@ def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
         flush=True)
     check(last <= TRAIN_LOSS_RATIO * first, f"16a loss fell to "
           f"{last / first:.4f} x, expected at most {TRAIN_LOSS_RATIO}")
-    shutil.rmtree(work / "a", ignore_errors=True)
+    step16 = dict(probe.rec, step=PROBE_STEP, step_ms=med)
 
-    # (b) crashed at crash_at, relaunched
-    b_argv = argv + ["--ckpt-dir", str(work / "b")]
+    # (b) crashed at crash_at, relaunched: its directory starts with (a)'s
+    # last checkpoint before crash_at (the same launcher and flags wrote
+    # it); the crashed run resumes there, saves crash_at (async, waited for
+    # before the failure) and crashes; the relaunch resumes from that save
+    start = r["crash_at"] // r["ckpt_every"] * r["ckpt_every"]
+    crashed = r["crash_at"] // r["b_ckpt_every"] * r["b_ckpt_every"]
+    check(start < crashed, f"16b: the crashed run saves no step after "
+          f"{start}")
+    (work / "b").mkdir()
+    (work / "a" / f"step_{start:08d}").rename(
+        work / "b" / f"step_{start:08d}")
+    shutil.rmtree(work / "a", ignore_errors=True)
+    b_argv = argv + ["--ckpt-every", str(r["b_ckpt_every"]), "--ckpt-dir",
+                     str(work / "b")]
     t0 = time.perf_counter()
     try:
         _train_launch(torch, b_argv + ["--crash-at", str(r["crash_at"])])
@@ -4768,23 +5018,45 @@ def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
     except InjectedFailure:
         pass
     crash_s = time.perf_counter() - t0
+    check((work / "b" / f"step_{crashed:08d}").is_dir(), f"16b: the crashed "
+          f"run left no step-{crashed} checkpoint")
     t0 = time.perf_counter()
     rc, lines, resumed_params = _train_launch(torch, b_argv)
     resume_s = time.perf_counter() - t0
-    resumed = r["crash_at"] // r["ckpt_every"] * r["ckpt_every"]
-    check(rc == 0 and f"[train] resumed from step {resumed}" in lines
+    check(rc == 0 and f"[train] resumed from step {crashed}" in lines
           and lines[-1].startswith(f"[train] done at step {r['steps']}"),
           f"16b relaunch: exit {rc}, lines {lines[:1] + lines[-1:]}")
     worst, equal = _tree_compare(torch, resumed_params, trained, FT_TOL)
     del resumed_params
     shutil.rmtree(work, ignore_errors=True)
-    print(f"phase 16b --crash-at {r['crash_at']}: InjectedFailure after "
-          f"{crash_s:.1f} s; the relaunch resumed from step {resumed} and "
+    print(f"phase 16b --crash-at {r['crash_at']} --ckpt-every "
+          f"{r['b_ckpt_every']} from (a)'s step-{start} checkpoint: the "
+          f"step-{crashed} checkpoint written, then InjectedFailure after "
+          f"{crash_s:.1f} s; the relaunch resumed from step {crashed} and "
           f"ended at {r['steps']} in {resume_s:.1f} s; its params against "
           f"(a)'s: max |diff| {worst!r} (rtol {FT_TOL['rtol']}, atol "
           f"{FT_TOL['atol']}), bit-equal {equal}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"phase 16a-b took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return trained, step16
+
+
+def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
+    """The LM training path but (d), which ``main`` runs beside the build
+    (``_moe_training``): (a) and (b) (``phase16_train``), (c) the trained
+    params packed and served on K1, (e) the compressed gradient sync on
+    the card against the CPU. ``reduced`` and ``dev`` rehearse it on the
+    reduced configs (the CPU: ``dev`` "cpu"). Returns (a)'s counted step
+    for phase 19(a)."""
+    from repro_torch.configs.registry import get_config
+
+    t_phase = time.perf_counter()
+    trained, step16 = phase16_train(torch, smi, reduced, dev)
+    dev = torch.device("cuda") if dev is None else dev
+    r = TRAIN_RUN
+    cfg = get_config(TRAIN_ARCH, reduced=reduced, cim=train_cim())
 
     # (c) packed and served on K1
     _trained_serving(torch, dev, cfg, trained, 0, r["steps"], smi)
@@ -4797,12 +5069,10 @@ def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (d) moonshot's routing gradients at published width
-    _moe_training(torch, dev, smi, reduced)
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; nvidia-smi: "
-          f"{smi}", flush=True)
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s for (a)-(c) "
+          f"and (e); "
+          f"nvidia-smi: {smi}", flush=True)
+    return step16
 
 
 # ---------------------------------------------------------------------------
@@ -4810,7 +5080,7 @@ def phase16_lm_training(torch, smi, reduced: bool = False, dev=None):
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 4
-MESH_JOIN_S = 400                 # the ranks' join limit, and their group's
+MESH_JOIN_S = 200                 # the ranks' join limit, and their group's
 MESH_WORK = ROOT / "build" / "chip_smoke_mesh"
 MESH_LM_ARCH = "llama3-8b"        # phase 13's cut and traffic
 MESH_LAUNCH_ARCH = "qwen3-0.6b"   # uncut: spawned ranks see no in-process cut
@@ -5124,7 +5394,8 @@ def _is_bank(key: str) -> bool:
 def _phase17e_references(torch, work):
     """(e)'s single-device loss and gradients of the seed-0 weights: each
     rank's block of every expert bank's gradient, the router's, and the
-    global gradient norm, saved for the ranks."""
+    global gradient norm, saved for the ranks. It runs no kernel: ``main``
+    runs it beside the build."""
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import init_params
     from repro_torch.optim.optimizer import global_norm
@@ -5286,7 +5557,7 @@ def _report_moe_ep(res, smi):
           f"{e0['held'] / 1e9:.3f} B params a rank; forward and backward "
           f"{e0['s']:.2f} s on rank 0 (all-reduce share "
           f"{e0['reduce_share']:.3f}), {e0['s_single']:.2f} s on one device "
-          f"alone; peak memory per rank "
+          f"alone (beside the build); peak memory per rank "
           + ", ".join(f"{rr['moe_ep']['peak_gib']:.2f}" for rr in res)
           + f" GiB (one device {e0['peak_single']:.2f}); "
           f"{res[0]['moe_ep_s']:.1f} s on rank 0; nvidia-smi: {smi}",
@@ -5328,9 +5599,11 @@ def _phase17_rank(rank, world, port, work):
         dist.destroy_process_group()
 
 
+#: 2 prompts of 8 tokens, 2 new: every decode step of the uncut model on
+#: 4 gloo ranks takes 196 host-staged all-gathers
 MESH_LAUNCH_FLAGS = ("--arch", MESH_LAUNCH_ARCH, "--cim", "deploy",
-                     "--batch", "8", "--prompt-len", "64", "--new-tokens",
-                     "16")
+                     "--batch", "2", "--prompt-len", "8", "--new-tokens",
+                     "2")
 
 
 def _mesh_launch(flags):
@@ -5374,9 +5647,8 @@ def phase17_column_parallel(torch, smi, qat):
     _phase17_references(torch, qat, work)
     gc.collect()
     torch.cuda.empty_cache()
-    _phase17e_references(torch, work)
-    gc.collect()
-    torch.cuda.empty_cache()
+    check((work / "moe" / "rank0.pt").exists(), "phase 17: no (e) "
+          "references (main computes them beside the build)")
     t0 = time.perf_counter()
     try:
         lm.spawn(_phase17_rank, MESH_RANKS,
@@ -5472,8 +5744,7 @@ def phase17_column_parallel(torch, smi, qat):
     check(len(cont[0]) == 1 and cont[0] == cont[1], f"17c tokens: "
           f"{cont[0]} against {cont[1]}")
     gen4 = [ln for ln in lines4 if "generated" in ln]
-    print(f"phase 17c launch.serve --arch {MESH_LAUNCH_ARCH} --cim deploy "
-          f"--batch 8 --prompt-len 64 --new-tokens 16: --mesh "
+    print(f"phase 17c launch.serve {' '.join(MESH_LAUNCH_FLAGS)}: --mesh "
           f"{MESH_RANKS} --dist-backend gloo exit 0 in {s4:.1f} s ("
           f"{gen4[0] if gen4 else ''}), --mesh 1 exit 0 in {s1:.1f} s; "
           f"the same tokens {cont[0][0].split(':', 1)[1].strip()}",
@@ -5493,8 +5764,10 @@ FSDP_ARCH = "llama3-8b"
 #: labels): emulate's float32 partial sums (M x S x kt x N a linear, 0.94 GB
 #: for wu at 256 rows on one device) and AdamW's float32 state (18 GB at
 #: this depth, the 128,256-word embedding and head 12.6 GB of it) beside
-#: four ranks' blocks on one card. lr 3e-4 after one warm-up step
-FSDP_RUN = dict(n_layers=2, batch=4, seq=64, steps=3, ckpt_at=2, lr=3e-4,
+#: four ranks' blocks on one card. lr 3e-4 after one warm-up step; 2 steps,
+#: the checkpoint after the first (each gloo step on the shared card
+#: takes 9-18 s)
+FSDP_RUN = dict(n_layers=2, batch=4, seq=64, steps=2, ckpt_at=1, lr=3e-4,
                 warmup=1)
 FSDP_MESH = ((2, 2), ("data", "model"))
 FSDP_WORK = ROOT / "build" / "chip_smoke_fsdp"
@@ -5505,16 +5778,17 @@ FSDP_WORK = ROOT / "build" / "chip_smoke_fsdp"
 #: device, and each bf16 cast after a sum moves an element by an ulp where
 #: the two sums round apart)
 FSDP_GRAD_TOL = 2.0 ** -6
-#: (a)'s params after step 3: tests/_torch_lm_train.py's one-step bound,
+#: (a)'s params after its last step: tests/_torch_lm_train.py's one-step
+#: bound,
 #: per element REL x the leaf's largest magnitude + lr_t x 2 (the most a
 #: first AdamW update's direction can move), applied per step and summed
 FSDP_STEP_REL = 1e-4
 #: (c): the trained tree packed int8 and served on 4 ranks of ("model",)
-FSDP_SERVE = dict(batch=8, prompt=64, new=16, max_len=128)
+FSDP_SERVE = dict(batch=4, prompt=64, new=4, max_len=128)
 #: the parent's device (a rehearsal on the CPU sets "cpu")
 FSDP_DEV = "cuda"
 #: the ranks' join limit, and their group's
-FSDP_JOIN_S = 600
+FSDP_JOIN_S = 400
 
 
 def _fsdp_cfg():
@@ -5543,7 +5817,7 @@ def _fsdp_batch(torch, dev):
     g = torch.Generator().manual_seed(25)
     return {"tokens": torch.randint(0, _fsdp_cfg().vocab,
                                     (r["batch"], r["seq"] + 1),
-                                    generator=g).to(dev)}
+                                    generator=g).to(dev, torch.int32)}
 
 
 def _lrs():
@@ -5556,15 +5830,21 @@ def _lrs():
 
 
 def _phase18_references(torch, work):
-    """The single device's run of the phase (seed-0 weights, 3 AdamW steps
-    on deterministic algorithms): its losses, the first moment after step 1
-    and the params after step 3 saved as checkpoints (the ranks read their
-    blocks), its step time and peak memory."""
+    """The single device's run of the phase (seed-0 weights, its AdamW
+    steps on deterministic algorithms) in a fresh ``work``: its losses, the
+    first moment after step 1 and the params after the last step saved as
+    checkpoints
+    (the ranks read their blocks), its step time and peak memory. It runs
+    no kernel: ``main`` runs it beside the build."""
+    import shutil
+
     from repro_torch.checkpoint import ckpt
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import init_params
     from repro_torch.train.trainer import make_train_step
     from repro_torch.launch.mesh import MeshShape
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
     cfg = _fsdp_cfg()
     cell = _fsdp_cell(MeshShape(*FSDP_MESH))
     model = get_model(cfg)
@@ -5586,7 +5866,7 @@ def _phase18_references(torch, work):
             losses.append(float(m["loss"]))
             if i == 0:
                 ckpt.save(str(work / "single_m1"), 1, state["m"])
-    ckpt.save(str(work / "single_p3"), FSDP_RUN["steps"], params)
+    ckpt.save(str(work / "single_last"), FSDP_RUN["steps"], params)
     out = dict(losses=losses, ms=ms,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                n_params=sum(int(v.numel()) for v in _leaf_list(params)))
@@ -5688,7 +5968,7 @@ def _fsdp_steps(torch, mesh, cell, step, params, state, batch, n, first=0):
 
 
 def _resume(torch, mesh, cell, dev):
-    """The step-2 checkpoint restored by ``resume_or_init`` under
+    """The (a)'s checkpoint restored by ``resume_or_init`` under
     ``cell``'s placements on ``mesh``: (params, state, step)."""
     from repro_torch.runtime.fault_tolerance import (FaultTolerantLoop,
                                                      TrainLoopState)
@@ -5709,12 +5989,34 @@ def _resume(torch, mesh, cell, dev):
     return st.params, st.opt_state, st.step
 
 
+class _RowsRead:
+    """While inside, the bytes of the batch rows that a data parallel
+    train step takes (``train.trainer._rows``, each call's result)."""
+
+    def __enter__(self):
+        from repro_torch.launch.dryrun import tree_bytes
+        from repro_torch.train import trainer
+        self._rows, self.bytes = trainer._rows, 0
+
+        def rows(*args):
+            got = self._rows(*args)
+            self.bytes += tree_bytes(got)
+            return got
+        trainer._rows = rows
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import trainer
+        trainer._rows = self._rows
+
+
 def _fsdp_train(torch, mesh, rank, dev):
     """(a) and (b) on this rank of the (2, 2) mesh."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import ckpt
     from repro_torch.core import colshard
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import init_params, place_tree
     from repro_torch.runtime.fault_tolerance import (FaultTolerantLoop,
@@ -5745,19 +6047,32 @@ def _fsdp_train(torch, mesh, rank, dev):
     out["blocks"] = blocks
     out["held"] = sum(colshard.local(v).numel() for v in _leaf_list(params))
 
-    # (a) three steps; the first moment after step 1 against one device's,
-    # the step-2 checkpoint, the params after step 3
+    # (a) the steps; the first moment after step 1 against one device's,
+    # the checkpoint after step ckpt_at, the params after the last step
     loop = FaultTolerantLoop(str(FSDP_WORK / "ckpt"), async_save=False)
     losses, ms, share = [], [], []
     t0 = time.perf_counter()
     for i in range(FSDP_RUN["steps"]):
         if i == 1:
             # one device on the mesh's step-1 state (step 1's is the
-            # parent's run, step 3's the restore of the step-2 checkpoint)
+            # parent's run; the restore of the checkpoint checks the last
+            # step again, in (b))
             out["same2"] = _one_device_loss(torch, params, batch, model, cfg,
                                             rank, dev)
-        params, state, ls, tms, sh = _fsdp_steps(torch, mesh, cell, step,
-                                                 params, state, batch, 1)
+        if i == 0:
+            # 19(b): what this rank holds for step 1 (the params, the
+            # optimizer state and the rows of the global batch that its
+            # step reads) and its collectives over the step
+            held = tree_bytes(params) + tree_bytes(state)
+            colshard.reset_collective_counts()
+        with _RowsRead() if i == 0 else contextlib.nullcontext() as rows:
+            params, state, ls, tms, sh = _fsdp_steps(
+                torch, mesh, cell, step, params, state, batch, 1)
+        if i == 0:
+            out["count1"] = dict(
+                argument=held + rows.bytes, rows=rows.bytes,
+                collectives=dict(colshard.collective.bytes),
+                ops=sum(colshard.collective.ops.values()))
         losses += ls
         ms += tms
         share += sh
@@ -5776,23 +6091,23 @@ def _fsdp_train(torch, mesh, rank, dev):
     out["train_s"] = time.perf_counter() - t0
     out.update(losses=losses, ms=ms, share=share,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    out["sum3"] = _checksum(torch, [params, state["m"], state["v"]])
-    p3_want = ckpt.restore(str(FSDP_WORK / "single_p3"), params,
+    out["sum_last"] = _checksum(torch, [params, state["m"], state["v"]])
+    last_want = ckpt.restore(str(FSDP_WORK / "single_last"), params,
                            shardings=cell.in_shardings[0], mesh=mesh,
                            device=dev)
-    out["p3_errs"] = _block_errs(torch, params, p3_want, mesh)
-    del params, state, p3_want
+    out["last_errs"] = _block_errs(torch, params, last_want, mesh)
+    del params, state, last_want
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) the same mesh resumes from the step-2 checkpoint: its step 3
-    # equals (a)'s bit for bit
+    # (b) the same mesh resumes from the checkpoint: its last step equals
+    # (a)'s bit for bit
     t0 = time.perf_counter()
     params, state, at = _resume(torch, mesh, cell, dev)
     out["restore_s"] = time.perf_counter() - t0
     params, state, ls, _, _ = _fsdp_steps(torch, mesh, cell, step, params,
                                           state, batch, 1, at)
-    out["resumed"] = dict(at=at, loss=ls[0], sum3=_checksum(
+    out["resumed"] = dict(at=at, loss=ls[0], sum_last=_checksum(
         torch, [params, state["m"], state["v"]]))
     del state
     gc.collect()
@@ -5816,9 +6131,9 @@ def _fsdp_train(torch, mesh, rank, dev):
 
 
 def _fsdp_serve(torch, mesh4, rank, dev, trained, work):
-    """(c) on this rank: (a)'s trained tree (the resumed step 3, bit-equal
-    to it) gathered, packed int8, served by one device on rank 0 and on
-    the ("model",) mesh of 4 under the full ``sharding_rules``."""
+    """(c) on this rank: (a)'s trained tree (the resumed last step,
+    bit-equal to it) gathered, packed int8, served by one device on rank 0
+    and on the ("model",) mesh of 4 under the full ``sharding_rules``."""
     import torch.distributed as dist
 
     from repro_torch.api import model_artifact
@@ -5928,9 +6243,9 @@ def _phase18_rank(rank, world, port, work):
 
 
 def _phase18_single_restore(torch):
-    """(b) on one device: the step-2 checkpoint restored by
-    ``resume_or_init`` with ``build_cell``'s placements on a mesh of one,
-    then step 3."""
+    """(b) on one device: (a)'s checkpoint restored by ``resume_or_init``
+    with ``build_cell``'s placements on a mesh of one, then the next
+    step."""
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.models.registry import get_model
     from repro_torch.train.trainer import make_train_step
@@ -5948,27 +6263,25 @@ def _phase18_single_restore(torch):
     return at, loss
 
 
-def phase18_fsdp(torch, smi):
+def phase18_fsdp(torch, smi, single):
     """FSDP and tensor parallelism over a ("data", "model") mesh of (2, 2)
     gloo ranks sharing the card: (a) llama3-8b at published widths cut to 2
-    layers, trained 3 AdamW steps under CIM emulate with ``build_cell``'s
-    placements, against one device; (b) its step-2 checkpoint resumed on
-    the same mesh (step 3 bit-equal), on a ("model",) mesh of 2 and on one
+    layers, trained ``FSDP_RUN["steps"]`` AdamW steps under CIM emulate
+    with ``build_cell``'s placements, against one device; (b) its
+    checkpoint resumed on the same mesh (the last step bit-equal), on a
+    ("model",) mesh of 2 and on one
     device; (c) the trained tree packed int8 and served on a ("model",)
     mesh of 4 under the full ``sharding_rules`` (K1 on N/4 columns, the
-    embedding and the head vocab-parallel)."""
+    embedding and the head vocab-parallel). ``single`` is
+    ``_phase18_references``'s run, made beforehand in ``FSDP_WORK``."""
     import shutil
 
     from repro_torch.launch import mesh as lm
     t_phase = time.perf_counter()
     work = FSDP_WORK
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    single = _phase18_references(torch, work)
-    gc.collect()
-    torch.cuda.empty_cache()
     single["left_gib"] = torch.cuda.memory_reserved() / 2 ** 30
-    print(f"phase 18 one device: losses {single['losses']}, step ms "
+    print(f"phase 18 one device (run beside the build): losses "
+          f"{single['losses']}, step ms "
           f"{[round(v, 2) for v in single['ms']]}, peak "
           f"{single['peak_gib']:.2f} GiB, {single['left_gib']:.2f} GiB "
           f"still reserved before the ranks", flush=True)
@@ -5989,12 +6302,12 @@ def phase18_fsdp(torch, smi):
 
     # (a) each step's loss against one device's on the same params: step
     # 1's the one device's own run (the seed-0 weights), step 2's rank 0's
-    # forward on the gathered step-1 state, step 3's the one device's
-    # restore of the step-2 checkpoint ((b)). The one device's own run
+    # forward on the gathered step-1 state and, as the last step, the one
+    # device's restore of the checkpoint ((b)). The one device's own run
     # parts from the mesh's after step 1 and is printed beside: AdamW's
     # first update is lr x sign(g), and a gradient within rounding of zero
     # takes either sign
-    same = [single["losses"][0], res[0]["same2"], loss1]
+    same = [single["losses"][0], res[0]["same2"]]
     for r, rr in enumerate(res):
         for i, (got, want) in enumerate(zip(rr["losses"], same)):
             check(abs(got - want) <= 1e-5 * abs(want), f"18a rank {r} step "
@@ -6007,7 +6320,7 @@ def phase18_fsdp(torch, smi):
         check(not bad, f"18a rank {r}: step-1 gradients (first moments) off "
               f"by (max |diff| / max |single|) {bad}")
         lim = steps * FSDP_STEP_REL
-        bad = {k: e for k, (e, s) in rr["p3_errs"].items()
+        bad = {k: e for k, (e, s) in rr["last_errs"].items()
                if not e <= lim * s + 2 * sum(lrs)}
         check(not bad, f"18a rank {r}: params after step {steps} off by "
               f"{bad}")
@@ -6016,7 +6329,7 @@ def phase18_fsdp(torch, smi):
                   f"18a rank {r}: {k} holds {local} of {shape}")
     a0 = res[0]
     m1 = max(e / s for e, s in a0["m1_errs"].values())
-    p3 = max(e for e, _ in a0["p3_errs"].values())
+    plast = max(e for e, _ in a0["last_errs"].values())
     mid = int(np.argsort(a0["ms"][1:])[len(a0["ms"][1:]) // 2]) + 1
     print(f"phase 18a {cfg.name} ({cfg.n_layers} layers, published widths, "
           f"{single['n_params'] / 1e9:.3f} B params, CIM emulate, AdamW in "
@@ -6028,7 +6341,8 @@ def phase18_fsdp(torch, smi):
           f"(gate 1e-5 relative; the one device's own run "
           f"{single['losses']}); step-1 gradients within "
           f"{m1:.3g} of each leaf's largest magnitude (gate "
-          f"{FSDP_GRAD_TOL:.4g}); params after step {steps} within {p3:.3g} "
+          f"{FSDP_GRAD_TOL:.4g}); params after step {steps} within "
+          f"{plast:.3g} "
           f"(gate {steps} x ({FSDP_STEP_REL:g} of the leaf's scale + 2 lr)); "
           f"each rank holds a quarter of every embed x (heads|mlp) weight "
           f"and of its moments ({a0['held'] / 1e9:.3f} B params a rank); "
@@ -6037,32 +6351,35 @@ def phase18_fsdp(torch, smi):
           f"collectives' share {a0['share'][mid]:.3f} (host clock, the "
           f"median step); peak memory per rank "
           + ", ".join(f"{rr['peak_gib']:.2f}" for rr in res)
-          + f" GiB (one device {single['peak_gib']:.2f}); the step-2 "
-          f"checkpoint written in {a0['save_s']:.1f} s; nvidia-smi: {smi}",
+          + f" GiB (one device {single['peak_gib']:.2f}); the step-"
+          f"{FSDP_RUN['ckpt_at']} checkpoint written in {a0['save_s']:.1f} s;"
+          f" nvidia-smi: {smi}",
           flush=True)
 
     # (b)
     for r, rr in enumerate(res):
         g = rr["resumed"]
         check(g["at"] == FSDP_RUN["ckpt_at"] and g["loss"] == rr["losses"][
-            -1] and g["sum3"] == rr["sum3"], f"18b rank {r}: the resume on "
-              f"the same mesh (from step {g['at']}) gave loss {g['loss']!r} "
+            -1] and g["sum_last"] == rr["sum_last"], f"18b rank {r}: the "
+              f"resume on the same mesh (from step {g['at']}) gave loss {g['loss']!r} "
               f"against {rr['losses'][-1]!r}; bit-equal state "
-              f"{g['sum3'] == rr['sum3']}")
+              f"{g['sum_last'] == rr['sum_last']}")
     want = a0["losses"][-1]
     for r in (0, 1):
         g = res[r]["pair"]
         check(g["at"] == FSDP_RUN["ckpt_at"] and abs(g["loss"] - want)
               <= 1e-5 * abs(want), f"18b rank {r} on the ('model',) mesh of "
-              f"2: step-3 loss {g['loss']!r} against {want!r}")
+              f"2: step-{steps} loss {g['loss']!r} against {want!r}")
     check(at1 == FSDP_RUN["ckpt_at"] and abs(loss1 - want) <= 1e-5 * abs(
-        want), f"18b one device: step-3 loss {loss1!r} against {want!r}")
+        want), f"18b one device: step-{steps} loss {loss1!r} against "
+        f"{want!r}")
     print(f"phase 18b the step-{FSDP_RUN['ckpt_at']} checkpoint (written "
           f"once by rank 0 in the reference's format) resumed by "
-          f"resume_or_init(shardings=) on the same mesh: step 3 bit-equal to "
-          f"18a's on every rank (loss {want!r}, params and moments), "
-          f"restored in {a0['restore_s']:.1f} s; on a ('model',) mesh of 2 "
-          f"({res[0]['pair']['held'] / 1e9:.3f} B params a rank): step-3 "
+          f"resume_or_init(shardings=) on the same mesh: step {steps} "
+          f"bit-equal to 18a's on every rank (loss {want!r}, params and "
+          f"moments), restored in {a0['restore_s']:.1f} s; on a ('model',) "
+          f"mesh of 2 ({res[0]['pair']['held'] / 1e9:.3f} B params a rank): "
+          f"step-{steps} "
           f"loss {res[0]['pair']['loss']!r}; on one device: "
           f"{loss1!r}; nvidia-smi: {smi}", flush=True)
 
@@ -6108,6 +6425,152 @@ def phase18_fsdp(torch, smi):
           f"{ranks_s:.1f} s: rank 0's training {a0['train_s']:.1f} s, (a)-(b) "
           f"{a0['train_phase_s']:.1f} s, (c) {a0['serve_s']:.1f} s); "
           f"nvidia-smi: {smi}", flush=True)
+    return res[0]["count1"]
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the dry run against the card
+# ---------------------------------------------------------------------------
+
+#: the whole script's seconds, the build included, that it is cut to fit
+RUN_BUDGET_S = 750
+DRY_OUT = ROOT / "build" / "chip_smoke_dryrun.json"
+#: the dry runs' time limit (they count in seconds; started before the
+#: build, they are done long before phase 19)
+DRY_LIMIT_S = 300
+
+
+def _start_dry_runs():
+    """Start ``_dry_runs`` in a process of its own, with no card visible
+    (it counts on ``meta`` tensors and joins the fake process group, so
+    nothing of this process's CUDA or group state is near it); its output
+    goes to a log beside ``DRY_OUT``."""
+    import os
+    DRY_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRY_OUT.unlink(missing_ok=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke; chip_smoke._dry_runs()")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(DRY_OUT.with_suffix(".log"), "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+
+
+def _dry_runs() -> None:
+    """Phase 19's two cells counted by ``launch.dryrun.run_cell``, their
+    records written to ``DRY_OUT``: (a) phase 16a's run, qwen3-0.6b uncut
+    on one device at batch 8 x 256 under the training launcher's CIM
+    config, AdamW, one microbatch; (b) phase 18's cell, llama3-8b cut to
+    2 layers on the (2, 2) mesh with ``build_cell``'s placements at batch
+    4 x 64, as rank 0 of the fake process group, with the bytes of the
+    batch rows that rank holds under the cell's placements apart."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import argument_bytes, rank_cell, run_cell
+    from repro_torch.launch.mesh import MeshShape
+    train = SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    a = run_cell(TRAIN_ARCH, dataclasses.replace(
+        train, seq_len=TRAIN_RUN["seq"], global_batch=TRAIN_RUN["batch"]),
+        mesh=MeshShape((1, 1), ("data", "model")), cim=train_cim(),
+        accum=1, verbose=False)
+    shape = dataclasses.replace(train, seq_len=FSDP_RUN["seq"],
+                                global_batch=FSDP_RUN["batch"])
+    kw = dict(cim=train_cim(), overrides={"n_layers": FSDP_RUN["n_layers"]},
+              accum=1)
+    b = run_cell(FSDP_ARCH, shape, mesh=MeshShape(*FSDP_MESH), verbose=False,
+                 **kw)
+    with rank_cell(FSDP_ARCH, shape, MeshShape(*FSDP_MESH), **kw) as (cell,
+                                                                     _):
+        b["batch_placed"] = argument_bytes(cell, 2)
+    DRY_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRY_OUT.write_text(json.dumps({"a": a, "b": b,
+                                   "seconds": time.perf_counter() - t0}))
+
+
+def _bound(rec):
+    r = rec["roofline"]
+    terms = {k: r[k] for k in ("compute_s", "memory_s", "collective_s")}
+    return max(terms.values()) * 1e3, max(terms, key=terms.get)[:-2]
+
+
+def phase19_dry_run(dry, step16, step18, smi) -> None:
+    """The dry run against the card: (a) phase 16a's step ``PROBE_STEP``
+    (``_StepProbe``): the dry run's argument bytes equal the bytes of the
+    params, AdamW state and batch the step took on the card, and its
+    FLOPs ``FlopCounterMode``'s count of that step, exactly; its meta peak
+    beside the card's ``max_memory_allocated`` over the step and its
+    roofline bound beside 16a's median step are printed, no gate. (b)
+    phase 18's first step on rank 0: the dry run's argument bytes a rank
+    (and its batch's bytes apart: the rows the rank's step read, counted
+    by ``_RowsRead``) and its collective bytes by kind (and ops) equal
+    what the rank held and counted, exactly."""
+    t_phase = time.perf_counter()
+    rc = dry.wait(timeout=DRY_LIMIT_S)
+    log = DRY_OUT.with_suffix(".log").read_text()
+    check(rc == 0 and DRY_OUT.exists(), f"phase 19: the dry runs exited "
+          f"{rc}: {log[-3000:]}")
+    res = json.loads(DRY_OUT.read_text())
+    a, b = res["a"], res["b"]
+    check(a["status"] == "ok" and b["status"] == "ok", f"phase 19: dry-run "
+          f"status {a['status']}, {b['status']}")
+
+    pa = a["per_device"]
+    check(pa["bytes_per_device_argument"] == step16["argument"], f"19a "
+          f"argument bytes: the dry run's {pa['bytes_per_device_argument']}"
+          f", the card's {step16['argument']}")
+    check(pa["hlo_flops"] == step16["flops"], f"19a FLOPs: the dry run's "
+          f"{pa['hlo_flops']}, FlopCounterMode's on the card "
+          f"{step16['flops']}")
+    bound_ms, by = _bound(a)
+    gib = 2 ** 30
+    print(f"phase 19a {TRAIN_ARCH} (uncut, batch {TRAIN_RUN['batch']} x "
+          f"{TRAIN_RUN['seq']}, one device, the training launcher's CIM "
+          f"config on emulate, AdamW): the dry run's argument bytes "
+          f"{pa['bytes_per_device_argument']} = the params, AdamW state and "
+          f"batch of 16a's step {step16['step']} on the card; its FLOPs "
+          f"{pa['hlo_flops']} = FlopCounterMode's count of that step on "
+          f"the card (by dtype {pa['flops_by_dtype']}); meta peak "
+          f"{pa['bytes_per_device_peak'] / gib:.2f} GiB beside the card's "
+          f"max_memory_allocated over the step {step16['peak'] / gib:.2f} "
+          f"GiB (ratio {pa['bytes_per_device_peak'] / step16['peak']:.3f});"
+          f" roofline bound {bound_ms:.2f} ms by {by} (compute "
+          f"{a['roofline']['compute_s'] * 1e3:.2f}, memory "
+          f"{a['roofline']['memory_s'] * 1e3:.2f} ms) beside 16a's median "
+          f"step {step16['step_ms']:.2f} ms (bound / step "
+          f"{bound_ms / step16['step_ms']:.3f}); counted in "
+          f"{a['count_s']} s; nvidia-smi: {smi}", flush=True)
+
+    pb = b["per_device"]
+    check(pb["bytes_per_device_argument"] == step18["argument"], f"19b "
+          f"argument bytes a rank: the dry run's "
+          f"{pb['bytes_per_device_argument']}, rank 0's {step18['argument']}")
+    check(b["batch_placed"] == step18["rows"], f"19b batch bytes a rank: "
+          f"the placements' {b['batch_placed']}, the rows rank 0's step "
+          f"read {step18['rows']}")
+    check(b["collectives"] == step18["collectives"]
+          and pb["collective_ops"] == step18["ops"], f"19b collectives: the "
+          f"dry run's {b['collectives']} ({pb['collective_ops']} ops), rank "
+          f"0's {step18['collectives']} ({step18['ops']} ops)")
+    bound_ms, by = _bound(b)
+    print(f"phase 19b {FSDP_ARCH} ({FSDP_RUN['n_layers']} layers, batch "
+          f"{FSDP_RUN['batch']} x {FSDP_RUN['seq']}, (data, model) = "
+          f"{FSDP_MESH[0]}, build_cell's placements) as rank 0 of the fake "
+          f"process group: argument bytes a rank "
+          f"{pb['bytes_per_device_argument']} (the batch's "
+          f"{b['batch_placed']} of them = the bytes of the rows rank 0's "
+          f"step read, counted as it took them) and collective bytes of "
+          f"one step by kind {b['collectives']} ({pb['collective_ops']} "
+          f"ops) = what rank 0 of phase 18's gloo run held and counted "
+          f"over its step 1; "
+          f"FLOPs a rank {pb['hlo_flops']}, roofline bound {bound_ms:.2f} "
+          f"ms by {by} on one H100 (NVLink 4); counted in {b['count_s']} s",
+          flush=True)
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s (the two "
+          f"dry runs counted in {res['seconds']:.1f} s in a process of "
+          f"their own, started before the build)", flush=True)
 
 
 if __name__ == "__main__":

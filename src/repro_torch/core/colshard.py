@@ -34,6 +34,17 @@ computation whose loss every rank computes whole). ``collective.calls``
 and ``collective.seconds`` count their calls and host seconds. gloo takes
 CUDA tensors for every one of them; nothing switches backend.
 
+``collective.bytes`` and ``collective.ops`` count every collective of
+this module by kind (``KINDS``), ``gather_cols`` and ``gather_first``
+included: the bytes of each op's output, as the reference's dry run reads
+them from the compiled HLO (an all-gather's gathered tensor, an
+all-reduce's tensor, a gather's gathered tensor on its root and nothing
+elsewhere). They count the same on a gloo or NCCL group as on the dry
+run's fake one (``launch.mesh.dry_mesh``), where no byte moves. The port
+issues no reduce-scatter or broadcast (gloo has neither for CUDA
+tensors: FSDP's backward is an all-reduce and a slice), so those kinds
+stay 0. ``reset_collective_counts`` zeroes them.
+
 FSDP and raw-weight tensor parallelism read placed weights at use:
 ``unshard_batch`` gathers the dims the batch axes split
 (``fsdp_gather``: an all-gather forward, a reduce-scatter backward: each
@@ -184,6 +195,7 @@ def gather_cols(local: torch.Tensor, cols: ColRange) -> torch.Tensor:
     parts = [torch.empty_like(local) for _ in range(cols.shards)]
     dist.all_gather(parts, local, group=cols.mesh.get_group(cols.axis))
     out = torch.cat(parts, dim=-1)[..., :cols.n]
+    _count("all-gather", _nbytes(local) * cols.shards)
     gather_cols.calls += 1
     gather_cols.seconds += time.perf_counter() - t0
     return out
@@ -232,6 +244,7 @@ def gather_first(x):
                 mesh_shards(mesh, a))] if coord[a] == 0 else None)
             t0 = time.perf_counter()
             dist.gather(out.contiguous(), parts, dst=first, group=g)
+            _count("gather", _nbytes(out) * len(parts) if parts else 0)
             collective.calls += 1
             collective.seconds += time.perf_counter() - t0
             done.add(a)
@@ -368,14 +381,36 @@ def _groups(mesh, axes):
     return [mesh.get_group(a) for a in axes if mesh_shards(mesh, a) > 1]
 
 
+#: the kinds of collective that ``collective.bytes`` and ``.ops`` count
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "broadcast", "gather")
+
 #: counters of ``all_reduce`` and ``all_gather``: ``calls`` and their host
-#: ``seconds`` (the autograd operators' collectives included)
-collective = types.SimpleNamespace(calls=0, seconds=0.0)
+#: ``seconds`` (the autograd operators' collectives included); ``bytes``
+#: and ``ops`` by kind over every collective of this module
+collective = types.SimpleNamespace(calls=0, seconds=0.0,
+                                   bytes=dict.fromkeys(KINDS, 0),
+                                   ops=dict.fromkeys(KINDS, 0))
 
 
-def _timed(fn, *args, **kw) -> None:
+def reset_collective_counts() -> None:
+    """Zero ``collective.bytes`` and ``collective.ops``."""
+    collective.bytes = dict.fromkeys(KINDS, 0)
+    collective.ops = dict.fromkeys(KINDS, 0)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count(kind: str, nbytes: int) -> None:
+    collective.bytes[kind] += int(nbytes)
+    collective.ops[kind] += 1
+
+
+def _timed(kind: str, nbytes: int, fn, *args, **kw) -> None:
     t0 = time.perf_counter()
     fn(*args, **kw)
+    _count(kind, nbytes)
     collective.calls += 1
     collective.seconds += time.perf_counter() - t0
 
@@ -386,7 +421,8 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     out = x.contiguous().clone()
     for g in _groups(mesh, axes):
-        _timed(dist.all_reduce, out, op=red, group=g)
+        _timed("all-reduce", _nbytes(out), dist.all_reduce, out, op=red,
+               group=g)
     return out
 
 
@@ -398,7 +434,8 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
         if mesh_shards(mesh, a) <= 1:
             continue
         parts = [torch.empty_like(out) for _ in range(mesh_shards(mesh, a))]
-        _timed(dist.all_gather, parts, out, group=mesh.get_group(a))
+        _timed("all-gather", _nbytes(out) * len(parts), dist.all_gather,
+               parts, out, group=mesh.get_group(a))
         out = torch.cat(parts, dim=dim)
     return out
 

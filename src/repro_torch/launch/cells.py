@@ -27,7 +27,8 @@ reference's mesh-axis tuples (one entry per tensor dim), so
 as the reference's, and turned into placements at the end.
 
 ``Cell.lower`` has no counterpart: torch has no ahead-of-time lowering.
-It raises, naming ROADMAP item 13 (``dryrun.py``).
+It raises, naming the port's dry run, ``launch.dryrun.run_cell``, which
+runs one rank's step on the cell's ``meta`` records and counts it.
 """
 from __future__ import annotations
 
@@ -62,8 +63,9 @@ RUN_HINTS: Dict[str, Dict[str, Any]] = {
     "zamba2-2.7b": dict(fsdp=True, accum_steps=8),
 }
 
-_LOWER = ("Cell.lower: torch has no ahead-of-time lowering; the dry run "
-          "(the reference's dryrun.py) is ROADMAP queue 1, item 13")
+_LOWER = ("Cell.lower: torch has no ahead-of-time lowering; count the cell "
+          "with repro_torch.launch.dryrun.run_cell, which runs one rank's "
+          "step on its meta records")
 
 
 @dataclasses.dataclass
@@ -217,12 +219,16 @@ def _to_placements(spec_tree, mesh):
     return _map(lambda s: _pl(mesh, *s), spec_tree)
 
 
-def build_cell(arch: str, shape_name: str, mesh, *,
+def build_cell(arch: str, shape_name, mesh, *,
                reduced: bool = False, cim=None,
                accum: Optional[int] = None,
                overrides: Optional[Dict[str, Any]] = None,
                run_overrides: Optional[Dict[str, Any]] = None) -> Cell:
-    shape = SHAPES[shape_name]
+    """The cell of ``arch`` at ``shape_name`` (a name of ``SHAPES``, or a
+    ``Shape`` of its own: a batch or length the registry does not name)
+    on ``mesh``."""
+    shape = (SHAPES[shape_name] if isinstance(shape_name, str)
+             else shape_name)
     cfg = get_config(arch, reduced=reduced, cim=cim)
     cfg = apply_hints(cfg, arch)
     if overrides:

@@ -11,10 +11,14 @@ backend is always the caller's: ``nccl`` when each rank has its own card,
 backend on its own, and a mesh that cannot be built raises.
 
 The reference's production pod shapes are TPU facts and are not copied:
-the mesh shape is an argument.
+the mesh shape is an argument. ``dry_mesh`` gives the dry run
+(``launch.dryrun``) one rank of a mesh of any shape in one process, over
+PyTorch's fake process group: its collectives return at once and move
+nothing, so a step on ``meta`` tensors runs as that rank's would.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import socket
@@ -133,6 +137,44 @@ class MeshShape:
 
     shape: Tuple[int, ...]
     mesh_dim_names: Tuple[str, ...]
+
+
+def parse_mesh(text: str) -> MeshShape:
+    """A mesh record from ``"16x16"`` ((data, model)), ``"2x16x16"``
+    ((pod, data, model)) or ``"1"`` (one device, (1, 1)): the dry run's
+    ``--mesh``."""
+    dims = tuple(int(d) for d in text.lower().split("x"))
+    if len(dims) == 1:
+        dims = (1, dims[0])
+    names = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(len(dims))
+    if names is None or min(dims) < 1:
+        raise ValueError(f"mesh {text!r}: give DxM or PxDxM ranks, or 1")
+    return MeshShape(dims, names)
+
+
+@contextlib.contextmanager
+def dry_mesh(shape: MeshShape):
+    """Rank 0 of a ``DeviceMesh`` of ``shape`` with no ranks behind it:
+    this process joins PyTorch's fake process group (``FakeStore``, the
+    ``"fake"`` backend) as rank 0 of ``prod(shape)``, whose collectives
+    return at once and move nothing (their outputs keep their shapes: on
+    ``meta`` tensors nothing else is there). The group is torn down on
+    exit, whatever happens inside, so no later code in the process
+    inherits it. A process that has joined a group already raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("dry_mesh: this process has joined a process "
+                           "group already; run the dry run in a process of "
+                           "its own")
+    world = math.prod(shape.shape)
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        yield init_device_mesh("cpu", tuple(shape.shape),
+                               mesh_dim_names=tuple(shape.mesh_dim_names))
+    finally:
+        dist.destroy_process_group()
 
 
 def spawn(fn: Callable, n: int, args: tuple = (), *,

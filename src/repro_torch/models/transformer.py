@@ -271,10 +271,13 @@ def check_overrun(stack: Dict, tokens: torch.Tensor) -> None:
     """Raise when T = tokens.shape[1] new positions would overrun a stacked
     attention cache ({"k" or "ckv", "len"}, (layers, B, max_len, ...)).
     Skipped under a CUDA-graph capture, where reading the lengths back
-    would end it."""
+    would end it, and on a ``meta`` cache (the dry run's), which holds no
+    lengths to read."""
     t = tokens.shape[1]
     max_len = stack["ckv" if "ckv" in stack else "k"].shape[2]
     if tokens.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    if colshard.local(stack["len"]).is_meta:
         return
     if stack["len"].numel() and int(stack["len"].max()) + t > max_len:
         raise ValueError(f"decode cache overrun: {t} new positions at length "

@@ -356,10 +356,11 @@ def test_port_checkpoint_restores_in_the_reference_and_on_two_ranks_and_one(
                    want["opt_state"])
 
 
-def test_cell_lower_names_item_13():
+def test_cell_lower_names_run_cell():
     cell = build_cell("qwen3-0.6b", "decode_32k", MeshShape(*F.MESH),
                       reduced=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError,
+                       match=r"repro_torch\.launch\.dryrun\.run_cell"):
         cell.lower()
 
 
