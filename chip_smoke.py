@@ -299,7 +299,20 @@ results gives the run's seconds.
    device's (computed by the parent first) to 1e-5 relative, every expert
    bank's gradient block and the router's within ``MESH_MOE_GRAD_TOL`` of
    their largest magnitude, the global gradient norm within 1e-3; each
-   rank's peak memory; the phase's seconds;
+   rank's peak memory; (f) data parallel serving: the same four ranks as
+   a ``("data", "model")`` mesh of (2, 2), (b)'s llama3 pack placed again
+   column-sharded over its ``"model"`` ranks (``DeployArtifact.shard``),
+   the 8 prompts (4 rows a data rank) prefilled and decoded 8
+   steps greedily through the serve cell's step (``launch.cells.
+   build_cell(...).step_fn``: each rank on its rows and its cache rows,
+   flash decode over ``"model"``, 64 of the 128 positions a rank): each
+   rank's prefill logits bit-equal to its rows of phase 13's one-device
+   prefill, its tokens equal to the one-device decode's and its logits
+   within ``MESH_FD_TOL`` a layer, no all-gather over ``"data"`` in the
+   steps (``core.colshard.collective.axes``), 14 K1 launches a call per
+   rank at M = 4 rows and no other kernel; rank 0's decode step (CUDA
+   events) beside (d)'s ``("model",)`` x 4 step and its K1 calls of a
+   step timed beside their bound; the phase's seconds;
 18. FSDP and tensor parallelism over a ``("data", "model")`` mesh of (2,
    2) gloo ranks sharing the card (``phase18_fsdp``): (a) llama3-8b at
    published widths cut to 2 layers, emulate under the training
@@ -3851,11 +3864,37 @@ def _keep_for_mesh(torch, keep, cfg, art, fwd, prompts, run):
         fwd(art.params, dcfg)
         totals = adc.totals()
     torch.save(dict(cfg=cfg, prompts=prompts, logits=run["logits"].cpu(),
-                    tokens=run["runs"]["bf16"]["gen"], adc=totals),
+                    tokens=run["runs"]["bf16"]["gen"], adc=totals,
+                    serve=_one_device_serve(torch, dcfg, art.params,
+                                            prompts, run["logits"].device)),
                keep / "ref.pt")
     print(f"phase 13 {cfg.name} int8 pack saved for phase 17 in "
           f"{save_s:.2f} s; ADC collector over one armed forward: "
           f"{totals[0]} of {totals[1]} conversions clipped", flush=True)
+
+
+def _one_device_serve(torch, cfg, params, prompts, dev):
+    """Phase 17(f)'s reference on one device: the serve cell's config
+    (``attn_chunk`` 0) with flash decode off, a prefill of ``prompts`` into
+    a cache of ``MESH_DP_MAX_LEN`` and ``MESH_DP_STEPS`` greedy decode
+    steps: the prefill's logits, each call's last-position logits
+    (float32) and its greedy tokens, on the host."""
+    from repro_torch.models.registry import get_model
+    c = cfg.replace(attn_chunk=0, flash_decode=False)
+    model = get_model(c)
+    tokens = torch.from_numpy(prompts).to(dev)
+    cache = model.init_cache(c, tokens.shape[0], MESH_DP_MAX_LEN,
+                             device=dev)
+    logits, cache = model.decode_step(params, cache, tokens, c)
+    out = dict(prefill=logits.cpu(), last=[], tokens=[])
+    for i in range(MESH_DP_STEPS + 1):
+        last = logits[:, -1].float()
+        tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+        out["last"].append(last.cpu())
+        out["tokens"].append(tok.cpu())
+        if i < MESH_DP_STEPS:
+            logits, cache = model.decode_step(params, cache, tok, c)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5096,6 +5135,13 @@ MESH_DECODE_REPS = 7
 #: layer of the cut
 MESH_FD_KV = ("bf16", "int8")
 MESH_FD_TOL = 2.0 ** -7
+#: (f): data parallel serving of the llama3 pack on the same ranks as a
+#: (data, model) mesh: 4 rows a data rank, max_len 128 with flash decode
+#: over "model", a prefill and ``MESH_DP_STEPS`` decode steps; phase 13
+#: saves the one-device serve of the same cell config (flash decode off)
+MESH_DP = ((2, 2), ("data", "model"))
+MESH_DP_MAX_LEN = 128
+MESH_DP_STEPS = 8
 #: (e): moonshot at published widths, phase 16d's depth, expert parallel
 #: under the training launcher's CIM config; 4 x 64 tokens (+1 for the
 #: labels). The loss against the single device's to 1e-5 relative; each
@@ -5370,6 +5416,169 @@ def _mesh_flash_decode(torch, mesh, work, rank, eng):
     return out
 
 
+def _mesh_data_parallel(torch, work, rank, dev, eng):
+    """(f) on this rank: phase 13's int8 llama3 pack as (b)'s engine loaded
+    it (its planes gathered from the ("model",) mesh, ``full_tree``, and
+    placed again over the "model" ranks of the (data, model) mesh of the
+    same ranks, ``DeployArtifact.shard``), served through the serve cell's
+    step: a prefill and ``MESH_DP_STEPS`` greedy decode steps with flash
+    decode, each rank on its rows (the main path: the counters and the
+    collectives counted around it); then one more step's K1 calls timed
+    on rank 0."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.api import DeployArtifact
+    from repro_torch.configs.base import Shape
+    from repro_torch.core import colshard
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import session_mesh
+    ref = torch.load(work / "llama3" / "ref.pt", weights_only=False)
+    one = ref["serve"]
+    mesh = lm.make_mesh(*MESH_DP, device=dev, backend="gloo")
+    t0 = time.perf_counter()
+    art = DeployArtifact(kind="model", config=eng.cfg.cim,
+                         params=colshard.full_tree(eng.params)).shard(
+                             mesh, device=dev)
+    load_s = time.perf_counter() - t0
+    cfg = ref["cfg"].replace(cim=art.config, flash_decode=True)
+    b = ref["prompts"].shape[0]
+    cell = build_cell(MESH_LM_ARCH, Shape("chip_smoke_17f", "decode",
+                                          MESH_DP_MAX_LEN, b), mesh,
+                      cim=art.config, overrides={
+                          f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)})
+    n, d = colshard.batch_shard(mesh, ("data",))
+    rows = slice(d * b // n, (d + 1) * b // n)
+    p = art.params
+
+    def whole_vocab(logits):
+        """This rank's logits rows with the vocab gathered over model."""
+        return colshard.all_gather(colshard.local(logits), mesh,
+                                   ("model",), -1)
+
+    tokens = torch.from_numpy(ref["prompts"]).to(dev)
+    last, toks, step_ms = [], [], []
+    with session_mesh(mesh, cell.rules):
+        cache = get_model(cell.cfg).init_cache(cell.cfg, b,
+                                               MESH_DP_MAX_LEN, device=dev)
+        placed = {k: (type(v).__name__, tuple(colshard.local(v).shape))
+                  for k, v in cache["layers"].items()}
+        torch.cuda.synchronize()
+        _reset_counters()
+        colshard.reset_collective_counts()
+        logits, cache = cell.step_fn(p, cache, tokens)
+        prefill = whole_vocab(logits)
+        logits = prefill
+        for i in range(MESH_DP_STEPS + 1):
+            last.append(logits[:, -1].float())
+            toks.append(torch.argmax(last[-1], dim=-1)[:, None].to(
+                torch.int32))
+            if i == MESH_DP_STEPS:
+                break
+            glob = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+            glob[rows] = toks[-1]
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = cell.step_fn(p, cache, glob)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            logits = whole_vocab(logits)
+        torch.cuda.synchronize()
+        launches, on_float = _read_counters()
+        axes = {k: dict(v) for k, v in colshard.collective.axes.items()
+                if v}
+        calls = _capture_kernel_calls(lambda: cell.step_fn(p, cache, glob))
+    k1 = calls.pop("cim_matmul_transformer")
+    k1_sum = None
+    if rank == 0:          # the other ranks wait: one rank on the card
+        errs = {"cim_matmul_llama3_dp": 0.0}
+        k1_sum = _time_captured_calls(
+            torch, {"cim_matmul_llama3_dp": k1}, errs, reps=10)[
+                "cim_matmul_llama3_dp"]
+        k1_sum["max_abs_err"] = errs["cim_matmul_llama3_dp"]
+    dist.barrier()
+    want = one["prefill"][rows]
+    got = prefill.cpu()
+    ref_last = torch.stack([x[rows] for x in one["last"]])
+    ours = torch.stack(last).cpu()
+    mine = torch.cat(toks, dim=1).cpu()
+    theirs = torch.cat([x[rows] for x in one["tokens"]], dim=1)
+    return dict(
+        load_s=load_s, rows=(rows.start, rows.stop), placed=placed,
+        prefill_equal=bool(torch.equal(got, want)),
+        prefill_diff=float((got.float() - want.float()).abs().max()),
+        tokens=mine.tolist(), tokens_equal=bool(torch.equal(mine, theirs)),
+        diff=float((ours - ref_last).abs().max()),
+        scale=float(ref_last.abs().max()), launches=launches,
+        floats=on_float, axes=axes,
+        step_ms=float(np.median(step_ms)), k1_calls=len(k1),
+        k1_shapes=sorted({(tuple(a[0].shape), int(a[1].shape[-1]))
+                          for a, _ in k1}),
+        other_calls=sum(len(v) for v in calls.values()), k1_timed=k1_sum)
+
+
+def _report_data_parallel(res, ref, smi):
+    """(f)'s gates and line."""
+    cfg = ref["cfg"]
+    calls = 1 + MESH_DP_STEPS
+    k1 = 7 * cfg.n_layers
+    for r, rr in enumerate(res):
+        g = rr["dp"]
+        check(g["prefill_equal"], f"17f rank {r}: prefill logits differ "
+              f"from its rows of phase 13's one-device prefill by "
+              f"{g['prefill_diff']!r}")
+        check(g["tokens_equal"], f"17f rank {r}: tokens {g['tokens']} "
+              "differ from the one-device decode's")
+        check(g["diff"] <= MESH_FD_TOL * cfg.n_layers * g["scale"],
+              f"17f rank {r}: logits differ by {g['diff']!r}, over 2^-7 x "
+              f"{cfg.n_layers} layers x {g['scale']!r}")
+        check(g["axes"].get("all-gather", {}).get("data", 0) == 0,
+              f"17f rank {r}: all-gathers over data in the steps: "
+              f"{g['axes']}")
+        check(g["launches"]["cim_matmul"] == k1 * calls
+              and all(v == 0 for k, v in g["launches"].items()
+                      if k != "cim_matmul")
+              and g["k1_calls"] == k1 and g["other_calls"] == 0,
+              f"17f rank {r}: launches {g['launches']}, a step's K1 calls "
+              f"{g['k1_calls']}, others {g['other_calls']}; expected "
+              f"{k1 * calls} K1 and nothing else")
+        check(all(s_[0][0] == ref["prompts"].shape[0] // 2
+                  for s_ in g["k1_shapes"]), f"17f rank {r}: K1 at "
+              f"{g['k1_shapes']}, not the rank's rows")
+    f0 = res[0]["dp"]
+    t = f0["k1_timed"]
+    print(f"phase 17f {MESH_LM_ARCH} ({cfg.n_layers} layers, phase 13's "
+          f"int8 pack as (b) loaded it, placed again over the new mesh's "
+          f"'model' ranks in {f0['load_s']:.2f} s) served data parallel "
+          f"on the (2, 2) ('data', 'model') mesh of the same gloo ranks "
+          f"through build_cell(...).step_fn, flash decode: "
+          f"{ref['prompts'].shape[0]} prompts of {ref['prompts'].shape[1]} "
+          f"tokens, rows {[rr['dp']['rows'] for rr in res]} a rank, cache "
+          f"blocks {f0['placed']}; prefill logits bit-equal to phase 13's "
+          f"one-device rows on every rank; {MESH_DP_STEPS} decode steps: "
+          f"tokens equal the one-device decode's, max |logit diff| "
+          f"{max(rr['dp']['diff'] for rr in res):.4g} (gate "
+          f"{MESH_FD_TOL * cfg.n_layers * f0['scale']:.4g}); collectives "
+          f"of the steps by mesh dim {f0['axes']} (no all-gather over "
+          f"'data'); per rank {f0['launches']['cim_matmul']} K1 ({k1} a "
+          f"call at M = {f0['k1_shapes'][0][0][0]} rows, N/2 columns "
+          f"{[s[1] for s in f0['k1_shapes']]}) and no other kernel; rank "
+          f"0's decode step eager {f0['step_ms']:.2f} ms (CUDA events, "
+          f"median of {MESH_DP_STEPS}) against (d)'s ('model',) x "
+          f"{MESH_RANKS} flash step {res[0]['flash']['step_ms']:.2f} ms; "
+          f"rank 0's {f0['k1_calls']} K1 calls of a step: "
+          f"{_fmt_total(t, 'graph replay')}; max |kernel - plain| "
+          f"{t['max_abs_err']!r}; {res[0]['dp_s']:.1f} s on rank 0; "
+          f"nvidia-smi: {smi}", flush=True)
+
+
 def _mesh_moe_cfg():
     """(e)'s config: moonshot at published widths cut to phase 16d's
     depth, the training launcher's CIM config, the reference's expert
@@ -5565,8 +5774,9 @@ def _report_moe_ep(res, smi):
 
 
 def _phase17_rank(rank, world, port, work):
-    """One rank of phase 17: gloo on the shared card, a ("model",) mesh,
-    (a), (b), (d) and (e); results to ``work/rank<r>.json``."""
+    """One rank of phase 17: gloo on the shared card, a ("model",) mesh
+    for (a), (b), (d) and (e), the same ranks as a (data, model) mesh for
+    (f); results to ``work/rank<r>.json``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -5588,6 +5798,9 @@ def _phase17_rank(rank, world, port, work):
         t0 = time.perf_counter()
         res["flash"] = _mesh_flash_decode(torch, mesh, work, rank, eng)
         res["flash_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["dp"] = _mesh_data_parallel(torch, work, rank, dev, eng)
+        res["dp_s"] = time.perf_counter() - t0
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -5729,6 +5942,7 @@ def phase17_column_parallel(torch, smi, qat):
           flush=True)
 
     _report_flash_decode(res, ref, smi)
+    _report_data_parallel(res, ref, smi)
     _report_moe_ep(res, smi)
 
     # (c) the launcher

@@ -43,7 +43,9 @@ elsewhere). They count the same on a gloo or NCCL group as on the dry
 run's fake one (``launch.mesh.dry_mesh``), where no byte moves. The port
 issues no reduce-scatter or broadcast (gloo has neither for CUDA
 tensors: FSDP's backward is an all-reduce and a slice), so those kinds
-stay 0. ``reset_collective_counts`` zeroes them.
+stay 0. ``collective.axes`` counts each kind's ops by the mesh dim they
+run over (a data parallel serve step's test: no all-gather over
+``"data"``). ``reset_collective_counts`` zeroes them.
 
 FSDP and raw-weight tensor parallelism read placed weights at use:
 ``unshard_batch`` gathers the dims the batch axes split
@@ -195,7 +197,7 @@ def gather_cols(local: torch.Tensor, cols: ColRange) -> torch.Tensor:
     parts = [torch.empty_like(local) for _ in range(cols.shards)]
     dist.all_gather(parts, local, group=cols.mesh.get_group(cols.axis))
     out = torch.cat(parts, dim=-1)[..., :cols.n]
-    _count("all-gather", _nbytes(local) * cols.shards)
+    _count("all-gather", _nbytes(local) * cols.shards, cols.axis)
     gather_cols.calls += 1
     gather_cols.seconds += time.perf_counter() - t0
     return out
@@ -244,7 +246,7 @@ def gather_first(x):
                 mesh_shards(mesh, a))] if coord[a] == 0 else None)
             t0 = time.perf_counter()
             dist.gather(out.contiguous(), parts, dst=first, group=g)
-            _count("gather", _nbytes(out) * len(parts) if parts else 0)
+            _count("gather", _nbytes(out) * len(parts) if parts else 0, a)
             collective.calls += 1
             collective.seconds += time.perf_counter() - t0
             done.add(a)
@@ -287,11 +289,17 @@ def batch_shard(mesh, axes) -> tuple:
 
 def placed(local: torch.Tensor, mesh, placements, shape) -> DTensor:
     """``local`` as the placed leaf of global ``shape`` (no copy, no
-    collective; differentiable with respect to ``local``)."""
-    stride = tuple(int(s) for s in torch.empty(
-        tuple(shape), device="meta").stride())
+    collective; differentiable with respect to ``local``). Its strides
+    are the contiguous ones of ``shape``, computed without a tensor (an
+    empty ``meta`` tensor of the global shape would count as a live
+    storage of that size in the dry run)."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(int(n), 1)
     return DTensor.from_local(local, mesh, list(placements), run_check=False,
-                              shape=torch.Size(shape), stride=stride)
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
 
 
 def shard_dim(x: torch.Tensor, mesh, dims: dict, device=None) -> DTensor:
@@ -373,44 +381,82 @@ def _drop_leading(x: DTensor, value: torch.Tensor) -> DTensor:
     return placed(value, x.device_mesh, places, x.shape[1:])
 
 
+def rows_view(x, axes):
+    """A cache leaf placed with its rows over the batch ``axes``, as a data
+    parallel step reads it: the rank's block with that split dropped (the
+    rows are the rank's own) and its other splits kept (a flash-decode
+    cache's time over ``"model"``): a placed leaf of the rank's rows, or
+    the local tensor where nothing else splits it. Raises on a leaf whose
+    rows are not placed over ``axes``."""
+    want = tuple(a for a in axes if mesh_shards(x.device_mesh, a) > 1) \
+        if isinstance(x, DTensor) else tuple(axes)
+    dims = {d: tuple(a for a in ax if mesh_shards(x.device_mesh, a) > 1)
+            for d, ax in sharded_dims(x).items()} \
+        if isinstance(x, DTensor) else {}
+    rows = [d for d, ax in dims.items() if ax == want]
+    if not rows:
+        raise ValueError(f"a {tuple(x.shape)} cache leaf does not hold its "
+                         f"rows over {tuple(axes)}: make the cache with "
+                         "init_cache under the session mesh")
+    keep = {d: ax for d, ax in dims.items() if d != rows[0] and ax}
+    loc = x.to_local()
+    if not keep:
+        return loc
+    shape = list(x.shape)
+    shape[rows[0]] = loc.shape[rows[0]]
+    return placed(loc, x.device_mesh, placements_of(x.device_mesh, keep),
+                  shape)
+
+
+def holds_rows(x, axes) -> bool:
+    """Whether a leaf is placed with a dim split over any of the batch
+    ``axes`` (of more than one rank)."""
+    if not isinstance(x, DTensor):
+        return False
+    split = {a for ax in sharded_dims(x).values() for a in ax
+             if mesh_shards(x.device_mesh, a) > 1}
+    return bool(split & set(axes))
+
+
 # ---------------------------------------------------------------------------
 # collectives over named mesh dims
 # ---------------------------------------------------------------------------
-
-def _groups(mesh, axes):
-    return [mesh.get_group(a) for a in axes if mesh_shards(mesh, a) > 1]
-
 
 #: the kinds of collective that ``collective.bytes`` and ``.ops`` count
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "broadcast", "gather")
 
 #: counters of ``all_reduce`` and ``all_gather``: ``calls`` and their host
 #: ``seconds`` (the autograd operators' collectives included); ``bytes``
-#: and ``ops`` by kind over every collective of this module
+#: and ``ops`` by kind over every collective of this module, and ``axes``:
+#: {kind: {mesh dim: ops}}
 collective = types.SimpleNamespace(calls=0, seconds=0.0,
                                    bytes=dict.fromkeys(KINDS, 0),
-                                   ops=dict.fromkeys(KINDS, 0))
+                                   ops=dict.fromkeys(KINDS, 0),
+                                   axes={k: {} for k in KINDS})
 
 
 def reset_collective_counts() -> None:
-    """Zero ``collective.bytes`` and ``collective.ops``."""
+    """Zero ``collective.bytes``, ``collective.ops`` and
+    ``collective.axes``."""
     collective.bytes = dict.fromkeys(KINDS, 0)
     collective.ops = dict.fromkeys(KINDS, 0)
+    collective.axes = {k: {} for k in KINDS}
 
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _count(kind: str, nbytes: int) -> None:
+def _count(kind: str, nbytes: int, axis: str) -> None:
     collective.bytes[kind] += int(nbytes)
     collective.ops[kind] += 1
+    collective.axes[kind][axis] = collective.axes[kind].get(axis, 0) + 1
 
 
-def _timed(kind: str, nbytes: int, fn, *args, **kw) -> None:
+def _timed(kind: str, nbytes: int, axis: str, fn, *args, **kw) -> None:
     t0 = time.perf_counter()
     fn(*args, **kw)
-    _count(kind, nbytes)
+    _count(kind, nbytes, axis)
     collective.calls += 1
     collective.seconds += time.perf_counter() - t0
 
@@ -420,9 +466,10 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     ``mesh``'s dims ``axes``."""
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     out = x.contiguous().clone()
-    for g in _groups(mesh, axes):
-        _timed("all-reduce", _nbytes(out), dist.all_reduce, out, op=red,
-               group=g)
+    for a in axes:
+        if mesh_shards(mesh, a) > 1:
+            _timed("all-reduce", _nbytes(out), a, dist.all_reduce, out,
+                   op=red, group=mesh.get_group(a))
     return out
 
 
@@ -434,7 +481,7 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
         if mesh_shards(mesh, a) <= 1:
             continue
         parts = [torch.empty_like(out) for _ in range(mesh_shards(mesh, a))]
-        _timed("all-gather", _nbytes(out) * len(parts), dist.all_gather,
+        _timed("all-gather", _nbytes(out) * len(parts), a, dist.all_gather,
                parts, out, group=mesh.get_group(a))
         out = torch.cat(parts, dim=dim)
     return out

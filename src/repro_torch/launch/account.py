@@ -33,12 +33,13 @@ accumulation a microbatch's activations shrink as 1/A
 (from the accum 1 and 2 counts) rather than growing with A.
 
 What is exact, and tested: FLOPs at every depth, accumulation and
-length; bytes and collectives in depth where each layer's ops do not
-depend on the depth. Where the backward of a layer stack writes each
-layer's gradient into a zero tensor of the whole stack (the whisper and
-xlstm stacks: bytes quadratic in depth), the solve of the bytes is an
-estimate too; so are the bytes under accumulation (the accum 1 step skips
-the float32 gradient sums the accum 2 step makes).
+length; bytes and collectives in depth, each layer's ops not depending on
+the depth (every stack takes its layers through one ``unbind`` per leaf,
+``models.transformer._layers``, so its backward stacks the layers'
+gradients once: the transformer's, whisper's, xlstm's and zamba2's);
+a serve cell's counts are one rank's rows (``launch.cells.serve_rows``).
+The bytes under accumulation are an estimate (the accum 1 step skips the
+float32 gradient sums the accum 2 step makes).
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ shape x mesh) -> a step with its argument records and placements.
 For each cell ``build_cell`` gives:
   * the step function, run on the rank (the train step for train shapes,
     one decode step for prefill and decode shapes: the reference's
-    ``serve_step``),
+    ``serve_step``, ``serve_rows``: under a session mesh whose batch axes
+    divide the batch, data parallel, each rank on its rows and its cache
+    rows, as the reference's placements make GSPMD run it),
   * shape and dtype records of every argument (``meta`` tensors: params
     from their specs, the optimizer state from ``init_state`` on those,
     the decode cache from ``init_cache``), so nothing is allocated,
@@ -39,10 +41,12 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig, RunConfig, Shape
 from repro_torch.configs.registry import get_config
+from repro_torch.core import colshard
 from repro_torch.models.registry import get_model
-from repro_torch.nn.module import (_placements, eval_shape_params,
-                                   logical_to_mesh, mesh_sizes)
-from repro_torch.train.trainer import make_train_step
+from repro_torch.nn.module import (_placements, current_mesh, data_parallel,
+                                   eval_shape_params, logical_to_mesh,
+                                   mesh_sizes)
+from repro_torch.train.trainer import _rows, make_train_step
 
 from .mesh import batch_axes, sharding_rules
 
@@ -289,9 +293,8 @@ def build_cell(arch: str, shape_name, mesh, *,
         else None
     tok_sh = _pl(mesh, bspec)
 
-    def serve_step(params, cache, tokens):
-        logits, new_cache = model.decode_step(params, cache, tokens, cfg)
-        return logits, new_cache
+    def serve_step(params, cache, tokens, frontend=None):
+        return serve_rows(model, cfg, params, cache, tokens, frontend)
 
     vspec = "model" if _dim_axis_ok(cfg.vocab, mesh, "model") else None
     logits_sh = _pl(mesh, bspec, None, vspec)
@@ -304,6 +307,97 @@ def build_cell(arch: str, shape_name, mesh, *,
         out_shardings=(logits_sh, cache_sh),
         donate=(1,),
     )
+
+
+# ---------------------------------------------------------------------------
+# the serve step: data parallel over the batch axes
+# ---------------------------------------------------------------------------
+
+def _cache_map(fn, tree, *rest):
+    """``fn`` over the leaves of a cache tree and the matching leaves of
+    ``rest`` (tuples stay tuples: xlstm's ``cell``)."""
+    if isinstance(tree, dict):
+        return {k: _cache_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cache_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _placed_logits(logits: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Logits (rows, T, V) placed as the reference's ``logits_sh``: rows
+    over the batch ``axes`` (the rank's own already), the vocab over
+    ``"model"`` where its ranks divide it (this rank's block of the
+    whole-vocab logits the LM head gathered). Plain without a split."""
+    dims = {0: axes} if axes else {}
+    n_model = colshard.mesh_shards(mesh, "model")
+    v = logits.shape[-1]
+    if n_model > 1 and v % n_model == 0:
+        w = v // n_model
+        logits = logits.narrow(-1, colshard.mesh_coord(mesh, "model") * w,
+                               w)
+        dims[2] = ("model",)
+    if not dims:
+        return logits
+    shape = list(logits.shape)
+    shape[0] *= colshard.batch_shard(mesh, axes)[0] if axes else 1
+    shape[2] = v
+    return colshard.placed(logits.contiguous(), mesh,
+                           colshard.placements_of(mesh, dims), tuple(shape))
+
+
+def _decode(model, cfg: ModelConfig, params, cache, tokens, frontend):
+    """The model's decode step; with ``frontend`` a prefill that reads the
+    front-end input of these rows first: whisper's encoder states written
+    into the cache's ``enc_out`` rows, llava's image embeddings before the
+    prompt."""
+    if frontend is None:
+        return model.decode_step(params, cache, tokens, cfg)
+    if cfg.family == "whisper":
+        from repro_torch.models import whisper
+        cache["enc_out"].copy_(whisper.encode(params, frontend, cfg))
+        return model.decode_step(params, cache, tokens, cfg)
+    if cfg.family == "llava":
+        from repro_torch.models import llava
+        return llava.decode_step(params, cache, tokens, cfg,
+                                 frontend=frontend)
+    raise ValueError(f"a {cfg.family} serve step takes no front-end input")
+
+
+def serve_rows(model, cfg: ModelConfig, params, cache, tokens,
+               frontend=None):
+    """One serve step (the reference's ``serve_step``: a prefill of T
+    tokens or a decode step) on this rank: (logits, cache), the logits
+    placed as the reference's ``logits_sh``, the cache written in place.
+
+    Under a session mesh whose batch axes (of more than one rank) divide
+    the batch (``models.layers.rows_axes``; the reference's ``bspec``)
+    the step is data parallel: ``tokens`` (and ``frontend``) are the
+    global batch, the rank takes its rows, and its decode step runs on
+    them and on its rows of the cache (each leaf placed with its rows
+    over the batch axes, as ``init_cache`` makes it under that mesh, read
+    through ``colshard.rows_view``) inside
+    ``nn.module.data_parallel``: every layer below sees B/D rows, so no
+    activation row crosses the batch axes, and the logits and cache come
+    back placed over them. Elsewhere the rows stay whole on every rank
+    (``long_500k``'s batch of 1)."""
+    from repro_torch.models.layers import rows_axes
+    mesh = current_mesh()
+    axes = rows_axes(tokens.shape[0])
+    if not axes:
+        logits, new = _decode(model, cfg, params, cache, tokens, frontend)
+        return (_placed_logits(logits, mesh, ()) if mesh is not None
+                else logits), new
+    view = _cache_map(lambda x: colshard.rows_view(x, axes), cache)
+    batch = _rows({"tokens": tokens} if frontend is None else
+                  {"tokens": tokens, "frontend": frontend}, mesh, axes)
+    with data_parallel(mesh, axes):
+        logits, new = _decode(model, cfg, params, view, batch["tokens"],
+                              batch.get("frontend"))
+    new = _cache_map(lambda n, ref: colshard.like(ref, colshard.local(n)),
+                     new, cache)
+    return _placed_logits(logits, mesh, axes), new
 
 
 def _opt_shardings(opt_struct, params_sp, mesh):

@@ -210,7 +210,8 @@ def count_step(fn, args) -> Dict[str, Any]:
     (``FlopCounterMode``'s total and the split by dtype), bytes, ops, the
     peak of live bytes (the arguments included), argument and output
     bytes, output bytes that alias an argument, collective bytes by kind
-    (``core.colshard.collective``), and the wall seconds of the count."""
+    and ops by kind and mesh dim (``core.colshard.collective``), and the
+    wall seconds of the count."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.core import colshard
@@ -233,6 +234,8 @@ def count_step(fn, args) -> Dict[str, Any]:
            "output": sum(_nbytes(x) for x in outs), "alias": alias,
            "collectives": dict(colshard.collective.bytes),
            "collective_ops": sum(colshard.collective.ops.values()),
+           "collective_axes": {k: dict(v) for k, v in
+                               colshard.collective.axes.items() if v},
            "count_s": count_s}
     del out, outs
     return rec
@@ -318,11 +321,15 @@ def rank_cell(arch: str, shape, mesh: MeshShape, **kw):
     and the cell's mesh installed as the session mesh while inside: the
     params (and a train step's optimizer state) as ``meta`` blocks under
     the cell's placements; a serve step's decode cache as the port's
-    ``init_cache`` lays it out under that session mesh (time-sharded
-    blocks where flash decode applies, else whole: the port's plain decode
-    reads a whole cache); the batch or tokens whole (a data parallel train
-    step takes the global batch and reads its rows). On one device no
-    group is joined and nothing is placed."""
+    ``init_cache`` lays it out under that session mesh (every leaf's rows
+    over the batch axes where their ranks divide the batch, K/V's time
+    over ``"model"`` too where flash decode applies); the batch or tokens
+    whole: a data parallel train or serve step takes the global batch and
+    reads its rows (``launch.cells.serve_rows``), so a serve cell counts
+    one rank's rows, as the reference's GSPMD step runs them. MLA's latent
+    cache and the SSD state keep their time and heads whole (the
+    reference splits them over ``"model"`` too). On one device no group
+    is joined and nothing is placed."""
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import place_tree, session_mesh
 

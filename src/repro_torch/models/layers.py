@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree_leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import colshard
 from repro_torch.core.colshard import col_apply
@@ -593,18 +594,20 @@ def _mesh_dims(mesh) -> Tuple[str, ...]:
 
 
 def _cache_mesh(cfg: ModelConfig, b: int, t_cache: int):
-    """The session mesh when a decode cache of ``b`` rows and ``t_cache``
-    positions is time-sharded for flash decode (the reference's
-    ``_flash_decode_ep_ready`` without its one-token condition): a mesh
-    with ``"model"``, ``cfg.flash_decode``, the time axis dividing the
-    ``"model"`` ranks and the rows the batch axes' ranks. Else None."""
+    """The session mesh when a decode cache of ``b`` rows (a rank's rows
+    inside a data parallel step) and ``t_cache`` positions is time-sharded
+    for flash decode (the reference's ``_flash_decode_ep_ready`` without
+    its one-token condition): a mesh with ``"model"``,
+    ``cfg.flash_decode``, the time axis dividing the ``"model"`` ranks and
+    the global rows the batch axes' ranks. Else None."""
     from repro_torch.launch.mesh import batch_axes
-    from repro_torch.nn.module import current_mesh
+    from repro_torch.nn.module import batch_ranks, current_mesh
     mesh = current_mesh()
     if (not cfg.flash_decode or "model" not in _mesh_dims(mesh)
             or t_cache % colshard.mesh_shards(mesh, "model")):
         return None
-    if b and b % colshard.batch_shard(mesh, batch_axes(mesh))[0]:
+    if b and (b * batch_ranks()) % colshard.batch_shard(
+            mesh, batch_axes(mesh))[0]:
         return None
     return mesh
 
@@ -624,56 +627,98 @@ def _check_cache_mesh(cfg: ModelConfig, b: int, t_cache: int) -> None:
                          "mesh and config init_cache placed it under")
 
 
+def rows_axes(batch: int) -> Tuple[str, ...]:
+    """The session mesh's batch axes of more than one rank when their ranks
+    divide ``batch`` rows (the reference's ``cache_shardings`` and
+    ``bspec``: ``launch.cells._dim_axis_ok``), else (): the rows a data
+    parallel serve step splits, and the rows of every cache leaf."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.nn.module import current_mesh
+    mesh = current_mesh()
+    axes = tuple(a for a in batch_axes(mesh)
+                 if colshard.mesh_shards(mesh, a) > 1)
+    n = colshard.batch_shard(mesh, axes)[0] if axes else 1
+    return axes if axes and batch % n == 0 and batch >= n else ()
+
+
+def cache_leaf(shape, dtype, dev: torch.device, *, row_dim: int = 1,
+               time_dim: Optional[int] = None,
+               fill: float = 0.0) -> torch.Tensor:
+    """A decode-cache leaf of ``shape`` filled with ``fill``. Under a
+    session mesh whose batch axes divide its rows (``rows_axes``) and,
+    with ``time_dim``, over ``"model"`` on that dim too, this rank
+    allocates only its block, a placed leaf carrying the global shape
+    (the reference's ``cache_shardings``); else the whole tensor."""
+    from repro_torch.nn.module import current_mesh
+    mesh = current_mesh()
+    dims = {}
+    rows = rows_axes(shape[row_dim])
+    if rows:
+        dims[row_dim] = rows
+    if time_dim is not None:
+        dims[time_dim] = ("model",)
+    if not dims:
+        return torch.full(tuple(shape), fill, dtype=dtype, device=dev)
+    block = list(shape)
+    for d, axes in dims.items():
+        block[d] //= colshard.batch_shard(mesh, axes)[0]
+    return colshard.placed(
+        torch.full(tuple(block), fill, dtype=dtype, device=dev), mesh,
+        colshard.placements_of(mesh, dims), tuple(shape))
+
+
+def check_rows(cache) -> None:
+    """Raise when a cache leaf holds its rows over the batch axes: such a
+    cache is stepped by ``launch.cells.serve_rows`` (the serve cell's
+    step), each rank on its rows, and not by a model's ``decode_step``
+    on the whole batch."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.nn.module import current_mesh
+    axes = batch_axes(current_mesh())
+    if axes and any(colshard.holds_rows(x, axes) for x in tree_leaves(cache)):
+        raise ValueError("this decode cache holds its rows over the batch "
+                         f"axes {axes}: step it with launch.cells.serve_rows "
+                         "(a serve cell's step_fn), each rank on its rows")
+
+
 def kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
              dev: torch.device, int8: bool) -> Dict:
     """A stacked GQA decode cache (n_layers, batch, max_len, KvH, hd): K/V
     in the compute dtype, or int8 codes with float32 per-(token, head)
-    scales, and the lengths. Under a session mesh where flash decode
-    applies (``_cache_mesh``) each rank allocates only its block, rows
-    over the batch axes and time over ``"model"``, as placed leaves
-    carrying the global shape (the reference's ``cache_shardings``); the
-    lengths stay whole."""
-    from repro_torch.launch.mesh import batch_axes
+    scales, and the lengths (n_layers, batch). Under a session mesh
+    (``cache_leaf``) every leaf holds its rows over the batch axes where
+    their ranks divide the batch, and where flash decode applies
+    (``_cache_mesh``) K/V and their scales hold their time over
+    ``"model"`` too: each rank allocates only its block."""
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dtypes = ({"k": torch.int8, "v": torch.int8, "k_scale": torch.float32,
                "v_scale": torch.float32} if int8
               else {"k": cdt(cfg), "v": cdt(cfg)})
-    mesh = _cache_mesh(cfg, batch, max_len)
-    out = {}
-    for name, dt in dtypes.items():
-        full = shape if name in ("k", "v") else shape[:-1]
-        if mesh is None:
-            out[name] = torch.zeros(full, dtype=dt, device=dev)
-            continue
-        dims = {1: batch_axes(mesh), 2: ("model",)}
-        nb = colshard.batch_shard(mesh, dims[1])[0]
-        block = (full[0], full[1] // nb,
-                 full[2] // colshard.mesh_shards(mesh, "model")) + full[3:]
-        out[name] = colshard.placed(
-            torch.zeros(block, dtype=dt, device=dev), mesh,
-            colshard.placements_of(mesh, dims), full)
-    out["len"] = torch.zeros((n_layers, batch), dtype=torch.int32, device=dev)
+    time = 2 if _cache_mesh(cfg, batch, max_len) is not None else None
+    out = {name: cache_leaf(shape if name in ("k", "v") else shape[:-1], dt,
+                            dev, time_dim=time)
+           for name, dt in dtypes.items()}
+    out["len"] = cache_leaf((n_layers, batch), torch.int32, dev)
     return out
 
 
 def _write_local(leaf, rows: torch.Tensor, start: torch.Tensor) -> None:
     """Write the T new rows (B, T, ...) of every batch row at positions
-    ``start + 0..T-1`` into the block of a time-sharded cache leaf this
-    rank holds: the positions in its time slice, of the rows in its batch
-    block; the rest of the block keeps its values. Computed on the
-    device over the whole block, so no index leaves it."""
+    ``start + 0..T-1`` into this rank's time block of a time-sharded
+    cache leaf (its rows are the rank's own: the batch the step runs on):
+    the positions in its time slice; the rest of the block keeps its
+    values. Computed on the device over the whole block, so no index
+    leaves it."""
     mesh = leaf.device_mesh
-    block = leaf.to_local()                               # (Bl, Tl, ...)
-    bl, t_loc = block.shape[:2]
-    bi = colshard.batch_shard(mesh, colshard.sharded_dims(leaf).get(0, ()))[1]
+    block = leaf.to_local()                               # (B, Tl, ...)
+    b, t_loc = block.shape[:2]
     t0 = colshard.mesh_coord(mesh, "model") * t_loc
-    mine = slice(bi * bl, (bi + 1) * bl)
     t = rows.shape[1]
     off = (t0 + torch.arange(t_loc, device=block.device))[None, :] - start[
-        mine, None]                                        # (Bl, Tl)
+        :, None]                                           # (B, Tl)
     inside = (off >= 0) & (off < t)
-    src = rows[mine].to(block.dtype)[
-        torch.arange(bl, device=block.device)[:, None], off.clamp(0, t - 1)]
+    src = rows.to(block.dtype)[
+        torch.arange(b, device=block.device)[:, None], off.clamp(0, t - 1)]
     inside = inside.reshape(inside.shape + (1,) * (block.ndim - 2))
     block.copy_(torch.where(inside, src, block))
 
@@ -683,32 +728,31 @@ def _flash_decode_ep(q: torch.Tensor, new: Dict, cache: Dict,
     """One decode token's attention over a time-sharded cache (the
     reference's ``_flash_decode_ep``): the rank writes the new row where
     it owns the position (the int8 cache's codes and scales quantized
-    once, by every rank alike), attends over its time slice of its batch
-    rows, and the partial softmaxes merge over ``"model"`` as the
-    reference merges them: a local max, a max all-reduce, ``exp(s -
-    m_g)``, then sum all-reduces of ``l`` and ``acc``. Each rank weights
-    its values by ``exp(s - m_g) / l`` rounded to the compute dtype, as
-    the plain path's softmax weights are, before the product (the
-    reference divides the summed ``acc`` by ``l``: the same in float32 up
-    to rounding, but in bfloat16 the weights' rounding is the plain
-    path's, so the decode keeps its tokens). The batch blocks are
-    gathered over the batch axes. q (B, 1, H, hd) -> (B, 1, H, hd)."""
+    once, by every rank alike), attends over its time slice, and the
+    partial softmaxes merge over ``"model"`` as the reference merges
+    them: a local max, a max all-reduce, ``exp(s - m_g)``, then sum
+    all-reduces of ``l`` and ``acc``. Each rank weights its values by
+    ``exp(s - m_g) / l`` rounded to the compute dtype, as the plain path's
+    softmax weights are, before the product (the reference divides the
+    summed ``acc`` by ``l``: the same in float32 up to rounding, but in
+    bfloat16 the weights' rounding is the plain path's, so the decode
+    keeps its tokens). The rows are the step's own: under a mesh with
+    batch axes a data parallel serve step (``launch.cells.serve_rows``)
+    hands each rank its rows and their cache rows, so no row crosses the
+    batch axes. q (B, 1, H, hd) -> (B, 1, H, hd)."""
     for name, rows in new.items():
         _write_local(cache[name], rows, idx.to(torch.long))
-    batch = colshard.sharded_dims(cache["k"]).get(0, ())
     local = {n: cache[n].to_local() for n in new}
-    k_at, v_at = _dequantized(local, q.dtype)             # (Bl, Tl, KvH, hd)
-    bl, t_loc, kvh, hd = k_at.shape
-    bi = colshard.batch_shard(mesh, batch)[1]
-    mine = slice(bi * bl, (bi + 1) * bl)
+    k_at, v_at = _dequantized(local, q.dtype)             # (B, Tl, KvH, hd)
+    _, t_loc, kvh, hd = k_at.shape
     h = q.shape[2]
     kk, vv = _repeat_kv(k_at, h // kvh), _repeat_kv(v_at, h // kvh)
     sc = 1.0 / torch.sqrt(torch.full((), float(hd), dtype=torch.float32,
                                      device=q.device))
-    s = _scores(q[mine], kk, sc)                          # (Bl, H, 1, Tl)
+    s = _scores(q, kk, sc)                                # (B, H, 1, Tl)
     kpos = (colshard.mesh_coord(mesh, "model") * t_loc
             + torch.arange(t_loc, device=q.device))
-    valid = kpos[None, :] < (idx[mine] + 1)[:, None]
+    valid = kpos[None, :] < (idx + 1)[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     m_g = colshard.all_reduce(s.amax(dim=-1), mesh, ("model",), "max")
     p = torch.exp(s - m_g[..., None])
@@ -717,8 +761,7 @@ def _flash_decode_ep(q: torch.Tensor, new: Dict, cache: Dict,
     acc = torch.einsum("bhqk,bkhd->bhqd", w.to(torch.float32),
                        vv.to(torch.float32))
     acc_g = colshard.all_reduce(acc, mesh, ("model",))
-    out = acc_g.permute(0, 2, 1, 3).to(q.dtype)          # (Bl, 1, H, hd)
-    return colshard.all_gather(out, mesh, batch) if batch else out
+    return acc_g.permute(0, 2, 1, 3).to(q.dtype)          # (B, 1, H, hd)
 
 
 def _batched_experts_ok(p: Dict, nm: str, cfg: ModelConfig) -> bool:

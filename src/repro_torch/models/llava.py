@@ -79,5 +79,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    return transformer.decode_step(params, cache, tokens, cfg)
+                cfg: ModelConfig, frontend: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """The text backbone's decode step; with ``frontend`` (raw images or
+    stub patch embeddings, as ``forward`` takes them) a prefill whose
+    first positions are the projected patches, then the prompt."""
+    img = None
+    if frontend is not None:
+        if cfg.conv_frontend and frontend.ndim == 4:
+            frontend = embed_patches(params, frontend, cfg)
+        img = project_patches(params, frontend, cfg)
+    return transformer.decode_step(params, cache, tokens, cfg,
+                                   extra_embeds=img)

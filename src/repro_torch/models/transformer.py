@@ -27,9 +27,9 @@ from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, constrain, stack_specs
 
-from .layers import (apply_mlp, apply_moe, apply_norm, cdt, gqa_attend,
-                     gqa_specs, kv_cache, mla_attend, mla_specs, mlp_specs,
-                     moe_specs, norm_specs, pdt)
+from .layers import (apply_mlp, apply_moe, apply_norm, cache_leaf, cdt,
+                     check_rows, gqa_attend, gqa_specs, kv_cache, mla_attend,
+                     mla_specs, mlp_specs, moe_specs, norm_specs, pdt)
 
 
 # ---------------------------------------------------------------------------
@@ -226,11 +226,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     with ``kv_cache_dtype="int8"`` int8 codes and float32 per-(token,
     head) scales (``layers.kv_cache``: time-sharded over the session mesh
     where flash decode applies); MLA's latent ``ckv`` and rotary key
-    ``krope`` in the compute dtype."""
+    ``krope`` in the compute dtype. Under a session mesh whose batch axes
+    divide ``batch`` every leaf holds its rows over them
+    (``layers.cache_leaf``; MLA's time stays whole)."""
     dev = resolve_device(device)
 
     def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return cache_leaf(shape, dtype, dev)
 
     def kv(n_layers):
         return kv_cache(cfg, n_layers, batch, max_len, dev,
@@ -254,26 +256,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                cfg: ModelConfig, extra_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step: tokens (B, T) and the caches -> (logits (B, T, V),
-    caches). The caches are written in place. Eagerly, raises when the T
+    caches); ``extra_embeds`` (B, Tp, D) are prepended, as ``forward``
+    prepends them (llava's image prefill: logits (B, Tp + T, V)). The
+    caches are written in place. Eagerly, raises when the T
     new positions would overrun ``max_len``. Under a CUDA-graph capture
     the check would read the lengths back and end the capture, so it is
     skipped and the step syncs nothing: it can be captured once and
     replayed, and a replay past ``max_len`` writes as the reference's
     ``dynamic_update_slice`` does, at the start clamped to ``max_len - T``
-    in ``layers._write_at``."""
-    check_overrun(next(iter(cache.values())), tokens)
-    return _decode_step(params, cache, tokens, cfg)
+    in ``layers._write_at``. A cache holding its rows over the batch axes
+    raises (``layers.check_rows``): the serve cell's step runs it."""
+    check_rows(cache)
+    check_overrun(next(iter(cache.values())), tokens,
+                  0 if extra_embeds is None else extra_embeds.shape[1])
+    return _decode_step(params, cache, tokens, cfg, extra_embeds)
 
 
-def check_overrun(stack: Dict, tokens: torch.Tensor) -> None:
-    """Raise when T = tokens.shape[1] new positions would overrun a stacked
-    attention cache ({"k" or "ckv", "len"}, (layers, B, max_len, ...)).
-    Skipped under a CUDA-graph capture, where reading the lengths back
-    would end it, and on a ``meta`` cache (the dry run's), which holds no
-    lengths to read."""
-    t = tokens.shape[1]
+def check_overrun(stack: Dict, tokens: torch.Tensor, extra: int = 0
+                  ) -> None:
+    """Raise when T = tokens.shape[1] (+ ``extra`` prepended) new positions
+    would overrun a stacked attention cache ({"k" or "ckv", "len"},
+    (layers, B, max_len, ...)). Skipped under a CUDA-graph capture, where
+    reading the lengths back would end it, and on a ``meta`` cache (the
+    dry run's), which holds no lengths to read."""
+    t = tokens.shape[1] + extra
     max_len = stack["ckv" if "ckv" in stack else "k"].shape[2]
     if tokens.is_cuda and torch.cuda.is_current_stream_capturing():
         return
@@ -286,12 +295,13 @@ def check_overrun(stack: Dict, tokens: torch.Tensor) -> None:
 
 
 def _decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                 cfg: ModelConfig, extra_embeds: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
     """``decode_step`` below its host check: the write past ``max_len``
     clamps as the reference's does."""
-    x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
+    x = _embed(params, tokens, cfg, extra_embeds)
     first = next(iter(cache.values()))
-    t = tokens.shape[1]
+    t = x.shape[1]
     positions = (first["len"][0][:, None].to(torch.long)
                  + torch.arange(t, device=x.device)[None])
     new_cache: Dict = {}

@@ -28,10 +28,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import colshard
 from repro_torch.nn.module import ParamSpec, stack_specs
 
-from .layers import (apply_conv, apply_mlp, apply_norm, cdt, conv_specs,
-                     gqa_attend, gqa_specs, kv_cache, mlp_specs, norm_specs,
-                     pdt)
-from .transformer import _layer, check_overrun, embed_lookup, tied_logits
+from .layers import (apply_conv, apply_mlp, apply_norm, cache_leaf, cdt,
+                     check_rows, conv_specs, gqa_attend, gqa_specs, kv_cache,
+                     mlp_specs, norm_specs, pdt)
+from .transformer import (_layer, _layers, check_overrun, embed_lookup,
+                          tied_logits)
 
 
 def _enc_block_specs(cfg):
@@ -97,8 +98,7 @@ def encode(params: Dict, frames: torch.Tensor,
     x = (frames.to(cdt(cfg))
          + params["enc_pos"][None, :frames.shape[1]].to(cdt(cfg)))
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.enc_layers):
-        p = _layer(params["enc_layers"], i)
+    for p in _layers(params["enc_layers"], cfg.enc_layers):
         h, _ = gqa_attend(p["attn"], apply_norm(p["ln1"], x, cfg), cfg,
                           positions=positions, causal=False)
         x = x + h
@@ -134,10 +134,9 @@ def decode(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = (embed_lookup(params["embed"], tokens).to(cdt(cfg))
          + colshard.whole(params["dec_pos"])[pos_idx].to(cdt(cfg)))
     lens = []
-    for i in range(cfg.n_layers):
+    for i, p_i in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
         c_i = None if cache is None else _layer(cache, i)
-        x, nc = _dec_block(_layer(params["dec_layers"], i), x, cfg, pos_idx,
-                           enc_out, c_i)
+        x, nc = _dec_block(p_i, x, cfg, pos_idx, enc_out, c_i)
         if nc is not None:
             lens.append(nc["len"])
     x = apply_norm(params["dec_ln_f"], x, cfg)
@@ -161,12 +160,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """The decoder's self-attention KV cache (stacked per layer, the
     compute dtype) and a zero ``enc_out`` (B, n_frontend_tokens, d_model)
     the caller replaces with the encoder states, on ``device`` (``cuda``
-    unless ``"cpu"``)."""
+    unless ``"cpu"``); under a session mesh every leaf holds its rows over
+    the batch axes where their ranks divide ``batch``
+    (``layers.cache_leaf``)."""
     dev = resolve_device(device)
     return {
         **kv_cache(cfg, cfg.n_layers, batch, max_len, dev, int8=False),
-        "enc_out": torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model),
-                               dtype=cdt(cfg), device=dev),
+        "enc_out": cache_leaf((batch, cfg.n_frontend_tokens, cfg.d_model),
+                              cdt(cfg), dev, row_dim=0),
     }
 
 
@@ -177,6 +178,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     the T new positions would overrun ``max_len``
     (``transformer.check_overrun``; skipped under a CUDA-graph
     capture)."""
+    check_rows(cache)
     sa = {"k": cache["k"], "v": cache["v"], "len": cache["len"]}
     check_overrun(sa, tokens)
     logits, new_sa = decode(params, tokens, cache["enc_out"], cfg, cache=sa,

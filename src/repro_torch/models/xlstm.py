@@ -26,8 +26,8 @@ from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, stack_specs
 
-from .layers import apply_norm, cdt, norm_specs, pdt
-from .transformer import _layer, embed_lookup
+from .layers import apply_norm, cache_leaf, cdt, check_rows, norm_specs, pdt
+from .transformer import _layer, _layers, embed_lookup
 
 NEG = -1e30
 
@@ -303,18 +303,18 @@ def specs(cfg: ModelConfig) -> Dict:
 def _iterate(params, x, cfg, states):
     """mLSTM and sLSTM blocks in config order; with ``states`` each layer's
     state is written in place into its cache slice."""
-    mi = si = 0
-    for kind in _layer_kinds(cfg):
-        if kind == "mlstm":
-            st = None if states is None else _layer(states["mlstm"], mi)
-            x, ns = apply_mlstm(colshard.at_use(_layer(
-                params["mlstm_layers"], mi)), x, cfg, state=st)
-            mi += 1
-        else:
-            st = None if states is None else _layer(states["slstm"], si)
-            x, ns = apply_slstm(colshard.at_use(_layer(
-                params["slstm_layers"], si)), x, cfg, state=st)
-            si += 1
+    kinds = _layer_kinds(cfg)
+    # each kind's layers through one unbind per leaf: the backward stacks
+    # their gradients once (transformer._layers)
+    stacks = {kind: _layers(params[f"{kind}_layers"], kinds.count(kind))
+              for kind in dict.fromkeys(kinds)}
+    seen = {"mlstm": 0, "slstm": 0}
+    for kind in kinds:
+        i = seen[kind]
+        seen[kind] += 1
+        st = None if states is None else _layer(states[kind], i)
+        apply = apply_mlstm if kind == "mlstm" else apply_slstm
+        x, ns = apply(colshard.at_use(stacks[kind][i]), x, cfg, state=st)
         if ns is not None:                # into the cache slice, in place
             tree_map(lambda dst, new: dst.copy_(new), st, ns)
     return x, states
@@ -332,7 +332,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Dict:
     """Every layer's initial recurrent state, stacked per block kind, on
     ``device`` (``cuda`` unless ``"cpu"``); ``max_len`` is not needed (the
-    state is O(1))."""
+    state is O(1)). Under a session mesh every leaf holds its rows over
+    the batch axes where their ranks divide ``batch``
+    (``layers.cache_leaf``)."""
     dev = resolve_device(device)
     d_inner, nh, hd = _mlstm_dims(cfg)
     kinds = _layer_kinds(cfg)
@@ -341,7 +343,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     shd = cfg.d_model // nsh
 
     def full(shape, v):
-        return torch.full(shape, v, dtype=torch.float32, device=dev)
+        return cache_leaf(shape, torch.float32, dev, fill=v)
     return {
         "mlstm": {
             "conv": full((n_m, batch, 3, d_inner), 0.0),
@@ -362,6 +364,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step (or a stateful prefill of T tokens); the states are
     written in place and the same cache comes back."""
+    check_rows(cache)
     x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     x, cache = _iterate(params, x, cfg, cache)
     x = apply_norm(params["ln_f"], x, cfg)

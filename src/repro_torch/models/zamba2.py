@@ -23,10 +23,11 @@ from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec, stack_specs
 
-from .layers import (apply_mlp, apply_norm, cdt, gqa_attend, gqa_specs,
-                     kv_cache, mlp_specs, norm_specs, pdt)
+from .layers import (apply_mlp, apply_norm, cache_leaf, cdt, check_rows,
+                     gqa_attend, gqa_specs, kv_cache, mlp_specs, norm_specs,
+                     pdt)
 from .mamba2 import apply_mamba2, init_mamba_state, mamba2_specs
-from .transformer import _layer, embed_lookup, check_overrun
+from .transformer import _layer, _layers, check_overrun, embed_lookup
 
 
 def _n_attn(cfg: ModelConfig) -> int:
@@ -70,11 +71,12 @@ def _run(params, x, cfg: ModelConfig, positions, states):
     every = cfg.attn_every or cfg.n_layers
     n_groups = cfg.n_layers // every
     lens = []
+    # one unbind per leaf: the backward stacks the layers' gradients once
+    mamba = _layers(params["mamba_layers"], cfg.n_layers)
     for g in range(n_groups):
         for i in range(g * every, (g + 1) * every):
             st = None if states is None else _layer(states["mamba"], i)
-            x, ns = apply_mamba2(colshard.at_use(_layer(
-                params["mamba_layers"], i)), x, cfg, state=st)
+            x, ns = apply_mamba2(colshard.at_use(mamba[i]), x, cfg, state=st)
             if ns is not None:            # into the cache slice, in place
                 tree_map(lambda dst, new: dst.copy_(new), st, ns)
         if "shared_attn" in params:
@@ -104,13 +106,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Dict:
     """Every Mamba2 layer's zero state, stacked on a leading layer axis,
     and each shared-block application's KV cache (K/V in the compute
-    dtype), on ``device`` (``cuda`` unless ``"cpu"``)."""
+    dtype), on ``device`` (``cuda`` unless ``"cpu"``); under a session
+    mesh every leaf holds its rows over the batch axes where their ranks
+    divide ``batch`` (``layers.cache_leaf``; the SSD state's heads stay
+    whole)."""
     dev = resolve_device(device)
-    st = init_mamba_state(cfg, batch, device=dev)
+    st = init_mamba_state(cfg, batch, device="meta")
     n_attn = _n_attn(cfg)
     return {
-        "mamba": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.ndim)
-                  for k, v in st.items()},
+        "mamba": {k: cache_leaf((cfg.n_layers,) + tuple(v.shape), v.dtype,
+                                dev) for k, v in st.items()},
         "attn": kv_cache(cfg, n_attn, batch, max_len, dev, int8=False),
     }
 
@@ -121,6 +126,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     written in place. Eagerly, raises when the shared block's KV caches
     would overrun ``max_len`` (``transformer.check_overrun``; skipped under
     a CUDA-graph capture)."""
+    check_rows(cache)
     check_overrun(cache["attn"], tokens)
     x = embed_lookup(params["embed"], tokens).to(cdt(cfg))
     positions = (cache["attn"]["len"][0][:, None].to(torch.long)

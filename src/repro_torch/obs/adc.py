@@ -33,8 +33,10 @@ some mesh dims, made inside ``partial_over(axes)``: the columns a rank
 serves under the column-parallel dispatch (``kernels.ops``, over
 ``"model"``), or the experts and tokens of an expert-parallel MoE rank
 (``models.layers._apply_moe_ep``, over the batch axes and ``"model"``).
-``totals()`` and ``summary()`` count the whole records once and sum each
-part over its dims (the worst column rate is the largest over the mesh):
+Inside a data parallel step (``nn.module.data_parallel``) every record is
+also a part over the batch axes: the rank's rows. ``totals()`` and
+``summary()`` count the whole records once and sum each part over its
+dims (the worst column rate is the largest over the mesh):
 collectives, so every rank calls them together. The totals equal the
 single device's counts, as the reference's host callbacks count them on
 a mesh of devices (a replicated layer once, a ``shard_map`` body's records
@@ -115,6 +117,11 @@ def reset() -> None:
     _STATE.parts = {}
 
 
+#: the mesh dims a record can be a part over, in the order its key
+#: lists them (the batch axes, then "model")
+_DIMS = ("pod", "data", "model")
+
+
 @contextmanager
 def partial_over(axes):
     """Records made inside are parts of the whole over the mesh dims
@@ -169,9 +176,10 @@ def _over_mesh() -> Tuple[int, int, float]:
         mesh.get_group(dims[0])) == "gloo"
         else torch.device("cuda", torch.cuda.current_device()))
     # the parts a mesh can hold, the same list on every rank: the
-    # column-parallel dispatch's and the expert-parallel MoE's
-    kinds = [("model",)] + ([batch_axes(mesh) + ("model",)]
-                            if batch_axes(mesh) else [])
+    # column-parallel dispatch's, a data parallel step's rows, and both
+    # (also the expert-parallel MoE's)
+    rows = batch_axes(mesh)
+    kinds = [("model",)] + ([rows, rows + ("model",)] if rows else [])
     if not set(st.parts) <= set(kinds):
         raise RuntimeError(f"ADC records are parts over {sorted(st.parts)}; "
                            f"the session mesh {names} holds parts over "
@@ -294,6 +302,10 @@ def record(psum: torch.Tensor, s_p: torch.Tensor, psum_bits: int) -> None:
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("obs.adc.record: the ADC collector is armed "
                            "inside a CUDA-graph capture")
+    from repro_torch.nn.module import batch_parallel
     sat, occ = saturation_stats(psum.detach(), s_p.detach(), psum_bits)
     conv_per_col = int(np.prod(psum.shape[:-1]))
-    _STATE.pending.append((sat, occ, conv_per_col, _STATE.partial))
+    dp = batch_parallel()
+    over = set(_STATE.partial) | set(dp[1] if dp else ())
+    _STATE.pending.append((sat, occ, conv_per_col,
+                           tuple(a for a in _DIMS if a in over)))

@@ -132,14 +132,28 @@ def _greedy(logits):
         torch.int32)
 
 
-def _fd_run(model, params, cfg, prompts):
-    """Prefill and ``FD_STEPS`` greedy decode steps: (logits per call,
-    tokens (B, 1 + FD_STEPS), the cache)."""
+def _rows_step(model, cfg):
+    """The data parallel serve step (``launch.cells.serve_rows``: each
+    rank on its rows and cache rows), its logits gathered whole."""
+    from repro_torch.core import colshard
+    from repro_torch.launch.cells import serve_rows
+
+    def step(params, cache, tokens, _cfg):
+        logits, cache = serve_rows(model, cfg, params, cache, tokens)
+        return colshard.full_leaf(logits), cache
+    return step
+
+
+def _fd_run(model, params, cfg, prompts, step=None):
+    """Prefill and ``FD_STEPS`` greedy decode steps of ``step`` (the
+    model's ``decode_step`` when None): (logits per call, tokens (B, 1 +
+    FD_STEPS), the cache)."""
+    step = step or model.decode_step
     cache = model.init_cache(cfg, FD_BATCH, FD_MAX_LEN, device=CPU)
-    logits, cache = model.decode_step(params, cache, prompts, cfg)
+    logits, cache = step(params, cache, prompts, cfg)
     out, toks = [logits], [_greedy(logits)]
     for _ in range(FD_STEPS):
-        logits, cache = model.decode_step(params, cache, toks[-1], cfg)
+        logits, cache = step(params, cache, toks[-1], cfg)
         out.append(logits)
         toks.append(_greedy(logits))
     return out, torch.cat(toks, dim=1), cache
@@ -158,9 +172,12 @@ def fd_case(case, meshes):
     prompts = torch.from_numpy(case["prompts"])
     res = {"single": _fd_run(model, params, cfg, prompts)[:2]}
     mesh = meshes[mesh_name]
+    # on the (data, model) mesh the cache holds its rows over "data": the
+    # serve cell's step runs each rank on its rows
+    step = _rows_step(model, cfg) if "data" in MESHES[mesh_name][1] else None
     with session_mesh(mesh):
         calls = colshard.collective.calls
-        logits, toks, cache = _fd_run(model, params, cfg, prompts)
+        logits, toks, cache = _fd_run(model, params, cfg, prompts, step)
         res["collectives"] = colshard.collective.calls - calls
         res["mesh"] = (logits, toks)
         res["cache"] = {n: (type(v).__name__, tuple(v.shape),

@@ -10,6 +10,8 @@
   kind, ``_xlstm_plan``): FLOPs and collectives equal the direct count at
   3 chunks, of 3 blocks for a train step on one device and of 6 for a
   prefill as one rank of (2, 2).
+- Whisper's, xlstm's and zamba2's train steps: the bytes' solve equals
+  the direct count at a third depth (one unbind per stack leaf).
 - ``solve_exact`` solves in rationals.
 - Collective bytes by kind under the fake process group equal what rank
   0 of a (2, 2) mesh of gloo ranks on the CPU counts over the same reduced
@@ -81,6 +83,22 @@ def test_slstm_loop_scaled_by_length(kind, mesh, n_layers):
     assert acct["points"] == 6
     assert acct["hlo_flops"] == direct["flops"]
     assert acct["collectives"] == direct["collectives"]
+
+
+@pytest.mark.parametrize("arch,layers", [
+    ("whisper-small", {"enc_layers": 3, "n_layers": 2}),
+    ("xlstm-1.3b", {"n_layers": 9}),
+    ("zamba2-2.7b", {"n_layers": 6})], ids=["whisper", "xlstm", "zamba2"])
+def test_stack_bytes_solve_exactly_at_a_third_depth(arch, layers):
+    """Whisper's, xlstm's and zamba2's stacks take their layers through one
+    unbind per leaf (``models.transformer._layers``), so a train step's
+    backward writes each layer's gradient once and its bytes are affine
+    in depth: the solve from the layer points equals the direct count at
+    a depth past them (a slice per layer made them quadratic)."""
+    acct, direct = _both(arch, _shape("train_4k"), one_device(),
+                         overrides=layers)
+    assert acct["hlo_bytes"] == direct["bytes"]
+    assert acct["hlo_flops"] == direct["flops"]
 
 
 def test_solve_exact_in_rationals():

@@ -12,7 +12,9 @@ size and on the (16, 16) pod mesh at full size. Nothing is compiled.
 The port counts one rank's step on ``meta`` tensors under the fake
 process group: every family's train, prefill and decode steps run there,
 a reduced prefill's counted FLOPs equal 2 x its MACs from the config's
-shapes, and ``check_overrun`` still raises on a real cache.
+shapes, a decode cell on (2, 2) counts one rank's rows (half the FLOPs
+and cache of (1, 2), no all-gather over ``"data"``), and
+``check_overrun`` still raises on a real cache.
 """
 import dataclasses
 import json
@@ -146,6 +148,25 @@ def test_meta_steps_run_for_every_family(arch):
             multi = mesh is MESH_22
             assert (sum(rec["collectives"].values()) > 0) == multi
             assert not dist.is_initialized()
+
+
+def test_decode_cell_counts_one_ranks_rows():
+    """A decode cell on (2, 2) runs each rank on its rows
+    (``launch.cells.serve_rows``): the reduced qwen3's FLOPs a rank are
+    those on (1, 2) halved (within 2 %), no all-gather runs over
+    ``"data"``, and a rank holds, and peaks with, half the cache's rows."""
+    from repro_torch.models.registry import get_model
+    shape = _small("decode_32k", 32, 8)
+    rec = {m: dryrun.count_cell("qwen3-0.6b", shape, MeshShape(
+        (m, 2), ("data", "model")), reduced=True) for m in (1, 2)}
+    assert abs(rec[2]["flops"] * 2 / rec[1]["flops"] - 1) <= 0.02
+    assert rec[2]["collective_axes"]["all-gather"].get("data", 0) == 0
+    assert rec[2]["collective_axes"]["all-gather"].get("model", 0) > 0
+    cfg = build_cell("qwen3-0.6b", shape, MESH_22, reduced=True).cfg
+    cache = dryrun.tree_bytes(get_model(cfg).init_cache(
+        cfg, shape.global_batch, shape.seq_len, device="meta"))
+    assert rec[1]["argument"] - rec[2]["argument"] == cache // 2
+    assert rec[2]["peak"] <= rec[1]["peak"] - cache // 2
 
 
 def test_prefill_flops_equal_two_macs_from_shapes():
