@@ -3532,8 +3532,7 @@ def phase13_zoo(torch, errs, reduced: bool = False):
         k1 = k1_layer * zc["cfg"].n_layers
         r = _zoo_serving(torch, errs, zc, entry or "cim_matmul_" + arch[:5],
                          ((k1, 0), k1), kv_dtypes=kv_dtypes,
-                         keep=(MESH_WORK / "llama3" if arch == MESH_LM_ARCH
-                               and not reduced else None))
+                         keep=None if reduced else _KEEP.get(arch))
         if entry is not None:
             results[entry] = dict(r["cim_matmul"]["decode"],
                                   launches=r["launches"]["cim_matmul"])
@@ -3560,10 +3559,8 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
     step after the prompt against its plain version, timed beside it and
     its bound; peak memory. Returns the int8 pack's sums,
     {"cim_matmul" or "cim_conv": {"prefill" or "decode": sums}}, and the
-    counted ``launches``. With ``keep`` (a directory), the int8 pack is
-    saved there with what phase 17 holds its column-parallel run against:
-    the prompts, the counted deploy forward's logits, the served tokens
-    (bf16 cache) and the ADC collector's totals over one armed forward."""
+    counted ``launches``. With ``keep`` (``_KEEP``'s functions), the int8
+    pack is saved with what phase 17 holds its mesh runs against."""
     from repro_torch.api import model_artifact
     from repro_torch.kernels.relaid import clear_relaid_planes
     from repro_torch.models import whisper
@@ -3747,8 +3744,7 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
                   f"{arch} {dt} slot engine ({kv} KV cache): {run['slots']} "
                   f"against emulate {em_runs[kv]['slots']}")
     if keep is not None:
-        _keep_for_mesh(torch, keep, cfg, arts["int8"], fwd, prompts,
-                       out["int8"])
+        keep(torch, cfg, arts["int8"], fwd, prompts, out["int8"])
     steps = out[dtypes[0]]["runs"][kv_dtypes[0]]["steps"]
     print(f"{tag} {arch} main path: deploy forwards {len(dtypes)}, decode "
           f"invocations {invocations} ({'/'.join(dtypes)}: one forward over "
@@ -3850,11 +3846,14 @@ def _zoo_serving(torch, errs, zc, k1_name, counts, dtypes=("int8", "int4"),
     return dict(sums, launches=launches)
 
 
-def _keep_for_mesh(torch, keep, cfg, art, fwd, prompts, run):
-    """Save ``art`` and phase 17's single-device references under
-    ``keep`` (outside the counted run)."""
+def _keep_for_mesh(torch, cfg, art, fwd, prompts, run):
+    """Save ``art`` and the single-device references of phase 17 (b)-(f)
+    under ``MESH_WORK / "llama3"`` (outside the counted run): the
+    prompts, the counted deploy forward's logits, the served tokens (bf16
+    cache), the ADC collector's totals over one armed forward and the
+    serve cell's one-device run."""
     from repro_torch.obs import adc
-    keep = Path(keep)
+    keep = MESH_WORK / "llama3"
     keep.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     art.save(str(keep / "artifact"))
@@ -3873,12 +3872,57 @@ def _keep_for_mesh(torch, keep, cfg, art, fwd, prompts, run):
           f"{totals[0]} of {totals[1]} conversions clipped", flush=True)
 
 
+def _keep_for_cells(torch, cfg, art, fwd, prompts, run):
+    """Save phase 17(g)'s pack of ``cfg``'s model and its one-device serve
+    under ``MESH_WORK / <arch>`` (outside the counted run): zamba2 cut
+    to its first ``MESH_CELLS_LAYERS`` layers (the stacked Mamba2 leaves
+    sliced, the shared block once), every leaf in the serve cell's dtype
+    (deepseek-v3's run hints keep bfloat16 params), the prompts, the
+    one-device serve and the K1 calls of its last decode step."""
+    from repro_torch import tree_map
+    from repro_torch.api import DeployArtifact
+    from repro_torch.launch.cells import apply_hints
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import eval_shape_params
+    t0 = time.perf_counter()
+    arch = cfg.name
+    n = MESH_CELLS_LAYERS.get(arch, cfg.n_layers)
+    params = dict(art.params)
+    if n != cfg.n_layers:
+        params["mamba_layers"] = tree_map(lambda x: x[:n].clone(),
+                                          params["mamba_layers"])
+    cfg = apply_hints(cfg.replace(n_layers=n, cim=art.config), arch)
+    params = _as_dtypes(params, eval_shape_params(get_model(cfg).specs(cfg)))
+    keep = MESH_WORK / arch
+    keep.mkdir(parents=True, exist_ok=True)
+    DeployArtifact(kind="model", config=art.config, params=params,
+                   meta=art.meta).save(str(keep / "artifact"))
+    torch.save(dict(cfg=cfg, prompts=prompts,
+                    serve=_one_device_serve(torch, cfg, params, prompts,
+                                            run["logits"].device)),
+               keep / "ref.pt")
+    print(f"phase 13-14 {cfg.name} at {n} layers, int8, saved for phase "
+          f"17g with its one-device serve in {time.perf_counter() - t0:.2f}"
+          f" s", flush=True)
+
+
+def _as_dtypes(tree, struct):
+    """``tree`` with each leaf cast to the dtype of ``struct``'s leaf at
+    the same path (a leaf ``struct`` has not, such as a pack's logical
+    shapes, kept as it is)."""
+    if isinstance(tree, dict):
+        return {k: _as_dtypes(v, struct.get(k)) if isinstance(struct, dict)
+                else v for k, v in tree.items()}
+    return tree if struct is None else tree.to(struct.dtype)
+
+
 def _one_device_serve(torch, cfg, params, prompts, dev):
-    """Phase 17(f)'s reference on one device: the serve cell's config
-    (``attn_chunk`` 0) with flash decode off, a prefill of ``prompts`` into
-    a cache of ``MESH_DP_MAX_LEN`` and ``MESH_DP_STEPS`` greedy decode
-    steps: the prefill's logits, each call's last-position logits
-    (float32) and its greedy tokens, on the host."""
+    """Phase 17(f)'s and (g)'s reference on one device: the serve cell's
+    config (``attn_chunk`` 0) with flash decode off, a prefill of
+    ``prompts`` into a cache of ``MESH_DP_MAX_LEN`` and ``MESH_DP_STEPS``
+    greedy decode steps: the prefill's logits, each call's last-position
+    logits (float32) and its greedy tokens, on the host, and the K1
+    shapes of the last decode step."""
     from repro_torch.models.registry import get_model
     c = cfg.replace(attn_chunk=0, flash_decode=False)
     model = get_model(c)
@@ -3893,7 +3937,15 @@ def _one_device_serve(torch, cfg, params, prompts, dev):
         out["last"].append(last.cpu())
         out["tokens"].append(tok.cpu())
         if i < MESH_DP_STEPS:
-            logits, cache = model.decode_step(params, cache, tok, c)
+            step = (lambda tok=tok: model.decode_step(params, cache, tok, c))
+            if i == MESH_DP_STEPS - 1:
+                res = []
+                k1 = _capture_kernel_calls(lambda: res.append(step()))[
+                    "cim_matmul_transformer"]
+                out["k1_shapes"] = _k1_shapes(k1)
+                logits, cache = res[0]
+            else:
+                logits, cache = step()
     return out
 
 
@@ -4010,7 +4062,8 @@ def phase14_recurrent_zoo(torch, errs, reduced: bool = False):
         r = _zoo_serving(
             torch, errs, zc, "cim_matmul_" + fam if frontend else
             "cim_matmul_ssm", recurrent_zoo_counts(zc["cfg"]), dtypes=dtypes,
-            frontend_batch_size=fb, phase=14)
+            frontend_batch_size=fb, phase=14,
+            keep=None if reduced else _KEEP.get(arch))
         if frontend:
             per["cim_conv_frontend"].append(r["cim_conv"]["prefill"])
             launches["cim_conv_frontend"] += r["launches"]["cim_conv"]
@@ -5142,6 +5195,21 @@ MESH_FD_TOL = 2.0 ** -7
 MESH_DP = ((2, 2), ("data", "model"))
 MESH_DP_MAX_LEN = 128
 MESH_DP_STEPS = 8
+#: (g): every decode cache placed as the serve cell says, on the same
+#: (2, 2) ranks as (f) with (f)'s traffic: deepseek-v3 at phase 13's cut
+#: and int8 pack with flash decode (MLA's latent cache's time over
+#: "model": the sequence-parallel MLA decode), and zamba2 at phase 14's
+#: int8 pack cut to one period of 6 layers, the shared block once (the
+#: SSD state's heads over "model"; flash decode off, its K/V gathered at
+#: use); (arch, flash decode, the cache leaves placed over "model" by
+#: this slice: a rank holds a quarter of each). Logits: deepseek within
+#: (d)'s gate, zamba2 at rtol 1e-5 / atol 1e-4 of one device's
+MESH_CELLS = (("deepseek-v3-671b", True, ("ckv", "krope")),
+              ("zamba2-2.7b", False, ("ssd",)))
+MESH_CELLS_LAYERS = {"zamba2-2.7b": 6}
+#: what phases 13 and 14 save for phase 17, by arch
+_KEEP = {MESH_LM_ARCH: _keep_for_mesh,
+         **{arch: _keep_for_cells for arch, _, _ in MESH_CELLS}}
 #: (e): moonshot at published widths, phase 16d's depth, expert parallel
 #: under the training launcher's CIM config; 4 x 64 tokens (+1 for the
 #: labels). The loss against the single device's to 1e-5 relative; each
@@ -5425,15 +5493,11 @@ def _mesh_data_parallel(torch, work, rank, dev, eng):
     decode, each rank on its rows (the main path: the counters and the
     collectives counted around it); then one more step's K1 calls timed
     on rank 0."""
-    import dataclasses
-
     import torch.distributed as dist
 
     from repro_torch.api import DeployArtifact
-    from repro_torch.configs.base import Shape
     from repro_torch.core import colshard
     from repro_torch.launch import mesh as lm
-    from repro_torch.launch.cells import build_cell
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import session_mesh
     ref = torch.load(work / "llama3" / "ref.pt", weights_only=False)
@@ -5444,57 +5508,20 @@ def _mesh_data_parallel(torch, work, rank, dev, eng):
                          params=colshard.full_tree(eng.params)).shard(
                              mesh, device=dev)
     load_s = time.perf_counter() - t0
-    cfg = ref["cfg"].replace(cim=art.config, flash_decode=True)
     b = ref["prompts"].shape[0]
-    cell = build_cell(MESH_LM_ARCH, Shape("chip_smoke_17f", "decode",
-                                          MESH_DP_MAX_LEN, b), mesh,
-                      cim=art.config, overrides={
-                          f.name: getattr(cfg, f.name)
-                          for f in dataclasses.fields(cfg)})
-    n, d = colshard.batch_shard(mesh, ("data",))
-    rows = slice(d * b // n, (d + 1) * b // n)
+    cell, rows = _dp_cell(MESH_LM_ARCH, ref["cfg"].replace(
+        cim=art.config, flash_decode=True), mesh, b)
     p = art.params
 
-    def whole_vocab(logits):
-        """This rank's logits rows with the vocab gathered over model."""
-        return colshard.all_gather(colshard.local(logits), mesh,
-                                   ("model",), -1)
-
-    tokens = torch.from_numpy(ref["prompts"]).to(dev)
-    last, toks, step_ms = [], [], []
     with session_mesh(mesh, cell.rules):
         cache = get_model(cell.cfg).init_cache(cell.cfg, b,
                                                MESH_DP_MAX_LEN, device=dev)
         placed = {k: (type(v).__name__, tuple(colshard.local(v).shape))
                   for k, v in cache["layers"].items()}
-        torch.cuda.synchronize()
-        _reset_counters()
-        colshard.reset_collective_counts()
-        logits, cache = cell.step_fn(p, cache, tokens)
-        prefill = whole_vocab(logits)
-        logits = prefill
-        for i in range(MESH_DP_STEPS + 1):
-            last.append(logits[:, -1].float())
-            toks.append(torch.argmax(last[-1], dim=-1)[:, None].to(
-                torch.int32))
-            if i == MESH_DP_STEPS:
-                break
-            glob = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-            glob[rows] = toks[-1]
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits, cache = cell.step_fn(p, cache, glob)
-            end.record()
-            torch.cuda.synchronize()
-            step_ms.append(start.elapsed_time(end))
-            logits = whole_vocab(logits)
-        torch.cuda.synchronize()
-        launches, on_float = _read_counters()
-        axes = {k: dict(v) for k, v in colshard.collective.axes.items()
-                if v}
-        calls = _capture_kernel_calls(lambda: cell.step_fn(p, cache, glob))
+        run = _serve_cell_steps(torch, cell, p, cache, ref["prompts"],
+                                rows, mesh, dev)
+        calls = _capture_kernel_calls(
+            lambda: cell.step_fn(p, run["cache"], run["glob"]))
     k1 = calls.pop("cim_matmul_transformer")
     k1_sum = None
     if rank == 0:          # the other ranks wait: one rank on the card
@@ -5504,24 +5531,102 @@ def _mesh_data_parallel(torch, work, rank, dev, eng):
                 "cim_matmul_llama3_dp"]
         k1_sum["max_abs_err"] = errs["cim_matmul_llama3_dp"]
     dist.barrier()
-    want = one["prefill"][rows]
-    got = prefill.cpu()
-    ref_last = torch.stack([x[rows] for x in one["last"]])
-    ours = torch.stack(last).cpu()
-    mine = torch.cat(toks, dim=1).cpu()
-    theirs = torch.cat([x[rows] for x in one["tokens"]], dim=1)
     return dict(
         load_s=load_s, rows=(rows.start, rows.stop), placed=placed,
+        **_against_one_device(torch, run, one, rows),
+        launches=run["launches"], floats=run["floats"], axes=run["axes"],
+        step_ms=run["step_ms"], k1_calls=len(k1), k1_shapes=_k1_shapes(k1),
+        other_calls=sum(len(v) for v in calls.values()), k1_timed=k1_sum)
+
+
+def _dp_cell(arch, cfg, mesh, b):
+    """The serve cell of ``arch`` on ``mesh`` with every field of ``cfg``
+    (its CIM config the loaded pack's), for ``b`` prompts into
+    ``MESH_DP_MAX_LEN`` positions, and this rank's rows of the batch."""
+    from repro_torch.configs.base import Shape
+    from repro_torch.core import colshard
+    from repro_torch.launch.cells import build_cell
+    cell = build_cell(arch, Shape("chip_smoke_dp", "decode", MESH_DP_MAX_LEN,
+                                  b), mesh, cim=cfg.cim,
+                      overrides={f.name: getattr(cfg, f.name)
+                                 for f in dataclasses.fields(cfg)})
+    n, d = colshard.batch_shard(mesh, ("data",))
+    return cell, slice(d * b // n, (d + 1) * b // n)
+
+
+def _serve_cell_steps(torch, cell, p, cache, prompts, rows, mesh, dev):
+    """The main path of (f) and (g) on this rank: the serve cell's step
+    (``cell.step_fn``) on a prefill of ``prompts`` (the global batch) and
+    ``MESH_DP_STEPS`` greedy decode steps, each rank on its ``rows``, with
+    the launch counters and the collectives counted around them: the
+    prefill's logits and each call's last-position logits with the vocab
+    gathered over "model", the greedy tokens, each decode step's CUDA-event
+    ms, the counters, the collectives by kind and mesh dim, the cache
+    after the steps and the last step's global tokens."""
+    from repro_torch.core import colshard
+    b = prompts.shape[0]
+
+    def whole_vocab(logits):
+        """This rank's logits rows with the vocab gathered over model."""
+        return colshard.all_gather(colshard.local(logits), mesh,
+                                   ("model",), -1)
+    tokens = torch.from_numpy(prompts).to(dev)
+    last, toks, step_ms = [], [], []
+    torch.cuda.synchronize()
+    _reset_counters()
+    colshard.reset_collective_counts()
+    logits, cache = cell.step_fn(p, cache, tokens)
+    prefill = whole_vocab(logits)
+    logits = prefill
+    for i in range(MESH_DP_STEPS + 1):
+        last.append(logits[:, -1].float())
+        toks.append(torch.argmax(last[-1], dim=-1)[:, None].to(torch.int32))
+        if i == MESH_DP_STEPS:
+            break
+        glob = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        glob[rows] = toks[-1]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = cell.step_fn(p, cache, glob)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        logits = whole_vocab(logits)
+    torch.cuda.synchronize()
+    launches, on_float = _read_counters()
+    return dict(prefill=prefill, last=last, toks=toks,
+                step_ms=float(np.median(step_ms)), launches=launches,
+                floats=on_float, cache=cache, glob=glob,
+                axes={k: dict(v) for k, v in colshard.collective.axes.items()
+                      if v})
+
+
+def _against_one_device(torch, run, one, rows):
+    """A ``_serve_cell_steps`` run against its rows of the one-device
+    serve (``_one_device_serve``): the prefill logits bit for bit, the
+    tokens, the largest difference of the last-position logits and their
+    largest magnitude, and whether every logit is within rtol 1e-5 / atol
+    1e-4 of one device's."""
+    want = one["prefill"][rows]
+    got = run["prefill"].cpu()
+    ref_last = torch.stack([x[rows] for x in one["last"]])
+    ours = torch.stack(run["last"]).cpu()
+    mine = torch.cat(run["toks"], dim=1).cpu()
+    theirs = torch.cat([x[rows] for x in one["tokens"]], dim=1)
+    return dict(
         prefill_equal=bool(torch.equal(got, want)),
         prefill_diff=float((got.float() - want.float()).abs().max()),
         tokens=mine.tolist(), tokens_equal=bool(torch.equal(mine, theirs)),
         diff=float((ours - ref_last).abs().max()),
-        scale=float(ref_last.abs().max()), launches=launches,
-        floats=on_float, axes=axes,
-        step_ms=float(np.median(step_ms)), k1_calls=len(k1),
-        k1_shapes=sorted({(tuple(a[0].shape), int(a[1].shape[-1]))
-                          for a, _ in k1}),
-        other_calls=sum(len(v) for v in calls.values()), k1_timed=k1_sum)
+        scale=float(ref_last.abs().max()),
+        close=bool(torch.allclose(ours, ref_last, rtol=1e-5, atol=1e-4)))
+
+
+def _k1_shapes(k1):
+    """The (a_t shape, N) of captured K1 calls, each shape once."""
+    return sorted({(tuple(a[0].shape), int(a[1].shape[-1])) for a, _ in k1})
 
 
 def _report_data_parallel(res, ref, smi):
@@ -5577,6 +5682,194 @@ def _report_data_parallel(res, ref, smi):
           f"{_fmt_total(t, 'graph replay')}; max |kernel - plain| "
           f"{t['max_abs_err']!r}; {res[0]['dp_s']:.1f} s on rank 0; "
           f"nvidia-smi: {smi}", flush=True)
+
+
+def _mesh_cells(torch, work, rank, dev):
+    """(g) on this rank: each of ``MESH_CELLS`` loaded placed over the
+    "model" ranks of the (2, 2) mesh (``DeployArtifact.load(mesh=)``) and
+    served through its serve cell's step as (f) serves llama3: the cache
+    from ``init_cache`` under the session mesh (the block bytes of the
+    leaves this slice places beside the whole leaves'), a prefill and
+    ``MESH_DP_STEPS`` greedy decode steps (the main path: the counters and
+    the collectives counted around it); then one more decode step's
+    collective bytes by kind and its K1 calls (deepseek: the same step
+    again with flash decode off, the latent cache gathered at use); rank 0
+    times that step's K1 calls and, alone, ``wkv_b``'s."""
+    import torch.distributed as dist
+
+    from repro_torch.api import DeployArtifact
+    from repro_torch.core import colshard
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.cells import serve_rows
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import session_mesh
+    mesh = lm.make_mesh(*MESH_DP, device=dev, backend="gloo")
+    out = {}
+    for arch, flash, leaves in MESH_CELLS:
+        t_cell = time.perf_counter()
+        ref = torch.load(work / arch / "ref.pt", weights_only=False)
+        t0 = time.perf_counter()
+        art = DeployArtifact.load(str(work / arch / "artifact"), mesh=mesh,
+                                  device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        b = ref["prompts"].shape[0]
+        cell, rows = _dp_cell(arch, ref["cfg"].replace(
+            cim=art.config, flash_decode=flash), mesh, b)
+        model, p = get_model(cell.cfg), art.params
+
+        def coll():
+            return {k: v for k, v in colshard.collective.bytes.items() if v}
+        with session_mesh(mesh, cell.rules):
+            cache = model.init_cache(cell.cfg, b, MESH_DP_MAX_LEN,
+                                     device=dev)
+            blocks = {path: (colshard.local(v).numel() * v.element_size(),
+                             v.numel() * v.element_size())
+                      for path, v in _flat_leaves(cache)
+                      if path.rsplit("/", 1)[-1] in leaves}
+            run = _serve_cell_steps(torch, cell, p, cache, ref["prompts"],
+                                    rows, mesh, dev)
+            colshard.reset_collective_counts()
+            calls = _capture_kernel_calls(
+                lambda: cell.step_fn(p, run["cache"], run["glob"]))
+            step = dict(bytes=coll(), axes={
+                k: dict(v) for k, v in colshard.collective.axes.items() if v})
+            gathered = None
+            if flash:
+                colshard.reset_collective_counts()
+                serve_rows(model, cell.cfg.replace(flash_decode=False), p,
+                           run["cache"], run["glob"])
+                gathered = coll()
+        k1 = calls.pop("cim_matmul_transformer")
+        wide = [c for c in k1 if _is_wkv_b(c[0][0].shape,
+                                            c[0][1].shape[-1], cell.cfg)]
+        timed = None
+        if rank == 0:          # the other ranks wait: one rank on the card
+            errs = {"k1": 0.0, "wkv_b": 0.0}
+            timed = _time_captured_calls(torch, {"k1": k1, "wkv_b": wide},
+                                         errs, reps=10)
+            timed["max_abs_err"] = max(errs.values())
+        dist.barrier()
+        out[arch] = dict(
+            load_s=load_s, rows=(rows.start, rows.stop), blocks=blocks,
+            **_against_one_device(torch, run, ref["serve"], rows),
+            launches=run["launches"], axes=run["axes"],
+            step_ms=run["step_ms"], step=step, gathered=gathered,
+            k1_calls=len(k1), k1_shapes=_k1_shapes(k1),
+            wkv_b=_k1_shapes(wide), one_k1_shapes=ref["serve"]["k1_shapes"],
+            other_calls=sum(len(v) for v in calls.values()), timed=timed,
+            n_layers=cell.cfg.n_layers, s=time.perf_counter() - t_cell)
+        del art, p, cache, run, calls, k1, wide
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flat_leaves(tree, path=""):
+    """(path, leaf) over a nested dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _is_wkv_b(a_shape, n: int, cfg) -> bool:
+    """Whether a K1 call of tiled codes ``a_shape`` (M, k_tiles, rows) on
+    ``n`` columns is MLA's ``wkv_b`` (its K and N under ``cfg``'s
+    tiling)."""
+    m = cfg.mla
+    if m is None:
+        return False
+    cols = cfg.n_heads * (m.qk_nope_dim + m.v_head_dim)
+    t = cfg.cim.tiling(m.kv_lora_rank, cols)
+    return (tuple(a_shape[-2:]), n) == ((t.k_tiles, t.array_rows), cols)
+
+
+def _report_cells(torch, res, work, smi):
+    """(g)'s gates and lines."""
+    for arch, flash, leaves in MESH_CELLS:
+        ref = torch.load(work / arch / "ref.pt", weights_only=False)
+        cfg = ref["cfg"]
+        calls = 1 + MESH_DP_STEPS
+        k1 = (recurrent_zoo_counts(cfg)[1] if cfg.family == "zamba2" else
+              next(k for _, a, _, k, _ in ZOO_CASES if a == arch)
+              * cfg.n_layers)
+        for r, rr in enumerate(res):
+            g = rr["cells"][arch]
+            tag = f"17g {arch} rank {r}"
+            check(g["prefill_equal"], f"{tag}: prefill logits differ from "
+                  f"its rows of the one-device prefill by "
+                  f"{g['prefill_diff']!r}")
+            check(g["tokens_equal"], f"{tag}: tokens {g['tokens']} differ "
+                  "from the one-device decode's")
+            if flash:
+                check(g["diff"] <= MESH_FD_TOL * cfg.n_layers * g["scale"],
+                      f"{tag}: logits differ by {g['diff']!r}, over 2^-7 x "
+                      f"{cfg.n_layers} layers x {g['scale']!r}")
+            else:
+                check(g["close"], f"{tag}: logits differ by {g['diff']!r}, "
+                      "over rtol 1e-5 / atol 1e-4 of one device's")
+            check(set(n.rsplit("/", 1)[-1] for n in g["blocks"])
+                  == set(leaves) and all(4 * loc == whole
+                          for loc, whole in g["blocks"].values()),
+                  f"{tag}: cache blocks (rank, whole bytes) {g['blocks']}, "
+                  "not a quarter")
+            check(g["axes"].get("all-gather", {}).get("data", 0) == 0,
+                  f"{tag}: all-gathers over data in the steps: {g['axes']}")
+            check(g["launches"]["cim_matmul"] == k1 * calls
+                  and all(v == 0 for k, v in g["launches"].items()
+                          if k != "cim_matmul")
+                  and g["k1_calls"] == k1 and g["other_calls"] == 0,
+                  f"{tag}: launches {g['launches']}, a step's K1 calls "
+                  f"{g['k1_calls']}, others {g['other_calls']}; expected "
+                  f"{k1 * calls} K1 and nothing else")
+            if flash:
+                m = ref["prompts"].shape[0] // 2 * MESH_DP_MAX_LEN // 2
+                check([s_[0][0] for s_ in g["wkv_b"]] == [m]
+                      and [s_[0][0] for s_ in g["one_k1_shapes"]
+                           if _is_wkv_b(*s_, cfg)]
+                      == [ref["prompts"].shape[0] * MESH_DP_MAX_LEN],
+                      f"{tag}: wkv_b's K1 at {g['wkv_b']} (one device "
+                      f"{g['one_k1_shapes']}), not M = {m} rows on all its "
+                      "columns")
+        g0 = res[0]["cells"][arch]
+        t = g0["timed"]
+        mb = {k: round(v / 2 ** 20, 3) for k, v in g0["step"]["bytes"].items()}
+        line = (f"phase 17g {arch} ({cfg.n_layers} layers, int8, flash "
+                f"decode {'on' if flash else 'off'}) served data parallel "
+                f"on the (2, 2) ('data', 'model') mesh of (f)'s ranks "
+                f"(loaded placed in {g0['load_s']:.2f} s): "
+                f"{ref['prompts'].shape[0]} prompts of "
+                f"{ref['prompts'].shape[1]} tokens, rows "
+                f"{[rr['cells'][arch]['rows'] for rr in res]} a rank; cache "
+                f"blocks a rank / whole (bytes) {g0['blocks']}; prefill "
+                f"logits bit-equal to the one-device rows on every rank; "
+                f"{MESH_DP_STEPS} decode steps: tokens equal, max |logit "
+                f"diff| {max(rr['cells'][arch]['diff'] for rr in res):.4g} "
+                f"(largest |logit| {g0['scale']:.4g}); collectives of the "
+                f"steps by mesh dim {g0['axes']} (no all-gather over "
+                f"'data'); a decode step's collective MiB by kind {mb} "
+                f"(by mesh dim {g0['step']['axes']})")
+        if flash:
+            off = {k: round(v / 2 ** 20, 3) for k, v in g0["gathered"].items()}
+            line += (f", the same step with flash decode off (the latent "
+                     f"cache gathered at use, wkv_b column-parallel over "
+                     f"all {MESH_DP_MAX_LEN} positions) {off}; wkv_b's K1 "
+                     f"at {g0['wkv_b']} (a_t shape, N) a rank, one device's "
+                     f"at M = {ref['prompts'].shape[0] * MESH_DP_MAX_LEN}: "
+                     f"{_fmt_total(t['wkv_b'], 'one call, graph replay')}")
+        line += (f"; per rank {g0['launches']['cim_matmul']} K1 ({k1} a "
+                 f"call) and no other kernel; rank 0's decode step eager "
+                 f"{g0['step_ms']:.2f} ms (CUDA events, median of "
+                 f"{MESH_DP_STEPS}); its {g0['k1_calls']} K1 calls: "
+                 f"{_fmt_total(t['k1'], 'graph replay')}; max |kernel - "
+                 f"plain| {t['max_abs_err']!r}; {g0['s']:.1f} s on rank 0; "
+                 f"nvidia-smi: {smi}")
+        print(line, flush=True)
 
 
 def _mesh_moe_cfg():
@@ -5807,6 +6100,7 @@ def _phase17_rank(rank, world, port, work):
         t0 = time.perf_counter()
         res["moe_ep"] = _mesh_moe_ep(torch, mesh, work, rank)
         res["moe_ep_s"] = time.perf_counter() - t0
+        res["cells"] = _mesh_cells(torch, work, rank, dev)
         (work / f"rank{rank}.json").write_text(json.dumps(res, default=str))
     finally:
         dist.destroy_process_group()
@@ -5944,6 +6238,7 @@ def phase17_column_parallel(torch, smi, qat):
     _report_flash_decode(res, ref, smi)
     _report_data_parallel(res, ref, smi)
     _report_moe_ep(res, smi)
+    _report_cells(torch, res, work, smi)
 
     # (c) the launcher
     rc4, lines4, s4 = _mesh_launch(["--mesh", str(MESH_RANKS),

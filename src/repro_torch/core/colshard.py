@@ -384,10 +384,10 @@ def _drop_leading(x: DTensor, value: torch.Tensor) -> DTensor:
 def rows_view(x, axes):
     """A cache leaf placed with its rows over the batch ``axes``, as a data
     parallel step reads it: the rank's block with that split dropped (the
-    rows are the rank's own) and its other splits kept (a flash-decode
-    cache's time over ``"model"``): a placed leaf of the rank's rows, or
-    the local tensor where nothing else splits it. Raises on a leaf whose
-    rows are not placed over ``axes``."""
+    rows are the rank's own) and its other splits kept (a K/V or latent
+    cache's time, the SSD state's heads, over ``"model"``): a placed leaf
+    of the rank's rows, or the local tensor where nothing else splits it.
+    Raises on a leaf whose rows are not placed over ``axes``."""
     want = tuple(a for a in axes if mesh_shards(x.device_mesh, a) > 1) \
         if isinstance(x, DTensor) else tuple(axes)
     dims = {d: tuple(a for a in ax if mesh_shards(x.device_mesh, a) > 1)
@@ -671,11 +671,12 @@ def unshard_tree(tree):
 def at_use(tree):
     """A layer's params as a block that reads its leaves directly takes
     them: every leaf whole (``whole``: FSDP's and ``"model"``'s splits
-    gathered, the computation after replicated), but the raw linear nodes
-    (dicts holding ``"w"``), which ``nn.linear.apply_linear`` runs on
-    their placed blocks."""
+    gathered, the computation after replicated), but the linear nodes
+    (dicts holding ``"w"`` or packed ``"w_digits"``), which
+    ``nn.linear.apply_linear`` runs on their placed blocks (a packed
+    node's column shards through the column-parallel dispatch)."""
     if isinstance(tree, dict):
-        if "w" in tree:
+        if "w" in tree or "w_digits" in tree:
             return tree
         return {k: at_use(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -145,8 +145,9 @@ def _dim_axis_ok(dim: int, mesh, axes) -> bool:
 
 def cache_shardings(cache_struct, cfg: ModelConfig, mesh):
     """Decode-cache placements: the batch dim over the batch axes where they
-    divide it; the KV time dim over ``"model"`` (sequence-parallel decode
-    attention, ``layers.kv_cache``)."""
+    divide it; the time of K/V, their int8 scales and MLA's latent cache,
+    and the SSD state's heads, over ``"model"`` where its ranks divide
+    them (``models.layers.cache_leaf`` allocates the caches so)."""
     b = batch_axes(mesh)
 
     def leaf_spec(path, leaf):
@@ -377,7 +378,8 @@ def serve_rows(model, cfg: ModelConfig, params, cache, tokens,
     global batch, the rank takes its rows, and its decode step runs on
     them and on its rows of the cache (each leaf placed with its rows
     over the batch axes, as ``init_cache`` makes it under that mesh, read
-    through ``colshard.rows_view``) inside
+    through ``colshard.rows_view``, which keeps a time or heads split over
+    ``"model"`` for the layers that read it) inside
     ``nn.module.data_parallel``: every layer below sees B/D rows, so no
     activation row crosses the batch axes, and the logits and cache come
     back placed over them. Elsewhere the rows stay whole on every rank

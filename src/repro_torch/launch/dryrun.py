@@ -321,15 +321,14 @@ def rank_cell(arch: str, shape, mesh: MeshShape, **kw):
     and the cell's mesh installed as the session mesh while inside: the
     params (and a train step's optimizer state) as ``meta`` blocks under
     the cell's placements; a serve step's decode cache as the port's
-    ``init_cache`` lays it out under that session mesh (every leaf's rows
-    over the batch axes where their ranks divide the batch, K/V's time
-    over ``"model"`` too where flash decode applies); the batch or tokens
-    whole: a data parallel train or serve step takes the global batch and
-    reads its rows (``launch.cells.serve_rows``), so a serve cell counts
-    one rank's rows, as the reference's GSPMD step runs them. MLA's latent
-    cache and the SSD state keep their time and heads whole (the
-    reference splits them over ``"model"`` too). On one device no group
-    is joined and nothing is placed."""
+    ``init_cache`` lays it out under that session mesh, as the cell's
+    placements say (every leaf's rows over the batch axes where their
+    ranks divide the batch; the time of K/V and of MLA's latent cache and
+    the SSD state's heads over ``"model"`` where its ranks divide them);
+    the batch or tokens whole: a data parallel train or serve step takes
+    the global batch and reads its rows (``launch.cells.serve_rows``), so
+    a serve cell counts one rank's rows, as the reference's GSPMD step
+    runs them. On one device no group is joined and nothing is placed."""
     from repro_torch.models.registry import get_model
     from repro_torch.nn.module import place_tree, session_mesh
 

@@ -13,12 +13,15 @@ CIM-aware conv layer of the zoo's front ends (whisper's stem, llava's
 patch embed): on ``deploy`` one launch of the implicit-GEMM conv kernel
 (``kernels.cim_conv``) per conv.
 
-Under a session mesh two parallel layers of the reference run over the
+Under a session mesh the parallel layers of the reference run over the
 ranks (one process each): the expert-parallel MoE (``_apply_moe_ep``:
 each rank's experts, raw banks placed by ``nn.module.shard_params``) and
 the sequence-parallel flash decode (``_flash_decode_ep``: a KV cache
 time-sharded by ``kv_cache``), each where the reference's predicate
-sends it.
+sends it, and the sequence-parallel MLA decode (``_mla_flash_decode``:
+the latent cache time-sharded). Every decode cache is placed as the
+reference's ``cache_shardings`` places it (``cache_leaf``), and a cache
+placed otherwise is refused (``placed_over_model``).
 """
 from __future__ import annotations
 
@@ -327,7 +330,11 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     prefix; the returned cache holds the same tensors and ``len + T``.
     The int8 cache stores ``_kv_quantize``'s codes and per-(token, head)
     scales, and the attention reads the whole cache dequantized to the
-    compute dtype, as the reference's path without a mesh does."""
+    compute dtype, as the reference's path without a mesh does. A cache
+    placed with its time over ``"model"`` (``kv_cache`` under a session
+    mesh) takes the flash decode for one token with ``cfg.flash_decode``
+    (``_flash_decode_ep``); else each rank writes the rows it owns and
+    the query attends over the cache gathered at use, exactly."""
     b, t, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     src = x if x_kv is None else x_kv
@@ -352,16 +359,15 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
             new = {"k": k, "v": v}
-        mesh = _flash_decode_ep_ready(cfg, t, cache["k"].shape[1], b)
-        placed = colshard.is_col_sharded(cache["k"])
-        if mesh is not None and placed:
+        mesh = placed_over_model(cache["k"], 1)
+        if mesh is not None and _flash_decode_ep_ready(
+                cfg, t, cache["k"].shape[1], b) is not None:
             out = _flash_decode_ep(q, new, cache, idx, mesh)
-        elif placed:
-            # a prefill (T > 1) over the time-sharded cache: each rank
-            # writes the rows it owns, and the query attends over the
-            # gathered cache as the reference's plain path does
-            _check_cache_mesh(cfg, cache["k"].shape[0],
-                              cache["k"].shape[1])
+        elif mesh is not None:
+            # a prefill (T > 1), or a decode step with flash decode off,
+            # over the time-sharded cache: each rank writes the rows it
+            # owns, and the query attends over the gathered cache as the
+            # reference's plain path does (exact)
             start = idx.to(torch.long).clamp(0, cache["k"].shape[1] - t)
             for name, rows in new.items():
                 _write_local(cache[name], rows, start)
@@ -370,11 +376,6 @@ def gqa_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             out = attention(q, k_at, v_at, causal=True, q_offset=idx,
                             kv_len=idx + t, chunk=cfg.attn_chunk)
         else:
-            if mesh is not None:
-                raise ValueError(
-                    "flash decode under a mesh reads the time-sharded cache "
-                    "that init_cache allocates under the same session "
-                    "mesh; this cache is whole")
             rows, cols = _write_at(idx, t, cache["k"])
             for name, val in new.items():
                 cache[name][rows, cols] = val.to(cache[name].dtype)
@@ -468,7 +469,15 @@ def mla_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     written in place (``_write_at``'s clamp) and ``wkv_b`` runs over the
     whole latent cache on every step, as the reference does: it is a CIM
     linear whose partial sums the ADC quantizes per column, so absorbing
-    it into the query would be another result."""
+    it into the query would be another result.
+
+    A latent cache placed with its time over ``"model"`` (``init_cache``
+    under a session mesh, as the reference's ``cache_shardings`` places
+    it): a prefill, or a decode step with flash decode off, writes each
+    rank's rows (``_write_local``) and runs the plain path on the cache
+    gathered whole at use, exactly; one decode token with
+    ``cfg.flash_decode`` runs the sequence-parallel MLA decode
+    (``_mla_flash_decode``)."""
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.n_heads
@@ -480,38 +489,83 @@ def mla_attend(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                           p["q_a_norm"]["scale"]),
                      cfg.cim, compute_dtype=c).reshape(b, t, h, qk_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    q = torch.cat([q_nope, rope(q_rope, positions, cfg.rope_theta)], dim=-1)
 
     kv_a = apply_linear(p["wkv_a"], x, cfg.cim, compute_dtype=c)
     ckv, k_rope = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
     ckv = _rms(ckv, p["kv_a_norm"]["scale"])
     k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
-
-    new_cache, q_offset, kv_len = None, 0, None
-    if cache is not None:
-        idx = cache["len"]
-        rows, cols = _write_at(idx, t, cache["ckv"])
-        cache["ckv"][rows, cols] = ckv.to(cache["ckv"].dtype)
-        cache["krope"][rows, cols] = k_rope.to(cache["krope"].dtype)
-        new_cache = {"ckv": cache["ckv"], "krope": cache["krope"],
-                     "len": idx + t}
-        ckv, k_rope = new_cache["ckv"], new_cache["krope"]
-        q_offset, kv_len = idx, idx + t
-
-    tk = ckv.shape[1]
-    kv = apply_linear(p["wkv_b"], ckv, cfg.cim, compute_dtype=c).reshape(
-        b, tk, h, m.qk_nope_dim + m.v_head_dim)
-    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
-    k = torch.cat([k_nope, k_rope.expand(b, tk, h, m.qk_rope_dim)], dim=-1)
     # the scale in float32, as the reference's jnp.sqrt of a Python float
     scale = 1.0 / torch.sqrt(torch.full((), float(qk_dim),
                                         dtype=torch.float32, device=x.device))
-    out = attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
-                    q_offset=q_offset, kv_len=kv_len, chunk=cfg.attn_chunk,
-                    scale=scale)
+
+    new_cache, q_offset, kv_len, out = None, 0, None, None
+    if cache is not None:
+        idx = cache["len"]
+        new_cache = {"ckv": cache["ckv"], "krope": cache["krope"],
+                     "len": idx + t}
+        q_offset, kv_len = idx, idx + t
+        mesh = placed_over_model(cache["ckv"], 1)
+        if mesh is not None and _flash_decode_ep_ready(
+                cfg, t, cache["ckv"].shape[1], b) is not None:
+            out = _mla_flash_decode(p["wkv_b"], q, ckv, k_rope, cache, idx,
+                                    cfg, scale, mesh)
+        elif mesh is not None:
+            start = idx.to(torch.long).clamp(0, cache["ckv"].shape[1] - t)
+            _write_local(cache["ckv"], ckv, start)
+            _write_local(cache["krope"], k_rope, start)
+            ckv = colshard.full_leaf(cache["ckv"])
+            k_rope = colshard.full_leaf(cache["krope"])
+        else:
+            rows, cols = _write_at(idx, t, cache["ckv"])
+            cache["ckv"][rows, cols] = ckv.to(cache["ckv"].dtype)
+            cache["krope"][rows, cols] = k_rope.to(cache["krope"].dtype)
+            ckv, k_rope = cache["ckv"], cache["krope"]
+
+    if out is None:
+        tk = ckv.shape[1]
+        kv = apply_linear(p["wkv_b"], ckv, cfg.cim, compute_dtype=c).reshape(
+            b, tk, h, m.qk_nope_dim + m.v_head_dim)
+        k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+        k = torch.cat([k_nope, k_rope.expand(b, tk, h, m.qk_rope_dim)],
+                      dim=-1)
+        out = attention(q, k, v, causal=True, q_offset=q_offset,
+                        kv_len=kv_len, chunk=cfg.attn_chunk, scale=scale)
     y = apply_linear(p["wo"], out.reshape(b, t, h * m.v_head_dim), cfg.cim,
                      compute_dtype=c)
     return y, new_cache
+
+
+def _mla_flash_decode(wkv_b: Dict, q: torch.Tensor, ckv: torch.Tensor,
+                      k_rope: torch.Tensor, cache: Dict, idx: torch.Tensor,
+                      cfg: ModelConfig, scale: torch.Tensor,
+                      mesh) -> torch.Tensor:
+    """One decode token's MLA attention over a latent cache time-sharded
+    over ``"model"`` (sequence-parallel MLA decode). The rank writes the
+    new latent row where it owns the position, runs its time block (B,
+    T/D, r) through every column of ``wkv_b`` (its column shards gathered
+    at use, ``colshard.whole``, and the linear run as one device runs it:
+    no session mesh, so no column-parallel gather joins other ranks' time
+    blocks; its ADC records are parts over ``"model"``), attends over its
+    keys with the rotary key broadcast over the heads, and the partial
+    softmaxes merge over ``"model"`` (``_merge_over_model``). q (B, 1, H,
+    qk) -> (B, 1, H, v_head_dim)."""
+    from repro_torch.nn.module import session_mesh
+    from repro_torch.obs import adc as obs_adc
+    m = cfg.mla
+    for name, rows in (("ckv", ckv), ("krope", k_rope)):
+        _write_local(cache[name], rows, idx.to(torch.long))
+    ckv_l, kr_l = cache["ckv"].to_local(), cache["krope"].to_local()
+    b, t_loc = ckv_l.shape[:2]
+    h = q.shape[2]
+    w = {k: colshard.whole(v) for k, v in wkv_b.items()}
+    with session_mesh(None), obs_adc.partial_over(("model",)):
+        kv = apply_linear(w, ckv_l, cfg.cim, compute_dtype=cdt(cfg))
+    kv = kv.reshape(b, t_loc, h, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    k = torch.cat([k_nope, kr_l.expand(b, t_loc, h, m.qk_rope_dim)], dim=-1)
+    s = _scores(q, k, scale)                              # (B, H, 1, Tl)
+    return _merge_over_model(_mask_local(s, idx, mesh), v, mesh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -586,45 +640,63 @@ def moe_specs(cfg: ModelConfig) -> Dict:
 
 
 # ---------------------------------------------------------------------------
-# sequence-parallel flash decode: the cache's time axis over "model"
+# decode caches over the mesh, and sequence-parallel flash decode
 # ---------------------------------------------------------------------------
 
 def _mesh_dims(mesh) -> Tuple[str, ...]:
     return tuple(getattr(mesh, "mesh_dim_names", None) or ())
 
 
-def _cache_mesh(cfg: ModelConfig, b: int, t_cache: int):
-    """The session mesh when a decode cache of ``b`` rows (a rank's rows
-    inside a data parallel step) and ``t_cache`` positions is time-sharded
-    for flash decode (the reference's ``_flash_decode_ep_ready`` without
-    its one-token condition): a mesh with ``"model"``,
-    ``cfg.flash_decode``, the time axis dividing the ``"model"`` ranks and
-    the global rows the batch axes' ranks. Else None."""
-    from repro_torch.launch.mesh import batch_axes
-    from repro_torch.nn.module import batch_ranks, current_mesh
+def model_split(size: int):
+    """The session mesh when its ``"model"`` ranks (more than one) divide a
+    decode-cache dim of ``size``, else None: the reference's
+    ``cache_shardings`` places the time of the K/V and latent caches and
+    the heads of the SSD state over ``"model"`` wherever they divide, with
+    or without flash decode."""
+    from repro_torch.nn.module import current_mesh
     mesh = current_mesh()
-    if (not cfg.flash_decode or "model" not in _mesh_dims(mesh)
-            or t_cache % colshard.mesh_shards(mesh, "model")):
+    n = colshard.mesh_shards(mesh, "model")
+    return mesh if n > 1 and size % n == 0 else None
+
+
+def placed_over_model(leaf: torch.Tensor, dim: int):
+    """The session mesh when a decode-cache leaf holds its ``dim`` over
+    ``"model"`` as ``model_split`` places it under that mesh (its local
+    block is this rank's), None when both say whole. Raises when they
+    disagree: a cache made under another mesh, or none, is refused, never
+    gathered or run whole where the mesh splits it."""
+    mesh = model_split(leaf.shape[dim])
+    split = colshard.model_dim(leaf)
+    if mesh is None and split is None:
         return None
-    if b and (b * batch_ranks()) % colshard.batch_shard(
-            mesh, batch_axes(mesh))[0]:
-        return None
+    if (mesh is None or split != dim % leaf.ndim
+            or leaf.device_mesh != mesh):
+        where = ("whole" if split is None else
+                 f"placed over {colshard.sharded_dims(leaf)}")
+        raise ValueError(
+            f"a {tuple(leaf.shape)} decode-cache leaf is {where}; under this "
+            f"session mesh init_cache places its dim {dim % leaf.ndim} "
+            f"{'over model' if mesh is not None else 'whole'}: make the "
+            "cache with init_cache under the mesh that steps it")
     return mesh
 
 
 def _flash_decode_ep_ready(cfg: ModelConfig, t: int, t_cache: int,
                            b: int = 0):
     """The mesh when flash decode applies (the reference's predicate): one
-    new token and ``_cache_mesh``'s conditions."""
-    return _cache_mesh(cfg, b, t_cache) if t == 1 else None
-
-
-def _check_cache_mesh(cfg: ModelConfig, b: int, t_cache: int) -> None:
-    """Raise unless a time-sharded cache meets the mesh and config that
-    placed it."""
-    if _cache_mesh(cfg, b, t_cache) is None:
-        raise ValueError("a time-sharded decode cache needs the session "
-                         "mesh and config init_cache placed it under")
+    new token, ``cfg.flash_decode``, a session mesh whose ``"model"`` ranks
+    split the cache's ``t_cache`` positions (``model_split``), and the
+    global rows (``b``, a rank's rows inside a data parallel step, times
+    the step's batch ranks) dividing over its batch axes. Else None."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.nn.module import batch_ranks
+    mesh = model_split(t_cache)
+    if t != 1 or not cfg.flash_decode or mesh is None:
+        return None
+    if b and (b * batch_ranks()) % colshard.batch_shard(
+            mesh, batch_axes(mesh))[0]:
+        return None
+    return mesh
 
 
 def rows_axes(batch: int) -> Tuple[str, ...]:
@@ -642,11 +714,12 @@ def rows_axes(batch: int) -> Tuple[str, ...]:
 
 
 def cache_leaf(shape, dtype, dev: torch.device, *, row_dim: int = 1,
-               time_dim: Optional[int] = None,
+               model_dim: Optional[int] = None,
                fill: float = 0.0) -> torch.Tensor:
     """A decode-cache leaf of ``shape`` filled with ``fill``. Under a
     session mesh whose batch axes divide its rows (``rows_axes``) and,
-    with ``time_dim``, over ``"model"`` on that dim too, this rank
+    with ``model_dim`` (a cache's time, the SSD state's heads), whose
+    ``"model"`` ranks divide that dim (``model_split``), this rank
     allocates only its block, a placed leaf carrying the global shape
     (the reference's ``cache_shardings``); else the whole tensor."""
     from repro_torch.nn.module import current_mesh
@@ -655,8 +728,8 @@ def cache_leaf(shape, dtype, dev: torch.device, *, row_dim: int = 1,
     rows = rows_axes(shape[row_dim])
     if rows:
         dims[row_dim] = rows
-    if time_dim is not None:
-        dims[time_dim] = ("model",)
+    if model_dim is not None and model_split(shape[model_dim]) is not None:
+        dims[model_dim] = ("model",)
     if not dims:
         return torch.full(tuple(shape), fill, dtype=dtype, device=dev)
     block = list(shape)
@@ -687,16 +760,15 @@ def kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
     in the compute dtype, or int8 codes with float32 per-(token, head)
     scales, and the lengths (n_layers, batch). Under a session mesh
     (``cache_leaf``) every leaf holds its rows over the batch axes where
-    their ranks divide the batch, and where flash decode applies
-    (``_cache_mesh``) K/V and their scales hold their time over
-    ``"model"`` too: each rank allocates only its block."""
+    their ranks divide the batch, and K/V and their scales hold their time
+    over ``"model"`` where its ranks divide ``max_len``: each rank
+    allocates only its block."""
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dtypes = ({"k": torch.int8, "v": torch.int8, "k_scale": torch.float32,
                "v_scale": torch.float32} if int8
               else {"k": cdt(cfg), "v": cdt(cfg)})
-    time = 2 if _cache_mesh(cfg, batch, max_len) is not None else None
     out = {name: cache_leaf(shape if name in ("k", "v") else shape[:-1], dt,
-                            dev, time_dim=time)
+                            dev, model_dim=2)
            for name, dt in dtypes.items()}
     out["len"] = cache_leaf((n_layers, batch), torch.int32, dev)
     return out
@@ -729,39 +801,54 @@ def _flash_decode_ep(q: torch.Tensor, new: Dict, cache: Dict,
     reference's ``_flash_decode_ep``): the rank writes the new row where
     it owns the position (the int8 cache's codes and scales quantized
     once, by every rank alike), attends over its time slice, and the
-    partial softmaxes merge over ``"model"`` as the reference merges
-    them: a local max, a max all-reduce, ``exp(s - m_g)``, then sum
-    all-reduces of ``l`` and ``acc``. Each rank weights its values by
-    ``exp(s - m_g) / l`` rounded to the compute dtype, as the plain path's
-    softmax weights are, before the product (the reference divides the
-    summed ``acc`` by ``l``: the same in float32 up to rounding, but in
-    bfloat16 the weights' rounding is the plain path's, so the decode
-    keeps its tokens). The rows are the step's own: under a mesh with
-    batch axes a data parallel serve step (``launch.cells.serve_rows``)
-    hands each rank its rows and their cache rows, so no row crosses the
-    batch axes. q (B, 1, H, hd) -> (B, 1, H, hd)."""
+    partial softmaxes merge over ``"model"`` (``_merge_over_model``). The
+    rows are the step's own: under a mesh with batch axes a data parallel
+    serve step (``launch.cells.serve_rows``) hands each rank its rows and
+    their cache rows, so no row crosses the batch axes. q (B, 1, H, hd)
+    -> (B, 1, H, hd)."""
     for name, rows in new.items():
         _write_local(cache[name], rows, idx.to(torch.long))
     local = {n: cache[n].to_local() for n in new}
     k_at, v_at = _dequantized(local, q.dtype)             # (B, Tl, KvH, hd)
-    _, t_loc, kvh, hd = k_at.shape
+    kvh, hd = k_at.shape[2:]
     h = q.shape[2]
     kk, vv = _repeat_kv(k_at, h // kvh), _repeat_kv(v_at, h // kvh)
     sc = 1.0 / torch.sqrt(torch.full((), float(hd), dtype=torch.float32,
                                      device=q.device))
     s = _scores(q, kk, sc)                                # (B, H, 1, Tl)
+    return _merge_over_model(_mask_local(s, idx, mesh), vv, mesh).to(q.dtype)
+
+
+def _mask_local(s: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor:
+    """Scores (B, H, 1, Tl) of this rank's time block with the positions
+    past each row's new token (``idx``) set to ``NEG_INF``."""
+    t_loc = s.shape[-1]
     kpos = (colshard.mesh_coord(mesh, "model") * t_loc
-            + torch.arange(t_loc, device=q.device))
+            + torch.arange(t_loc, device=s.device))
     valid = kpos[None, :] < (idx + 1)[:, None]
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    return torch.where(valid[:, None, None, :], s, NEG_INF)
+
+
+def _merge_over_model(s: torch.Tensor, v: torch.Tensor,
+                      mesh) -> torch.Tensor:
+    """The attention output of one decode token from the ranks' time
+    blocks: this rank's masked float32 scores s (B, H, 1, Tl) and values
+    v (B, Tl, H, hd) -> (B, 1, H, hd) float32, merged over ``"model"`` as
+    the reference merges them: a local max, a max all-reduce, ``exp(s -
+    m_g)``, then sum all-reduces of ``l`` and ``acc``. Each rank weights
+    its values by ``exp(s - m_g) / l`` rounded to ``v``'s dtype, as the
+    plain path's softmax weights are, before the product (the reference
+    divides the summed ``acc`` by ``l``: the same in float32 up to
+    rounding, but in bfloat16 the weights' rounding is the plain path's,
+    so the decode keeps its tokens). GQA's flash decode and the
+    sequence-parallel MLA decode both end here."""
     m_g = colshard.all_reduce(s.amax(dim=-1), mesh, ("model",), "max")
     p = torch.exp(s - m_g[..., None])
     l_g = colshard.all_reduce(p.sum(dim=-1), mesh, ("model",))
-    w = (p / torch.clamp_min(l_g[..., None], 1e-30)).to(v_at.dtype)
+    w = (p / torch.clamp_min(l_g[..., None], 1e-30)).to(v.dtype)
     acc = torch.einsum("bhqk,bkhd->bhqd", w.to(torch.float32),
-                       vv.to(torch.float32))
-    acc_g = colshard.all_reduce(acc, mesh, ("model",))
-    return acc_g.permute(0, 2, 1, 3).to(q.dtype)          # (B, 1, H, hd)
+                       v.to(torch.float32))
+    return colshard.all_reduce(acc, mesh, ("model",)).permute(0, 2, 1, 3)
 
 
 def _batched_experts_ok(p: Dict, nm: str, cfg: ModelConfig) -> bool:

@@ -16,10 +16,12 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import colshard
 from repro_torch.nn.linear import apply_linear, linear_specs
 from repro_torch.nn.module import ParamSpec
 
-from .layers import apply_norm, cdt, norm_specs, pdt
+from .layers import (apply_norm, cache_leaf, cdt, norm_specs, pdt,
+                     placed_over_model)
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -159,7 +161,19 @@ def apply_mamba2(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     """One Mamba2 block. ``state`` = {"conv": (B, K-1, conv_dim), "ssd":
     (B, H, N, P)} for streaming decode, None for train and prefill.
     Returns (x + block(x), the new state or None); the state passed in is
-    not written."""
+    not written.
+
+    An ``ssd`` state placed with its heads over ``"model"``
+    (``init_mamba_state`` or ``zamba2.init_cache`` under a session mesh,
+    as the reference's ``cache_shardings`` places it) runs head-parallel:
+    the in-projection's output is whole on every rank, the rank takes its
+    heads of x, dt, A and D, runs the chunked scan or the one-token
+    recurrence on them and on its state block (each head is independent),
+    and ``y`` is gathered over ``"model"`` along the heads before the gated
+    RMSNorm, which reads all of ``d_inner``. The new state comes back
+    placed as the one passed in. The decay ``exp(dt A)`` of the one-token
+    step is taken over every head first, so each rank's heads round as
+    one device's."""
     s = cfg.ssm
     d_inner, nh, ng, conv_dim = mamba_dims(cfg)
     bsz, L, _ = x.shape
@@ -181,30 +195,40 @@ def apply_mamba2(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     pre = dt_pre.to(torch.float32) + p["dt_bias"]
     dt = torch.logaddexp(pre, torch.zeros((), device=pre.device))
     A = -torch.exp(p["A_log"])                                # (H,) < 0
+    D = p["D"]
     xh = xs.reshape(bsz, L, nh, s.head_dim)
     Bm = B.reshape(bsz, L, ng, s.d_state)
     Cm = C.reshape(bsz, L, ng, s.d_state)
+    dec = torch.exp(dt[:, 0] * A[None, :]) if L == 1 else None  # (B, H)
+
+    mesh = None if state is None else placed_over_model(state["ssd"], 1)
+    S0 = None if state is None else colshard.local(state["ssd"])
+    if mesh is not None:
+        n_loc = S0.shape[1]
+        heads = slice(colshard.mesh_coord(mesh, "model") * n_loc,
+                      (colshard.mesh_coord(mesh, "model") + 1) * n_loc)
+        xh, dt, A, D = xh[:, :, heads], dt[:, :, heads], A[heads], D[heads]
+        dec = None if dec is None else dec[:, heads]
 
     if state is None:
-        y, _ = ssd_chunked(xh, dt, A, Bm, Cm, p["D"], s.chunk)
-        new_state = None
+        y, _ = ssd_chunked(xh, dt, A, Bm, Cm, D, s.chunk)
+        S = None
     elif L > 1:
         # stateful prefill: the chunked scan from the carried state
-        y, S = ssd_chunked(xh, dt, A, Bm, Cm, p["D"], s.chunk,
-                           initial_state=state["ssd"])
-        new_state = {"conv": new_conv, "ssd": S}
+        y, S = ssd_chunked(xh, dt, A, Bm, Cm, D, s.chunk, initial_state=S0)
     else:
         # the single-step recurrence (L == 1)
-        S = state["ssd"]                                      # (B,H,N,P)
         dt1 = dt[:, 0]                                        # (B,H)
-        dec = torch.exp(dt1 * A[None, :])
         Bx = torch.einsum("bn,bhp->bhnp", Bm[:, 0, 0],
                           xh[:, 0] * dt1[..., None])
-        S = S * dec[..., None, None] + Bx
+        S = S0 * dec[..., None, None] + Bx
         y = (torch.einsum("bn,bhnp->bhp", Cm[:, 0, 0], S)
-             + xh[:, 0] * p["D"][None, :, None])
+             + xh[:, 0] * D[None, :, None])
         y = y[:, None]                                        # (B,1,H,P)
-        new_state = {"conv": new_conv, "ssd": S}
+    if mesh is not None:
+        y = colshard.gather(y.contiguous(), mesh, ("model",), 2)
+    new_state = (None if state is None else
+                 {"conv": new_conv, "ssd": colshard.like(state["ssd"], S)})
 
     y = y.reshape(bsz, L, d_inner)
     # gated RMSNorm (mamba2's norm before the out projection)
@@ -216,15 +240,23 @@ def apply_mamba2(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return x + out, new_state
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int, *, device=None) -> Dict:
-    """Zero decode state of one Mamba2 block on ``device`` (``cuda`` unless
-    ``"cpu"``)."""
+def state_leaves(cfg: ModelConfig, batch: int) -> Dict:
+    """{name: (shape, dim over "model" or None)} of one Mamba2 block's
+    decode state: the conv window (rows only), and the SSD state, whose
+    heads the reference's ``cache_shardings`` places over ``"model"``."""
     s = cfg.ssm
     d_inner, nh, ng, conv_dim = mamba_dims(cfg)
+    return {"conv": ((batch, s.d_conv - 1, conv_dim), None),
+            "ssd": ((batch, nh, s.d_state, s.head_dim), 1)}
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, *, device=None) -> Dict:
+    """Zero float32 decode state of one Mamba2 block on ``device``
+    (``cuda`` unless ``"cpu"``); under a session mesh every leaf holds its
+    rows over the batch axes where their ranks divide ``batch``, and the
+    SSD state its heads over ``"model"`` where its ranks divide them
+    (``layers.cache_leaf``)."""
     dev = resolve_device(device)
-    return {
-        "conv": torch.zeros((batch, s.d_conv - 1, conv_dim),
-                            dtype=torch.float32, device=dev),
-        "ssd": torch.zeros((batch, nh, s.d_state, s.head_dim),
-                           dtype=torch.float32, device=dev),
-    }
+    return {k: cache_leaf(shape, torch.float32, dev, row_dim=0,
+                          model_dim=dim)
+            for k, (shape, dim) in state_leaves(cfg, batch).items()}

@@ -224,15 +224,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Per-layer decode caches, stacked on a leading layer axis, on
     ``device`` (``cuda`` unless ``"cpu"``): K/V in the compute dtype, or
     with ``kv_cache_dtype="int8"`` int8 codes and float32 per-(token,
-    head) scales (``layers.kv_cache``: time-sharded over the session mesh
-    where flash decode applies); MLA's latent ``ckv`` and rotary key
-    ``krope`` in the compute dtype. Under a session mesh whose batch axes
-    divide ``batch`` every leaf holds its rows over them
-    (``layers.cache_leaf``; MLA's time stays whole)."""
+    head) scales (``layers.kv_cache``); MLA's latent ``ckv`` and rotary
+    key ``krope`` in the compute dtype. Under a session mesh every leaf
+    holds its rows over the batch axes where their ranks divide ``batch``,
+    and K/V, their scales, ``ckv`` and ``krope`` hold their time over
+    ``"model"`` where its ranks divide ``max_len`` (``layers.cache_leaf``,
+    the reference's ``cache_shardings``)."""
     dev = resolve_device(device)
-
-    def zeros(shape, dtype):
-        return cache_leaf(shape, dtype, dev)
 
     def kv(n_layers):
         return kv_cache(cfg, n_layers, batch, max_len, dev,
@@ -240,11 +238,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     def mla(n_layers):
         m = cfg.mla
-        return {"ckv": zeros((n_layers, batch, max_len, m.kv_lora_rank),
-                             cdt(cfg)),
-                "krope": zeros((n_layers, batch, max_len, 1, m.qk_rope_dim),
-                               cdt(cfg)),
-                "len": zeros((n_layers, batch), torch.int32)}
+        return {"ckv": cache_leaf((n_layers, batch, max_len, m.kv_lora_rank),
+                                  cdt(cfg), dev, model_dim=2),
+                "krope": cache_leaf((n_layers, batch, max_len, 1,
+                                     m.qk_rope_dim), cdt(cfg), dev,
+                                    model_dim=2),
+                "len": cache_leaf((n_layers, batch), torch.int32, dev)}
     make = mla if cfg.mla is not None else kv
     if cfg.moe is not None:
         n_dense = cfg.moe.n_dense_layers

@@ -26,7 +26,7 @@ from repro_torch.nn.module import ParamSpec, stack_specs
 from .layers import (apply_mlp, apply_norm, cache_leaf, cdt, check_rows,
                      gqa_attend, gqa_specs, kv_cache, mlp_specs, norm_specs,
                      pdt)
-from .mamba2 import apply_mamba2, init_mamba_state, mamba2_specs
+from .mamba2 import apply_mamba2, mamba2_specs, state_leaves
 from .transformer import _layer, _layers, check_overrun, embed_lookup
 
 
@@ -78,7 +78,9 @@ def _run(params, x, cfg: ModelConfig, positions, states):
             st = None if states is None else _layer(states["mamba"], i)
             x, ns = apply_mamba2(colshard.at_use(mamba[i]), x, cfg, state=st)
             if ns is not None:            # into the cache slice, in place
-                tree_map(lambda dst, new: dst.copy_(new), st, ns)
+                # (a placed leaf's local block: the SSD state's heads)
+                tree_map(lambda dst, new: colshard.local(dst).copy_(
+                    colshard.local(new)), st, ns)
         if "shared_attn" in params:
             c_g = None if states is None else _layer(states["attn"], g)
             x, nc = _shared_block(params["shared_attn"], x, cfg, positions,
@@ -104,18 +106,19 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> Dict:
-    """Every Mamba2 layer's zero state, stacked on a leading layer axis,
-    and each shared-block application's KV cache (K/V in the compute
-    dtype), on ``device`` (``cuda`` unless ``"cpu"``); under a session
-    mesh every leaf holds its rows over the batch axes where their ranks
-    divide ``batch`` (``layers.cache_leaf``; the SSD state's heads stay
-    whole)."""
+    """Every Mamba2 layer's zero float32 state, stacked on a leading layer
+    axis, and each shared-block application's KV cache (K/V in the
+    compute dtype), on ``device`` (``cuda`` unless ``"cpu"``); under a
+    session mesh every leaf holds its rows over the batch axes where their
+    ranks divide ``batch``, the SSD state its heads over ``"model"`` and
+    K/V their time over ``"model"`` where its ranks divide them
+    (``layers.cache_leaf``, the reference's ``cache_shardings``)."""
     dev = resolve_device(device)
-    st = init_mamba_state(cfg, batch, device="meta")
     n_attn = _n_attn(cfg)
     return {
-        "mamba": {k: cache_leaf((cfg.n_layers,) + tuple(v.shape), v.dtype,
-                                dev) for k, v in st.items()},
+        "mamba": {k: cache_leaf((cfg.n_layers,) + shape, torch.float32, dev,
+                                model_dim=None if dim is None else dim + 1)
+                  for k, (shape, dim) in state_leaves(cfg, batch).items()},
         "attn": kv_cache(cfg, n_attn, batch, max_len, dev, int8=False),
     }
 

@@ -41,6 +41,8 @@ CASES = {
                                        "kv_cache_dtype": "int8"}),
     "qwen3": ("qwen3-0.6b", {}),
     "deepseek": ("deepseek-v3-671b", {"moe_impl": "auto"}),
+    "deepseek_flash": ("deepseek-v3-671b", {"moe_impl": "auto",
+                                            "flash_decode": True}),
     "moonshot": ("moonshot-v1-16b-a3b", {"moe_impl": "auto"}),
     "whisper": ("whisper-small", {}),
     "llava": ("llava-next-mistral-7b", {}),
@@ -172,25 +174,52 @@ def serve_case(name, case, mesh):
     return res
 
 
-def _whole_batch(model, cfg, params, case, tokens, mesh):
-    """The same steps on the whole batch on every rank (the cache made
-    whole, outside the session mesh): this rank's rows of each call's
-    logits and cache."""
+def _rows_whole(x, path):
+    """A cache leaf as the whole batch's step holds it under the same
+    mesh: its rows gathered over ``"data"``, its time or heads over
+    ``"model"`` kept."""
     from repro_torch.core import colshard
-    from repro_torch.nn.module import session_mesh
-    with session_mesh(None):
-        cache = model.init_cache(cfg, BATCH, MAX_LEN, device=CPU)
+    if not colshard.is_col_sharded(x):
+        return x
+    dims, mesh, rd = colshard.sharded_dims(x), x.device_mesh, row_dim(path)
+    loc = colshard.local(x)
+    if rd in dims:
+        loc = colshard.all_gather(loc, mesh, ("data",), rd)
+    keep = {d: ax for d, ax in dims.items() if d != rd}
+    if not keep:
+        return loc
+    return colshard.placed(loc, mesh, colshard.placements_of(mesh, keep),
+                           tuple(x.shape))
+
+
+def _whole_batch(model, cfg, params, case, tokens, mesh):
+    """The same steps on the whole batch on every rank (the cache's rows
+    whole, its time and heads over ``"model"`` as ``init_cache`` places
+    them): this rank's rows of each call's logits and cache."""
+    from repro_torch.core import colshard
+    cache = model.init_cache(cfg, BATCH, MAX_LEN, device=CPU)
+    cache = _map_paths(_rows_whole, cache)
     if "enc_out" in cache:
         _set_enc_out(cache, case["enc_out"], mesh, ())
     out = []
     for t in tokens:
         logits, cache = model.decode_step(params, cache, t, cfg)
-        rows = {p: _take_rows(colshard.local(v).transpose(0, row_dim(p)),
-                              mesh, ("data",)).transpose(0, row_dim(p))
+        rows = {p: _take_rows(colshard.full_leaf(v).transpose(
+                    0, row_dim(p)), mesh, ("data",)).transpose(0, row_dim(p))
                 for p, v in _flat(cache)}
         out.append((_take_rows(logits, mesh, ("data",)).detach().clone(),
                     {p: v.detach().clone() for p, v in rows.items()}))
     return out
+
+
+def _map_paths(fn, tree, path=""):
+    """``fn(leaf, path)`` over a cache tree, ``_flat``'s paths."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{path}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_paths(fn, v, f"{path}/{i}")
+                          for i, v in enumerate(tree))
+    return fn(tree, path)
 
 
 def frontend_case(name, case, mesh):
@@ -226,13 +255,7 @@ def adc_case(mesh):
     cell = build_cell("llama3-8b", shape(), mesh, reduced=True,
                       cim=CIMConfig(**CIM), overrides=overrides("llama3"))
     cfg, model = cell.cfg, get_model(cell.cfg)
-
-    def narrow(tree):
-        if isinstance(tree, dict):
-            return {k: (v / 50 if k.endswith("s_p") else narrow(v))
-                    for k, v in tree.items()}
-        return tree
-    params = narrow(init_params(model.specs(cfg), 0, device=CPU))
+    params = _narrow(init_params(model.specs(cfg), 0, device=CPU))
     tokens = torch.from_numpy(numpy_tokens(cfg.vocab, 7)[0])
     with adc.sampled():
         model.decode_step(params, model.init_cache(cfg, BATCH, MAX_LEN,
@@ -246,6 +269,47 @@ def adc_case(mesh):
     return one, rows
 
 
+def adc_mla_case(mesh):
+    """The ADC collector's (saturated, conversions) over a prefill and one
+    decode step of the reduced deepseek-v3 under CIM emulate with flash
+    decode (the sequence-parallel MLA decode: each rank's time block
+    through every column of ``wkv_b``; the expert-parallel MoE), the
+    partial-sum scales narrowed as in ``adc_case``: on one device, and
+    over the serve cell's step under the mesh."""
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import init_params, place_tree, session_mesh
+    from repro_torch.obs import adc
+    cell = build_cell("deepseek-v3-671b", shape(), mesh, reduced=True,
+                      cim=CIMConfig(**CIM),
+                      overrides=overrides("deepseek_flash"))
+    cfg, model = cell.cfg, get_model(cell.cfg)
+    params = _narrow(init_params(model.specs(cfg), 0, device=CPU))
+    tokens = [torch.from_numpy(t) for t in numpy_tokens(cfg.vocab, 8)[:2]]
+    with adc.sampled():
+        cache = model.init_cache(cfg, BATCH, MAX_LEN, device=CPU)
+        for t in tokens:
+            _, cache = model.decode_step(params, cache, t, cfg)
+        one = adc.totals()
+    placed = place_tree(params, cell.in_shardings[0], mesh)
+    with session_mesh(mesh, cell.rules), adc.sampled():
+        cache = model.init_cache(cfg, BATCH, MAX_LEN, device=CPU)
+        for t in tokens:
+            _, cache = cell.step_fn(placed, cache, t)
+        rows = adc.totals()
+    return one, rows
+
+
+def _narrow(tree):
+    """Every partial-sum scale of a param tree narrowed 50x (conversions
+    clip)."""
+    if isinstance(tree, dict):
+        return {k: (v / 50 if k.endswith("s_p") else _narrow(v))
+                for k, v in tree.items()}
+    return tree
+
+
 def body(rank, world, _mesh, out_dir):
     from repro_torch.launch import mesh as lm
     with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
@@ -256,6 +320,7 @@ def body(rank, world, _mesh, out_dir):
     res["frontend"] = {n: frontend_case(n, inputs["cases"][n], mesh)
                        for n in FRONTEND}
     res["adc"] = adc_case(mesh)
+    res["adc_mla"] = adc_mla_case(mesh)
     res["rows"] = int(mesh.get_local_rank(mesh_dim="data"))
     return res
 

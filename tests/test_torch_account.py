@@ -11,7 +11,9 @@
   3 chunks, of 3 blocks for a train step on one device and of 6 for a
   prefill as one rank of (2, 2).
 - Whisper's, xlstm's and zamba2's train steps: the bytes' solve equals
-  the direct count at a third depth (one unbind per stack leaf).
+  the direct count at a third depth (one unbind per stack leaf); so do a
+  decode cell's counts where the caches split over ``"model"`` (the
+  reduced deepseek-v3 with flash decode, zamba2).
 - ``solve_exact`` solves in rationals.
 - Collective bytes by kind under the fake process group equal what rank
   0 of a (2, 2) mesh of gloo ranks on the CPU counts over the same reduced
@@ -99,6 +101,22 @@ def test_stack_bytes_solve_exactly_at_a_third_depth(arch, layers):
                          overrides=layers)
     assert acct["hlo_bytes"] == direct["bytes"]
     assert acct["hlo_flops"] == direct["flops"]
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("deepseek-v3-671b", {"n_layers": 5, "flash_decode": True}),
+    ("zamba2-2.7b", {"n_layers": 6})], ids=["mla-flash", "zamba2"])
+def test_split_cache_decode_solves_exactly(arch, overrides):
+    """A decode cell on (2, 2) whose caches split over ``"model"`` (the
+    sequence-parallel MLA decode: each layer's ``wkv_b`` planes gathered,
+    three all-reduces; zamba2's SSD heads, ``y`` gathered): the layer
+    solve equals the direct count at a depth past its points."""
+    acct, direct = _both(arch, _shape("decode_32k"), MESH_22,
+                         overrides=overrides)
+    assert acct["hlo_flops"] == direct["flops"]
+    assert acct["hlo_bytes"] == direct["bytes"]
+    assert acct["collectives"] == direct["collectives"]
+    assert acct["collective_ops"] == direct["collective_ops"]
 
 
 def test_solve_exact_in_rationals():

@@ -154,17 +154,18 @@ def test_decode_cell_counts_one_ranks_rows():
     """A decode cell on (2, 2) runs each rank on its rows
     (``launch.cells.serve_rows``): the reduced qwen3's FLOPs a rank are
     those on (1, 2) halved (within 2 %), no all-gather runs over
-    ``"data"``, and a rank holds, and peaks with, half the cache's rows."""
-    from repro_torch.models.registry import get_model
+    ``"data"``, and a rank holds, and peaks with, half the cache's rows
+    that a (1, 2) rank holds (K/V's time over ``"model"`` on both)."""
     shape = _small("decode_32k", 32, 8)
-    rec = {m: dryrun.count_cell("qwen3-0.6b", shape, MeshShape(
-        (m, 2), ("data", "model")), reduced=True) for m in (1, 2)}
+    meshes = {m: MeshShape((m, 2), ("data", "model")) for m in (1, 2)}
+    rec = {m: dryrun.count_cell("qwen3-0.6b", shape, meshes[m],
+                                reduced=True) for m in (1, 2)}
     assert abs(rec[2]["flops"] * 2 / rec[1]["flops"] - 1) <= 0.02
     assert rec[2]["collective_axes"]["all-gather"].get("data", 0) == 0
     assert rec[2]["collective_axes"]["all-gather"].get("model", 0) > 0
-    cfg = build_cell("qwen3-0.6b", shape, MESH_22, reduced=True).cfg
-    cache = dryrun.tree_bytes(get_model(cfg).init_cache(
-        cfg, shape.global_batch, shape.seq_len, device="meta"))
+    with dryrun.rank_cell("qwen3-0.6b", shape, meshes[1],
+                          reduced=True) as (_, args):
+        cache = dryrun.tree_bytes(args[1])
     assert rec[1]["argument"] - rec[2]["argument"] == cache // 2
     assert rec[2]["peak"] <= rec[1]["peak"] - cache // 2
 

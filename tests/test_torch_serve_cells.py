@@ -14,9 +14,12 @@ whisper's encoder states are numpy from seeds. A cell of batch 8 and
 max_len 16 takes a prefill of 8 tokens and two decode steps of given
 tokens; the cases (``_torch_serve_ranks.CASES``) are llama3 with flash
 decode off and on, each with the float and the int8 KV cache, qwen3
-(tied), deepseek-v3 (MLA, its latent cache by rows only), moonshot (the
-expert-parallel MoE), whisper (``enc_out``), llava, zamba2 and xlstm, in
-float32 compute.
+(tied), deepseek-v3 (MLA, its latent cache's time over ``"model"``) with
+flash decode off and on (the sequence-parallel MLA decode; the
+reference ignores the flag for MLA, so the port's merge is held against
+its plain attention), moonshot (the expert-parallel MoE), whisper
+(``enc_out``), llava, zamba2 (the SSD state's heads over ``"model"``)
+and xlstm, in float32 compute.
 
 - Each rank's logits rows and its rows of every cache leaf equal the
   reference's rows at rtol 1e-5 / atol 1e-4; integer leaves (``len``,
@@ -25,11 +28,14 @@ float32 compute.
   step on the whole batch (every rank all rows, the same placements) bit
   for bit, rows and caches.
 - Every cache leaf holds its rows over ``"data"`` (a rank allocates half),
+  K/V, their int8 scales, MLA's ``ckv`` and ``krope`` their time and the
+  SSD state its heads over ``"model"`` (half again), flash decode or not,
   the logits come back placed as the reference's ``logits_sh``, no
   all-gather runs over ``"data"`` where the params are not FSDP-placed,
   and a model's own ``decode_step`` refuses a cache holding its rows.
 - The ADC collector's totals over a data parallel prefill (CIM emulate)
-  equal one device's.
+  equal one device's, and over a deepseek-v3 prefill and decode step
+  with the sequence-parallel MLA decode too.
 - Whisper's and llava's step with the front-end input (whisper's encoder
   on the rank's rows, llava's image prefill) equals the one-device
   ``forward`` on those rows at rtol 1e-5 / atol 1e-4.
@@ -58,6 +64,10 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 TOL = dict(rtol=1e-5, atol=1e-4)
 ROWS = S.BATCH // S.MESH[0][0]
+#: the cache leaves the reference's ``cache_shardings`` places over
+#: ``"model"`` on their dim 2: the time of K/V, their int8 scales and
+#: MLA's latent cache, the heads of the SSD state
+MODEL_SPLIT = ("k", "v", "k_scale", "v_scale", "ckv", "krope", "ssd")
 
 _REFERENCE = textwrap.dedent("""
     import pickle, sys
@@ -214,10 +224,24 @@ def test_cache_and_logits_hold_the_ranks_rows(runs, name):
     vocab = j_get_config(arch, reduced=True).vocab
     for res in ranks:
         r = res["serve"][name]
+        split = set()
         for path, (kind, full, local) in r["placed"].items():
             dim = S.row_dim(path)
             assert kind == "DTensor", (name, path)
             assert local[dim] == full[dim] // 2, (name, path, full, local)
+            leaf = path.rsplit("/", 1)[-1]
+            if leaf in MODEL_SPLIT:
+                assert local[2] == full[2] // 2, (name, path, full, local)
+                split.add(leaf)
+            elif len(full) > 2 and dim != 2:
+                assert local[2] == full[2], (name, path, full, local)
+        want = {"transformer": {"ckv", "krope"} if "deepseek" in name
+                else {"k", "v"} | ({"k_scale", "v_scale"}
+                                   if "kv8" in name else set()),
+                "zamba2": {"k", "v", "ssd"}, "whisper": {"k", "v"},
+                "llava": {"k", "v"}, "xlstm": set()}[
+                    j_get_config(arch, reduced=True).family]
+        assert split == want, (name, split, want)
         kind, full, local = r["logits_placed"]
         assert kind == "DTensor" and full[0] == S.BATCH
         assert local[0] == ROWS and local[2] == vocab // 2
@@ -227,12 +251,41 @@ def test_cache_and_logits_hold_the_ranks_rows(runs, name):
         assert r["refused"] and "serve_rows" in r["refused"]
 
 
+@pytest.mark.parametrize("name", [n for n, (_, ov) in S.CASES.items()
+                                  if ov.get("flash_decode")])
+def test_flash_decode_merges_each_layer_over_model(runs, name):
+    """A decode step with flash decode merges every attention layer's
+    partial softmaxes over ``"model"`` (GQA's flash decode, the
+    sequence-parallel MLA decode): three all-reduces a layer and decode
+    step (the max, ``l`` and ``acc``) more than the same case with flash
+    decode off, whose decode gathers the cache at use."""
+    ranks, _, _ = runs
+    arch = S.CASES[name][0]
+    want = 3 * j_get_config(arch, reduced=True).n_layers * S.DECODE_STEPS
+    key = ("all-reduce", "model")
+    for res in ranks:
+        on = res["serve"][name]["axes"].get(key, 0)
+        off = res["serve"][name.replace("_flash", "")]["axes"].get(key, 0)
+        assert on - off == want, (name, on, off, want)
+
+
 def test_adc_totals_over_a_data_parallel_step_equal_one_device(runs):
     """Under a data parallel step every ADC record is a part over the
     batch axes too: the totals over the mesh equal one device's."""
     ranks, _, _ = runs
     for res in ranks:
         one, rows = res["adc"]
+        assert tuple(rows) == tuple(one) and one[0] > 0 and one[1] > 0
+
+
+def test_adc_totals_over_a_sequence_parallel_mla_step_equal_one_device(
+        runs):
+    """The sequence-parallel MLA decode's ``wkv_b`` records are parts over
+    ``"model"`` (each rank's time block) and the data ranks: the totals
+    over the mesh equal one device's."""
+    ranks, _, _ = runs
+    for res in ranks:
+        one, rows = res["adc_mla"]
         assert tuple(rows) == tuple(one) and one[0] > 0 and one[1] > 0
 
 

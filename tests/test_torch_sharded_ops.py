@@ -89,3 +89,33 @@ def test_pad_cols(n, shards, pad):
     assert not d2[..., n:].any() and not q2[..., n:].any()
     assert not o2[..., n:].any() and bool((s2[..., n:] == 1).all())
     assert ops.pad_cols(d, s_p, deq, shards)[3] is None
+
+
+def test_at_use_keeps_linear_nodes_placed():
+    """``colshard.at_use`` (a block that reads some leaves directly:
+    zamba2's Mamba2 and xlstm's layers) gathers those leaves whole and
+    keeps every linear node placed, raw (``w``) and packed (``w_digits``),
+    for ``apply_linear``'s placed paths: the column-parallel dispatch reads
+    a packed node's shards in place, where a gathered node moved its
+    whole planes over ``"model"`` in every layer of a decode step. On
+    rank 0 of a dry (1, 2) mesh (the fake process group)."""
+    from repro_torch.core import colshard
+    from repro_torch.launch.mesh import MeshShape, dry_mesh
+    with dry_mesh(MeshShape((1, 2), ("data", "model"))) as dm:
+        def cols(shape, dtype):
+            local = torch.zeros(shape[:-1] + (shape[-1] // 2,), dtype=dtype,
+                                device="meta")
+            return colshard.placed(local, dm, colshard.placements_of(
+                dm, {len(shape) - 1: ("model",)}), shape)
+        packed = {"w_digits": cols((2, 1, 8, 8), torch.int8),
+                  "w_occ": cols((2, 1, 8), torch.uint8),
+                  "s_a": torch.ones(1)}
+        raw = {"w": cols((8, 8), torch.float32)}
+        tree = {"in_proj": packed, "out_proj": raw,
+                "D": cols((8,), torch.float32)}
+        colshard.reset_collective_counts()
+        got = colshard.at_use(tree)
+        assert got["in_proj"] is packed and got["out_proj"] is raw
+        assert not colshard.is_col_sharded(got["D"])
+        assert tuple(got["D"].shape) == (8,)
+        assert colshard.collective.ops["all-gather"] == 1
